@@ -30,7 +30,26 @@ Phases (any failure exits non-zero, and no result line is printed):
    fit on the torch-ops path must select the same K and merge pairs with
    the final loglik within rtol 1e-4; then a shorter diag-only fit through
    the kernels, and a small float32 kernel fit against a float64 torch-ops
-   fit on the CPU.
+   fit on the CPU;
+5. K3 (restart-batched statistics) on R = 4 lanes at the main path's shapes
+   (full and diag): four k-means++ seeds of the centred data, one lane with
+   inactive clusters, lane 2 frozen by the lane mask. Every live lane must
+   be bit-identical (torch.equal) to K1 on that lane's operands and the
+   frozen lane all zeros; two launches bit-identical; against the plain
+   version the phase-2 tolerance class over the live lanes, and against
+   float64 at most twice the plain version's error. Then the batched EM
+   loop (``run_em_batched``, 4 lanes, min 3 and per-lane max 40/8/40/20
+   iterations) against ``run_em`` per lane through K1/K2: the same
+   iteration counts and torch.equal loglik, means and R;
+6. K4 (restart-batched M-step epilogue) against its plain version, and per
+   lane against K2 and ``mstep_update``, with forced Nk = 0 and Nk = 0.7
+   clusters in every lane: torch.equal;
+7. the restart path: the phase-4 blobs fitted K = 100 -> 96 with min = max
+   = 20 iterations, n_init = 4, restart_batch_size = 4 through K3/K4 (K3
+   launches once per batched iteration plus once per sweep step, K4 once
+   per iteration, K1/K2 never), then restart_batch_size = 1 (the
+   sequential path through K1/K2): the same init_index, K and merge
+   pairs, final loglik within rtol 1e-5.
 
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
@@ -41,7 +60,8 @@ TF32), both for an H100 SXM at 700 W. K1's operations are what its
 function needs on this run's real events: 2 N K (T+D) for logp and
 2 N K (T+D+1) for Nk/M1/M2, with T = D(D+1)/2 distinct products of the
 symmetric x x^T (T = D in diag mode). That is less than the TPU kernel's
-own estimate of 4 N K D^2, which counts both triangles of x x^T.
+own estimate of 4 N K D^2, which counts both triangles of x x^T. K3's are
+the same per live lane; K2/K4 count their bytes.
 """
 
 from __future__ import annotations
@@ -59,6 +79,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 N_EVENTS, DIMS, K0, K_TARGET, ITERS = 1_000_000, 24, 100, 96, 20
+LANES = 4  # restarts per batch in phases 5-7
+FROZEN = 2  # the lane phase 5 freezes through the lane mask
+LANE_MAX_ITERS = np.array([40, 8, 40, 20])  # phase 5's per-lane bounds
 TOL = {"ll": (1e-5, 0.0), "nk": (1e-5, 0.0), "m1": (1e-4, 0.0),
        "m2": (1e-4, 1e-3)}
 FP32_EPS = 2.0 ** -23  # floor of the K1-vs-plain float64 error comparison
@@ -371,6 +394,271 @@ def phase_small_reference(seed: int):
           f"float64 CPU torch-ops fit, means within {err:.1e}")
 
 
+def restart_rows(x_np, seed: int):
+    """The centred data and LANES k-means++ seed-row sets of it (seeds
+    seed .. seed+LANES-1)."""
+    from cuda_gmm_mpi_tpu_torch.ops.seeding import kmeanspp_indices
+
+    x_np = x_np - x_np.mean(axis=0)
+    return x_np, [x_np[kmeanspp_indices(x_np, K0, seed=seed + r)]
+                  for r in range(LANES)]
+
+
+def restart_lanes(x_np, rows, diag, chunk=65536):
+    """Lane states from the seed rows, each after one torch-ops M-step (so
+    covariances are not the identity); lane 1 with inactive clusters.
+    Returns (states, chunks, wts, x, wt) with x, wt the real events."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.models.gmm import chunk_events
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import accumulate_stats, apply_mstep
+    from cuda_gmm_mpi_tpu_torch.ops.seeding import seed_state_from_parts
+
+    n = x_np.shape[0]
+    chunks_np, wts_np = chunk_events(x_np, chunk)
+    chunks = torch.as_tensor(chunks_np, device="cuda")
+    wts = torch.as_tensor(wts_np, device="cuda")
+    var = float(x_np.var(axis=0).mean())
+    states = []
+    for r in range(LANES):
+        s = seed_state_from_parts(rows[r], n, var, K0, device="cuda")
+        s = apply_mstep(s, accumulate_stats(s, chunks, wts, diag_only=diag),
+                        diag_only=diag)
+        if r == 1:
+            active = s.active.clone()
+            active[[7, 50]] = False
+            s = s.replace(active=active)
+        states.append(s)
+    x, wt = fs._prep_events(chunks, wts)
+    return states, chunks, wts, x[:n], wt[:n]
+
+
+def phase_k3(lanes_in, diag, label):
+    """K3 against K1 per lane (torch.equal), its plain version and float64."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import accumulate_stats
+
+    states, chunks, wts, x, wt = lanes_in
+    n, d = x.shape
+    params = [fs._prep_params(s, d, diag) for s in states]
+    A, h, g = (torch.stack(p) for p in zip(*params))
+    lanes = torch.ones(LANES, dtype=torch.float32, device="cuda")
+    lanes[FROZEN] = 0.0
+    live = [r for r in range(LANES) if r != FROZEN]
+    args = (x, wt, lanes, A, h, g)
+    out = fs.fused_stats_batched(*args, diag=diag)
+    out2 = fs.fused_stats_batched(*args, diag=diag)
+    ref = fs.fused_stats_batched_plain(*args, diag=diag)
+    ref64 = fs.fused_stats_batched_plain(*(t.double() for t in args),
+                                         diag=diag)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, out2)),
+          f"K3 {label}: two launches differ")
+    for r in live:
+        one = fs.fused_stats(x, wt, *params[r], diag=diag)
+        check(all(torch.equal(a[r], b) for a, b in zip(out, one)),
+              f"K3 {label}: lane {r} differs from K1 on its operands")
+    check(not any(bool(o[FROZEN].any()) for o in out),
+          f"K3 {label}: frozen lane {FROZEN} is not all zeros")
+    check(bool((out[1][1, 0, [7, 50]] == 0).all()),
+          f"K3 {label}: inactive clusters got weight")
+    worst = worst64 = worst64_plain = 0.0
+    for name, a, b, c in zip(("ll", "nk", "m1", "m2"), out, ref, ref64):
+        a, b, c = a[live], b[live], c[live]
+        check(bool(torch.isfinite(a).all()), f"K3 {label}: non-finite {name}")
+        err = float((a - b).abs().max())
+        scale = float(b.abs().max())
+        rtol, atol = TOL[name]
+        check(err <= atol + rtol * scale,
+              f"K3 {label}: {name} max|err| {err:.3e} > {atol} + {rtol} x "
+              f"{scale:.3e}")
+        e64, p64 = normwise(a, c), normwise(b, c)
+        check(e64 <= 2.0 * max(p64, FP32_EPS),
+              f"K3 {label}: {name} float64 error {e64:.2e} > 2 x the plain "
+              f"version's {p64:.2e}")
+        worst = max(worst, err)
+        worst64, worst64_plain = max(worst64, e64), max(worst64_plain, p64)
+        print(f"  K3 {label} {name}: max|K3 - plain| {err:.3e} (normwise "
+              f"{err / max(scale, 1e-30):.2e}); normwise vs float64: K3 "
+              f"{e64:.2e}, plain {p64:.2e}")
+    del ref64
+    f = A.shape[1]
+    t = d if diag else d * (d + 1) // 2
+    nbytes = 4 * (n * d + n + LANES + A.numel() + h.numel() + g.numel()
+                  + LANES * (1 + K0 + K0 * d + K0 * f))
+    flops = len(live) * 2.0 * n * K0 * (2 * t + 2 * d + 1)
+    rec = {"max_abs_err": worst, "fp64_err": worst64,
+           "plain_fp64_err": worst64_plain}
+    rec["ms"] = time_ms(lambda: fs.fused_stats_batched(*args, diag=diag))
+    all_live = torch.ones_like(lanes)
+    rec["all_live_ms"] = time_ms(
+        lambda: fs.fused_stats_batched(x, wt, all_live, A, h, g, diag=diag))
+    rec["k1_x4_ms"] = LANES * time_ms(
+        lambda: fs.fused_stats(x, wt, *params[0], diag=diag))
+    rec["plain_ms"] = time_ms(
+        lambda: fs.fused_stats_batched_plain(*args, diag=diag), reps=2)
+    rec["library_ms"] = time_ms(lambda: [
+        accumulate_stats(states[r], chunks, wts, diag_only=diag)
+        for r in live], reps=2)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    print(f"  K3 {label}: every live lane torch.equal to K1, frozen lane "
+          f"zeros; kernel {rec['ms']:.3f} ms ({len(live)} live lanes), "
+          f"{rec['all_live_ms']:.3f} ms ({LANES} live lanes), {LANES} x K1 "
+          f"{rec['k1_x4_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
+          f"torch-ops accumulate_stats over the live lanes "
+          f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
+          f"({rec['bound_by']})")
+    return rec, out
+
+
+def phase_em_batched(lanes_in):
+    """run_em_batched on LANES lanes against run_em per lane, K3/K4 against
+    K1/K2: the same iteration counts, bit-identical loglik, means and R."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, GMMModel
+    from cuda_gmm_mpi_tpu_torch.ops.formulas import convergence_epsilon
+    from cuda_gmm_mpi_tpu_torch.state import stack_states
+
+    states, chunks, wts, x, _ = lanes_in
+    n, d = x.shape
+    model = GMMModel(GMMConfig(min_iters=3, max_iters=int(LANE_MAX_ITERS.max())))
+    eps = convergence_epsilon(n, d)
+    t0 = time.perf_counter()
+    b_states, b_ll, b_iters = model.run_em_batched(
+        stack_states(states), chunks, wts, eps, max_iters=LANE_MAX_ITERS,
+        n_events=n)
+    b_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for r in range(LANES):
+        s, ll, it = model.run_em(states[r], chunks, wts, eps,
+                                 max_iters=int(LANE_MAX_ITERS[r]), n_events=n)
+        check(it == b_iters[r] and ll == b_ll[r]
+              and torch.equal(s.means, b_states.means[r])
+              and torch.equal(s.R, b_states.R[r]),
+              f"batched EM lane {r}: {b_iters[r]} iterations, loglik "
+              f"{b_ll[r]!r} against run_em's {it}, {ll!r} (or means/R "
+              "differ)")
+    print(f"  batched EM: iterations per lane {b_iters.tolist()} (bounds "
+          f"{LANE_MAX_ITERS.tolist()}), loglik, means and R torch.equal to "
+          f"run_em per lane; batched {b_s:.2f} s, per lane "
+          f"{time.perf_counter() - t0:.2f} s")
+
+
+def phase_k4(states, k3_out, diag, label):
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import SuffStats, mstep_update
+    from cuda_gmm_mpi_tpu_torch.state import lane, stack_states
+
+    ll, nk, m1, m2 = k3_out
+    R, K, D = m1.shape
+    nk = nk[:, 0].clone()
+    nk[:, 1], nk[:, 2] = 0.0, 0.7  # force the empty and dead-zone guards
+    stats = SuffStats(ll[:, 0, 0], nk, m1,
+                      m2 if diag else m2.reshape(R, K, D, D))
+    b_states = stack_states(states)
+    ops = fs._mstep_operands(b_states, stats, diag)
+    out = fs.mstep_batched(*ops, diag=diag)
+    ref = fs.mstep_batched_plain(*ops, diag=diag)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("n", "mean", "cov"), out, ref):
+        check(torch.equal(a, b), f"K4 {label}: {name} differs from plain")
+    for r in range(R):
+        one = fs.mstep(*(o[r] for o in ops), diag=diag)
+        check(all(torch.equal(a[r], b) for a, b in zip(out, one)),
+              f"K4 {label}: lane {r} differs from K2")
+        N, means, Rm = mstep_update(lane(b_states, r), lane(stats, r),
+                                    diag_only=diag)
+        cov = torch.diag_embed(out[2][r]) if diag else out[2][r].reshape(K, D, D)
+        check(torch.equal(out[0][r, :, 0], N) and torch.equal(out[1][r], means)
+              and torch.equal(cov, Rm),
+              f"K4 {label}: lane {r} differs from mstep_update")
+    f = ops[2].shape[-1]
+    nbytes = 4 * R * (3 * K + K * D + K * f + K + K * D + K * f)
+    rec = {"max_abs_err": max(float((a - b).abs().max())
+                              for a, b in zip(out, ref))}
+    rec["ms"] = time_ms(lambda: fs.mstep_batched(*ops, diag=diag), reps=20)
+    rec["plain_ms"] = time_ms(lambda: fs.mstep_batched_plain(*ops, diag=diag),
+                              reps=20)
+    rec["torch_ops_ms"] = time_ms(lambda: [
+        mstep_update(lane(b_states, r), lane(stats, r), diag_only=diag)
+        for r in range(R)], reps=20)
+    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 8.0 * R * K * f)
+    print(f"  K4 {label}: torch.equal to plain, per lane to K2 and "
+          f"mstep_update; kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, torch-ops mstep_update x {R} "
+          f"{rec['torch_ops_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+          f"({rec['bound_by']})")
+    return rec
+
+
+def phase_restarts(data):
+    """The restart path end to end through K3/K4, then the sequential
+    restart path through K1/K2 on the same seeds."""
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    counted = (fs.fused_stats, fs.mstep, fs.fused_stats_batched,
+               fs.mstep_batched)
+    for fn in counted:
+        fn.launches = 0
+    result, model, _, fit_s = fit(data, K0, K_TARGET, ITERS, n_init=LANES,
+                                  restart_batch_size=LANES)
+    launches = dict(zip(("K1", "K2", "K3", "K4"),
+                        (fn.launches for fn in counted)))
+    check(model.estep_backend == "cuda",
+          f"restart path resolved to {model.estep_backend!r}")
+    iters = sum(r[3] for r in result.sweep_log)  # min = max: every lane's
+    steps = len(result.sweep_log)
+    em_s = sum(r[4] for r in result.sweep_log)
+    print(f"  batched restarts: {LANES} inits, K {K0} -> "
+          f"{result.ideal_num_clusters}, winner init {result.init_index}, "
+          f"{steps} sweep steps of {iters // steps} iterations, fit "
+          f"{fit_s:.2f} s, EM {em_s:.2f} s = {LANES * iters / em_s:.2f} "
+          f"lane-iterations/s; launches {launches}")
+    check(launches["K3"] == iters + steps,
+          f"K3 launched {launches['K3']} times for {iters} batched "
+          f"iterations + {steps} sweep steps")
+    check(launches["K4"] == iters,
+          f"K4 launched {launches['K4']} times for {iters} iterations")
+    check(launches["K1"] == 0 and launches["K2"] == 0,
+          f"K1/K2 launched on the batched path: {launches}")
+    check(result.ideal_num_clusters == K_TARGET, "wrong final K")
+    check(np.isfinite(result.means).all() and np.isfinite(result.final_loglik),
+          "non-finite model")
+    k1 = fs.fused_stats.launches
+    seq, _, _, seq_s = fit(data, K0, K_TARGET, ITERS, n_init=LANES,
+                           restart_batch_size=1)
+    seq_em = sum(r[4] for r in seq.sweep_log)
+    check(fs.fused_stats.launches > k1, "sequential path skipped K1")
+    pairs = [m[1] for m in result.merges]
+    seq_pairs = [m[1] for m in seq.merges]
+    rel = abs(result.final_loglik - seq.final_loglik) / abs(seq.final_loglik)
+    print(f"  sequential restarts: fit {seq_s:.2f} s, winner init "
+          f"{seq.init_index}, winner's EM {seq_em:.2f} s "
+          f"({iters / seq_em:.2f} iterations/s); final loglik rtol {rel:.2e}")
+    check(seq.init_index == result.init_index,
+          f"winner init {result.init_index} batched, {seq.init_index} "
+          "sequential")
+    check(seq.ideal_num_clusters == result.ideal_num_clusters,
+          "batched and sequential restarts selected different K")
+    check(pairs == seq_pairs,
+          f"merge pairs differ: batched {pairs}, sequential {seq_pairs}")
+    check(rel <= 1e-5, f"final loglik rtol {rel:.2e} > 1e-5")
+    t = result.timings
+    rest = fit_s - sum(t.values())
+    print(f"  batched fit breakdown (host clock, in the fit): data prep "
+          f"{t['prepare']:.2f} s, {LANES} seedings {t['seed']:.2f} s, EM "
+          f"{t['em']:.2f} s, {steps - 1} merge scans {t['merge']:.2f} s, "
+          f"rest {rest:.2f} s of {fit_s:.2f} s")
+    check(rest >= 0.0, f"the fit's parts exceed its wall by {-rest:.3f} s")
+    return launches
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -423,6 +711,23 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
+    print("phase 5: K3 against K1 and its plain version; the batched EM loop")
+    x_c, rows = restart_rows(data, args.seed)
+    lanes_full = restart_lanes(x_c, rows, False)
+    k3_full, k3_out = phase_k3(lanes_full, False, "full")
+    phase_em_batched(lanes_full)
+    lanes_diag = restart_lanes(x_c, rows, True)
+    k3_diag, k3_out_diag = phase_k3(lanes_diag, True, "diag")
+
+    print("phase 6: K4 against its plain version and K2")
+    k4_full = phase_k4(lanes_full[0], k3_out, False, "full")
+    phase_k4(lanes_diag[0], k3_out_diag, True, "diag")
+    del lanes_full, lanes_diag, k3_out, k3_out_diag, x_c
+
+    print("phase 7: the restart path")
+    restart_launches = phase_restarts(data)
+    launches.update(K3=restart_launches["K3"], K4=restart_launches["K4"])
+
     src = "cuda_gmm_mpi_tpu_torch/csrc/"
     pallas = "cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py:"
     kernels = [
@@ -448,6 +753,26 @@ def main() -> int:
              plain_ms=k2_full["plain_ms"], bound_ms=k2_full["bound_ms"],
              bound_by=k2_full["bound_by"], library_ms=None,
              torch_ops_ms=k2_full["torch_ops_ms"]),
+        dict(name="K3 fused_stats_batched", route="cuda",
+             source=src + "fused_stats.cu", replaces=pallas + "475",
+             launches=launches["K3"], max_abs_err=k3_full["max_abs_err"],
+             fp64_err=k3_full["fp64_err"],
+             plain_fp64_err=k3_full["plain_fp64_err"], ms=k3_full["ms"],
+             all_live_ms=k3_full["all_live_ms"],
+             k1_x4_ms=k3_full["k1_x4_ms"], plain_ms=k3_full["plain_ms"],
+             bound_ms=k3_full["bound_ms"], bound_by=k3_full["bound_by"],
+             library_ms=k3_full["library_ms"], diag_ms=k3_diag["ms"],
+             diag_all_live_ms=k3_diag["all_live_ms"],
+             diag_k1_x4_ms=k3_diag["k1_x4_ms"],
+             diag_plain_ms=k3_diag["plain_ms"],
+             diag_library_ms=k3_diag["library_ms"],
+             diag_bound_ms=k3_diag["bound_ms"]),
+        dict(name="K4 mstep_batched", route="cuda", source=src + "mstep.cu",
+             replaces=pallas + "690", launches=launches["K4"],
+             max_abs_err=k4_full["max_abs_err"], ms=k4_full["ms"],
+             plain_ms=k4_full["plain_ms"], bound_ms=k4_full["bound_ms"],
+             bound_by=k4_full["bound_by"], library_ms=None,
+             torch_ops_ms=k4_full["torch_ops_ms"]),
     ]
     print("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} pass" for k in kernels)

@@ -47,6 +47,22 @@ def build_parser() -> argparse.ArgumentParser:
                    help="statistics path: 'cuda' = the hand-written kernels, "
                    "'torch' = torch ops; 'auto' = kernels on a CUDA device "
                    "at float32, torch ops otherwise")
+    p.add_argument("--seed-method", default="even",
+                   choices=["even", "kmeans++"],
+                   help="initial means: reference evenly-spaced rows, or "
+                   "k-means++ D^2-weighted sampling (--seed sets its RNG)")
+    p.add_argument("--seed", type=int, default=0,
+                   help="RNG seed for randomized paths (kmeans++ seeding)")
+    p.add_argument("--n-init", type=int, default=1,
+                   help="independent restarts with varied kmeans++ seeds; "
+                   "best Rissanen kept (1 = reference single-init)")
+    p.add_argument("--restart-batch-size", type=int, default=None,
+                   metavar="R",
+                   help="restarts per batched EM loop (one K3 + one K4 "
+                   "launch per iteration of the whole batch on the "
+                   "kernels). Default: sized from a memory budget "
+                   "(GMM_RESTART_MEM_BYTES overrides it); 1 = "
+                   "sequential restarts (same winner)")
     p.add_argument("--verbose", "-v", action="store_true",
                    help="status prints (ENABLE_PRINT, gaussian.h:35)")
     return p
@@ -68,7 +84,9 @@ def main(argv=None) -> int:
             dtype=args.dtype, diag_only=args.diag_only,
             min_iters=args.min_iters, max_iters=args.max_iters,
             estep_backend=args.estep_backend, device=args.device,
-            enable_print=args.verbose)
+            enable_print=args.verbose, seed=args.seed,
+            seed_method=args.seed_method, n_init=args.n_init,
+            restart_batch_size=args.restart_batch_size)
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1

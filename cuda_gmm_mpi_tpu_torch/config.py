@@ -17,6 +17,7 @@ rather than ignored. Provenance of the reference's compile-time defines:
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +54,22 @@ class GMMConfig:
     # 'cuda' without a GPU raises.
     device: str = "cuda"
     enable_print: bool = False
+    # RNG seed of the randomized paths (k-means++ seeding); the reference
+    # itself is deterministic.
+    seed: int = 0
+    # Initial means: 'even' = the reference's evenly spaced event rows
+    # (gaussian.cu:108-123); 'kmeans++' = D^2-weighted sampling,
+    # deterministic given ``seed``.
+    seed_method: str = "even"
+    # Independent restarts (sklearn's n_init): init 0 uses ``seed_method``,
+    # restarts i >= 1 use k-means++ at ``seed + i``; the best Rissanen score
+    # is kept. 1 = the reference's single deterministic init.
+    n_init: int = 1
+    # Restarts per batched EM loop (models/restarts.py): one K3 + one K4
+    # launch per EM iteration of the whole batch. None sizes the batch from
+    # a memory budget (GMM_RESTART_MEM_BYTES overrides the budget); 1 = the
+    # sequential path, which selects the same winner at the same seeds.
+    restart_batch_size: Optional[int] = None
 
     def __post_init__(self):
         if self.min_iters > self.max_iters:
@@ -87,3 +104,10 @@ class GMMConfig:
             raise ValueError("chunk_size must be >= 1")
         if self.pallas_block_b < 64 or self.pallas_block_b % 64:
             raise ValueError("pallas_block_b must be a positive multiple of 64")
+        if self.seed_method not in ("even", "kmeans++"):
+            raise ValueError(f"unknown seed_method: {self.seed_method!r}")
+        if self.n_init < 1:
+            raise ValueError("n_init must be >= 1")
+        if self.restart_batch_size is not None and self.restart_batch_size < 1:
+            raise ValueError("restart_batch_size must be >= 1 (or None for "
+                             "the memory-sized default)")

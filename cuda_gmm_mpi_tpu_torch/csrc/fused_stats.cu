@@ -1,8 +1,12 @@
-// K1: fused E-step + M-step sufficient statistics, float32, for sm_90a.
+// K1 and K3: fused E-step + M-step sufficient statistics, float32, for
+// sm_90a.
 //
-// Replaces the TPU kernel `_fused_stats_kernel`
+// K1 replaces the TPU kernel `_fused_stats_kernel`
 // (cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py, launched by
-// `_fused_stats_call`). For every event tile it builds the outer-product
+// `_fused_stats_call`); K3 replaces `_fused_stats_batched_kernel` (launched
+// by `_fused_stats_batched_call`), the same statistics for R restarts at
+// once. Both run the one kernel below: K1 is K3 with R = 1 and no lane
+// mask. For every event tile it builds the outer-product
 // features on the fly from the tile of events held in shared memory, forms
 //   logp = -0.5 * (x2 . A - 2 x . h) + g,
 // a max-shifted log-sum-exp over all K, w = e/s * wt, and accumulates
@@ -49,6 +53,19 @@
 //    so the caller passes its real events only: the EM path hands K1 the
 //    first n_events rows of its chunk grid, and the zero-weight padding
 //    rows of that grid are never computed.
+//
+// K3, the restart axis: the grid is (G, R). Lane r = blockIdx.y reads its
+// own A_ext/g (per-restart parameters), writes its own slice of a
+// [R, G, K_pad, T+D+1] partial buffer, and the reduction sums each lane's
+// G slices in the same index order. G and B_t come from N, K and D only,
+// never from R, so lane r of K3 is bit-identical to K1 on lane r's
+// operands. The lane mask is read here, on the device, and folded into
+// the event weight as the TPU kernel does; a lane whose mask is 0 skips
+// its tiles and the reduction writes exact zeros for it (what the folded
+// weight gives). K3 is bound by operations like K1 (1.3e11 flops per lane
+// at the north star against ~100 MB of events), so each lane's CTAs
+// re-read the event tiles from device memory (the L2 serves most of it);
+// sharing one tile across lanes in shared memory is later work.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -137,6 +154,7 @@ __device__ __forceinline__ void fma_stage(float (&acc)[MR / 16][8],
 template <bool DIAG, int MR>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
+                   const float* __restrict__ lanes,
                    const float* __restrict__ a_ext, const float* __restrict__ g,
                    float* __restrict__ partial, double* __restrict__ ll_part,
                    int n, int d, int kp, int bt, int xstride) {
@@ -144,6 +162,15 @@ fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   const int fd = t + d;                      // rows of A_ext
   const int fe = fd + 1;                     // columns of [x2 | x | 1]
   const int fe_pad = (fe + NT - 1) / NT * NT;
+
+  // Restart lane: its parameters and its slices of the partial buffers.
+  const int lane_r = blockIdx.y;
+  const float lane_w = lanes ? lanes[lane_r] : 1.f;
+  if (lane_w == 0.f) return;  // frozen lane: the reduction writes zeros
+  a_ext += (size_t)lane_r * fd * kp;
+  g += (size_t)lane_r * kp;
+  partial += (size_t)lane_r * gridDim.x * kp * fe;
+  ll_part += (size_t)lane_r * gridDim.x;
 
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // [bt][kp] logp, then w
@@ -235,7 +262,7 @@ fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
       float s = 0.f;
       for (int k = lane; k < kp; k += 32) s += expf(row[k] - m);
       s = warp_sum(s);
-      const float w_ev = wt[base + r];
+      const float w_ev = wt[base + r] * lane_w;
       for (int k = lane; k < kp; k += 32) row[k] = (expf(row[k] - m) / s) * w_ev;
       warp_ll += (double)((m + logf(s)) * w_ev);
     }
@@ -296,21 +323,31 @@ fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   }
 }
 
-// Sum the G per-CTA slices in index order, in float64, and split
+// Sum each lane's G per-CTA slices in index order, in float64, and split
 // [Nk | M1 | M2]; each packed M2 sum goes to both mirrored entries of the
-// [K, D*D] output.
+// [K, D*D] output. blockIdx.y is the restart lane; a frozen lane gets zeros.
 __global__ void reduce_partials(const float* __restrict__ partial,
-                                const double* __restrict__ ll_part, int grid,
+                                const double* __restrict__ ll_part,
+                                const float* __restrict__ lanes, int grid,
                                 int k, int kp, int d, int diag,
                                 float* __restrict__ ll, float* __restrict__ nk,
                                 float* __restrict__ m1, float* __restrict__ m2) {
   const int f = diag ? d : d * d;
   const int t = diag ? d : d * (d + 1) / 2;
   const int fe = t + d + 1;
+  const int lane_r = blockIdx.y;
+  const bool frozen = lanes && lanes[lane_r] == 0.f;
+  partial += (size_t)lane_r * grid * kp * fe;
+  ll_part += (size_t)lane_r * grid;
+  ll += lane_r;
+  nk += (size_t)lane_r * k;
+  m1 += (size_t)lane_r * k * d;
+  m2 += (size_t)lane_r * k * f;
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx == 0) {
     double s = 0.0;
-    for (int b = 0; b < grid; ++b) s += ll_part[b];
+    if (!frozen)
+      for (int b = 0; b < grid; ++b) s += ll_part[b];
     *ll = (float)s;
   }
   if (idx >= (int64_t)k * (f + d + 1)) return;
@@ -325,24 +362,50 @@ __global__ void reduce_partials(const float* __restrict__ partial,
     }
   }
   double s = 0.0;
-  for (int b = 0; b < grid; ++b) s += partial[((size_t)b * kp + kk) * fe + src];
+  if (!frozen)
+    for (int b = 0; b < grid; ++b) s += partial[((size_t)b * kp + kk) * fe + src];
   if (c < f) m2[(size_t)kk * f + c] = (float)s;
   else if (c < f + d) m1[(size_t)kk * d + c - f] = (float)s;
   else nk[kk] = (float)s;
 }
 
 template <bool DIAG, int MR>
-cudaError_t launch(const float* x, const float* wt, const float* a_ext,
-                   const float* g, float* partial, double* ll_part, int n, int d,
-                   int kp, int bt, int grid, size_t smem, int xstride,
-                   cudaStream_t s) {
+cudaError_t launch(const float* x, const float* wt, const float* lanes,
+                   const float* a_ext, const float* g, float* partial,
+                   double* ll_part, int n, int d, int kp, int bt, int grid,
+                   int r, size_t smem, int xstride, cudaStream_t s) {
   auto kern = fused_stats_kernel<DIAG, MR>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<grid, THREADS, smem, s>>>(x, wt, a_ext, g, partial, ll_part, n, d,
-                                   kp, bt, xstride);
+  kern<<<dim3(grid, r), THREADS, smem, s>>>(x, wt, lanes, a_ext, g, partial,
+                                            ll_part, n, d, kp, bt, xstride);
   return cudaGetLastError();
+}
+
+// Both kernels of K1 (r = 1, lanes = nullptr) or K3 on `s`.
+int run(const float* x, const float* wt, const float* lanes, const float* a_ext,
+        const float* g, float* partial, double* ll_part, float* ll, float* nk,
+        float* m1, float* m2, int n, int d, int k, int kp, int diag, int bt,
+        int grid, int r, cudaStream_t s) {
+  const int xstride = (d + 1) | 1;  // odd row stride: no bank conflicts
+  const int t = diag ? d : d * (d + 1) / 2;
+  const int fe_pad = (t + d + 1 + NT - 1) / NT * NT;
+  const size_t smem = ((size_t)bt * kp + 4 * KC * NT + (size_t)bt * xstride) *
+                          sizeof(float) + fe_pad * sizeof(int);
+  cudaError_t err;
+  if (bt % 128 == 0)
+    err = diag ? launch<true, 128>(x, wt, lanes, a_ext, g, partial, ll_part, n, d, kp, bt, grid, r, smem, xstride, s)
+               : launch<false, 128>(x, wt, lanes, a_ext, g, partial, ll_part, n, d, kp, bt, grid, r, smem, xstride, s);
+  else
+    err = diag ? launch<true, 64>(x, wt, lanes, a_ext, g, partial, ll_part, n, d, kp, bt, grid, r, smem, xstride, s)
+               : launch<false, 64>(x, wt, lanes, a_ext, g, partial, ll_part, n, d, kp, bt, grid, r, smem, xstride, s);
+  if (err != cudaSuccess) return (int)err;
+  const int f = diag ? d : d * d;
+  const int64_t outs = (int64_t)k * (f + d + 1);
+  reduce_partials<<<dim3((unsigned)((outs + 255) / 256), r), 256, 0, s>>>(
+      partial, ll_part, lanes, grid, k, kp, d, diag, ll, nk, m1, m2);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -358,23 +421,22 @@ extern "C" int gmm_fused_stats(const float* x, const float* wt, const float* a_e
                                float* ll, float* nk, float* m1, float* m2, int n,
                                int d, int k, int kp, int diag, int bt, int grid,
                                void* stream) {
-  const int xstride = (d + 1) | 1;  // odd row stride: no bank conflicts
-  const int t = diag ? d : d * (d + 1) / 2;
-  const int fe_pad = (t + d + 1 + NT - 1) / NT * NT;
-  const size_t smem = ((size_t)bt * kp + 4 * KC * NT + (size_t)bt * xstride) *
-                          sizeof(float) + fe_pad * sizeof(int);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (bt % 128 == 0)
-    err = diag ? launch<true, 128>(x, wt, a_ext, g, partial, ll_part, n, d, kp, bt, grid, smem, xstride, s)
-               : launch<false, 128>(x, wt, a_ext, g, partial, ll_part, n, d, kp, bt, grid, smem, xstride, s);
-  else
-    err = diag ? launch<true, 64>(x, wt, a_ext, g, partial, ll_part, n, d, kp, bt, grid, smem, xstride, s)
-               : launch<false, 64>(x, wt, a_ext, g, partial, ll_part, n, d, kp, bt, grid, smem, xstride, s);
-  if (err != cudaSuccess) return (int)err;
-  const int f = diag ? d : d * d;
-  const int64_t outs = (int64_t)k * (f + d + 1);
-  reduce_partials<<<(unsigned)((outs + 255) / 256), 256, 0, s>>>(
-      partial, ll_part, grid, k, kp, d, diag, ll, nk, m1, m2);
-  return (int)cudaGetLastError();
+  return run(x, wt, nullptr, a_ext, g, partial, ll_part, ll, nk, m1, m2, n, d,
+             k, kp, diag, bt, grid, 1, static_cast<cudaStream_t>(stream));
+}
+
+// Launches K3 (both kernels) on `stream`; returns cudaGetLastError().
+// K1's shapes with a leading restart axis r on every per-lane array:
+// lanes [r] (0 = frozen lane), a_ext [r, t+d, kp], g [r, kp],
+// partial [r, grid, kp, t+d+1], ll_part [r, grid], ll [r], nk [r, k],
+// m1 [r, k, d], m2 [r, k, f]. x and wt are shared by every lane.
+extern "C" int gmm_fused_stats_batched(const float* x, const float* wt,
+                                       const float* lanes, const float* a_ext,
+                                       const float* g, float* partial,
+                                       double* ll_part, float* ll, float* nk,
+                                       float* m1, float* m2, int n, int d, int k,
+                                       int kp, int diag, int bt, int grid, int r,
+                                       void* stream) {
+  return run(x, wt, lanes, a_ext, g, partial, ll_part, ll, nk, m1, m2, n, d, k,
+             kp, diag, bt, grid, r, static_cast<cudaStream_t>(stream));
 }

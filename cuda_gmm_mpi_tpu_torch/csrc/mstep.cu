@@ -1,7 +1,11 @@
-// K2: the M-step epilogue, float32, for sm_90a.
+// K2 and K4: the M-step epilogue, float32, for sm_90a.
 //
-// Replaces the TPU kernel `_mstep_kernel` (math in `_mstep_math`,
-// cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py, launched by `_mstep_call`):
+// K2 replaces the TPU kernel `_mstep_kernel` (math in `_mstep_math`,
+// cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py, launched by `_mstep_call`);
+// K4 replaces `_mstep_batched_kernel` (launched by `_mstep_batched_call`),
+// the same epilogue for R restarts: blockIdx.y is the restart lane, whose
+// [K, .] slices it reads and writes. K2 is K4 with R = 1, so each lane of
+// K4 is bit-identical to K2 on that lane's operands.
 // Nk/M1/M2 -> N/means/covariance with the reference's guards -- divide where
 // Nk > 0.5, zero the scatter where Nk < 1, add the avgvar diagonal loading,
 // fall back to the identity, keep inactive clusters inert.
@@ -10,7 +14,8 @@
 // flops per element on ~2*K*F*4 bytes), far below the card's ratio of
 // operations to bytes; at the main path's K=100, F=576 the whole epilogue
 // is ~0.5 MB and one launch's latency dominates. The design is one thread
-// per [k, f] element, coalesced along f.
+// per [k, f] element, coalesced along f; K4 launches every lane at once,
+// so R restarts pay one launch's latency, not R.
 //
 // Bit-identity: the result must equal the port's torch-ops update
 // (ops/mstep.py::mstep_update) exactly. Every product, difference, sum and
@@ -37,6 +42,15 @@ __global__ void mstep_kernel(const float* __restrict__ nk,
                              float* __restrict__ cov_out, int k, int d,
                              int diag) {
   const int f = diag ? d : d * d;
+  const size_t lane = blockIdx.y;  // restart lane
+  nk += lane * k;
+  m1 += lane * k * d;
+  m2 += lane * k * f;
+  avgvar += lane * k;
+  act += lane * k;
+  n_out += lane * k;
+  mean_out += lane * k * d;
+  cov_out += lane * k * f;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (long long)k * f) return;
   const int kk = (int)(idx / f), fi = (int)(idx % f);
@@ -68,16 +82,26 @@ __global__ void mstep_kernel(const float* __restrict__ nk,
 
 }  // namespace
 
-// Launches K2 on `stream`; returns cudaGetLastError().
-// Shapes: nk, avgvar, act [k]; m1 [k, d]; m2 [k, f]; n_out [k];
-// mean_out [k, d]; cov_out [k, f] with f = diag ? d : d*d.
+// Launch K4 (gmm_mstep_batched, r lanes) or K2 (gmm_mstep) on `stream`;
+// each returns cudaGetLastError(). Shapes per lane: nk, avgvar, act [k];
+// m1 [k, d]; m2 [k, f]; n_out [k]; mean_out [k, d]; cov_out [k, f] with
+// f = diag ? d : d*d; K4's arrays stack r such lanes.
+extern "C" int gmm_mstep_batched(const float* nk, const float* m1,
+                                 const float* m2, const float* avgvar,
+                                 const float* act, float* n_out,
+                                 float* mean_out, float* cov_out, int k, int d,
+                                 int diag, int r, void* stream) {
+  const long long total = (long long)k * (diag ? d : d * d);
+  mstep_kernel<<<dim3((unsigned)((total + 255) / 256), r), 256, 0,
+                 static_cast<cudaStream_t>(stream)>>>(
+      nk, m1, m2, avgvar, act, n_out, mean_out, cov_out, k, d, diag);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int gmm_mstep(const float* nk, const float* m1, const float* m2,
                          const float* avgvar, const float* act, float* n_out,
                          float* mean_out, float* cov_out, int k, int d, int diag,
                          void* stream) {
-  const long long total = (long long)k * (diag ? d : d * d);
-  mstep_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
-                 static_cast<cudaStream_t>(stream)>>>(
-      nk, m1, m2, avgvar, act, n_out, mean_out, cov_out, k, d, diag);
-  return (int)cudaGetLastError();
+  return gmm_mstep_batched(nk, m1, m2, avgvar, act, n_out, mean_out, cov_out, k,
+                           d, diag, 1, stream);
 }

@@ -12,6 +12,10 @@ reads the loglik once per iteration, as the reference does
 
 with ``|change| > epsilon`` spelled ``not (|change| <= epsilon)``, so a
 non-finite change reads as not converged.
+
+``em_while_loop_batched`` runs the same loop for a batch of restarts (a
+state with a leading restart axis R) with per-lane bounds and masked
+freeze-out: each lane iterates exactly as its own ``em_while_loop`` would.
 """
 
 from __future__ import annotations
@@ -24,7 +28,8 @@ import torch
 
 from ..config import GMMConfig
 from ..ops.estep import posteriors
-from ..ops.mstep import SuffStats, accumulate_stats, apply_mstep
+from ..ops.mstep import SuffStats, accumulate_stats, apply_mstep, zeros_stats
+from ..state import lane, stack_states, where_lanes
 
 
 def resolve_device(config: GMMConfig) -> torch.device:
@@ -35,6 +40,48 @@ def resolve_device(config: GMMConfig) -> torch.device:
             "device='cuda' but no CUDA device is available; pass "
             "device='cpu' (--device=cpu) to run on the CPU")
     return torch.device(config.device)
+
+
+def resolve_iters_batched(config: GMMConfig, num_restarts: int,
+                          min_iters, max_iters):
+    """Per-restart iteration bounds as int64 [R] vectors (lo, hi).
+
+    Scalars (or None -> the config's values) broadcast to every restart;
+    [R] vectors pass through. lo is clamped to hi. A restart whose
+    ``max_iters`` is 0 runs no EM iteration: the batched restart paths' handle
+    for freezing a lane.
+    """
+    lo = config.min_iters if min_iters is None else min_iters
+    hi = config.max_iters if max_iters is None else max_iters
+    lo = np.broadcast_to(np.asarray(lo, np.int64), (num_restarts,))
+    hi = np.broadcast_to(np.asarray(hi, np.int64), (num_restarts,))
+    return np.minimum(lo, hi), hi.copy()
+
+
+def lane_loop_stats(stats_fn: Callable, diag_only: bool = False) -> Callable:
+    """A batched stats hook that runs the unbatched ``stats_fn`` lane by
+    lane (the torch-ops backend of the batched loop); frozen lanes get zero
+    statistics, as K3 gives them."""
+    def batched(states, data_chunks, wts_chunks, lane_mask=None):
+        R, K, D = states.means.shape
+        live = [True] * R if lane_mask is None else lane_mask.tolist()
+        return stack_states([
+            stats_fn(lane(states, r), data_chunks, wts_chunks) if live[r]
+            else zeros_stats(K, D, data_chunks.dtype, data_chunks.device,
+                             diag_only=diag_only)
+            for r in range(R)])
+
+    return batched
+
+
+def lane_loop_mstep(mstep_fn: Callable) -> Callable:
+    """A batched M-step hook that runs the unbatched ``mstep_fn`` lane by
+    lane (the torch-ops backend of the batched loop)."""
+    def batched(states, stats):
+        return stack_states([mstep_fn(lane(states, r), lane(stats, r))
+                             for r in range(states.N.shape[0])])
+
+    return batched
 
 
 def chunk_events(data: np.ndarray, chunk_size: int,
@@ -62,7 +109,8 @@ class GMMModel:
     """EM for a Gaussian mixture with fixed padded K; active clusters masked.
 
     ``estep_backend``/``estep_backend_reason`` name the statistics path that
-    runs ('cuda' = kernels K1/K2, 'torch' = torch ops) and why.
+    runs ('cuda' = kernels K1/K2, and K3/K4 for restart batches; 'torch' =
+    torch ops) and why.
     """
 
     def __init__(self, config: GMMConfig = GMMConfig(),
@@ -81,18 +129,34 @@ class GMMModel:
             torch.backends.cudnn.allow_tf32 = False
         if stats_fn is None and mstep_fn is None:
             from ..ops.kernels import (
-                make_mstep_fn, make_stats_fn, resolve_estep_backend,
+                make_batched_stats_fn, make_mstep_fn, make_stats_fn,
+                resolve_estep_backend,
             )
 
             self.estep_backend, self.estep_backend_reason = \
                 resolve_estep_backend(config)
             stats_fn = make_stats_fn(config)
             mstep_fn = make_mstep_fn(config)
+            self.batched_stats_fn = make_batched_stats_fn(config)
+            self.batched_mstep_fn = make_mstep_fn(config, batched=True)
         else:
             self.estep_backend = "custom"
             self.estep_backend_reason = "caller-supplied stats_fn/mstep_fn"
+            self.batched_stats_fn = self.batched_mstep_fn = None
         self.stats_fn = stats_fn
         self.mstep_fn = mstep_fn
+        diag_only = config.diag_only
+        # The batched loop's hooks where no batched kernel serves: the
+        # unbatched hooks (or torch ops) lane by lane.
+        if self.batched_stats_fn is None:
+            self.batched_stats_fn = lane_loop_stats(
+                stats_fn or functools.partial(accumulate_stats,
+                                              diag_only=diag_only),
+                diag_only=diag_only)
+        if self.batched_mstep_fn is None:
+            self.batched_mstep_fn = lane_loop_mstep(
+                mstep_fn or functools.partial(apply_mstep,
+                                              diag_only=diag_only))
 
     def place(self, array: np.ndarray) -> torch.Tensor:
         """A host array as a tensor of the model's device and dtype."""
@@ -117,6 +181,27 @@ class GMMModel:
             cfg.max_iters if max_iters is None else max_iters,
             diag_only=cfg.diag_only, stats_fn=stats_fn,
             mstep_fn=self.mstep_fn)
+
+    def run_em_batched(self, states, data_chunks, wts_chunks, epsilon: float,
+                       min_iters=None, max_iters=None,
+                       n_events: Optional[int] = None):
+        """Full EM for a batch of restarts: ``states`` has a leading restart
+        axis R on every leaf. Returns (states, loglik [R], iters [R]), the
+        last two as numpy arrays.
+
+        ``min_iters``/``max_iters`` take scalars or [R] vectors; a lane
+        with ``max_iters=0`` is frozen: it runs no E-step, its state passes
+        through untouched and its loglik is NaN. ``n_events`` as in
+        :meth:`run_em`.
+        """
+        lo, hi = resolve_iters_batched(self.config, states.N.shape[0],
+                                       min_iters, max_iters)
+        stats_fn = self.batched_stats_fn
+        if n_events is not None and self.estep_backend == "cuda":
+            stats_fn = functools.partial(stats_fn, n_events=n_events)
+        return em_while_loop_batched(
+            states, data_chunks, wts_chunks, epsilon, lo, hi,
+            batched_stats_fn=stats_fn, mstep_fn=self.batched_mstep_fn)
 
     @property
     def inference_block(self) -> int:
@@ -171,3 +256,47 @@ def em_while_loop(state, data_chunks, wts_chunks, epsilon: float,
         ll = stats.loglik
         iters += 1
     return state, float(ll), iters
+
+
+def em_while_loop_batched(states, data_chunks, wts_chunks, epsilon: float,
+                          min_iters_r, max_iters_r, *,
+                          batched_stats_fn: Callable, mstep_fn: Callable):
+    """EM for a batch of restarts as one host loop over the whole batch.
+
+    The port of the JAX package's ``em_while_loop_batched``
+    (models/gmm.py:1006-1144): each iteration runs the M-step on every
+    lane (one K4 launch on the kernel path), then the E-step with the
+    lanes still live as ``lane_mask`` (one K3 launch), and freezes every
+    other lane's carry (state, statistics, loglik, change, iterations)
+    with a per-lane ``where``. A lane is live while
+    ``iters < lo | (~(|change| <= eps) & iters < hi)``, the per-lane
+    spelling of :func:`em_while_loop`'s test, so each lane runs the
+    iterations its own loop would. The [R] changes are read to the host
+    once per iteration. A lane whose ``max_iters`` is 0 never runs: the
+    initial E-step masks it too, and its loglik is NaN. Returns (states,
+    loglik [R], iters [R]), the last two as numpy arrays.
+    """
+    lo = np.asarray(min_iters_r, np.int64)
+    hi = np.asarray(max_iters_r, np.int64)
+    eps = float(torch.tensor(epsilon, dtype=data_chunks.dtype))
+    runs = torch.as_tensor(hi > 0, device=data_chunks.device)
+    stats = batched_stats_fn(states, data_chunks, wts_chunks,
+                             lane_mask=runs)  # gaussian.cu:487-516
+    ll = torch.where(runs, stats.loglik, torch.nan)
+    change = np.full(lo.shape, 2.0 * eps + 1.0)  # gaussian.cu:525
+    iters = np.zeros(lo.shape, np.int64)
+    while True:
+        live = (iters < lo) | (~(np.abs(change) <= eps) & (iters < hi))
+        if not live.any():
+            break
+        live_t = torch.as_tensor(live, device=ll.device)
+        new_states = mstep_fn(states, stats)  # :541-701
+        new_stats = batched_stats_fn(new_states, data_chunks, wts_chunks,
+                                     lane_mask=live_t)  # :713-741
+        step = (new_stats.loglik - ll).cpu().numpy()  # :748
+        states = where_lanes(live_t, new_states, states)
+        stats = where_lanes(live_t, new_stats, stats)
+        ll = torch.where(live_t, new_stats.loglik, ll)
+        change = np.where(live, step.astype(np.float64), change)
+        iters = iters + live
+    return states, ll.cpu().numpy().astype(np.float64), iters

@@ -12,6 +12,9 @@ helpers ``compute_constants`` (``:196-243``), ``invert`` (``:107-169``) and
 - Clusters whose covariance is not positive definite are reset to the
   identity covariance, mirroring the reference's empty-cluster identity
   reset (gaussian.cu:669-678).
+
+Every function here also takes a leading restart axis ([R, K, D, D]
+covariances, [R, K] counts): each lane gets what the unbatched call gives.
 """
 
 from __future__ import annotations
@@ -30,13 +33,13 @@ def _eye_like(R: torch.Tensor) -> torch.Tensor:
 def _chol_ok(R: torch.Tensor):
     """Batched Cholesky factor + per-matrix PD flag."""
     L, info = torch.linalg.cholesky_ex(R)
-    ok = (info == 0) & torch.isfinite(L.flatten(1)).all(dim=-1)
+    ok = (info == 0) & torch.isfinite(L.flatten(-2)).all(dim=-1)
     return L, ok
 
 
 def _logdet_from_chol(L: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     diag = torch.diagonal(L, dim1=-2, dim2=-1).abs()
-    diag = torch.where(ok[:, None], diag, torch.ones_like(diag))
+    diag = torch.where(ok[..., None], diag, torch.ones_like(diag))
     return 2.0 * torch.log(diag).sum(dim=-1)
 
 
@@ -53,7 +56,7 @@ def chol_logdet(R: torch.Tensor, diag_only: bool = False):
 
 
 def chol_inverse_logdet(R: torch.Tensor, diag_only: bool = False):
-    """Batched inverse + log-determinant of [K, D, D] covariances.
+    """Batched inverse + log-determinant of [..., K, D, D] covariances.
 
     Returns (Rinv, log_det, ok); ``ok`` is False where the factorization
     failed (non-PD input) and callers reset those clusters. ``diag_only``
@@ -68,10 +71,10 @@ def chol_inverse_logdet(R: torch.Tensor, diag_only: bool = False):
     L, ok = _chol_ok(R)
     log_det = _logdet_from_chol(L, ok)
     eye = _eye_like(R)
-    L_safe = torch.where(ok[:, None, None], L, eye)
+    L_safe = torch.where(ok[..., None, None], L, eye)
     # Rinv = L^-T L^-1 via a batched triangular solve against I.
     Linv = torch.linalg.solve_triangular(L_safe, eye, upper=False)
-    Rinv = torch.einsum("kji,kjl->kil", Linv, Linv)
+    Rinv = torch.einsum("...ji,...jl->...il", Linv, Linv)
     return Rinv, log_det, ok
 
 
@@ -86,11 +89,13 @@ def compute_constants(state, diag_only: bool = False):
     D = state.num_dimensions
     Rinv, log_det, ok = chol_inverse_logdet(state.R, diag_only=diag_only)
     eye = _eye_like(state.R)
-    R = torch.where(ok[:, None, None], state.R, eye)
-    Rinv = torch.where(ok[:, None, None], Rinv, eye)
+    R = torch.where(ok[..., None, None], state.R, eye)
+    Rinv = torch.where(ok[..., None, None], Rinv, eye)
     log_det = torch.where(ok, log_det, torch.zeros_like(log_det))
     constant = (-D * 0.5) * LOG_2PI - 0.5 * log_det
-    n_total = torch.where(state.active, state.N, torch.zeros_like(state.N)).sum()
+    # Normalised within each lane of a restart-batched state.
+    n_total = torch.where(state.active, state.N,
+                          torch.zeros_like(state.N)).sum(dim=-1, keepdim=True)
     pi = torch.where(state.N < 0.5, torch.full_like(state.N, 1e-10),
                      state.N / torch.clamp(n_total, min=1e-30))
     return state.replace(R=R, Rinv=Rinv, constant=constant, pi=pi)

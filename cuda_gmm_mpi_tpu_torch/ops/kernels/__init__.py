@@ -3,7 +3,9 @@
 K1 (fused E+M statistics) and K2 (the M-step epilogue) plug into the EM
 loop's ``stats_fn``/``mstep_fn`` hooks, so with backend 'cuda' one EM
 iteration is one K1 launch, one K2 launch and the K-sized Cholesky
-constants.
+constants. K3 and K4 are their restart-batched forms on the hooks of
+``em_while_loop_batched``: one EM iteration of a whole restart batch is one
+K3 launch, one K4 launch and the [R, K]-sized constants.
 
 Routing (``resolve_estep_backend``):
 
@@ -23,7 +25,10 @@ from __future__ import annotations
 import functools
 
 from ..constants import compute_constants
-from .fused_stats import fused_mstep_cuda, fused_stats_cuda
+from .fused_stats import (
+    fused_mstep_cuda, fused_mstep_cuda_batched, fused_stats_cuda,
+    fused_stats_cuda_batched,
+)
 
 
 def resolve_estep_backend(config):
@@ -52,20 +57,33 @@ def make_stats_fn(config):
         block_b=config.pallas_block_b, precision=config.matmul_precision)
 
 
-def make_mstep_fn(config):
-    """mstep_fn hook (K2 + constants), or None for the torch-ops path."""
+def make_batched_stats_fn(config):
+    """Restart-batched stats_fn hook (K3), or None for the torch-ops lane
+    loop."""
+    backend, _ = resolve_estep_backend(config)
+    if backend != "cuda":
+        return None
+    return functools.partial(
+        fused_stats_cuda_batched, diag_only=config.diag_only,
+        block_b=config.pallas_block_b, precision=config.matmul_precision)
+
+
+def make_mstep_fn(config, batched: bool = False):
+    """mstep_fn hook (K2, or K4 with ``batched``, + constants), or None for
+    the torch-ops path."""
     backend, _ = resolve_estep_backend(config)
     if backend != "cuda":
         return None
     diag_only = config.diag_only
+    update = fused_mstep_cuda_batched if batched else fused_mstep_cuda
 
     def mstep(state, stats):
-        return compute_constants(
-            fused_mstep_cuda(state, stats, diag_only=diag_only),
-            diag_only=diag_only)
+        return compute_constants(update(state, stats, diag_only=diag_only),
+                                 diag_only=diag_only)
 
     return mstep
 
 
-__all__ = ["fused_stats_cuda", "fused_mstep_cuda", "make_stats_fn",
-           "make_mstep_fn", "resolve_estep_backend"]
+__all__ = ["fused_stats_cuda", "fused_stats_cuda_batched", "fused_mstep_cuda",
+           "fused_mstep_cuda_batched", "make_batched_stats_fn",
+           "make_stats_fn", "make_mstep_fn", "resolve_estep_backend"]

@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) with nvcc.
 
 Each source becomes its own shared library with a plain C interface, bound
-with ctypes. Libraries are built on first use into the package's ``build/``
+with ctypes; a source may export several entry points (K1 and K3 share
+fused_stats.cu, K2 and K4 share mstep.cu). Libraries are built on first use into the package's ``build/``
 directory (git-ignored), named by a hash of the source and the flags so an
 edited source is rebuilt; all sources are compiled by parallel nvcc
 processes. Nothing here runs at import time.
@@ -23,14 +24,18 @@ BUILD_DIR = _PKG / "build"
 
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
-# Per-source extra flags: K2 must not contract a*b-c into an FMA (its output
-# is held bit-identical to the torch-ops update).
+# Per-source extra flags: K2/K4 must not contract a*b-c into an FMA (their
+# output is held bit-identical to the torch-ops update).
 EXTRA_FLAGS = {"mstep.cu": ["--fmad=false"]}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# {source: [(entry point, argtypes), ...]}; every entry point returns
+# cudaGetLastError() as an int.
 SIGNATURES = {
-    "fused_stats.cu": ("gmm_fused_stats", [_P] * 10 + [_I] * 7 + [_P]),
-    "mstep.cu": ("gmm_mstep", [_P] * 8 + [_I] * 3 + [_P]),
+    "fused_stats.cu": [("gmm_fused_stats", [_P] * 10 + [_I] * 7 + [_P]),
+                       ("gmm_fused_stats_batched", [_P] * 11 + [_I] * 8 + [_P])],
+    "mstep.cu": [("gmm_mstep", [_P] * 8 + [_I] * 3 + [_P]),
+                 ("gmm_mstep_batched", [_P] * 8 + [_I] * 4 + [_P])],
 }
 
 _lock = threading.Lock()
@@ -90,9 +95,9 @@ def library(src: str) -> ctypes.CDLL:
         lib = _libs.get(src)
         if lib is None:
             lib = ctypes.CDLL(str(build_all()[src]))
-            name, argtypes = SIGNATURES[src]
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            for name, argtypes in SIGNATURES[src]:
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
             _libs[src] = lib
         return lib

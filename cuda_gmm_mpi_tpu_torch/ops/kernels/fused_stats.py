@@ -1,15 +1,21 @@
-"""Wrappers of the hand-written Hopper kernels K1 and K2, and their plain
+"""Wrappers of the hand-written Hopper kernels K1-K4, and their plain
 PyTorch versions.
 
 K1 (``fused_stats``, csrc/fused_stats.cu) replaces the TPU kernel
 ``_fused_stats_kernel``: one pass over the events producing loglik, Nk, M1
 and M2. K2 (``mstep``, csrc/mstep.cu) replaces ``_mstep_kernel``: the M-step
-epilogue Nk/M1/M2 -> N/means/covariance.
+epilogue Nk/M1/M2 -> N/means/covariance. K3 (``fused_stats_batched``) and
+K4 (``mstep_batched``) replace ``_fused_stats_batched_kernel`` and
+``_mstep_batched_kernel``: the same two functions for R restarts at once,
+with a leading restart axis on every per-restart operand. K3 shares K1's
+kernel and K4 shares K2's, so each lane is bit-identical to the unbatched
+kernel on that lane's operands.
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each counts its kernel launches
-on a plain integer attribute (``fused_stats.launches``, ``mstep.launches``)
-so a run can show that it went through the kernels.
+on a plain integer attribute (``fused_stats.launches``, ``mstep.launches``,
+``fused_stats_batched.launches``, ``mstep_batched.launches``) so a run can
+show that it went through the kernels.
 
 Layouts follow the JAX package: the features' column j*D+i holds x_i*x_j,
 ``A = Rinv.reshape(K, D*D).T`` is [F, K], and M2 [K, F] reshapes to
@@ -24,6 +30,7 @@ import functools
 
 import torch
 
+from ...state import lane
 from ..estep import expand_features
 from ..mstep import SuffStats
 
@@ -134,13 +141,32 @@ def _triu(d: int, device: torch.device):
 
 
 def _packed_a(A: torch.Tensor, d: int) -> torch.Tensor:
-    """[D*D, K] -> [D(D+1)/2, K] rows of the upper triangle (row-major
-    (i, j), i <= j), off-diagonal rows A[i*D+j] + A[j*D+i]: the operand of
-    K1's symmetric-half features x_i*x_j, i <= j. Gathers only, so the
-    host never waits for the card."""
-    a = A.reshape(d, d, -1)
+    """[..., D*D, K] -> [..., D(D+1)/2, K] rows of the upper triangle
+    (row-major (i, j), i <= j), off-diagonal rows A[i*D+j] + A[j*D+i]: the
+    operand of K1's symmetric-half features x_i*x_j, i <= j. Gathers only,
+    so the host never waits for the card."""
+    a = A.reshape(A.shape[:-2] + (d, d, A.shape[-1]))
     i, j, off = _triu(d, A.device)
-    return a[i, j] + torch.where(off, a[j, i], 0.0)
+    return a[..., i, j, :] + torch.where(off, a[..., j, i, :], 0.0)
+
+
+def _ext_operands(A, h, g, d: int, diag: bool):
+    """K1/K3's parameter operands, per lane of any leading axes:
+    A_ext = [A (packed); -2h] [..., T+D, K_pad] and g [..., K_pad], padded
+    to K_pad columns whose g is NEG_LARGE (inert, exactly like an inactive
+    cluster)."""
+    lead, k = A.shape[:-2], A.shape[-1]
+    k_pad = -(-k // TILE) * TILE
+    a_sym = A if diag else _packed_a(A, d)
+    t = a_sym.shape[-2]
+    a_ext = torch.zeros(lead + (t + d, k_pad), dtype=torch.float32,
+                        device=A.device)
+    a_ext[..., :t, :k] = a_sym
+    a_ext[..., t:, :k] = -2.0 * h
+    g_pad = torch.full(lead + (k_pad,), NEG_LARGE, dtype=torch.float32,
+                       device=A.device)
+    g_pad[..., :k] = g.reshape(lead + (k,))
+    return a_ext, g_pad, t
 
 
 def fused_stats(x, wt, A, h, g, *, diag: bool, block_b: int = 512,
@@ -160,17 +186,8 @@ def fused_stats(x, wt, A, h, g, *, diag: bool, block_b: int = 512,
             f"{tuple(A.shape)}, h {tuple(h.shape)}, g {tuple(g.shape)}")
     from ._build import library
 
-    k_pad = -(-k // TILE) * TILE
-    a_sym = A if diag else _packed_a(A, d)
-    t = a_sym.shape[0]
-    # A_ext = [A (packed); -2h], padded to K_pad columns whose g is
-    # NEG_LARGE (inert, exactly like an inactive cluster).
-    a_ext = torch.zeros((t + d, k_pad), dtype=torch.float32, device=x.device)
-    a_ext[:t, :k] = a_sym
-    a_ext[t:, :k] = -2.0 * h
-    g_pad = torch.full((k_pad,), NEG_LARGE, dtype=torch.float32,
-                       device=x.device)
-    g_pad[:k] = g.reshape(k)
+    a_ext, g_pad, t = _ext_operands(A, h, g, d, diag)
+    k_pad = g_pad.shape[-1]
     bt = k1_tile(k_pad, d, block_b, diag)
     grid = min(-(-n // bt), K1_GRID)
     partial = torch.empty((grid, k_pad, t + d + 1), dtype=torch.float32,
@@ -211,6 +228,95 @@ def fused_stats_cuda(state, data_chunks, wts_chunks, *, diag_only=False,
     dt = data_chunks.dtype
     return SuffStats(loglik=ll[0, 0].to(dt), Nk=nk[0].to(dt), M1=m1.to(dt),
                      M2=(m2 if diag_only else m2.reshape(K, d, d)).to(dt))
+
+
+# ---------------------------------------------------------------- K3
+
+def fused_stats_batched_plain(x, wt, lanes, A, h, g, *, diag: bool):
+    """K3's function in plain torch: K1's plain version on each lane r,
+    with the event weights scaled by ``lanes[r]`` (the TPU kernel's folded
+    lane mask). x [N, D], wt [N], lanes [R], A [R, F, K], h [R, D, K],
+    g [R, 1, K] -> (ll [R, 1, 1], nk [R, 1, K], m1 [R, K, D], m2 [R, K, F])."""
+    outs = [fused_stats_plain(x, wt * lanes[r], A[r], h[r], g[r], diag=diag)
+            for r in range(A.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def fused_stats_batched(x, wt, lanes, A, h, g, *, diag: bool,
+                        block_b: int = 512, precision: str = "highest"):
+    """K3: the statistics of R restarts in one launch, as in
+    :func:`fused_stats_batched_plain`; a lane whose ``lanes`` entry is 0
+    comes out exactly zero. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return fused_stats_batched_plain(x, wt, lanes, A, h, g, diag=diag)
+    _check_precision(precision)
+    _check_cuda(x, wt, lanes, A, h, g)
+    n, d = x.shape
+    r, f, k = A.shape
+    if (wt.shape != (n,) or lanes.shape != (r,)
+            or f != (d if diag else d * d)
+            or h.shape != (r, d, k) or g.shape != (r, 1, k)):
+        raise ValueError(
+            f"K3 shapes: x {tuple(x.shape)}, wt {tuple(wt.shape)}, lanes "
+            f"{tuple(lanes.shape)}, A {tuple(A.shape)}, h {tuple(h.shape)}, "
+            f"g {tuple(g.shape)}")
+    from ._build import library
+
+    a_ext, g_pad, t = _ext_operands(A, h, g, d, diag)
+    k_pad = g_pad.shape[-1]
+    # K1's tile and grid: from N, K and D only, never from R, so each lane
+    # reduces in K1's order.
+    bt = k1_tile(k_pad, d, block_b, diag)
+    grid = min(-(-n // bt), K1_GRID)
+    dev = x.device
+    partial = torch.empty((r, grid, k_pad, t + d + 1), dtype=torch.float32,
+                          device=dev)
+    ll_part = torch.empty((r, grid), dtype=torch.float64, device=dev)
+    ll = torch.empty((r, 1, 1), dtype=torch.float32, device=dev)
+    nk = torch.empty((r, 1, k), dtype=torch.float32, device=dev)
+    m1 = torch.empty((r, k, d), dtype=torch.float32, device=dev)
+    m2 = torch.empty((r, k, f), dtype=torch.float32, device=dev)
+    fn = library("fused_stats.cu").gmm_fused_stats_batched
+    err = fn(x.data_ptr(), wt.data_ptr(), lanes.data_ptr(), a_ext.data_ptr(),
+             g_pad.data_ptr(), partial.data_ptr(), ll_part.data_ptr(),
+             ll.data_ptr(), nk.data_ptr(), m1.data_ptr(), m2.data_ptr(), n, d,
+             k, k_pad, int(diag), bt, grid, r,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "K3 (fused_stats_batched)")
+    fused_stats_batched.launches += 1
+    return ll, nk, m1, m2
+
+
+fused_stats_batched.launches = 0
+
+
+def fused_stats_cuda_batched(states, data_chunks, wts_chunks, lane_mask=None,
+                             *, diag_only=False, block_b: int = 512,
+                             precision: str = "highest",
+                             n_events=None) -> SuffStats:
+    """SuffStats of a restart-batched state through K3: the batched
+    ``stats_fn`` hook of ``em_while_loop_batched``. Leaves carry the
+    leading R: loglik [R], Nk [R, K], M1 [R, K, D], M2 [R, K, D, D] (or
+    [R, K, D]). ``lane_mask`` ([R] bool, None = all live) zeroes frozen
+    lanes; ``n_events`` as in :func:`fused_stats_cuda`."""
+    c, b, d = data_chunks.shape
+    R, K = states.means.shape[:2]
+    x, wt = _prep_events(data_chunks, wts_chunks)
+    if n_events is not None:
+        x, wt = x[:n_events], wt[:n_events]
+    # Per lane, so each lane's operands are K1's bit for bit.
+    A, h, g = (torch.stack(p) for p in zip(*(
+        _prep_params(lane(states, r), d, diag_only) for r in range(R))))
+    lanes = (torch.ones(R, dtype=torch.float32, device=x.device)
+             if lane_mask is None else lane_mask.to(torch.float32))
+    ll, nk, m1, m2 = fused_stats_batched(x, wt, lanes, A, h, g,
+                                         diag=diag_only, block_b=block_b,
+                                         precision=precision)
+    dt = data_chunks.dtype
+    return SuffStats(loglik=ll[:, 0, 0].to(dt), Nk=nk[:, 0].to(dt),
+                     M1=m1.to(dt),
+                     M2=(m2 if diag_only else m2.reshape(R, K, d, d)).to(dt))
 
 
 # ---------------------------------------------------------------- K2
@@ -275,23 +381,80 @@ mstep.launches = 0
 
 
 def _mstep_operands(state, stats, diag_only: bool):
-    """K2's [K, 1] / [K, D] / [K, F] float32 operands from a state + stats."""
-    K, D = state.means.shape
+    """K2's [K, 1] / [K, D] / [K, F] float32 operands from a state + stats
+    (K4's, with a leading R, from a restart-batched one)."""
+    D = state.means.shape[-1]
     f32 = torch.float32
-    m2 = stats.M2 if diag_only else stats.M2.reshape(K, D * D)
-    return (stats.Nk.to(f32)[:, None].contiguous(),
+    m2 = (stats.M2 if diag_only
+          else stats.M2.reshape(stats.M2.shape[:-2] + (D * D,)))
+    return (stats.Nk.to(f32)[..., None].contiguous(),
             stats.M1.to(f32).contiguous(), m2.to(f32).contiguous(),
-            state.avgvar.to(f32)[:, None].contiguous(),
-            state.active.to(f32)[:, None].contiguous())
+            state.avgvar.to(f32)[..., None].contiguous(),
+            state.active.to(f32)[..., None].contiguous())
+
+
+def _mstep_state(state, n, mean, cov, diag_only: bool):
+    """The state with K2/K4's outputs as N, means and R."""
+    D = state.means.shape[-1]
+    dtype = state.R.dtype
+    R = (torch.diag_embed(cov) if diag_only
+         else cov.reshape(cov.shape[:-1] + (D, D)))
+    return state.replace(N=n[..., 0].to(dtype), means=mean.to(dtype),
+                         R=R.to(dtype))
 
 
 def fused_mstep_cuda(state, stats: SuffStats, *, diag_only: bool = False):
     """The division/guard half of ``apply_mstep`` through K2; the caller
     runs ``compute_constants`` on the result, as apply_mstep does."""
-    K, D = state.means.shape
-    n, mean, cov = mstep(*_mstep_operands(state, stats, diag_only),
-                         diag=diag_only)
-    dtype = state.R.dtype
-    R = torch.diag_embed(cov) if diag_only else cov.reshape(K, D, D)
-    return state.replace(N=n[:, 0].to(dtype), means=mean.to(dtype),
-                         R=R.to(dtype))
+    out = mstep(*_mstep_operands(state, stats, diag_only), diag=diag_only)
+    return _mstep_state(state, *out, diag_only)
+
+
+# ---------------------------------------------------------------- K4
+
+def mstep_batched_plain(nk, m1, m2, av, act, *, diag: bool):
+    """K4's function in plain torch: K2's plain version on each lane of
+    [R, K, 1] / [R, K, D] / [R, K, F] operands."""
+    outs = [mstep_plain(nk[r], m1[r], m2[r], av[r], act[r], diag=diag)
+            for r in range(m1.shape[0])]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def mstep_batched(nk, m1, m2, av, act, *, diag: bool):
+    """K4: (n, mean, cov) of R restarts in one launch, as in
+    :func:`mstep_batched_plain`. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if m1.device.type == "cpu":
+        return mstep_batched_plain(nk, m1, m2, av, act, diag=diag)
+    _check_cuda(nk, m1, m2, av, act)
+    r, k, d = m1.shape
+    if (m2.shape != (r, k, d if diag else d * d)
+            or any(t.shape != (r, k, 1) for t in (nk, av, act))):
+        raise ValueError(
+            f"K4 shapes: nk {tuple(nk.shape)}, m1 {tuple(m1.shape)}, m2 "
+            f"{tuple(m2.shape)}, avgvar {tuple(av.shape)}, act "
+            f"{tuple(act.shape)}")
+    from ._build import library
+
+    n_out = torch.empty((r, k, 1), dtype=torch.float32, device=m1.device)
+    mean = torch.empty((r, k, d), dtype=torch.float32, device=m1.device)
+    cov = torch.empty_like(m2)
+    fn = library("mstep.cu").gmm_mstep_batched
+    err = fn(nk.data_ptr(), m1.data_ptr(), m2.data_ptr(), av.data_ptr(),
+             act.data_ptr(), n_out.data_ptr(), mean.data_ptr(), cov.data_ptr(),
+             k, d, int(diag), r,
+             torch.cuda.current_stream(m1.device).cuda_stream)
+    _raise_on(err, "K4 (mstep_batched)")
+    mstep_batched.launches += 1
+    return n_out, mean, cov
+
+
+mstep_batched.launches = 0
+
+
+def fused_mstep_cuda_batched(states, stats: SuffStats, *,
+                             diag_only: bool = False):
+    """:func:`fused_mstep_cuda` for a restart-batched state, through K4."""
+    out = mstep_batched(*_mstep_operands(states, stats, diag_only),
+                        diag=diag_only)
+    return _mstep_state(states, *out, diag_only)

@@ -19,8 +19,10 @@ Merge formulas (add_clusters, gaussian.cu:1213-1252), for clusters i, j:
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from ..state import lane, stack_states
 from .constants import LOG_2PI, chol_inverse_logdet, chol_logdet
 
 
@@ -150,3 +152,24 @@ def eliminate_and_reduce(state, diag_only: bool = False):
     rank = torch.cumsum(state.active.to(torch.int64), 0) - 1
     pair = (int(rank[i]), int(rank[j]))
     return new_state, k_active, min_d, pair
+
+
+def eliminate_and_reduce_batched(states, live=None, diag_only: bool = False):
+    """:func:`eliminate_and_reduce` on each lane of a restart-batched state.
+
+    Returns ``(new_states, k_active [R], min_distance [R], pairs)``: the
+    lanes' merged states stacked again, numpy vectors of the lanes'
+    post-elimination active counts and closest-pair distances, and the
+    list of their compaction-stable pairs. Only the lanes where ``live``
+    ([R] bool, None = all) is True are scanned; the others come back
+    unchanged, with k_active 0, distance +inf and pair None. The caller
+    keeps the lanes it does not merge (the JAX package's vmapped
+    ``_elim_reduce_batched_jit``, models/restarts.py:201-206).
+    """
+    R = states.N.shape[0]
+    outs = [eliminate_and_reduce(lane(states, r), diag_only=diag_only)
+            if live is None or live[r] else (lane(states, r), 0, np.inf, None)
+            for r in range(R)]
+    new, k_active, min_d, pairs = zip(*outs)
+    return (stack_states(new), np.asarray(k_active, np.int64),
+            np.asarray(min_d, np.float64), list(pairs))

@@ -5,6 +5,11 @@ same fields (N, pi, constant, avgvar, means, R, Rinv) plus an ``active`` mask
 that replaces the reference's realloc-and-shift cluster compaction
 (``gaussian.cu:866-874, 902-907``): inactive clusters stay in place and are
 algebraically inert, so shapes only change when the sweep compacts.
+
+A restart-batched state (models/restarts.py) carries a leading restart axis
+R on every leaf: N [R, K], means [R, K, D], and so on. ``stack_states``,
+``lane`` and ``where_lanes`` build, slice and select such states;
+``num_active`` and the compaction helpers take one lane at a time.
 """
 
 from __future__ import annotations
@@ -41,7 +46,7 @@ class GMMState:
 
     @property
     def num_clusters_padded(self) -> int:
-        return self.N.shape[0]
+        return self.N.shape[-1]
 
     @property
     def num_dimensions(self) -> int:
@@ -61,6 +66,39 @@ class GMMState:
         """The clusters at ``idx`` (a 1-D index tensor), in that order."""
         return GMMState(**{f.name: getattr(self, f.name).index_select(0, idx)
                            for f in dataclasses.fields(self)})
+
+
+def clone_state(state: GMMState) -> GMMState:
+    """A copy whose leaves share no storage with ``state``."""
+    return GMMState(**{f.name: getattr(state, f.name).clone()
+                       for f in dataclasses.fields(state)})
+
+
+def stack_states(states):
+    """One restart-batched state (or statistics: any dataclass of tensors)
+    from R of equal shape."""
+    return type(states[0])(**{
+        f.name: torch.stack([getattr(s, f.name) for s in states])
+        for f in dataclasses.fields(states[0])})
+
+
+def lane(states, r):
+    """Lane ``r`` (an index or a slice) of a restart-batched state or
+    statistics (views, no copy)."""
+    return type(states)(**{f.name: getattr(states, f.name)[r]
+                           for f in dataclasses.fields(states)})
+
+
+def where_lanes(mask: torch.Tensor, new, old):
+    """Per-lane select of two restart-batched dataclasses of tensors (a
+    state or statistics): lanes where ``mask`` [R] is True take ``new``,
+    the others keep ``old`` (models/restarts.py:209-218 of the JAX
+    package)."""
+    def sel(n, o):
+        return torch.where(mask.reshape((-1,) + (1,) * (n.ndim - 1)), n, o)
+
+    return type(old)(**{f.name: sel(getattr(new, f.name), getattr(old, f.name))
+                        for f in dataclasses.fields(old)})
 
 
 def zeros_state(num_clusters: int, num_dimensions: int,

@@ -8,6 +8,8 @@ neither jax nor the JAX package, so it also runs on a machine without jax:
 Tolerances: K1 is held to the tests/test_pallas.py class (float32
 reassociation between two summation orders) and must be bit-identical from
 launch to launch; K2 must equal its plain version exactly (torch.equal).
+Each live lane of K3 must equal K1 on its operands and each lane of K4 K2
+(torch.equal): they run the same kernels.
 """
 
 import numpy as np
@@ -141,3 +143,74 @@ def test_fit_through_kernels_matches_torch_ops(dev):
     ref = fit_gmm(x, 8, 4, config=GMMConfig(estep_backend="torch", **kw))
     assert [m[1] for m in res.merges] == [m[1] for m in ref.merges]
     np.testing.assert_allclose(res.final_loglik, ref.final_loglik, rtol=1e-5)
+
+
+@pytest.mark.parametrize("n,d,k", [(4099, 6, 70), (20000, 24, 100)])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_k3_lanes_equal_k1_and_frozen_lane_is_zero(dev, n, d, k, diag):
+    rng = np.random.default_rng(n + k + 1)
+    states = [state_from_numpy(_state(rng, k, d, diag, inactive=inact),
+                               device=dev) for inact in ((1,), (), (0, 3))]
+    x = torch.as_tensor(rng.normal(scale=2.0, size=(n, d)), dtype=torch.float32,
+                        device=dev)
+    wt = torch.as_tensor(rng.uniform(0.0, 2.0, size=n), dtype=torch.float32,
+                         device=dev)
+    params = [fs._prep_params(s, d, diag) for s in states]
+    A, h, g = (torch.stack(p) for p in zip(*params))
+    lanes = torch.tensor([1.0, 0.0, 1.0], device=dev)
+    before = fs.fused_stats_batched.launches
+    out = fs.fused_stats_batched(x, wt, lanes, A, h, g, diag=diag)
+    ref = fs.fused_stats_batched_plain(x, wt, lanes, A, h, g, diag=diag)
+    torch.cuda.synchronize()
+    assert fs.fused_stats_batched.launches == before + 1
+    for r in (0, 2):
+        one = fs.fused_stats(x, wt, *params[r], diag=diag)
+        for a, b in zip(out, one):
+            assert torch.equal(a[r], b)
+    for a, c, name in zip(out, ref, TOL):
+        assert not a[1].any(), name
+        rtol, atol = TOL[name]
+        err = float((a - c).abs().max())
+        assert err <= atol + rtol * float(c.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_k4_equals_plain_and_k2_per_lane(dev, diag):
+    from cuda_gmm_mpi_tpu_torch.state import stack_states
+
+    rng = np.random.default_rng(6)
+    k, d = 40, 24
+    states = [state_from_numpy(_state(rng, k, d, diag, inactive=(6,)), device=dev)
+              for _ in range(3)]
+    chunks, wts = chunk_events(rng.normal(scale=2.0, size=(3000, d))
+                               .astype(np.float32), 1024)
+    c, w = torch.as_tensor(chunks, device=dev), torch.as_tensor(wts, device=dev)
+    stats = stack_states([accumulate_stats(s, c, w, diag_only=diag)
+                          for s in states])
+    stats.Nk[:, 3], stats.Nk[:, 4] = 0.0, 0.7  # the empty and dead-zone guards
+    ops = fs._mstep_operands(stack_states(states), stats, diag)
+    out = fs.mstep_batched(*ops, diag=diag)
+    for a, b in zip(out, fs.mstep_batched_plain(*ops, diag=diag)):
+        assert torch.equal(a, b)
+    for r in range(3):
+        for a, b in zip(out, fs.mstep(*(o[r] for o in ops), diag=diag)):
+            assert torch.equal(a[r], b)
+
+
+def test_batched_restarts_through_k3_k4_match_sequential(dev):
+    rng = np.random.default_rng(11)
+    c = rng.normal(scale=4, size=(4, 5))
+    x = np.concatenate([rng.normal(c[i], 1, (500, 5))
+                        for i in range(4)]).astype(np.float32)
+    kw = dict(min_iters=8, max_iters=8, n_init=3, seed=1)
+    counts = (fs.fused_stats_batched.launches, fs.mstep_batched.launches,
+              fs.fused_stats.launches)
+    bat = fit_gmm(x, 4, 3, config=GMMConfig(restart_batch_size=3, **kw))
+    steps = len(bat.sweep_log)
+    assert fs.fused_stats_batched.launches - counts[0] == 8 * steps + steps
+    assert fs.mstep_batched.launches - counts[1] == 8 * steps
+    assert fs.fused_stats.launches == counts[2]
+    seq = fit_gmm(x, 4, 3, config=GMMConfig(restart_batch_size=1, **kw))
+    assert bat.init_index == seq.init_index
+    assert [m[1] for m in bat.merges] == [m[1] for m in seq.merges]
+    np.testing.assert_allclose(bat.final_loglik, seq.final_loglik, rtol=1e-5)

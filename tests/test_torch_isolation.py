@@ -77,6 +77,35 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
     assert (fs.fused_stats.launches, fs.mstep.launches) == before
 
 
+def test_batched_kernel_wrappers_do_not_fall_back_off_the_cpu():
+    meta = lambda *s: torch.empty(s, device="meta")
+    args = (meta(128, 3), meta(128), meta(2), meta(2, 9, 4), meta(2, 3, 4),
+            meta(2, 1, 4))
+    before = (fs.fused_stats_batched.launches, fs.mstep_batched.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fs.fused_stats_batched(*args, diag=False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fs.mstep_batched(meta(2, 4, 1), meta(2, 4, 3), meta(2, 4, 9),
+                         meta(2, 4, 1), meta(2, 4, 1), diag=False)
+    assert (fs.fused_stats_batched.launches,
+            fs.mstep_batched.launches) == before
+
+
+def test_batched_hooks_follow_the_routing():
+    """The kernel path gets K3/K4 hooks; the torch-ops path loops the
+    unbatched functions over the lanes."""
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import make_batched_stats_fn, make_mstep_fn
+
+    cuda = GMMConfig(device="cuda")
+    assert make_batched_stats_fn(cuda).func is fs.fused_stats_cuda_batched
+    assert make_mstep_fn(cuda, batched=True) is not None
+    cpu = GMMConfig(device="cpu")
+    assert make_batched_stats_fn(cpu) is None
+    model = GMMModel(cpu)
+    assert model.batched_stats_fn.__qualname__.startswith("lane_loop_stats")
+    assert model.batched_mstep_fn.__qualname__.startswith("lane_loop_mstep")
+
+
 @pytest.mark.parametrize("device,dtype,mode,expected", [
     ("cuda", "float32", "auto", "cuda"),
     ("cuda", "float32", "cuda", "cuda"),

@@ -1,4 +1,4 @@
-"""The port's kernel wrappers K1/K2 on CPU (their plain versions) against
+"""The port's kernel wrappers K1-K4 on CPU (their plain versions) against
 the JAX Pallas kernels in interpret mode and the JAX jnp path.
 
 The CUDA kernels themselves run only on the card: tests/test_torch_cuda.py
@@ -6,6 +6,7 @@ holds them against these plain versions there. Tolerances are the
 tests/test_pallas.py class (float32 reassociation).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -14,12 +15,13 @@ import torch
 from cuda_gmm_mpi_tpu.ops.mstep import SuffStats as JStats
 from cuda_gmm_mpi_tpu.ops.mstep import accumulate_stats as j_accumulate
 from cuda_gmm_mpi_tpu.ops.pallas.fused_stats import (
-    fused_mstep_pallas, fused_stats_pallas,
+    fused_mstep_pallas, fused_stats_pallas, fused_stats_pallas_batched,
 )
 from cuda_gmm_mpi_tpu_torch.interop import state_from_numpy
 from cuda_gmm_mpi_tpu_torch.ops.estep import expand_features
 from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
 from cuda_gmm_mpi_tpu_torch.ops.mstep import SuffStats, mstep_update
+from cuda_gmm_mpi_tpu_torch.state import stack_states
 
 from .test_torch_ops import F32_TOL, make_state_np, to_jax
 
@@ -144,3 +146,76 @@ def test_mstep_plain_equals_mstep_update(rng, diag, dtype):
     assert torch.equal(n[:, 0], N)
     assert torch.equal(mean, means)
     assert torch.equal(torch.diag_embed(cov) if diag else cov.reshape(K, D, D), R)
+
+
+# ------------------------------------------------ K3 / K4 (restart-batched)
+
+
+def _jstack(states):
+    return jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *states)
+
+
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_fused_stats_batched_plain_matches_pallas(rng, diag):
+    """fused_stats_cuda_batched on CPU tensors (per-lane prep + plain K3)
+    against fused_stats_pallas_batched(interpret=True): lanes with inactive
+    clusters, a frozen lane, zero-weight padding rows. Per lane the plain K3
+    is K1's plain version bit for bit, and the frozen lane is all zeros."""
+    k, d = 5, 4
+    lanes = [make_state_np(rng, k, d, np.float32, inactive=inact, diag=diag)
+             for inact in ((), (2,), (), (0, 4))]
+    chunks = rng.normal(scale=2.0, size=(4, 64, d)).astype(np.float32)
+    wts = np.ones((4, 64), np.float32)
+    wts[-1, 32:] = 0.0  # padding rows
+    mask = np.array([True, True, False, True])
+    states = stack_states([state_from_numpy(s) for s in lanes])
+    ours = fs.fused_stats_cuda_batched(
+        states, torch.as_tensor(chunks), torch.as_tensor(wts),
+        lane_mask=torch.as_tensor(mask), diag_only=diag)
+    theirs = fused_stats_pallas_batched(
+        _jstack([to_jax(s) for s in lanes]), jnp.asarray(chunks),
+        jnp.asarray(wts), lane_mask=jnp.asarray(mask), diag_only=diag,
+        block_b=64, interpret=True)
+    for name in ("loglik", "Nk", "M1", "M2"):
+        rtol, atol = F32_TOL[name]
+        np.testing.assert_allclose(getattr(ours, name).numpy(),
+                                   np.asarray(getattr(theirs, name)),
+                                   rtol=rtol, atol=atol, err_msg=name)
+        assert not getattr(ours, name)[2].any(), name
+    x, wt = fs._prep_events(torch.as_tensor(chunks), torch.as_tensor(wts))
+    params = [fs._prep_params(state_from_numpy(s), d, diag) for s in lanes]
+    A, h, g = (torch.stack(p) for p in zip(*params))
+    out = fs.fused_stats_batched(x, wt, torch.as_tensor(mask, dtype=torch.float32),
+                                 A, h, g, diag=diag)
+    for r in (0, 1, 3):
+        one = fs.fused_stats(x, wt, *params[r], diag=diag)
+        for a, b in zip(out, one):
+            assert torch.equal(a[r], b)
+    assert not any(o[2].any() for o in out)
+    assert float(ours.Nk[1, 2]) == 0.0  # lane 1's inactive cluster
+
+
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_mstep_batched_plain_matches_pallas(rng, diag):
+    """K4's plain version against fused_mstep_pallas on a batched state
+    (interpret mode), and per lane bit for bit K2's plain version."""
+    cases = [_mstep_case(rng, diag) for _ in range(3)]
+    states = stack_states([state_from_numpy(s) for s, _ in cases])
+    stats = SuffStats(**{k: torch.stack([torch.tensor(st[k]) for _, st in cases])
+                         for k in ("loglik", "Nk", "M1", "M2")})
+    ours = fs.fused_mstep_cuda_batched(states, stats, diag_only=diag)
+    theirs = fused_mstep_pallas(
+        _jstack([to_jax(s) for s, _ in cases]),
+        JStats(**{k: jnp.asarray(getattr(stats, k).numpy())
+                  for k in ("loglik", "Nk", "M1", "M2")}),
+        diag_only=diag, interpret=True)
+    for name in ("N", "means", "R"):
+        np.testing.assert_allclose(getattr(ours, name).numpy(),
+                                   np.asarray(getattr(theirs, name)),
+                                   rtol=1e-6, atol=1e-6, err_msg=name)
+    ops = fs._mstep_operands(states, stats, diag)
+    out = fs.mstep_batched(*ops, diag=diag)
+    for r in range(3):
+        one = fs.mstep_plain(*(o[r] for o in ops), diag=diag)
+        for a, b in zip(out, one):
+            assert torch.equal(a[r], b)
