@@ -49,7 +49,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    launches once per batched iteration plus once per sweep step, K4 once
    per iteration, K1/K2 never), then restart_batch_size = 1 (the
    sequential path through K1/K2): the same init_index, K and merge
-   pairs, final loglik within rtol 1e-5.
+   pairs, final loglik within rtol 1e-5;
+8. K5 (local log-sum-exp) and K6 (statistics from the global logZ) against
+   their plain versions on the phase-2 events, K = 100 split over C = 2 and
+   C = 4 cluster shards, full and diag, the last shard with every cluster
+   inactive: K5's per-event max and shifted sum against a float64
+   evaluation, at most twice the plain version's error there (two float32
+   evaluations of logp differ by more than 1e-6 normwise on full
+   covariance); K6 in the phase-2 class; two
+   launches bit-identical; the shards combined as
+   ``fused_stats_cuda_sharded`` combines them (torch max and sum in place
+   of the all_reduce calls) side by side against K1 on the whole K in the
+   phase-2 class, and against float64 at most twice the plain
+   combination's error. Times at the shape of one rank of phase 9 (the
+   first 524,288 events, 50 of the 100 clusters);
+9. the mesh path on the one card: a world of 4 ranks on cuda:0 (gloo,
+   which stages the collectives through the host; a file:// store in the
+   build directory), mesh (2, 2), each rank running ``fit_gmm`` on the
+   phase-4 blobs with phase 4's diag fit (K = 100 -> 92, 10 iterations):
+   every rank must report K5 and K6 launches equal to that fit's K1
+   launches (and no K1 or K2 launch), the same K and merge pairs, and a
+   final loglik within rtol 1e-4. Every rank times its fit's EM loop at
+   its hooks (the statistics, the data-axis all_reduce, the M-step, each
+   synchronised on the host clock; the rest is the host loop), so that the
+   pieces add up to the iteration time; then, outside the fit, one
+   iteration at K = 100 split finer (K5, the two collectives of [N]
+   scalars, K6, the data all_reduce, the M-step).
 
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
@@ -61,12 +86,17 @@ function needs on this run's real events: 2 N K (T+D) for logp and
 2 N K (T+D+1) for Nk/M1/M2, with T = D(D+1)/2 distinct products of the
 symmetric x x^T (T = D in diag mode). That is less than the TPU kernel's
 own estimate of 4 N K D^2, which counts both triangles of x x^T. K3's are
-the same per live lane; K2/K4 count their bytes.
+the same per live lane; K2/K4 count their bytes. K5's operations are
+2 N K_s (T+D) for its shard's K_s clusters, K6's that plus
+2 N K_s (T+D+1). K5 and K6 have no PyTorch call that computes their
+function; beside them stands the torch-ops route of the same shard (its
+arithmetic without the two collectives).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import shutil
 import subprocess
@@ -82,6 +112,9 @@ N_EVENTS, DIMS, K0, K_TARGET, ITERS = 1_000_000, 24, 100, 96, 20
 LANES = 4  # restarts per batch in phases 5-7
 FROZEN = 2  # the lane phase 5 freezes through the lane mask
 LANE_MAX_ITERS = np.array([40, 8, 40, 20])  # phase 5's per-lane bounds
+MESH, DIAG_ITERS, DIAG_TARGET = (2, 2), 10, K0 - 8  # phase 9 = phase 4's diag fit
+RANK_EVENTS, RANK_CLUSTERS = 524_288, K0 // 2  # one rank of phase 9 (K5/K6 times)
+MESH_TIMEOUT_S = 420
 TOL = {"ll": (1e-5, 0.0), "nk": (1e-5, 0.0), "m1": (1e-4, 0.0),
        "m2": (1e-4, 1e-3)}
 FP32_EPS = 2.0 ** -23  # floor of the K1-vs-plain float64 error comparison
@@ -363,7 +396,8 @@ def phase_diag(data):
     from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
 
     k1, k2 = fs.fused_stats.launches, fs.mstep.launches
-    result, model, _, secs = fit(data, K0, K0 - 8, 10, diag_only=True)
+    result, model, _, secs = fit(data, K0, DIAG_TARGET, DIAG_ITERS,
+                                 diag_only=True)
     it = sum(r[3] for r in result.sweep_log)
     d1, d2 = fs.fused_stats.launches - k1, fs.mstep.launches - k2
     check(model.estep_backend == "cuda" and d2 == it
@@ -374,6 +408,7 @@ def phase_diag(data):
           and result.ideal_num_clusters in ks, "diag fit result")
     print(f"  diag fit: Ks {ks} (best {result.ideal_num_clusters}), {it} EM "
           f"iterations in {secs:.2f} s through K1/K2")
+    return result, d1
 
 
 def phase_small_reference(seed: int):
@@ -659,6 +694,344 @@ def phase_restarts(data):
     return launches
 
 
+def shard_cols(k: int, shards: int):
+    ks = -(-k // shards)
+    return [slice(i * ks, min(k, (i + 1) * ks)) for i in range(shards)]
+
+
+def combine_lse(lse):
+    """logZ from the shards' (m, s): torch max and sum standing in for the
+    all_reduce calls of fused_stats_cuda_sharded."""
+    import torch
+
+    big_m = torch.stack([m for m, _ in lse]).max(dim=0).values
+    return big_m + torch.log(sum(torch.exp(m - big_m) * s for m, s in lse))
+
+
+def phase_k5_k6(x_np, shards, diag, label):
+    """K5/K6 per shard against plain, and the shards combined against K1
+    and float64; the last shard has every cluster inactive."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    cols = shard_cols(K0, shards)
+    state, _, _, args = stats_inputs(x_np, K0, diag,
+                                     tuple(range(cols[-1].start, K0)))
+    x, wt, A, h, g = args
+    parts = [tuple(t[:, c].contiguous() for t in (A, h, g)) for c in cols]
+    lse, lse_plain = [], []
+    worst = {"m": 0.0, "s": 0.0}
+    worst_abs = 0.0
+    worst64 = {"m": (0.0, 0.0), "s": (0.0, 0.0)}
+    for i, p in enumerate(parts):
+        out = fs.local_lse(x, *p, diag=diag)
+        again = fs.local_lse(x, *p, diag=diag)
+        plain = fs.local_lse_plain(x, *p, diag=diag)
+        ref64 = fs.local_lse_plain(x.double(), *(t.double() for t in p),
+                                   diag=diag)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"K5 {label} shard {i}: two launches differ")
+        for name, a, b, c in zip(("m", "s"), out, plain, ref64):
+            check(bool(torch.isfinite(a).all()),
+                  f"K5 {label} shard {i}: non-finite {name}")
+            e64, p64 = normwise(a, c), normwise(b, c)
+            check(e64 <= 2.0 * max(p64, FP32_EPS),
+                  f"K5 {label} shard {i}: {name} float64 error {e64:.2e} > 2 "
+                  f"x the plain version's {p64:.2e}")
+            worst[name] = max(worst[name], normwise(a, b.double()))
+            worst_abs = max(worst_abs, float((a - b).abs().max()))
+            worst64[name] = tuple(map(max, worst64[name], (e64, p64)))
+        lse.append(out)
+        lse_plain.append(plain)
+        del ref64
+    check(bool((lse[-1][0] == fs.NEG_LARGE).all())
+          and bool((lse[-1][1] == cols[-1].stop - cols[-1].start).all()),
+          f"K5 {label}: the all-masked shard's m/s are not NEG_LARGE/K_s")
+    print(f"  K5 {label}: normwise vs plain m {worst['m']:.2e}, s "
+          f"{worst['s']:.2e}; vs float64: m K5 {worst64['m'][0]:.2e}, plain "
+          f"{worst64['m'][1]:.2e}; s K5 {worst64['s'][0]:.2e}, plain "
+          f"{worst64['s'][1]:.2e}")
+    logz, logz_plain = combine_lse(lse), combine_lse(lse_plain)
+    outs, outs_plain, worst6 = [], [], 0.0
+    for i, p in enumerate(parts):
+        out = fs.stats_logz(x, wt, logz, *p, diag=diag)
+        again = fs.stats_logz(x, wt, logz, *p, diag=diag)
+        ref = fs.stats_logz_plain(x, wt, logz, *p, diag=diag)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"K6 {label} shard {i}: two launches differ")
+        for name, a, b in zip(("ll", "nk", "m1", "m2"), out, ref):
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            rtol, atol = TOL[name]
+            check(bool(torch.isfinite(a).all()) and err <= atol + rtol * scale,
+                  f"K6 {label} shard {i}: {name} max|err| {err:.3e} > {atol} "
+                  f"+ {rtol} x {scale:.3e}")
+            worst6 = max(worst6, err)
+        outs.append(out)
+        outs_plain.append(fs.stats_logz_plain(x, wt, logz_plain, *p, diag=diag))
+    check(not outs[-1][1].any(), f"K6 {label}: the all-masked shard got weight")
+    side = lambda o: (o[0][0], torch.cat([q[1] for q in o], dim=1),
+                      torch.cat([q[2] for q in o]), torch.cat([q[3] for q in o]))
+    k1 = fs.fused_stats(*args, diag=diag)
+    ref64 = fs.fused_stats_plain(*(t.double() for t in args), diag=diag)
+    for name, a, b, c, d in zip(("ll", "nk", "m1", "m2"), side(outs), k1,
+                                ref64, side(outs_plain)):
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        rtol, atol = TOL[name]
+        check(err <= atol + rtol * scale,
+              f"K5+K6 {label}: {name} against K1 max|err| {err:.3e} > {atol} "
+              f"+ {rtol} x {scale:.3e}")
+        e64, p64 = normwise(a, c), normwise(d, c)
+        check(e64 <= 2.0 * max(p64, FP32_EPS),
+              f"K5+K6 {label}: {name} float64 error {e64:.2e} > 2 x the plain "
+              f"combination's {p64:.2e}")
+        print(f"  K5+K6 {label} {name}: max|shards - K1| {err:.3e} (normwise "
+              f"{err / max(scale, 1e-30):.2e}); normwise vs float64: kernels "
+              f"{e64:.2e}, plain {p64:.2e}")
+    del ref64
+    return {"k5_err": worst_abs, "k5_m_err": worst["m"],
+            "k5_s_err": worst["s"], "k6_err": worst6,
+            "k5_fp64_err": max(worst64["m"][0], worst64["s"][0]),
+            "k5_plain_fp64_err": max(worst64["m"][1], worst64["s"][1])}
+
+
+def time_k5_k6(x_np, diag, label):
+    """K5 and K6 times at one phase-9 rank's shape: RANK_EVENTS events (the
+    first data shard of the chunk grid), the first RANK_CLUSTERS clusters;
+    beside them the plain versions and the torch-ops route of that shard."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.estep import log_densities
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import accumulate_stats
+
+    state, chunks, wts, args = stats_inputs(x_np, K0, diag)
+    x, wt, A, h, g = args
+    n, d, ks = RANK_EVENTS, x.shape[1], RANK_CLUSTERS
+    x, wt = x[:n], wt[:n]
+    p = tuple(t[:, :ks].contiguous() for t in (A, h, g))
+    shard = state.take(torch.arange(ks, device=x.device))
+    c_shard, w_shard = chunks[:n // chunks.shape[1]], wts[:n // chunks.shape[1]]
+    m, s = fs.local_lse(x, *p, diag=diag)
+    logz = m + torch.log(s)  # a single-shard logZ: K6's time does not depend on it
+
+    def torch_ops_lse():
+        for c in range(c_shard.shape[0]):
+            lp = log_densities(shard, c_shard[c], diag_only=diag)
+            mx = lp.max(dim=1, keepdim=True).values
+            torch.exp(lp - mx).sum(dim=1)
+
+    f = p[0].shape[0]
+    t = d if diag else d * (d + 1) // 2
+    rec5 = {"ms": time_ms(lambda: fs.local_lse(x, *p, diag=diag)),
+            "plain_ms": time_ms(lambda: fs.local_lse_plain(x, *p, diag=diag)),
+            "torch_ops_ms": time_ms(torch_ops_lse)}
+    rec5["bound_ms"], rec5["bound_by"] = bound_ms(
+        4 * (n * d + f * ks + d * ks + ks + 2 * n), 2.0 * n * ks * (t + d))
+    rec6 = {"ms": time_ms(lambda: fs.stats_logz(x, wt, logz, *p, diag=diag)),
+            "plain_ms": time_ms(
+                lambda: fs.stats_logz_plain(x, wt, logz, *p, diag=diag)),
+            "torch_ops_ms": time_ms(lambda: accumulate_stats(
+                shard, c_shard, w_shard, diag_only=diag))}
+    rec6["bound_ms"], rec6["bound_by"] = bound_ms(
+        4 * (n * d + 2 * n + f * ks + d * ks + ks + 1 + ks + ks * d + ks * f),
+        2.0 * n * ks * (t + d) + 2.0 * n * ks * (t + d + 1))
+    for name, r in (("K5", rec5), ("K6", rec6)):
+        print(f"  {name} {label} at {n} events x {ks} clusters: kernel "
+              f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch-ops "
+              f"route {r['torch_ops_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})")
+    return rec5, rec6
+
+
+def _timed(fn, key: str, totals: dict):
+    """``fn`` with the card synchronised before and after each call, its
+    host-clock seconds added to ``totals[key]``."""
+    import torch
+
+    def run(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        totals[key] += time.perf_counter() - t0
+        return out
+
+    return run
+
+
+def _mesh_rank(rank, world, workdir):
+    """One rank of phase 9: the diag fit on the mesh, then the breakdown.
+    Writes rank<r>.json into ``workdir``."""
+    import torch
+    import torch.distributed as dist
+
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm
+    from cuda_gmm_mpi_tpu_torch.models.order_search import _prepare_fit
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import SuffStats, apply_mstep
+    from cuda_gmm_mpi_tpu_torch.parallel import ShardedGMMModel, distributed
+
+    workdir = Path(workdir)
+    distributed.initialize("cuda", coordinator=f"file://{workdir}/store",
+                           num_processes=world, process_id=rank,
+                           timeout_s=MESH_TIMEOUT_S)
+    try:
+        data = np.load(workdir / "events.npy")
+        config = GMMConfig(min_iters=DIAG_ITERS, max_iters=DIAG_ITERS,
+                           diag_only=True, mesh_shape=MESH)
+        model = ShardedGMMModel(config)
+        group = model.mesh.cluster_group
+        # The fit's own EM loop, timed at its three hooks: the statistics
+        # (K5, the two cluster collectives, K6), the data-axis all_reduce
+        # and the M-step (the torch-ops update that em_while_loop runs when
+        # mstep_fn is None, here passed as the hook so that it is timed).
+        in_fit = {k: 0.0 for k in ("stats", "data_reduce", "mstep")}
+        model.stats_fn = _timed(model.stats_fn, "stats", in_fit)
+        model._reduce = _timed(model._reduce, "data_reduce", in_fit)
+        model.mstep_fn = _timed(functools.partial(
+            apply_mstep, diag_only=True, cluster_group=group), "mstep", in_fit)
+        counted = (fs.fused_stats, fs.mstep, fs.local_lse, fs.stats_logz)
+        for fn in counted:
+            fn.launches = 0
+        t0 = time.perf_counter()
+        result = fit_gmm(data, K0, DIAG_TARGET, config=config, model=model)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches = dict(zip(("K1", "K2", "K5", "K6"),
+                            (fn.launches for fn in counted)))
+        iters = sum(r[3] for r in result.sweep_log)
+        em_s = sum(r[4] for r in result.sweep_log)
+        # Per EM iteration, as the iteration time is (initial E-steps
+        # included); "loop" is the rest of run_em: the host loop and its
+        # one loglik read per iteration.
+        fit_ms = {k: v * 1e3 / iters for k, v in in_fit.items()}
+        fit_ms["loop"] = em_s * 1e3 / iters - sum(fit_ms.values())
+
+        # Breakdown of the statistics piece at K0, outside the fit: each
+        # piece synchronised, the ranks aligned by a barrier per repeat.
+        state, chunks, wts, n_events, d, _ = _prepare_fit(data, K0, config,
+                                                          model)
+        n = model.local_events(n_events, chunks)
+        x, wt = fs._prep_events(chunks, wts)
+        x, wt = x[:n], wt[:n]
+        parts = {k: 0.0 for k in ("K5", "collectives", "K6", "data_reduce",
+                                  "mstep")}
+        reps = 5
+        for rep in range(reps + 1):  # the first is a warm-up
+            torch.cuda.synchronize()
+            dist.barrier()
+            marks = [time.perf_counter()]
+            A, h, g = fs._prep_params(state, d, True)
+            m, s = fs.local_lse(x, A, h, g, diag=True)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            big_m = m.clone()
+            dist.all_reduce(big_m, op=dist.ReduceOp.MAX, group=group)
+            big_s = torch.exp(m - big_m) * s
+            dist.all_reduce(big_s, op=dist.ReduceOp.SUM, group=group)
+            logz = big_m + torch.log(big_s)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            ll, nk, m1, m2 = fs.stats_logz(x, wt, logz, A, h, g, diag=True)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            stats = model._reduce(SuffStats(ll[0, 0], nk[0], m1, m2))
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            state = apply_mstep(state, stats, diag_only=True,
+                                cluster_group=group)
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            if rep:
+                for key, a, b in zip(parts, marks, marks[1:]):
+                    parts[key] += (b - a) * 1e3 / reps
+        report = dict(
+            rank=rank, k=result.ideal_num_clusters,
+            merges=[list(m[1]) for m in result.merges],
+            final_loglik=result.final_loglik, launches=launches,
+            iters=iters, steps=len(result.sweep_log), fit_s=fit_s,
+            em_s=em_s, backend=model.estep_backend,
+            collective=model.collective_backend, fit_breakdown_ms=fit_ms,
+            breakdown_ms=parts, local_events=n)
+        (workdir / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        distributed.shutdown()
+
+
+def phase_mesh(data, diag_ref, workdir: Path):
+    """Phase 9: the (2, 2) mesh fit on the one card, 4 ranks."""
+    import torch.multiprocessing as mp
+
+    ref, ref_k1 = diag_ref
+    world = MESH[0] * MESH[1]
+    np.save(workdir / "events.npy", data)
+    t0 = time.perf_counter()
+    ctx = mp.start_processes(_mesh_rank, args=(world, str(workdir)),
+                             nprocs=world, join=False, start_method="spawn")
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > MESH_TIMEOUT_S:
+                raise PhaseError(f"mesh ranks still running after "
+                                 f"{MESH_TIMEOUT_S} s")
+    except mp.ProcessRaisedException as e:
+        raise PhaseError(f"a mesh rank failed: {e}") from None
+    except mp.ProcessExitedException as e:
+        raise PhaseError(f"a mesh rank died: {e}") from None
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+    wall = time.perf_counter() - t0
+    reports = []
+    for r in range(world):
+        path = workdir / f"rank{r}.json"
+        check(path.exists(), f"mesh rank {r} did not report")
+        reports.append(json.loads(path.read_text()))
+    ref_pairs = [list(m[1]) for m in ref.merges]
+    for rep in reports:
+        r, lc = rep["rank"], rep["launches"]
+        check(rep["backend"] == "cuda" and rep["collective"] == "gloo",
+              f"rank {r}: backend {rep['backend']}, collectives "
+              f"{rep['collective']}")
+        check(lc["K5"] == ref_k1 and lc["K6"] == ref_k1,
+              f"rank {r}: K5 {lc['K5']}, K6 {lc['K6']} launches against the "
+              f"single-device diag fit's {ref_k1} K1 launches")
+        check(lc["K1"] == 0 and lc["K2"] == 0,
+              f"rank {r}: K1/K2 launched on the mesh path: {lc}")
+        check(rep["k"] == ref.ideal_num_clusters,
+              f"rank {r}: K {rep['k']} against {ref.ideal_num_clusters}")
+        check(rep["merges"] == ref_pairs,
+              f"rank {r}: merge pairs {rep['merges']} against {ref_pairs}")
+        rel = abs(rep["final_loglik"] - ref.final_loglik) / abs(ref.final_loglik)
+        check(rel <= 1e-4, f"rank {r}: final loglik rtol {rel:.2e} > 1e-4")
+    r0 = reports[0]
+    em_single = sum(row[4] for row in ref.sweep_log)
+    print(f"  mesh {MESH} on one card, {world} ranks (gloo): K {K0} -> "
+          f"{r0['k']}, {r0['iters']} EM iterations, launches per rank "
+          f"{r0['launches']}, same K and merge pairs as the single-device diag "
+          f"fit; final loglik rtol "
+          f"{abs(r0['final_loglik'] - ref.final_loglik) / abs(ref.final_loglik):.2e}")
+    print(f"  rank 0: fit {r0['fit_s']:.2f} s, EM {r0['em_s']:.2f} s = "
+          f"{r0['em_s'] / r0['iters'] * 1e3:.1f} ms per iteration (single "
+          f"device through K1/K2: {em_single / r0['iters'] * 1e3:.1f} ms); "
+          f"world wall {wall:.1f} s")
+    for rep in reports:
+        f, b = rep["fit_breakdown_ms"], rep["breakdown_ms"]
+        print(f"  rank {rep['rank']} ({rep['local_events']} events) in the fit, "
+              f"per iteration (ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in f.items())
+              + f"; sum {sum(f.values()):.3f} = "
+              f"{rep['em_s'] / rep['iters'] * 1e3:.3f} per iteration")
+        print(f"  rank {rep['rank']} outside the fit, one iteration at K {K0} "
+              f"(ms): " + ", ".join(f"{k} {v:.3f}" for k, v in b.items())
+              + f"; sum {sum(b.values()):.3f}")
+    return r0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -706,7 +1079,7 @@ def main() -> int:
     workdir.mkdir(parents=True, exist_ok=True)
     try:
         launches, _ = phase_main_path(data, workdir)
-        phase_diag(data)
+        diag_ref = phase_diag(data)
         phase_small_reference(args.seed)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
@@ -727,6 +1100,27 @@ def main() -> int:
     print("phase 7: the restart path")
     restart_launches = phase_restarts(data)
     launches.update(K3=restart_launches["K3"], K4=restart_launches["K4"])
+
+    print("phase 8: K5 and K6 against their plain versions and K1")
+    k56 = {}
+    for shards in (2, 4):
+        for diag, name in ((False, "full"), (True, "diag")):
+            k56[shards, diag] = phase_k5_k6(data, shards, diag,
+                                            f"{name} C={shards}")
+    k5_diag, k6_diag = time_k5_k6(data, True, "diag")
+    k5_full, k6_full = time_k5_k6(data, False, "full")
+
+    print("phase 9: the mesh path on the one card")
+    meshdir = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
+    shutil.rmtree(meshdir, ignore_errors=True)
+    meshdir.mkdir(parents=True)
+    try:
+        mesh = phase_mesh(data, diag_ref, meshdir)
+    finally:
+        shutil.rmtree(meshdir, ignore_errors=True)
+    launches.update(K5=mesh["launches"]["K5"], K6=mesh["launches"]["K6"])
+    k5_err = max(v["k5_err"] for v in k56.values())
+    k6_err = max(v["k6_err"] for v in k56.values())
 
     src = "cuda_gmm_mpi_tpu_torch/csrc/"
     pallas = "cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py:"
@@ -773,6 +1167,31 @@ def main() -> int:
              plain_ms=k4_full["plain_ms"], bound_ms=k4_full["bound_ms"],
              bound_by=k4_full["bound_by"], library_ms=None,
              torch_ops_ms=k4_full["torch_ops_ms"]),
+        dict(name="K5 local_lse", route="cuda", source=src + "fused_stats.cu",
+             replaces=pallas + "218", launches=launches["K5"],
+             max_abs_err=k5_err,
+             m_normwise_err=max(v["k5_m_err"] for v in k56.values()),
+             s_normwise_err=max(v["k5_s_err"] for v in k56.values()),
+             fp64_err=max(v["k5_fp64_err"] for v in k56.values()),
+             plain_fp64_err=max(v["k5_plain_fp64_err"] for v in k56.values()),
+             ms=k5_diag["ms"], plain_ms=k5_diag["plain_ms"],
+             bound_ms=k5_diag["bound_ms"], bound_by=k5_diag["bound_by"],
+             library_ms=None, torch_ops_ms=k5_diag["torch_ops_ms"],
+             full_ms=k5_full["ms"], full_plain_ms=k5_full["plain_ms"],
+             full_bound_ms=k5_full["bound_ms"],
+             full_torch_ops_ms=k5_full["torch_ops_ms"],
+             mesh_breakdown_ms=mesh["breakdown_ms"]["K5"]),
+        dict(name="K6 stats_logz", route="cuda", source=src + "fused_stats.cu",
+             replaces=pallas + "235", launches=launches["K6"],
+             max_abs_err=k6_err, ms=k6_diag["ms"], plain_ms=k6_diag["plain_ms"],
+             bound_ms=k6_diag["bound_ms"], bound_by=k6_diag["bound_by"],
+             library_ms=None, torch_ops_ms=k6_diag["torch_ops_ms"],
+             full_ms=k6_full["ms"], full_plain_ms=k6_full["plain_ms"],
+             full_bound_ms=k6_full["bound_ms"],
+             full_torch_ops_ms=k6_full["torch_ops_ms"],
+             mesh_breakdown_ms=mesh["breakdown_ms"]["K6"],
+             mesh_iteration_ms=mesh["em_s"] / mesh["iters"] * 1e3,
+             mesh_fit_breakdown_ms=mesh["fit_breakdown_ms"]),
     ]
     print("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} pass" for k in kernels)

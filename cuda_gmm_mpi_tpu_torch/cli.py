@@ -6,6 +6,14 @@ The reference's positional CLI (``gaussian.cu:1111-1178``, ``README.txt:
 validateArguments: a missing infile exits 2, num_clusters outside
 [1, max_clusters] exits 1, target_num_clusters > num_clusters exits 4. An
 absent target means "search down to 1, keep the best Rissanen score".
+
+The mesh path runs one process per rank (one per GPU with NCCL), every rank
+with the same command, and rank 0 writes the outputs:
+
+    torchrun --nproc-per-node=R -m cuda_gmm_mpi_tpu_torch.cli K infile outfile [target] --mesh DATA,CLUSTER
+
+or with ``--coordinator HOST:PORT --num-processes R --process-id I`` on each
+rank in place of torchrun.
 """
 
 from __future__ import annotations
@@ -63,18 +71,42 @@ def build_parser() -> argparse.ArgumentParser:
                    "kernels). Default: sized from a memory budget "
                    "(GMM_RESTART_MEM_BYTES overrides it); 1 = "
                    "sequential restarts (same winner)")
+    p.add_argument("--mesh", default=None,
+                   help="rank mesh 'DATA[,CLUSTER]', e.g. --mesh=4 or "
+                   "--mesh=2,2 (product = the world size); default: every "
+                   "rank on the event axis")
     p.add_argument("--verbose", "-v", action="store_true",
                    help="status prints (ENABLE_PRINT, gaussian.h:35)")
+    d = p.add_argument_group(
+        "distributed (the reference's mpirun; run the SAME command on every "
+        "rank, or launch with torchrun, which sets RANK and WORLD_SIZE)")
+    d.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rank 0's address (tcp://); with --num-processes "
+                   "and --process-id. --num-processes=0 reads the world "
+                   "from the environment (env://)")
+    d.add_argument("--num-processes", type=int, default=None,
+                   help="world size (MPI world size)")
+    d.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (0-based)")
     return p
+
+
+def _parse_mesh(spec):
+    if not spec:
+        return None
+    parts = [int(x) for x in spec.split(",")]
+    if len(parts) == 1:
+        return (parts[0], 1)
+    if len(parts) == 2:
+        return tuple(parts)
+    raise SystemExit("--mesh must be DATA or DATA,CLUSTER")
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
 
     from .config import GMMConfig
-    from .io import TruncatedInputError, read_data, stream_results, write_summary
-    from .models import GMMModel, fit_gmm, iter_memberships
-    from .validation import InvalidInputError
+    from .parallel import distributed
 
     if not os.path.isfile(args.infile):
         print("Invalid infile.\n", file=sys.stderr)  # gaussian.cu:1130
@@ -86,7 +118,8 @@ def main(argv=None) -> int:
             estep_backend=args.estep_backend, device=args.device,
             enable_print=args.verbose, seed=args.seed,
             seed_method=args.seed_method, n_init=args.n_init,
-            restart_batch_size=args.restart_batch_size)
+            restart_batch_size=args.restart_batch_size,
+            mesh_shape=_parse_mesh(args.mesh))
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
@@ -98,6 +131,31 @@ def main(argv=None) -> int:
               file=sys.stderr)  # :1150
         return 4
 
+    # MPI_Init equivalent (gaussian.cu:130-140): the distributed flags, or
+    # torchrun's environment, bring up the world.
+    try:
+        rank, world = distributed.initialize(
+            args.device, coordinator=args.coordinator,
+            num_processes=args.num_processes, process_id=args.process_id)
+    except ValueError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    try:
+        return _run(args, config, rank, world)
+    finally:
+        distributed.shutdown()
+
+
+def _run(args, config, rank: int, world: int) -> int:
+    import dataclasses
+
+    from .io import TruncatedInputError, read_data, stream_results, write_summary
+    from .models import fit_gmm, iter_memberships
+    from .models.order_search import default_model
+    from .validation import InvalidInputError
+
+    if rank != 0:  # status prints from rank 0 only
+        config = dataclasses.replace(config, enable_print=False)
     try:
         data = read_data(args.infile)
     except (OSError, ValueError) as e:
@@ -107,7 +165,7 @@ def main(argv=None) -> int:
         return 74 if isinstance(e, (OSError, TruncatedInputError)) else 1
     n_events, n_dims = data.shape
     try:
-        model = GMMModel(config)
+        model = default_model(config)
     except (RuntimeError, ValueError) as e:
         print(str(e), file=sys.stderr)
         return 1
@@ -118,12 +176,17 @@ def main(argv=None) -> int:
               f"{args.target_num_clusters or 1} cluster(s).")  # :226
         print(f"device: {model.device}; estep backend: {model.estep_backend} "
               f"({model.estep_backend_reason})")
+        if model.mesh is not None:
+            print(f"mesh (data, cluster): {model.mesh.shape} over {world} "
+                  f"rank(s); collective backend: {model.collective_backend}")
     try:
         result = fit_gmm(data, args.num_clusters, args.target_num_clusters,
                          config=config, model=model)
     except InvalidInputError as e:
         print(str(e), file=sys.stderr)
         return 1
+    if rank != 0:  # rank 0 alone writes .summary and .results
+        return 0
     write_summary(args.outfile + ".summary", result)
     stream_results(args.outfile + ".results",
                    iter_memberships(result, data, config, model))

@@ -17,7 +17,7 @@ rather than ignored. Provenance of the reference's compile-time defines:
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +70,10 @@ class GMMConfig:
     # a memory budget (GMM_RESTART_MEM_BYTES overrides the budget); 1 = the
     # sequential path, which selects the same winner at the same seeds.
     restart_batch_size: Optional[int] = None
+    # (data, cluster) mesh over the ranks of a torch.distributed world
+    # (parallel/mesh.py): events sharded over the data axis, clusters over
+    # the cluster axis. None = every rank on the data axis.
+    mesh_shape: Optional[Tuple[int, int]] = None
 
     def __post_init__(self):
         if self.min_iters > self.max_iters:
@@ -111,3 +115,7 @@ class GMMConfig:
         if self.restart_batch_size is not None and self.restart_batch_size < 1:
             raise ValueError("restart_batch_size must be >= 1 (or None for "
                              "the memory-sized default)")
+        if self.mesh_shape is not None and (
+                len(self.mesh_shape) != 2 or min(self.mesh_shape) < 1):
+            raise ValueError(f"mesh_shape must be (data, cluster) with both "
+                             f">= 1, got {self.mesh_shape!r}")

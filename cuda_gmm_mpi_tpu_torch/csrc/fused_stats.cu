@@ -1,5 +1,5 @@
-// K1 and K3: fused E-step + M-step sufficient statistics, float32, for
-// sm_90a.
+// K1, K3, K5 and K6: fused E-step + M-step sufficient statistics, float32,
+// for sm_90a.
 //
 // K1 replaces the TPU kernel `_fused_stats_kernel`
 // (cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py, launched by
@@ -66,6 +66,31 @@
 // at the north star against ~100 MB of events), so each lane's CTAs
 // re-read the event tiles from device memory (the L2 serves most of it);
 // sharing one tile across lanes in shared memory is later work.
+//
+// K5 and K6, the cluster-sharded pair: they replace `_local_lse_kernel` and
+// `_stats_logz_kernel` (launched by `_local_lse_call` and `_stats_logz_call`)
+// of the same file. A rank of a (data, cluster) mesh holds K_s = K / C
+// clusters, so the log-sum-exp over all K spans ranks. Both are K1's kernel
+// with a mode template parameter; phase 1 (logp against A_ext) is the same
+// in all three:
+//  * K5 (MODE_LOCAL_LSE) ends after phase 2: each warp row writes the
+//    event's max m over this shard's K_s clusters and the shifted sum
+//    s = sum exp(logp - m) to two float32 [N] outputs. The K_pad - K_s
+//    padding columns are left out of both, so an all-masked shard gives
+//    m = NEG_LARGE and s = K_s, as the TPU kernel (which has no padding
+//    columns) and the plain version do; the combination outside scales s
+//    by exp(m - M) = 0 then. No phase 3, no partial buffer, no reduction.
+//  * The caller combines the shards with an all_reduce MAX of m (M) and an
+//    all_reduce SUM of exp(m - M) * s (S): logZ = M + log(S).
+//  * K6 (MODE_STATS_LOGZ) reads logZ [N] in place of its own max and sum:
+//    w = exp(logp - logZ) * wt, and adds logZ * wt to the warp's float64
+//    loglik. Phase 3 and the index-order float64 reduction are K1's, so
+//    K6 is deterministic from launch to launch too.
+// Bounds: K5 does 2 N K_s (T+D) flops, K6 that plus 2 N K_s (T+D+1) (the
+// accumulation), against ~4 N (D+2) bytes: operations, like K1. A shard of
+// K_s clusters still computes whole 128-wide macro tiles (50 clusters in
+// 128 columns at K = 100, C = 2), and K6 repeats K5's phase 1: both are
+// costs of this first version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -76,6 +101,24 @@ constexpr int THREADS = 256;  // 16 x 16 threads
 constexpr int NT = 128;       // macro-tile width
 constexpr int KC = 16;        // depth of one shared-memory stage
 constexpr float NEG_LARGE = -1e30f;
+
+enum { MODE_STATS = 0, MODE_LOCAL_LSE = 1, MODE_STATS_LOGZ = 2 };
+
+// Operands of one launch. Pointers a mode does not use are null: K1/K3 have
+// no logz/m/s, K5 no wt/lanes/partial/ll_part, K1/K5/K6 no lanes.
+struct Params {
+  const float* x;      // [n, d] events
+  const float* wt;     // [n] event weights
+  const float* lanes;  // [r] restart lane mask (K3)
+  const float* logz;   // [n] global per-event evidence (K6)
+  const float* a_ext;  // [r, t+d, kp]
+  const float* g;      // [r, kp]
+  float* m_out;        // [n] local max (K5)
+  float* s_out;        // [n] local shifted sum (K5)
+  float* partial;      // [r, grid, kp, t+d+1]
+  double* ll_part;     // [r, grid]
+  int n, d, k, kp, bt, xstride;
+};
 
 // Column c of the augmented feature row [x2 packed | x | 1] is
 // xa[ia] * xa[ib] with xa = [x_0, ..., x_{D-1}, 1]; pairs[c] = ia | ib << 8,
@@ -151,13 +194,11 @@ __device__ __forceinline__ void fma_stage(float (&acc)[MR / 16][8],
   }
 }
 
-template <bool DIAG, int MR>
+template <int MODE, bool DIAG, int MR>
 __global__ void __launch_bounds__(THREADS, 1)
-fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
-                   const float* __restrict__ lanes,
-                   const float* __restrict__ a_ext, const float* __restrict__ g,
-                   float* __restrict__ partial, double* __restrict__ ll_part,
-                   int n, int d, int kp, int bt, int xstride) {
+fused_stats_kernel(const Params p) {
+  const int n = p.n, d = p.d, kp = p.kp, bt = p.bt, xstride = p.xstride;
+  const float* __restrict__ x = p.x;
   const int t = DIAG ? d : d * (d + 1) / 2;
   const int fd = t + d;                      // rows of A_ext
   const int fe = fd + 1;                     // columns of [x2 | x | 1]
@@ -165,12 +206,10 @@ fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
 
   // Restart lane: its parameters and its slices of the partial buffers.
   const int lane_r = blockIdx.y;
-  const float lane_w = lanes ? lanes[lane_r] : 1.f;
+  const float lane_w = p.lanes ? p.lanes[lane_r] : 1.f;
   if (lane_w == 0.f) return;  // frozen lane: the reduction writes zeros
-  a_ext += (size_t)lane_r * fd * kp;
-  g += (size_t)lane_r * kp;
-  partial += (size_t)lane_r * gridDim.x * kp * fe;
-  ll_part += (size_t)lane_r * gridDim.x;
+  const float* __restrict__ a_ext = p.a_ext + (size_t)lane_r * fd * kp;
+  const float* __restrict__ g = p.g + (size_t)lane_r * kp;
 
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // [bt][kp] logp, then w
@@ -183,7 +222,9 @@ fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   const int tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
   const int num_tiles = (n + bt - 1) / bt;
-  float* my_partial = partial + (size_t)blockIdx.x * kp * fe;
+  float* my_partial = nullptr;
+  if (MODE != MODE_LOCAL_LSE)
+    my_partial = p.partial + ((size_t)lane_r * gridDim.x + blockIdx.x) * kp * fe;
   double warp_ll = 0.0;
   bool first = true;
 
@@ -249,24 +290,47 @@ fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
     }
     __syncthreads();
 
-    // Phase 2: per-event log-sum-exp over all K; w = e/s * wt in place.
+    // Phase 2, per event row (one warp each; xor butterflies, so every
+    // lane holds the same bits). K1/K3: log-sum-exp over all K, w = e/s *
+    // wt in place. K5: this shard's max and shifted sum over its k real
+    // columns, written out. K6: w = exp(logp - logZ) * wt in place.
     for (int r = warp; r < rows_r; r += THREADS / 32) {
       float* row = ws + r * kp;
       if (r >= rows) {
-        for (int k = lane; k < kp; k += 32) row[k] = 0.f;
+        if (MODE != MODE_LOCAL_LSE)
+          for (int k = lane; k < kp; k += 32) row[k] = 0.f;
         continue;
       }
-      float m = NEG_LARGE;
-      for (int k = lane; k < kp; k += 32) m = fmaxf(m, row[k]);
-      m = warp_max(m);  // NEG_LARGE floor: the all-masked guard
-      float s = 0.f;
-      for (int k = lane; k < kp; k += 32) s += expf(row[k] - m);
-      s = warp_sum(s);
-      const float w_ev = wt[base + r] * lane_w;
-      for (int k = lane; k < kp; k += 32) row[k] = (expf(row[k] - m) / s) * w_ev;
-      warp_ll += (double)((m + logf(s)) * w_ev);
+      if (MODE == MODE_LOCAL_LSE) {
+        float m = __int_as_float(0xff800000);  // -inf
+        for (int k = lane; k < p.k; k += 32) m = fmaxf(m, row[k]);
+        m = warp_max(m);
+        float s = 0.f;
+        for (int k = lane; k < p.k; k += 32) s += expf(row[k] - m);
+        s = warp_sum(s);
+        if (lane == 0) {
+          p.m_out[base + r] = m;
+          p.s_out[base + r] = s;
+        }
+      } else if (MODE == MODE_STATS_LOGZ) {
+        const float lz = p.logz[base + r];
+        const float w_ev = p.wt[base + r];
+        for (int k = lane; k < kp; k += 32) row[k] = expf(row[k] - lz) * w_ev;
+        warp_ll += (double)(lz * w_ev);
+      } else {
+        float m = NEG_LARGE;
+        for (int k = lane; k < kp; k += 32) m = fmaxf(m, row[k]);
+        m = warp_max(m);  // NEG_LARGE floor: the all-masked guard
+        float s = 0.f;
+        for (int k = lane; k < kp; k += 32) s += expf(row[k] - m);
+        s = warp_sum(s);
+        const float w_ev = p.wt[base + r] * lane_w;
+        for (int k = lane; k < kp; k += 32) row[k] = (expf(row[k] - m) / s) * w_ev;
+        warp_ll += (double)((m + logf(s)) * w_ev);
+      }
     }
     __syncthreads();
+    if (MODE == MODE_LOCAL_LSE) continue;  // K5 ends here
 
     // Phase 3: out[k][c] += sum_r w[r][k] * feat[r][c], this CTA's slice.
     constexpr int L3 = KC * NT / THREADS;
@@ -302,8 +366,8 @@ fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
           for (int j = 0; j < 8; ++j) {
             const int k = k0 + own(ty, i), c = c0 + own(tx, j);
             if (c < fe) {
-              float* p = my_partial + (size_t)k * fe + c;
-              *p = first ? acc[i][j] : *p + acc[i][j];
+              float* q = my_partial + (size_t)k * fe + c;
+              *q = first ? acc[i][j] : *q + acc[i][j];
             }
           }
       }
@@ -311,6 +375,7 @@ fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
     first = false;
     __syncthreads();
   }
+  if (MODE == MODE_LOCAL_LSE) return;
 
   // This CTA's loglik: the 8 warp sums, in warp order.
   __shared__ double red[THREADS / 32];
@@ -319,7 +384,7 @@ fused_stats_kernel(const float* __restrict__ x, const float* __restrict__ wt,
   if (tid == 0) {
     double s = 0.0;
     for (int w = 0; w < THREADS / 32; ++w) s += red[w];
-    ll_part[blockIdx.x] = s;
+    p.ll_part[(size_t)lane_r * gridDim.x + blockIdx.x] = s;
   }
 }
 
@@ -369,43 +434,56 @@ __global__ void reduce_partials(const float* __restrict__ partial,
   else nk[kk] = (float)s;
 }
 
-template <bool DIAG, int MR>
-cudaError_t launch(const float* x, const float* wt, const float* lanes,
-                   const float* a_ext, const float* g, float* partial,
-                   double* ll_part, int n, int d, int kp, int bt, int grid,
-                   int r, size_t smem, int xstride, cudaStream_t s) {
-  auto kern = fused_stats_kernel<DIAG, MR>;
+template <int MODE, bool DIAG, int MR>
+cudaError_t launch(const Params& p, int grid, int r, size_t smem, cudaStream_t s) {
+  auto kern = fused_stats_kernel<MODE, DIAG, MR>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  kern<<<dim3(grid, r), THREADS, smem, s>>>(x, wt, lanes, a_ext, g, partial,
-                                            ll_part, n, d, kp, bt, xstride);
+  kern<<<dim3(grid, r), THREADS, smem, s>>>(p);
   return cudaGetLastError();
 }
 
-// Both kernels of K1 (r = 1, lanes = nullptr) or K3 on `s`.
-int run(const float* x, const float* wt, const float* lanes, const float* a_ext,
-        const float* g, float* partial, double* ll_part, float* ll, float* nk,
-        float* m1, float* m2, int n, int d, int k, int kp, int diag, int bt,
-        int grid, int r, cudaStream_t s) {
-  const int xstride = (d + 1) | 1;  // odd row stride: no bank conflicts
+template <int MODE>
+cudaError_t launch_mode(const Params& p, int diag, int grid, int r, size_t smem,
+                        cudaStream_t s) {
+  if (p.bt % 128 == 0)
+    return diag ? launch<MODE, true, 128>(p, grid, r, smem, s)
+                : launch<MODE, false, 128>(p, grid, r, smem, s);
+  return diag ? launch<MODE, true, 64>(p, grid, r, smem, s)
+              : launch<MODE, false, 64>(p, grid, r, smem, s);
+}
+
+// The statistics kernel of `mode` on `s`, then (K1/K3/K6) the reduction.
+int run(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
+        int diag, int grid, int r, cudaStream_t s) {
+  const int d = p.d;
+  p.xstride = (d + 1) | 1;  // odd row stride: no bank conflicts
   const int t = diag ? d : d * (d + 1) / 2;
   const int fe_pad = (t + d + 1 + NT - 1) / NT * NT;
-  const size_t smem = ((size_t)bt * kp + 4 * KC * NT + (size_t)bt * xstride) *
+  const size_t smem = ((size_t)p.bt * p.kp + 4 * KC * NT + (size_t)p.bt * p.xstride) *
                           sizeof(float) + fe_pad * sizeof(int);
-  cudaError_t err;
-  if (bt % 128 == 0)
-    err = diag ? launch<true, 128>(x, wt, lanes, a_ext, g, partial, ll_part, n, d, kp, bt, grid, r, smem, xstride, s)
-               : launch<false, 128>(x, wt, lanes, a_ext, g, partial, ll_part, n, d, kp, bt, grid, r, smem, xstride, s);
-  else
-    err = diag ? launch<true, 64>(x, wt, lanes, a_ext, g, partial, ll_part, n, d, kp, bt, grid, r, smem, xstride, s)
-               : launch<false, 64>(x, wt, lanes, a_ext, g, partial, ll_part, n, d, kp, bt, grid, r, smem, xstride, s);
-  if (err != cudaSuccess) return (int)err;
+  cudaError_t err =
+      mode == MODE_LOCAL_LSE  ? launch_mode<MODE_LOCAL_LSE>(p, diag, grid, r, smem, s)
+      : mode == MODE_STATS_LOGZ ? launch_mode<MODE_STATS_LOGZ>(p, diag, grid, r, smem, s)
+                                : launch_mode<MODE_STATS>(p, diag, grid, r, smem, s);
+  if (err != cudaSuccess || mode == MODE_LOCAL_LSE) return (int)err;
   const int f = diag ? d : d * d;
-  const int64_t outs = (int64_t)k * (f + d + 1);
+  const int64_t outs = (int64_t)p.k * (f + d + 1);
   reduce_partials<<<dim3((unsigned)((outs + 255) / 256), r), 256, 0, s>>>(
-      partial, ll_part, lanes, grid, k, kp, d, diag, ll, nk, m1, m2);
+      p.partial, p.ll_part, p.lanes, grid, p.k, p.kp, d, diag, ll, nk, m1, m2);
   return (int)cudaGetLastError();
+}
+
+Params params(const float* x, const float* wt, const float* lanes,
+              const float* logz, const float* a_ext, const float* g,
+              float* m_out, float* s_out, float* partial, double* ll_part,
+              int n, int d, int k, int kp, int bt) {
+  Params p;
+  p.x = x; p.wt = wt; p.lanes = lanes; p.logz = logz; p.a_ext = a_ext; p.g = g;
+  p.m_out = m_out; p.s_out = s_out; p.partial = partial; p.ll_part = ll_part;
+  p.n = n; p.d = d; p.k = k; p.kp = kp; p.bt = bt; p.xstride = 0;
+  return p;
 }
 
 }  // namespace
@@ -421,8 +499,10 @@ extern "C" int gmm_fused_stats(const float* x, const float* wt, const float* a_e
                                float* ll, float* nk, float* m1, float* m2, int n,
                                int d, int k, int kp, int diag, int bt, int grid,
                                void* stream) {
-  return run(x, wt, nullptr, a_ext, g, partial, ll_part, ll, nk, m1, m2, n, d,
-             k, kp, diag, bt, grid, 1, static_cast<cudaStream_t>(stream));
+  return run(MODE_STATS,
+             params(x, wt, nullptr, nullptr, a_ext, g, nullptr, nullptr,
+                    partial, ll_part, n, d, k, kp, bt),
+             ll, nk, m1, m2, diag, grid, 1, static_cast<cudaStream_t>(stream));
 }
 
 // Launches K3 (both kernels) on `stream`; returns cudaGetLastError().
@@ -437,6 +517,33 @@ extern "C" int gmm_fused_stats_batched(const float* x, const float* wt,
                                        float* m1, float* m2, int n, int d, int k,
                                        int kp, int diag, int bt, int grid, int r,
                                        void* stream) {
-  return run(x, wt, lanes, a_ext, g, partial, ll_part, ll, nk, m1, m2, n, d, k,
-             kp, diag, bt, grid, r, static_cast<cudaStream_t>(stream));
+  return run(MODE_STATS,
+             params(x, wt, lanes, nullptr, a_ext, g, nullptr, nullptr, partial,
+                    ll_part, n, d, k, kp, bt),
+             ll, nk, m1, m2, diag, grid, r, static_cast<cudaStream_t>(stream));
+}
+
+// Launches K5 on `stream`; returns cudaGetLastError(). K1's x, a_ext and g
+// for this shard's k clusters (padded to kp); m [n] and s [n] out.
+extern "C" int gmm_local_lse(const float* x, const float* a_ext, const float* g,
+                             float* m, float* s, int n, int d, int k, int kp,
+                             int diag, int bt, int grid, void* stream) {
+  return run(MODE_LOCAL_LSE,
+             params(x, nullptr, nullptr, nullptr, a_ext, g, m, s, nullptr,
+                    nullptr, n, d, k, kp, bt),
+             nullptr, nullptr, nullptr, nullptr, diag, grid, 1,
+             static_cast<cudaStream_t>(stream));
+}
+
+// Launches K6 (both kernels) on `stream`; returns cudaGetLastError(). K1's
+// operands and outputs, plus logz [n], the global per-event evidence.
+extern "C" int gmm_stats_logz(const float* x, const float* wt, const float* logz,
+                              const float* a_ext, const float* g, float* partial,
+                              double* ll_part, float* ll, float* nk, float* m1,
+                              float* m2, int n, int d, int k, int kp, int diag,
+                              int bt, int grid, void* stream) {
+  return run(MODE_STATS_LOGZ,
+             params(x, wt, nullptr, logz, a_ext, g, nullptr, nullptr, partial,
+                    ll_part, n, d, k, kp, bt),
+             ll, nk, m1, m2, diag, grid, 1, static_cast<cudaStream_t>(stream));
 }

@@ -42,6 +42,21 @@ def resolve_device(config: GMMConfig) -> torch.device:
     return torch.device(config.device)
 
 
+def setup_device(config: GMMConfig) -> torch.device:
+    """:func:`resolve_device`, after refusing a matmul precision that is not
+    ported; on CUDA, 'highest' means no TF32 anywhere: the torch-ops
+    products (matmul) and any cuDNN call run in full fp32."""
+    device = resolve_device(config)
+    if config.matmul_precision != "highest":
+        raise ValueError(
+            f"matmul_precision={config.matmul_precision!r} is not ported "
+            "yet: only 'highest' (plain fp32/fp64 products) is")
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return device
+
+
 def resolve_iters_batched(config: GMMConfig, num_restarts: int,
                           min_iters, max_iters):
     """Per-restart iteration bounds as int64 [R] vectors (lo, hi).
@@ -84,18 +99,24 @@ def lane_loop_mstep(mstep_fn: Callable) -> Callable:
     return batched
 
 
-def chunk_events(data: np.ndarray, chunk_size: int,
+def chunk_events(data: np.ndarray, chunk_size: int, num_shards: int = 1,
                  num_chunks: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
     """Pad and reshape events to [num_chunks, chunk_size, D] plus a [num_chunks,
-    chunk_size] weight row (1 for events, 0 for padding)."""
+    chunk_size] weight row (1 for events, 0 for padding). The chunk count is
+    padded to a multiple of ``num_shards`` (the data-axis size), so every
+    data shard holds the same number of chunks."""
     n, d = data.shape
     if num_chunks is not None:
         total = num_chunks * chunk_size
         if total < n:
             raise ValueError(
                 f"num_chunks={num_chunks} x chunk_size={chunk_size} < {n} events")
+        if num_chunks % max(num_shards, 1):
+            raise ValueError(
+                f"num_chunks={num_chunks} not divisible by num_shards={num_shards}")
     else:
-        total = n + ((-n) % chunk_size)
+        step = chunk_size * num_shards
+        total = n + ((-n) % step)
     padded = np.zeros((total, d), dtype=data.dtype)
     padded[:n] = data
     wts = np.zeros((total,), dtype=data.dtype)
@@ -113,20 +134,17 @@ class GMMModel:
     torch ops) and why.
     """
 
+    # Bucket widths must be a multiple of this (the cluster-axis size on
+    # parallel.ShardedGMMModel).
+    bucket_multiple = 1
+    # The (data, cluster) mesh of parallel.ShardedGMMModel; None: one device.
+    mesh = None
+
     def __init__(self, config: GMMConfig = GMMConfig(),
                  stats_fn: Optional[Callable] = None,
                  mstep_fn: Optional[Callable] = None):
         self.config = config
-        self.device = resolve_device(config)
-        if config.matmul_precision != "highest":
-            raise ValueError(
-                f"matmul_precision={config.matmul_precision!r} is not ported "
-                "yet: only 'highest' (plain fp32/fp64 products) is")
-        if self.device.type == "cuda":
-            # 'highest' means no TF32 anywhere: the torch-ops products
-            # (matmul) and any cuDNN call run in full fp32.
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
+        self.device = setup_device(config)
         if stats_fn is None and mstep_fn is None:
             from ..ops.kernels import (
                 make_batched_stats_fn, make_mstep_fn, make_stats_fn,
@@ -225,24 +243,35 @@ class GMMModel:
 def em_while_loop(state, data_chunks, wts_chunks, epsilon: float,
                   min_iters: int, max_iters: int, *, diag_only: bool = False,
                   stats_fn: Optional[Callable] = None,
-                  mstep_fn: Optional[Callable] = None):
+                  mstep_fn: Optional[Callable] = None,
+                  reduce_stats: Optional[Callable] = None,
+                  cluster_group=None):
     """The per-K EM algorithm as a host loop. Returns (state, loglik, iters).
 
     ``stats_fn(state, data_chunks, wts_chunks) -> SuffStats`` replaces the
     torch-ops statistics pass (K1 rides this hook); ``mstep_fn(state,
-    stats) -> state`` replaces ``apply_mstep`` (K2 + constants). The loglik
-    and the change are computed in the data's dtype, as on the device in the
-    reference, and read to the host once per iteration.
+    stats) -> state`` replaces ``apply_mstep`` (K2 + constants).
+    ``reduce_stats(stats) -> SuffStats`` is applied to every E-step's
+    statistics before the loglik is read (the data-axis all_reduce of a
+    mesh, parallel/sharded_em.py); ``cluster_group`` is the process group
+    of a sharded cluster axis, handed to the torch-ops E- and M-step. The
+    loglik and the change are computed in the data's dtype, as on the device
+    in the reference, and read to the host once per iteration.
     """
     def estep(s) -> SuffStats:
         if stats_fn is not None:
-            return stats_fn(s, data_chunks, wts_chunks)
-        return accumulate_stats(s, data_chunks, wts_chunks, diag_only=diag_only)
+            stats = stats_fn(s, data_chunks, wts_chunks)
+        else:
+            stats = accumulate_stats(s, data_chunks, wts_chunks,
+                                     diag_only=diag_only,
+                                     cluster_group=cluster_group)
+        return reduce_stats(stats) if reduce_stats is not None else stats
 
     def mstep(s, stats):
         if mstep_fn is not None:
             return mstep_fn(s, stats)
-        return apply_mstep(s, stats, diag_only=diag_only)
+        return apply_mstep(s, stats, diag_only=diag_only,
+                           cluster_group=cluster_group)
 
     eps = float(torch.tensor(epsilon, dtype=data_chunks.dtype))
     stats = estep(state)  # initial E-step (gaussian.cu:487-516)

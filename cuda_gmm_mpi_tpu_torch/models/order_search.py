@@ -20,6 +20,15 @@ score (``_fit_with_restarts``): in batches through ``models/restarts.py``
 ``restart_batch_size=1``. Either way the data is centred, chunked and
 uploaded once per fit and handed to every init.
 
+On a mesh (``config.mesh_shape``, or a torch.distributed world of more than
+one rank) the fit runs on every rank through ``parallel.ShardedGMMModel``:
+each rank reads the whole input, as every node does in the reference
+(gaussian.cu:191-201), and keeps its block of the chunk grid and its
+clusters. Before each merge scan the ranks of a mesh row gather their
+clusters; every rank runs the same scan on the same state, checks with one
+all_reduce that all chose the same pair, and keeps its own rows of the
+result. Every rank returns the same ``GMMResult``.
+
 Telemetry, checkpointing, supervision, recovery, the fused sweep and
 streaming are not ported yet.
 """
@@ -41,6 +50,7 @@ from ..ops.seeding import (
     kmeanspp_from_pool, kmeanspp_pool, seed_means_indices,
     seed_state_from_parts,
 )
+from ..parallel.mesh import shard_chunks
 from ..state import GMMState, bucket_width, compact, compact_to
 from ..validation import validate_finite
 from .gmm import GMMModel, chunk_events
@@ -129,7 +139,11 @@ def _prepare_data(data: np.ndarray, config: GMMConfig, model: GMMModel):
     local = data.astype(dtype, copy=False)
     if config.center_data:
         local = local - shift[None, :]
-    chunks_np, wts_np = chunk_events(local, config.chunk_size)
+    chunks_np, wts_np = chunk_events(
+        local, config.chunk_size,
+        num_shards=model.mesh.data_size if _sharded(model) else 1)
+    if _sharded(model):  # this rank's block of the chunk grid
+        chunks_np, wts_np = shard_chunks(model.mesh, chunks_np, wts_np)
     chunks, wts = model.place(chunks_np), model.place(wts_np)
     return (data, chunks, wts, n_events, n_dims, shift, float(var64.mean()))
 
@@ -150,7 +164,24 @@ def _prepare_fit(data: np.ndarray, num_clusters: int, config: GMMConfig,
         np.asarray(rows, dtype) - shift[None, :], n_events, var_mean,
         num_clusters, covariance_dynamic_range=config.covariance_dynamic_range,
         dtype=dtype, device=model.device)
+    if _sharded(model):
+        state = model.prepare_state(state)
     return state, chunks, wts, n_events, n_dims, shift
+
+
+def _sharded(model) -> bool:
+    return model.mesh is not None
+
+
+def default_model(config: GMMConfig):
+    """The model ``fit_gmm`` builds: ``parallel.ShardedGMMModel`` when
+    ``mesh_shape`` is set or the torch.distributed world has more than one
+    rank, else :class:`GMMModel`."""
+    from ..parallel import ShardedGMMModel, distributed
+
+    if config.mesh_shape is not None or distributed.world_size() > 1:
+        return ShardedGMMModel(config)
+    return GMMModel(config)
 
 
 def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
@@ -173,7 +204,11 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
         raise ValueError("target_num_clusters must be <= num_clusters")
     stop_number = target_num_clusters if target_num_clusters > 0 else 1
     verbose = config.enable_print if verbose is None else verbose
-    model = model or GMMModel(config)
+    model = model or default_model(config)
+    if config.n_init > 1 and _sharded(model):
+        raise NotImplementedError(
+            "n_init > 1 on a mesh is not ported yet (ROADMAP.md: batched "
+            "restarts on a mesh); run the restarts on one device")
     if config.n_init > 1:
         return _fit_with_restarts(data, num_clusters, target_num_clusters,
                                   config, model, verbose)
@@ -185,6 +220,7 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
     if verbose:
         print(f"epsilon = {epsilon}")  # gaussian.cu:462
 
+    sharded = _sharded(model)
     sweep_log, merges = [], []
     min_rissanen = math.inf
     ideal_k, best_state, best_ll = num_clusters, state, -math.inf
@@ -195,6 +231,8 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
         state, ll, iters = model.run_em(state, chunks, wts, epsilon,
                                         n_events=n_events)
         dt = time.perf_counter() - t0  # EM only: run_em ends on a host read
+        if sharded:  # the mesh row's clusters, on every rank of the row
+            state = model.gather_state(state)
         riss = model_score(ll, k, n_events, n_dims)
         score_ok = math.isfinite(riss)
         sweep_log.append((k, ll, riss, iters, dt))
@@ -213,6 +251,8 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
         # Order reduction (gaussian.cu:857-952).
         next_state, k, min_d, pair = eliminate_and_reduce(
             state, diag_only=diag_only)
+        if sharded:
+            model.assert_same_merge(k, pair)
         if k < 2:
             break
         if verbose:
@@ -226,8 +266,11 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
         merges.append((k, pair, min_d))
         state = next_state
         k -= 1
-        width = bucket_width(k, state.num_clusters_padded)
-        if width < state.num_clusters_padded:
+        width = bucket_width(k, state.num_clusters_padded,
+                             multiple=model.bucket_multiple)
+        if sharded:
+            state = model.rebucket_state(state, width)
+        elif width < state.num_clusters_padded:
             state = compact_to(state, width)
 
     compact_state, n_active = compact(best_state)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.distributed as dist
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -78,13 +79,15 @@ def chol_inverse_logdet(R: torch.Tensor, diag_only: bool = False):
     return Rinv, log_det, ok
 
 
-def compute_constants(state, diag_only: bool = False):
+def compute_constants(state, diag_only: bool = False, cluster_group=None):
     """Recompute Rinv, constant and pi from R and N.
 
     Mirrors constants_kernel (gaussian_kernel.cu:250-259):
       constant[c] = -D/2 * ln(2*pi) - 1/2 * ln|R_c|   (:241)
       pi[c]       = N[c] / sum(N), with a 1e-10 floor when N[c] < 0.5 (:184-189)
     Non-PD covariances are reset to identity before the constant is computed.
+    With ``cluster_group`` (the process group of a sharded cluster axis)
+    pi's denominator is the global soft count, an all_reduce over it.
     """
     D = state.num_dimensions
     Rinv, log_det, ok = chol_inverse_logdet(state.R, diag_only=diag_only)
@@ -96,6 +99,8 @@ def compute_constants(state, diag_only: bool = False):
     # Normalised within each lane of a restart-batched state.
     n_total = torch.where(state.active, state.N,
                           torch.zeros_like(state.N)).sum(dim=-1, keepdim=True)
+    if cluster_group is not None:
+        dist.all_reduce(n_total, op=dist.ReduceOp.SUM, group=cluster_group)
     pi = torch.where(state.N < 0.5, torch.full_like(state.N, 1e-10),
                      state.N / torch.clamp(n_total, min=1e-30))
     return state.replace(R=R, Rinv=Rinv, constant=constant, pi=pi)

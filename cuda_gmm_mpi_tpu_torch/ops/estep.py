@@ -19,6 +19,7 @@ log-sum-exp. The packed and centered quadratic forms are not ported yet.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 
 def expand_features(x: torch.Tensor) -> torch.Tensor:
@@ -59,17 +60,28 @@ def log_densities(state, x: torch.Tensor, *, diag_only: bool = False,
 
 
 def posteriors(state, x: torch.Tensor, *, diag_only: bool = False,
-               xouter: torch.Tensor | None = None):
+               xouter: torch.Tensor | None = None, cluster_group=None):
     """(w [B, K], logZ [B]): normalized responsibilities and per-event
     evidence, estep2's max-shifted log-sum-exp (gaussian_kernel.cu:481-502).
 
     A row whose max is non-finite (every cluster inactive, or poisoned
     densities) is sanitized to a zero shift instead of producing inf-inf.
+
+    With ``cluster_group`` (the process group of a sharded cluster axis)
+    the log-sum-exp is a two-stage collective: an all_reduce MAX of the
+    per-shard maxima, then an all_reduce SUM of the shifted exponential
+    sums. ``w`` then covers this rank's clusters only and ``logZ`` is the
+    same on every rank of the group. The max is sanitized after the MAX,
+    so a shard whose clusters are all inactive is legitimate.
     """
     logp = log_densities(state, x, diag_only=diag_only, xouter=xouter)
     m = logp.max(dim=1, keepdim=True).values
+    if cluster_group is not None:
+        dist.all_reduce(m, op=dist.ReduceOp.MAX, group=cluster_group)
     m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
     expd = torch.exp(logp - m)
     denom = expd.sum(dim=1, keepdim=True)
+    if cluster_group is not None:
+        dist.all_reduce(denom, op=dist.ReduceOp.SUM, group=cluster_group)
     logZ = (m + torch.log(denom))[:, 0]
     return expd / denom, logZ

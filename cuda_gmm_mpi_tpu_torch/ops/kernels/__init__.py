@@ -5,7 +5,12 @@ loop's ``stats_fn``/``mstep_fn`` hooks, so with backend 'cuda' one EM
 iteration is one K1 launch, one K2 launch and the K-sized Cholesky
 constants. K3 and K4 are their restart-batched forms on the hooks of
 ``em_while_loop_batched``: one EM iteration of a whole restart batch is one
-K3 launch, one K4 launch and the [R, K]-sized constants.
+K3 launch, one K4 launch and the [R, K]-sized constants. On a mesh whose
+cluster axis is sharded (parallel/), K5 and K6 take K1's place: the
+statistics of one EM iteration are one K5 launch, two all_reduce calls of
+[N] per-event scalars over the cluster axis and one K6 launch, and the
+M-step is the torch-ops ``apply_mstep`` (its pi needs the global soft
+count, an all_reduce), as in the JAX package.
 
 Routing (``resolve_estep_backend``):
 
@@ -14,7 +19,10 @@ device, dtype, ``estep_backend``   resolves to
 =================================  ======================================
 any, any, 'torch'                  'torch' (the torch-ops yardstick)
 any, float64, 'auto' or 'cuda'     'torch' -- kernel is float32-only
-cuda, float32, 'auto' or 'cuda'    'cuda' (K1 + K2)
+sharded clusters, full covariance  'torch' -- the two-pass kernels would
+                                   run the dominant contraction twice
+cuda, float32, 'auto' or 'cuda'    'cuda' (K1 + K2; K5 + K6 with sharded
+                                   clusters, diagonal covariance)
 cpu, float32, 'auto'               'torch'
 cpu, float32, 'cuda'               raises: the kernels need a CUDA device
 =================================  ======================================
@@ -27,18 +35,27 @@ import functools
 from ..constants import compute_constants
 from .fused_stats import (
     fused_mstep_cuda, fused_mstep_cuda_batched, fused_stats_cuda,
-    fused_stats_cuda_batched,
+    fused_stats_cuda_batched, fused_stats_cuda_sharded,
 )
 
 
-def resolve_estep_backend(config):
+def resolve_estep_backend(config, cluster_sharded: bool = False):
     """(backend, reason) the statistics path will actually run:
-    backend is 'cuda' or 'torch'."""
+    backend is 'cuda' or 'torch'. ``cluster_sharded``: the mesh's cluster
+    axis is larger than 1."""
     mode = config.estep_backend
     if mode == "torch":
         return "torch", "estep_backend=torch (explicit)"
     if config.dtype != "float32":
         return "torch", f"kernel is float32-only (dtype={config.dtype})"
+    if cluster_sharded and not config.diag_only:
+        # Full covariance is bound by its [N, T+D] x [T+D, K] product: the
+        # two-pass kernels (K5, then K6) would run it twice, the torch-ops
+        # collective-LSE path once.
+        return "torch", ("cluster-sharded full covariance stays on the "
+                         "torch-ops collective-LSE path (the two-pass "
+                         "kernels K5 + K6 would run the dominant "
+                         "contraction twice)")
     if config.device == "cuda":
         return "cuda", f"estep_backend={mode} on a CUDA device at float32"
     if mode == "cuda":
@@ -47,11 +64,17 @@ def resolve_estep_backend(config):
     return "torch", "estep_backend=auto on the CPU"
 
 
-def make_stats_fn(config):
-    """stats_fn hook bound to the config, or None for the torch-ops path."""
-    backend, _ = resolve_estep_backend(config)
+def make_stats_fn(config, cluster_sharded: bool = False, cluster_group=None):
+    """stats_fn hook bound to the config, or None for the torch-ops path:
+    K1, or K5 + K6 over ``cluster_group`` when ``cluster_sharded``."""
+    backend, _ = resolve_estep_backend(config, cluster_sharded)
     if backend != "cuda":
         return None
+    if cluster_sharded:
+        return functools.partial(
+            fused_stats_cuda_sharded, cluster_group=cluster_group,
+            diag_only=config.diag_only, block_b=config.pallas_block_b,
+            precision=config.matmul_precision)
     return functools.partial(
         fused_stats_cuda, diag_only=config.diag_only,
         block_b=config.pallas_block_b, precision=config.matmul_precision)
@@ -68,11 +91,13 @@ def make_batched_stats_fn(config):
         block_b=config.pallas_block_b, precision=config.matmul_precision)
 
 
-def make_mstep_fn(config, batched: bool = False):
+def make_mstep_fn(config, batched: bool = False,
+                  cluster_sharded: bool = False):
     """mstep_fn hook (K2, or K4 with ``batched``, + constants), or None for
-    the torch-ops path."""
-    backend, _ = resolve_estep_backend(config)
-    if backend != "cuda":
+    the torch-ops path. None on cluster-sharded meshes too: pi's
+    denominator there is an all_reduce inside the torch-ops update."""
+    backend, _ = resolve_estep_backend(config, cluster_sharded)
+    if backend != "cuda" or cluster_sharded:
         return None
     diag_only = config.diag_only
     update = fused_mstep_cuda_batched if batched else fused_mstep_cuda
@@ -84,6 +109,7 @@ def make_mstep_fn(config, batched: bool = False):
     return mstep
 
 
-__all__ = ["fused_stats_cuda", "fused_stats_cuda_batched", "fused_mstep_cuda",
+__all__ = ["fused_stats_cuda", "fused_stats_cuda_batched",
+           "fused_stats_cuda_sharded", "fused_mstep_cuda",
            "fused_mstep_cuda_batched", "make_batched_stats_fn",
            "make_stats_fn", "make_mstep_fn", "resolve_estep_backend"]

@@ -1,8 +1,8 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) with nvcc.
 
 Each source becomes its own shared library with a plain C interface, bound
-with ctypes; a source may export several entry points (K1 and K3 share
-fused_stats.cu, K2 and K4 share mstep.cu). Libraries are built on first use into the package's ``build/``
+with ctypes; a source may export several entry points (K1, K3, K5 and K6
+share fused_stats.cu, K2 and K4 share mstep.cu). Libraries are built on first use into the package's ``build/``
 directory (git-ignored), named by a hash of the source and the flags so an
 edited source is rebuilt; all sources are compiled by parallel nvcc
 processes. Nothing here runs at import time.
@@ -33,7 +33,9 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 # cudaGetLastError() as an int.
 SIGNATURES = {
     "fused_stats.cu": [("gmm_fused_stats", [_P] * 10 + [_I] * 7 + [_P]),
-                       ("gmm_fused_stats_batched", [_P] * 11 + [_I] * 8 + [_P])],
+                       ("gmm_fused_stats_batched", [_P] * 11 + [_I] * 8 + [_P]),
+                       ("gmm_local_lse", [_P] * 5 + [_I] * 7 + [_P]),
+                       ("gmm_stats_logz", [_P] * 11 + [_I] * 7 + [_P])],
     "mstep.cu": [("gmm_mstep", [_P] * 8 + [_I] * 3 + [_P]),
                  ("gmm_mstep_batched", [_P] * 8 + [_I] * 4 + [_P])],
 }

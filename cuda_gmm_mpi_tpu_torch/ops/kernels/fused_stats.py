@@ -1,4 +1,4 @@
-"""Wrappers of the hand-written Hopper kernels K1-K4, and their plain
+"""Wrappers of the hand-written Hopper kernels K1-K6, and their plain
 PyTorch versions.
 
 K1 (``fused_stats``, csrc/fused_stats.cu) replaces the TPU kernel
@@ -9,13 +9,20 @@ K4 (``mstep_batched``) replace ``_fused_stats_batched_kernel`` and
 ``_mstep_batched_kernel``: the same two functions for R restarts at once,
 with a leading restart axis on every per-restart operand. K3 shares K1's
 kernel and K4 shares K2's, so each lane is bit-identical to the unbatched
-kernel on that lane's operands.
+kernel on that lane's operands. K5 (``local_lse``) and K6 (``stats_logz``)
+replace ``_local_lse_kernel`` and ``_stats_logz_kernel``, the two passes of
+the cluster-sharded statistics (``fused_stats_cuda_sharded``): K5 gives
+each event's max and shifted sum over this rank's clusters, two all_reduce
+calls over the cluster axis combine them into the global log-evidence, and
+K6 accumulates this rank's statistics from it. Both are K1's kernel in
+another mode.
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each counts its kernel launches
 on a plain integer attribute (``fused_stats.launches``, ``mstep.launches``,
-``fused_stats_batched.launches``, ``mstep_batched.launches``) so a run can
-show that it went through the kernels.
+``fused_stats_batched.launches``, ``mstep_batched.launches``,
+``local_lse.launches``, ``stats_logz.launches``) so a run can show that it
+went through the kernels.
 
 Layouts follow the JAX package: the features' column j*D+i holds x_i*x_j,
 ``A = Rinv.reshape(K, D*D).T`` is [F, K], and M2 [K, F] reshapes to
@@ -29,6 +36,7 @@ from __future__ import annotations
 import functools
 
 import torch
+import torch.distributed as dist
 
 from ...state import lane
 from ..estep import expand_features
@@ -59,6 +67,17 @@ def _check_cuda(*tensors) -> None:
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError("kernel inputs must be contiguous float32 CUDA "
                              f"tensors, got {t.dtype} on {t.device}")
+
+
+def _check_k1_shapes(name, x, wt, A, h, g, diag):
+    n, d = x.shape
+    f, k = A.shape
+    if ((wt is not None and wt.shape != (n,)) or f != (d if diag else d * d)
+            or h.shape != (d, k) or g.shape != (1, k)):
+        raise ValueError(
+            f"{name} shapes: x {tuple(x.shape)}, wt "
+            f"{None if wt is None else tuple(wt.shape)}, A {tuple(A.shape)}, "
+            f"h {tuple(h.shape)}, g {tuple(g.shape)}")
 
 
 def _raise_on(err: int, what: str) -> None:
@@ -100,13 +119,18 @@ def _prep_params(state, d: int, diag_only: bool):
     return A.T.contiguous(), h.T.contiguous(), g
 
 
-def fused_stats_plain(x, wt, A, h, g, *, diag: bool):
-    """K1's function in plain torch: (ll [1, 1], nk [1, K], m1 [K, D],
-    m2 [K, F]) from x [N, D], wt [N], A [F, K], h [D, K], g [1, K]."""
+def _logp_plain(x, A, h, g, diag: bool):
+    """(logp [N, K], features [N, F]) as the TPU kernels' ``_logp_tile``."""
     x2 = x * x if diag else expand_features(x)
     q = x2 @ A
     q = q - 2.0 * (x @ h)
-    logp = -0.5 * q + g
+    return -0.5 * q + g, x2
+
+
+def fused_stats_plain(x, wt, A, h, g, *, diag: bool):
+    """K1's function in plain torch: (ll [1, 1], nk [1, K], m1 [K, D],
+    m2 [K, F]) from x [N, D], wt [N], A [F, K], h [D, K], g [1, K]."""
+    logp, x2 = _logp_plain(x, A, h, g, diag)
     m = torch.clamp(logp.max(dim=1, keepdim=True).values, min=NEG_LARGE)
     e = torch.exp(logp - m)
     s = e.sum(dim=1, keepdim=True)
@@ -177,13 +201,9 @@ def fused_stats(x, wt, A, h, g, *, diag: bool, block_b: int = 512,
         return fused_stats_plain(x, wt, A, h, g, diag=diag)
     _check_precision(precision)
     _check_cuda(x, wt, A, h, g)
+    _check_k1_shapes("K1", x, wt, A, h, g, diag)
     n, d = x.shape
     f, k = A.shape
-    if (wt.shape != (n,) or f != (d if diag else d * d)
-            or h.shape != (d, k) or g.shape != (1, k)):
-        raise ValueError(
-            f"K1 shapes: x {tuple(x.shape)}, wt {tuple(wt.shape)}, A "
-            f"{tuple(A.shape)}, h {tuple(h.shape)}, g {tuple(g.shape)}")
     from ._build import library
 
     a_ext, g_pad, t = _ext_operands(A, h, g, d, diag)
@@ -317,6 +337,134 @@ def fused_stats_cuda_batched(states, data_chunks, wts_chunks, lane_mask=None,
     return SuffStats(loglik=ll[:, 0, 0].to(dt), Nk=nk[:, 0].to(dt),
                      M1=m1.to(dt),
                      M2=(m2 if diag_only else m2.reshape(R, K, d, d)).to(dt))
+
+
+# ---------------------------------------------------------------- K5 / K6
+
+def local_lse_plain(x, A, h, g, *, diag: bool):
+    """K5's function in plain torch: per event, the max m [N, 1] of logp
+    over this shard's K_s clusters and the shifted sum s [N, 1] of
+    exp(logp - m), from K1's x, A [F, K_s], h [D, K_s], g [1, K_s]. An
+    all-masked shard gives m = NEG_LARGE and s = K_s."""
+    logp, _ = _logp_plain(x, A, h, g, diag)
+    m = logp.max(dim=1, keepdim=True).values
+    return m, torch.exp(logp - m).sum(dim=1, keepdim=True)
+
+
+def stats_logz_plain(x, wt, logz, A, h, g, *, diag: bool):
+    """K6's function in plain torch: K1's outputs for this shard's clusters
+    with w = exp(logp - logz) * wt from the global log-evidence logz
+    [N, 1], and ll = sum logz * wt (the same on every shard)."""
+    logp, x2 = _logp_plain(x, A, h, g, diag)
+    w8 = wt[:, None]
+    w = torch.exp(logp - logz) * w8
+    return ((logz * w8).sum().reshape(1, 1), w.sum(dim=0, keepdim=True),
+            w.T @ x, w.T @ x2)
+
+
+def local_lse(x, A, h, g, *, diag: bool, block_b: int = 512,
+              precision: str = "highest"):
+    """K5: (m, s) as in :func:`local_lse_plain`. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return local_lse_plain(x, A, h, g, diag=diag)
+    _check_precision(precision)
+    _check_cuda(x, A, h, g)
+    _check_k1_shapes("K5", x, None, A, h, g, diag)
+    from ._build import library
+
+    n, d = x.shape
+    k = A.shape[1]
+    a_ext, g_pad, _ = _ext_operands(A, h, g, d, diag)
+    k_pad = g_pad.shape[-1]
+    bt = k1_tile(k_pad, d, block_b, diag)
+    grid = min(-(-n // bt), K1_GRID)
+    m = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    s = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+    fn = library("fused_stats.cu").gmm_local_lse
+    err = fn(x.data_ptr(), a_ext.data_ptr(), g_pad.data_ptr(), m.data_ptr(),
+             s.data_ptr(), n, d, k, k_pad, int(diag), bt, grid,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "K5 (local_lse)")
+    local_lse.launches += 1
+    return m, s
+
+
+local_lse.launches = 0
+
+
+def stats_logz(x, wt, logz, A, h, g, *, diag: bool, block_b: int = 512,
+               precision: str = "highest"):
+    """K6: (ll, nk, m1, m2) as in :func:`stats_logz_plain`. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return stats_logz_plain(x, wt, logz, A, h, g, diag=diag)
+    _check_precision(precision)
+    _check_cuda(x, wt, logz, A, h, g)
+    _check_k1_shapes("K6", x, wt, A, h, g, diag)
+    n, d = x.shape
+    f, k = A.shape
+    if logz.shape != (n, 1):
+        raise ValueError(f"K6: logz {tuple(logz.shape)} for {n} events")
+    from ._build import library
+
+    a_ext, g_pad, t = _ext_operands(A, h, g, d, diag)
+    k_pad = g_pad.shape[-1]
+    bt = k1_tile(k_pad, d, block_b, diag)
+    grid = min(-(-n // bt), K1_GRID)
+    dev = x.device
+    partial = torch.empty((grid, k_pad, t + d + 1), dtype=torch.float32,
+                          device=dev)
+    ll_part = torch.empty(grid, dtype=torch.float64, device=dev)
+    ll = torch.empty((1, 1), dtype=torch.float32, device=dev)
+    nk = torch.empty((1, k), dtype=torch.float32, device=dev)
+    m1 = torch.empty((k, d), dtype=torch.float32, device=dev)
+    m2 = torch.empty((k, f), dtype=torch.float32, device=dev)
+    fn = library("fused_stats.cu").gmm_stats_logz
+    err = fn(x.data_ptr(), wt.data_ptr(), logz.data_ptr(), a_ext.data_ptr(),
+             g_pad.data_ptr(), partial.data_ptr(), ll_part.data_ptr(),
+             ll.data_ptr(), nk.data_ptr(), m1.data_ptr(), m2.data_ptr(), n, d,
+             k, k_pad, int(diag), bt, grid,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "K6 (stats_logz)")
+    stats_logz.launches += 1
+    return ll, nk, m1, m2
+
+
+stats_logz.launches = 0
+
+
+def fused_stats_cuda_sharded(state, data_chunks, wts_chunks, *,
+                             cluster_group, diag_only: bool = False,
+                             block_b: int = 512, precision: str = "highest",
+                             n_events=None) -> SuffStats:
+    """SuffStats of this rank's cluster shard through K5, two all_reduce
+    calls over ``cluster_group`` and K6: the cluster-sharded ``stats_fn``
+    hook, the counterpart of the JAX package's
+    ``fused_stats_pallas_sharded``. K5 gives each event's local (m, s);
+    M = MAX over the shards of m, S = SUM of exp(m - M) * s, logZ =
+    M + log(S) (a shard whose clusters are all inactive has m = NEG_LARGE,
+    so its exp(m - M) is exactly 0); K6 accumulates the statistics from
+    logZ. Only [N, 1] per-event scalars cross ranks. The loglik is the same
+    on every rank of the group. ``n_events`` as in
+    :func:`fused_stats_cuda`."""
+    c, b, d = data_chunks.shape
+    K = state.means.shape[0]
+    x, wt = _prep_events(data_chunks, wts_chunks)
+    if n_events is not None:
+        x, wt = x[:n_events], wt[:n_events]
+    A, h, g = _prep_params(state, d, diag_only)
+    kw = dict(diag=diag_only, block_b=block_b, precision=precision)
+    m, s = local_lse(x, A, h, g, **kw)
+    big_m = m.clone()
+    dist.all_reduce(big_m, op=dist.ReduceOp.MAX, group=cluster_group)
+    big_s = torch.exp(m - big_m) * s
+    dist.all_reduce(big_s, op=dist.ReduceOp.SUM, group=cluster_group)
+    logz = big_m + torch.log(big_s)
+    ll, nk, m1, m2 = stats_logz(x, wt, logz, A, h, g, **kw)
+    dt = data_chunks.dtype
+    return SuffStats(loglik=ll[0, 0].to(dt), Nk=nk[0].to(dt), M1=m1.to(dt),
+                     M2=(m2 if diag_only else m2.reshape(K, d, d)).to(dt))
 
 
 # ---------------------------------------------------------------- K2

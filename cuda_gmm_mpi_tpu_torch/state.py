@@ -112,10 +112,14 @@ def zeros_state(num_clusters: int, num_dimensions: int,
                     active=torch.zeros(K, dtype=torch.bool, device=device))
 
 
-def bucket_width(k_active: int, padded: int) -> int:
-    """Smallest power of two >= ``k_active``, clamped to the current
-    ``padded`` width (buckets only ever shrink)."""
+def bucket_width(k_active: int, padded: int, multiple: int = 1) -> int:
+    """Smallest power of two >= ``k_active``, rounded up to a multiple of
+    ``multiple`` (the cluster-mesh axis extent, so sharded states stay
+    evenly partitionable) and clamped to the current ``padded`` width
+    (buckets only ever shrink)."""
     w = 1 << max(0, k_active - 1).bit_length()
+    if multiple > 1:
+        w = -(-w // multiple) * multiple
     return min(w, padded)
 
 

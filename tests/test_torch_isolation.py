@@ -38,6 +38,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "cuda_gmm_mpi_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
+    assert {"sharded_em.py", "mesh.py", "distributed.py"} <= {
+        p.name for p in files if p.parent.name == "parallel"}
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -89,6 +91,64 @@ def test_batched_kernel_wrappers_do_not_fall_back_off_the_cpu():
                          meta(2, 4, 1), meta(2, 4, 1), diag=False)
     assert (fs.fused_stats_batched.launches,
             fs.mstep_batched.launches) == before
+
+
+def test_sharded_kernel_wrappers_do_not_fall_back_off_the_cpu():
+    meta = lambda *s: torch.empty(s, device="meta")
+    before = (fs.local_lse.launches, fs.stats_logz.launches)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fs.local_lse(meta(128, 3), meta(9, 4), meta(3, 4), meta(1, 4),
+                     diag=False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fs.stats_logz(meta(128, 3), meta(128), meta(128, 1), meta(9, 4),
+                      meta(3, 4), meta(1, 4), diag=False)
+    assert (fs.local_lse.launches, fs.stats_logz.launches) == before
+
+
+@pytest.mark.parametrize("diag,dtype,mode,expected", [
+    (True, "float32", "auto", "cuda"),    # K5 + K6, torch-ops M-step
+    (False, "float32", "auto", "torch"),  # full covariance: one contraction
+    (True, "float64", "auto", "torch"),
+    (True, "float32", "torch", "torch"),
+])
+def test_mesh_backend_routing(diag, dtype, mode, expected):
+    """JAX's routing on a cluster-sharded mesh; a data-only mesh keeps K1
+    and K2 per rank."""
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import make_mstep_fn, make_stats_fn
+
+    cfg = GMMConfig(device="cuda", dtype=dtype, diag_only=diag,
+                    estep_backend=mode)
+    backend, reason = resolve_estep_backend(cfg, cluster_sharded=True)
+    assert backend == expected
+    if not diag:
+        assert "cluster-sharded full covariance" in reason
+    hook = make_stats_fn(cfg, cluster_sharded=True, cluster_group=None)
+    assert (hook is not None and hook.func is fs.fused_stats_cuda_sharded) \
+        == (expected == "cuda")
+    assert make_mstep_fn(cfg, cluster_sharded=True) is None
+    if resolve_estep_backend(cfg)[0] == "cuda":
+        assert make_stats_fn(cfg).func is fs.fused_stats_cuda
+        assert make_mstep_fn(cfg) is not None
+
+
+@pytest.mark.parametrize("device,local_world,world,gpus,expected", [
+    ("cuda", "8", 16, 8, "nccl"),   # 2 nodes x 8 GPUs under torchrun
+    ("cuda", None, 4, 8, "nccl"),   # one host, a GPU per rank
+    ("cuda", None, 4, 1, "gloo"),   # 4 ranks share one GPU
+    ("cuda", "4", 4, 1, "gloo"),
+    ("cpu", "2", 2, 8, "gloo"),
+])
+def test_collective_backend_counts_ranks_per_host(
+        monkeypatch, device, local_world, world, gpus, expected):
+    from cuda_gmm_mpi_tpu_torch.parallel.distributed import choose_backend
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: gpus)
+    if local_world is None:
+        monkeypatch.delenv("LOCAL_WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("LOCAL_WORLD_SIZE", local_world)
+    assert choose_backend(device, world) == expected
 
 
 def test_batched_hooks_follow_the_routing():
