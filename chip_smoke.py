@@ -8,7 +8,13 @@ Run from the root of a checkout on a machine with one NVIDIA H100:
 Phases (any failure exits non-zero, and no result line is printed):
 
 1. build the hand-written kernels from csrc/ with nvcc (parallel, one nvcc
-   per source) and print the card's name and power limit;
+   per source) and print the card's name and power limit; beside the build,
+   compile fused_stats.cu twice more: to a cubin with ``-Xptxas -v``, to
+   print each ``fused_stats_kernel`` instance's registers, static shared
+   memory and spills and, where the toolkit has cuobjdump, the HMMA
+   (tensor-core) instructions in its SASS; and with -DGMM_PHASE_CLOCKS, a
+   library whose kernel counts the cycles of its phases (phase 2 prints
+   each phase's share of one K1 launch at the main path's shapes);
 2. K1 (fused E+M statistics) against its plain PyTorch version at the main
    path's shapes (the N=1,000,000 real events of the 65536-event chunk
    grid, D=24, K=100; full and diag covariance) and on a ragged N with
@@ -80,10 +86,15 @@ It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Times come from CUDA events; the
 bound is the larger of the bytes over 3.35 TB/s and the operations over the
-fp32 non-tensor peak of 67 TFLOP/s (matmul_precision 'highest' excludes
-TF32), both for an H100 SXM at 700 W. K1's operations are what its
-function needs on this run's real events: 2 N K (T+D) for logp and
-2 N K (T+D+1) for Nk/M1/M2, with T = D(D+1)/2 distinct products of the
+peak of the units that run them, for an H100 SXM at 700 W. K1's kernel
+(K1, K3, K5, K6) runs phase 1 (logp) on the fp32 FMA units, 67 TFLOP/s,
+and phase 3 (the statistics) on the tensor cores in three TF32 passes
+(what matmul_precision 'highest' runs there, at fp32-class error), three
+times its operations at 495 TFLOP/s; the units run side by side, so its
+bound is the larger of the two times. The figure with every operation on
+the FMA units stands beside it as ``fp32_bound_ms``. K1's operations are
+what its function needs on this run's real events: 2 N K (T+D) for logp
+and 2 N K (T+D+1) for Nk/M1/M2, with T = D(D+1)/2 distinct products of the
 symmetric x x^T (T = D in diag mode). That is less than the TPU kernel's
 own estimate of 4 N K D^2, which counts both triangles of x x^T. K3's are
 the same per live lane; K2/K4 count their bytes. K5's operations are
@@ -108,6 +119,8 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+TF32_FLOPS_PER_S = 495e12
+TF32_PASSES = 3  # K1's kernel: small*big + big*small + big*big
 N_EVENTS, DIMS, K0, K_TARGET, ITERS = 1_000_000, 24, 100, 96, 20
 LANES = 4  # restarts per batch in phases 5-7
 FROZEN = 2  # the lane phase 5 freezes through the lane mask
@@ -157,6 +170,134 @@ def bound_ms(nbytes: float, flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOPS_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def route_bound(nbytes: float, fma_flops: float, tc_flops: float = 0.0) -> dict:
+    """The bound of K1's kernel (K1, K3, K5, K6) on its route: phase 1's
+    flops on the fp32 FMA units, phase 3's three TF32 passes on the tensor
+    cores; the two units run side by side, so the larger time. Beside it
+    the figure with every flop on the FMA units."""
+    t_ops = max(fma_flops / FP32_FLOPS_PER_S,
+                TF32_PASSES * tc_flops / TF32_FLOPS_PER_S) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "fp32_bound_ms": bound_ms(nbytes, fma_flops + tc_flops)[0]}
+
+
+KERNEL_MODES = {"0": "stats (K1/K3)", "1": "local_lse (K5)",
+                "2": "stats_logz (K6)"}
+
+
+PHASES = ("events", "phase 1 (logp, FMA)", "phase 2 (log-sum-exp)",
+          "phase 3 products (tensor cores)", "phase 3 partial-buffer update")
+
+
+def start_extra_builds():
+    """Two more compiles of fused_stats.cu, started now so that they run
+    beside the library build: a cubin with nvcc -Xptxas -v (read by
+    :func:`kernel_report`) and a library with -DGMM_PHASE_CLOCKS (used by
+    :func:`phase_shares`). Returns (cubin, clocks library, processes)."""
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import _build
+
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    src = str(_build.CSRC / "fused_stats.cu")
+    cubin = _build.BUILD_DIR / "fused_stats_report.cubin"
+    clocks = _build.BUILD_DIR / "libfused_stats_clocks.so"
+    cmds = [[_build.nvcc()] + _build.ARCH + ["-std=c++17", "-O3", "-cubin",
+                                             "-Xptxas", "-v", "-o", str(cubin), src],
+            [_build.nvcc()] + _build.ARCH + _build.BASE_FLAGS
+            + ["-DGMM_PHASE_CLOCKS", "-o", str(clocks), src]]
+    return cubin, clocks, [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                            stderr=subprocess.STDOUT, text=True)
+                           for c in cmds]
+
+
+def phase_shares(clocks, args, diag: bool) -> dict:
+    """One K1 launch through the -DGMM_PHASE_CLOCKS build on ``args``: each
+    phase's share of the cycles that thread 0 of every CTA counted between
+    the barriers (two launches more of K1, outside any counted run)."""
+    import ctypes
+
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import _build
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    lib = ctypes.CDLL(str(clocks))
+    for name, argtypes in _build.SIGNATURES["fused_stats.cu"]:
+        getattr(lib, name).argtypes = argtypes
+    lib.gmm_phase_cycles.argtypes = [ctypes.c_void_p]
+    cycles = np.zeros(len(PHASES), np.uint64)
+    saved = _build._libs["fused_stats.cu"]
+    _build._libs["fused_stats.cu"] = lib
+    try:
+        fs.fused_stats(*args, diag=diag)
+        torch.cuda.synchronize()
+        check(lib.gmm_phase_cycles(cycles.ctypes.data) == 0, "phase clocks reset")
+        fs.fused_stats(*args, diag=diag)
+        torch.cuda.synchronize()
+        check(lib.gmm_phase_cycles(cycles.ctypes.data) == 0, "phase clocks read")
+    finally:
+        _build._libs["fused_stats.cu"] = saved
+    total = float(cycles.sum())
+    return {name: float(c) / total for name, c in zip(PHASES, cycles)}
+
+
+def kernel_report(cubin, procs) -> list:
+    """Waits for :func:`start_extra_builds`; returns the registers, static
+    shared memory and spills of each fused_stats_kernel instance, and its
+    HMMA instructions where the toolkit has cuobjdump (else None)."""
+    import re
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import _build
+
+    logs = [proc.communicate(timeout=600)[0] for proc in procs]
+    for proc, log in zip(procs, logs):
+        check(proc.returncode == 0, f"nvcc failed:\n{log}")
+    log = logs[0]
+    props, current = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) "
+                      r"'?(\S+?)'?(?: for|$)", line)
+        if m:
+            current = m.group(1)
+            continue
+        if current is None or "fused_stats_kernel" not in current:
+            continue
+        rec = props.setdefault(current, {})
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            rec["spill_stores"], rec["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            rec["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            rec["static_smem"] = int(m.group(1)) if m else 0
+    hmma = {}
+    tool = shutil.which("cuobjdump") or str(Path(_build.nvcc()).parent / "cuobjdump")
+    if Path(tool).exists():
+        sass = subprocess.run([tool, "-sass", str(cubin)], capture_output=True,
+                              text=True, timeout=300, check=True).stdout
+        current = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                current = m.group(1)
+                hmma[current] = 0
+            elif current and "HMMA" in line:
+                hmma[current] += 1
+    out = []
+    for name, rec in sorted(props.items()):
+        m = re.search(r"fused_stats_kernelILi(\d)ELb([01])ELi(\d+)E", name)
+        check(m is not None and "registers" in rec,
+              f"unparsed ptxas report for {name}: {rec}")
+        mode, diag, mr = m.groups()
+        out.append(dict(instance=f"{KERNEL_MODES[mode]} "
+                        f"{'diag' if diag == '1' else 'full'} {mr}-row tiles",
+                        hmma=hmma.get(name), **rec))
+    check(len(out) == 12, f"{len(out)} fused_stats_kernel instances reported")
+    return out
 
 
 def make_blobs(seed: int, n: int, d: int, k: int,
@@ -209,9 +350,10 @@ def normwise(a, ref64) -> float:
     return err / max(float(ref64.abs().max()), 1e-300)
 
 
-def phase_k1(x_np, diag, inactive, label, timed, near=True):
+def phase_k1(x_np, diag, inactive, label, timed, near=True, clocks=None):
     """K1 against its plain version (the tolerance class, where the data are
-    well conditioned) and both against float64 (always)."""
+    well conditioned) and both against float64 (always); when timed, its
+    time and (with the ``clocks`` library) its phases' shares."""
     import torch
 
     from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
@@ -258,16 +400,22 @@ def phase_k1(x_np, diag, inactive, label, timed, near=True):
         t = d if diag else d * (d + 1) // 2
         nbytes = 4 * (n * d + n + A.numel() + h.numel() + g.numel()
                       + 1 + k + k * d + k * f)
-        flops = 2.0 * n * k * (t + d) + 2.0 * n * k * (t + d + 1)
         rec["ms"] = time_ms(lambda: fs.fused_stats(*args, diag=diag))
         rec["plain_ms"] = time_ms(lambda: fs.fused_stats_plain(*args, diag=diag))
         rec["library_ms"] = time_ms(
             lambda: accumulate_stats(state, chunks, wts, diag_only=diag))
-        rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+        rec.update(route_bound(nbytes, 2.0 * n * k * (t + d),
+                               2.0 * n * k * (t + d + 1)))
         print(f"  K1 {label}: kernel {rec['ms']:.3f} ms, plain "
               f"{rec['plain_ms']:.3f} ms, torch-ops accumulate_stats "
               f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-              f"({rec['bound_by']})")
+              f"({rec['bound_by']}; fp32 non-tensor "
+              f"{rec['fp32_bound_ms']:.3f} ms)")
+        if clocks is not None:
+            rec["phase_shares"] = phase_shares(clocks, args, diag)
+            print(f"  K1 {label} phases (thread-0 cycles of every CTA): "
+                  + ", ".join(f"{k} {100 * v:.1f}%"
+                              for k, v in rec["phase_shares"].items()))
     return rec, (state, out)
 
 
@@ -524,7 +672,6 @@ def phase_k3(lanes_in, diag, label):
     t = d if diag else d * (d + 1) // 2
     nbytes = 4 * (n * d + n + LANES + A.numel() + h.numel() + g.numel()
                   + LANES * (1 + K0 + K0 * d + K0 * f))
-    flops = len(live) * 2.0 * n * K0 * (2 * t + 2 * d + 1)
     rec = {"max_abs_err": worst, "fp64_err": worst64,
            "plain_fp64_err": worst64_plain}
     rec["ms"] = time_ms(lambda: fs.fused_stats_batched(*args, diag=diag))
@@ -538,14 +685,15 @@ def phase_k3(lanes_in, diag, label):
     rec["library_ms"] = time_ms(lambda: [
         accumulate_stats(states[r], chunks, wts, diag_only=diag)
         for r in live], reps=2)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+    rec.update(route_bound(nbytes, len(live) * 2.0 * n * K0 * (t + d),
+                           len(live) * 2.0 * n * K0 * (t + d + 1)))
     print(f"  K3 {label}: every live lane torch.equal to K1, frozen lane "
           f"zeros; kernel {rec['ms']:.3f} ms ({len(live)} live lanes), "
           f"{rec['all_live_ms']:.3f} ms ({LANES} live lanes), {LANES} x K1 "
           f"{rec['k1_x4_ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms, "
           f"torch-ops accumulate_stats over the live lanes "
           f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
-          f"({rec['bound_by']})")
+          f"({rec['bound_by']}; fp32 non-tensor {rec['fp32_bound_ms']:.3f} ms)")
     return rec, out
 
 
@@ -828,21 +976,21 @@ def time_k5_k6(x_np, diag, label):
     rec5 = {"ms": time_ms(lambda: fs.local_lse(x, *p, diag=diag)),
             "plain_ms": time_ms(lambda: fs.local_lse_plain(x, *p, diag=diag)),
             "torch_ops_ms": time_ms(torch_ops_lse)}
-    rec5["bound_ms"], rec5["bound_by"] = bound_ms(
-        4 * (n * d + f * ks + d * ks + ks + 2 * n), 2.0 * n * ks * (t + d))
+    rec5.update(route_bound(4 * (n * d + f * ks + d * ks + ks + 2 * n),
+                            2.0 * n * ks * (t + d)))
     rec6 = {"ms": time_ms(lambda: fs.stats_logz(x, wt, logz, *p, diag=diag)),
             "plain_ms": time_ms(
                 lambda: fs.stats_logz_plain(x, wt, logz, *p, diag=diag)),
             "torch_ops_ms": time_ms(lambda: accumulate_stats(
                 shard, c_shard, w_shard, diag_only=diag))}
-    rec6["bound_ms"], rec6["bound_by"] = bound_ms(
+    rec6.update(route_bound(
         4 * (n * d + 2 * n + f * ks + d * ks + ks + 1 + ks + ks * d + ks * f),
-        2.0 * n * ks * (t + d) + 2.0 * n * ks * (t + d + 1))
+        2.0 * n * ks * (t + d), 2.0 * n * ks * (t + d + 1)))
     for name, r in (("K5", rec5), ("K6", rec6)):
         print(f"  {name} {label} at {n} events x {ks} clusters: kernel "
               f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch-ops "
               f"route {r['torch_ops_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})")
+              f"({r['bound_by']}; fp32 non-tensor {r['fp32_bound_ms']:.4f} ms)")
     return rec5, rec6
 
 
@@ -1054,15 +1202,25 @@ def main() -> int:
 
     print("phase 1: build")
     t0 = time.perf_counter()
+    cubin, clocks, extra = start_extra_builds()
     _build.build_all()
-    print(f"  built {len(_build.SIGNATURES)} kernel libraries in "
+    instances = kernel_report(cubin, extra)
+    print(f"  built {len(_build.SIGNATURES)} kernel libraries, the ptxas "
+          f"report and the phase-clock build in "
           f"{time.perf_counter() - t0:.1f} s; card: {card}")
+    for r in instances:
+        hmma = "no cuobjdump" if r["hmma"] is None else f"{r['hmma']} HMMA"
+        print(f"  fused_stats_kernel {r['instance']}: {r['registers']} "
+              f"registers, {r['static_smem']} bytes static shared memory, "
+              f"spills {r.get('spill_stores', 0)} / {r.get('spill_loads', 0)} "
+              f"bytes (stores / loads), {hmma}")
 
     print("phase 2: K1 against its plain version")
     data = make_blobs(args.seed, N_EVENTS, DIMS, K_TARGET)
     k1_full, (state_full, out_full) = phase_k1(data, False, (7, 50), "full",
-                                               True)
-    k1_diag, (state_diag, out_diag) = phase_k1(data, True, (7,), "diag", True)
+                                               True, clocks=clocks)
+    k1_diag, (state_diag, out_diag) = phase_k1(data, True, (7,), "diag", True,
+                                               clocks=clocks)
     phase_k1(data[:999_997], False, (3,), "full ragged N=999997", False)
     far = make_blobs(args.seed + 1, N_EVENTS, DIMS, K_TARGET, spread=FAR)
     k1_far, _ = phase_k1(far, False, (7, 50), "full |x|~170", False, near=False)
@@ -1137,10 +1295,15 @@ def main() -> int:
              far_diag_plain_fp64_err=k1_far_diag["plain_fp64_err"],
              ms=k1_full["ms"],
              plain_ms=k1_full["plain_ms"], bound_ms=k1_full["bound_ms"],
-             bound_by=k1_full["bound_by"], library_ms=k1_full["library_ms"],
+             bound_by=k1_full["bound_by"],
+             fp32_bound_ms=k1_full["fp32_bound_ms"],
+             library_ms=k1_full["library_ms"],
              diag_ms=k1_diag["ms"], diag_plain_ms=k1_diag["plain_ms"],
              diag_library_ms=k1_diag["library_ms"],
-             diag_bound_ms=k1_diag["bound_ms"]),
+             diag_bound_ms=k1_diag["bound_ms"],
+             diag_fp32_bound_ms=k1_diag["fp32_bound_ms"],
+             phase_shares=k1_full["phase_shares"],
+             diag_phase_shares=k1_diag["phase_shares"], build=instances),
         dict(name="K2 mstep", route="cuda", source=src + "mstep.cu",
              replaces=pallas + "681", launches=launches["K2"],
              max_abs_err=k2_full["max_abs_err"], ms=k2_full["ms"],
@@ -1155,12 +1318,14 @@ def main() -> int:
              all_live_ms=k3_full["all_live_ms"],
              k1_x4_ms=k3_full["k1_x4_ms"], plain_ms=k3_full["plain_ms"],
              bound_ms=k3_full["bound_ms"], bound_by=k3_full["bound_by"],
+             fp32_bound_ms=k3_full["fp32_bound_ms"],
              library_ms=k3_full["library_ms"], diag_ms=k3_diag["ms"],
              diag_all_live_ms=k3_diag["all_live_ms"],
              diag_k1_x4_ms=k3_diag["k1_x4_ms"],
              diag_plain_ms=k3_diag["plain_ms"],
              diag_library_ms=k3_diag["library_ms"],
-             diag_bound_ms=k3_diag["bound_ms"]),
+             diag_bound_ms=k3_diag["bound_ms"],
+             diag_fp32_bound_ms=k3_diag["fp32_bound_ms"]),
         dict(name="K4 mstep_batched", route="cuda", source=src + "mstep.cu",
              replaces=pallas + "690", launches=launches["K4"],
              max_abs_err=k4_full["max_abs_err"], ms=k4_full["ms"],
@@ -1176,18 +1341,22 @@ def main() -> int:
              plain_fp64_err=max(v["k5_plain_fp64_err"] for v in k56.values()),
              ms=k5_diag["ms"], plain_ms=k5_diag["plain_ms"],
              bound_ms=k5_diag["bound_ms"], bound_by=k5_diag["bound_by"],
+             fp32_bound_ms=k5_diag["fp32_bound_ms"],
              library_ms=None, torch_ops_ms=k5_diag["torch_ops_ms"],
              full_ms=k5_full["ms"], full_plain_ms=k5_full["plain_ms"],
              full_bound_ms=k5_full["bound_ms"],
+             full_fp32_bound_ms=k5_full["fp32_bound_ms"],
              full_torch_ops_ms=k5_full["torch_ops_ms"],
              mesh_breakdown_ms=mesh["breakdown_ms"]["K5"]),
         dict(name="K6 stats_logz", route="cuda", source=src + "fused_stats.cu",
              replaces=pallas + "235", launches=launches["K6"],
              max_abs_err=k6_err, ms=k6_diag["ms"], plain_ms=k6_diag["plain_ms"],
              bound_ms=k6_diag["bound_ms"], bound_by=k6_diag["bound_by"],
+             fp32_bound_ms=k6_diag["fp32_bound_ms"],
              library_ms=None, torch_ops_ms=k6_diag["torch_ops_ms"],
              full_ms=k6_full["ms"], full_plain_ms=k6_full["plain_ms"],
              full_bound_ms=k6_full["bound_ms"],
+             full_fp32_bound_ms=k6_full["fp32_bound_ms"],
              full_torch_ops_ms=k6_full["torch_ops_ms"],
              mesh_breakdown_ms=mesh["breakdown_ms"]["K6"],
              mesh_iteration_ms=mesh["em_s"] / mesh["iters"] * 1e3,

@@ -35,8 +35,10 @@ class GMMConfig:
     # epsilon = nparams_per_cluster * ln(N*D) * scale (gaussian.cu:458).
     epsilon_scale: float = 0.01
     dtype: str = "float32"
-    # 'highest' = plain fp32 (or fp64) multiply-adds, no TF32. The 3-pass
-    # bf16 'high' and 1-pass 'default' modes are not ported yet.
+    # 'highest' = fp32-class products: plain fp32 (or fp64) multiply-adds on
+    # the torch-ops path (TF32 off); in the CUDA kernels the statistics run
+    # in three TF32 passes on the tensor cores. The 3-pass bf16 'high' and
+    # 1-pass 'default' modes are not ported yet.
     matmul_precision: str = "highest"
     # Events per step of the torch-ops statistics loop; also the padded
     # chunk grid the event data is laid out in.

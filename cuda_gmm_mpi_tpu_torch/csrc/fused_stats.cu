@@ -16,19 +16,43 @@
 // What bounds it on an H100: operations. The function needs
 // 2*N*K*(T+D) flops for logp plus 2*N*K*(T+D+1) for the accumulation, with
 // T = D(D+1)/2 symmetric feature columns (T = D in diag mode): 1.3e11 flops
-// at N=1M, K=100, D=24, against ~100 MB of event data.
-// matmul_precision='highest' rules out TF32, so the roof is the 67 TFLOP/s
-// fp32 (non-tensor) peak. The design cuts the operations and keeps the
-// FMA units fed:
+// at N=1M, K=100, D=24, against ~100 MB of event data. The two products run
+// on different units, for accuracy (matmul_precision='highest' holds both
+// to fp32's error class):
+//  * Phase 3, the accumulation, runs on the tensor cores: warp-level
+//    mma.sync m16n8k8 with TF32 inputs, in three passes (3xTF32). Each
+//    operand value v is split as it is loaded into a fragment, big =
+//    tf32(v) (round to nearest, 10 mantissa bits) and small = tf32(v - big);
+//    each 8-deep step issues small_a*big_b, big_a*small_b, then big_a*big_b
+//    into a partial that starts from zero, and the partial is added to the
+//    fp32 accumulator on the FMA units. The tensor cores truncate their
+//    fp32 sums toward zero (after aligning the terms with 2 guard bits), so
+//    a sum kept inside them drifts; rounded to nearest outside, phase 3's
+//    error stays under the float32 floor (tests/test_torch_tf32_split.py
+//    emulates this arithmetic).
+//  * Phase 1, logp, stays on the fp32 FMA units. The expanded quadratic
+//    form cancels terms far larger than logp, and there 3xTF32 (operands
+//    kept to ~22 of fp32's 24 bits, sums truncated) lands several times
+//    further from float64 than the plain version does, against a bar of
+//    twice (PERF.md, PR 5).
 //  * x2 is symmetric, so only its upper triangle is formed: T = D(D+1)/2
 //    packed columns instead of D*D (300 vs 576 at D=24). The wrapper sums
 //    A's mirrored entries into a packed A; the reduction writes each packed
 //    M2 sum to both mirrored entries of the [K, D*D] output, so the
 //    caller's layout (column j*D+i holds x_i*x_j) is unchanged.
-//  * Both products use 128-wide macro tiles and an 8x8 (4x8 for 64-row
-//    tiles) register tile per thread, fed from double-buffered 16-deep
-//    shared-memory stages. A shared table maps each feature column to its
-//    pair of event coordinates, so no integer division runs per feature.
+//  * Both products use 128-wide macro tiles fed from double-buffered
+//    16-deep shared-memory stages. Phase 1 gives each thread an 8x8 (4x8
+//    for 64-row tiles) register tile; its A_ext stages arrive by 16-byte
+//    cp.async, its feature stages are computed from the event tile (a
+//    shared table maps each feature column to its pair of event
+//    coordinates, so no integer division runs per feature) and staged
+//    through registers. Phase 3 splits the 128 x 128 tile over the 8 warps
+//    as 2 x 4 warp tiles of 64 x 32 outputs (4 x 4 m16n8 tiles, 64
+//    accumulators per thread) and reads its operands depth-major: w^T in
+//    place from the posteriors, the features from their stage. Every
+//    posterior row and phase-3 stage row is padded to a stride of 8
+//    (mod 32) floats, so the 32 lanes of a fragment load (row lane/4 +
+//    0..7, depth lane%4) hit 32 distinct banks.
 //
 // Determinism (no float atomics anywhere):
 //  * A persistent grid of G CTAs (G = min(tiles, 132), fixed by the wrapper
@@ -86,23 +110,52 @@
 //    w = exp(logp - logZ) * wt, and adds logZ * wt to the warp's float64
 //    loglik. Phase 3 and the index-order float64 reduction are K1's, so
 //    K6 is deterministic from launch to launch too.
-// Bounds: K5 does 2 N K_s (T+D) flops, K6 that plus 2 N K_s (T+D+1) (the
+// Bounds: K5 does 2 N K_s (T+D) flops on the FMA units (it has no phase
+// 3), K6 that plus 2 N K_s (T+D+1) three times on the tensor cores (the
 // accumulation), against ~4 N (D+2) bytes: operations, like K1. A shard of
 // K_s clusters still computes whole 128-wide macro tiles (50 clusters in
 // 128 columns at K = 100, C = 2), and K6 repeats K5's phase 1: both are
-// costs of this first version.
+// costs of this version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int THREADS = 256;  // 16 x 16 threads
+constexpr int THREADS = 256;  // phase 1: 16 x 16 threads; phase 3: 2 x 4 warps
 constexpr int NT = 128;       // macro-tile width
 constexpr int KC = 16;        // depth of one shared-memory stage
+constexpr int PAD = 8;        // row padding for fragment loads: strides of 8 (mod 32)
+constexpr int SROW = NT + PAD;    // row stride of a phase-3 stage
+constexpr int STAGE = KC * SROW;  // floats of one stage buffer
 constexpr float NEG_LARGE = -1e30f;
 
 enum { MODE_STATS = 0, MODE_LOCAL_LSE = 1, MODE_STATS_LOGZ = 2 };
+
+#ifdef GMM_PHASE_CLOCKS
+// A build with -DGMM_PHASE_CLOCKS (chip_smoke.py makes one) times the
+// phases: each thread reads clock64() at the barriers that end them, and
+// thread 0 of each CTA of restart lane 0 adds its cycles to phase_cycles
+// at the end: the tile's events, phase 1, phase 2, phase 3's products,
+// phase 3's read-modify-write of the partial buffer.
+constexpr int PHASES = 5;
+__device__ unsigned long long phase_cycles[PHASES];
+#define PHASE_CLOCK_START \
+  unsigned long long phase_t = clock64(), phase_sum[PHASES] = {};
+#define PHASE_CLOCK(i)                          \
+  {                                             \
+    const unsigned long long now = clock64();   \
+    phase_sum[i] += now - phase_t;              \
+    phase_t = now;                              \
+  }
+#define PHASE_CLOCK_END                                         \
+  if (threadIdx.x == 0 && blockIdx.y == 0)                      \
+    for (int i = 0; i < PHASES; ++i) atomicAdd(&phase_cycles[i], phase_sum[i]);
+#else
+#define PHASE_CLOCK_START
+#define PHASE_CLOCK(i)
+#define PHASE_CLOCK_END
+#endif
 
 // Operands of one launch. Pointers a mode does not use are null: K1/K3 have
 // no logz/m/s, K5 no wt/lanes/partial/ll_part, K1/K5/K6 no lanes.
@@ -161,21 +214,53 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// Rows (or columns) owned by a thread inside a macro tile: two groups of
-// four, 64 apart, so the float4 shared-memory reads of a warp never
-// conflict.
+// v = big + small, both TF32 (round to nearest, ties away from zero).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(v));
+  const float rest = v - __uint_as_float(big);
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(small) : "f"(rest));
+}
+
+// c += a * b on one m16n8k8 tile: TF32 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// 16 bytes global -> shared, asynchronously; zero-filled where !valid.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows (or columns) owned by a thread of phase 1's SIMT product inside a
+// macro tile: two groups of four, 64 apart, so the float4 shared-memory
+// reads of a warp never conflict.
 __device__ __forceinline__ int own(int t, int i) { return (i >> 2) * 64 + t * 4 + (i & 3); }
 
-// acc[i][j] += a[i] * b[j] over one stage; a from a [KC][MR] block (MR rows
-// of the output), b from a [KC][NT] block.
+// Phase 1: acc[i][j] += a[i] * b[j] over one stage on the fp32 FMA units;
+// a from a [KC][MR] block (MR rows of the output), b from a [KC][NT] block.
 template <int MR>
 __device__ __forceinline__ void fma_stage(float (&acc)[MR / 16][8],
-                                          const float* a_blk, int a_stride,
-                                          const float* b_blk, int tx, int ty) {
+                                          const float* a_blk, const float* b_blk,
+                                          int tx, int ty) {
 #pragma unroll
   for (int r = 0; r < KC; ++r) {
     float a[MR / 16], b[8];
-    const float4* ar = reinterpret_cast<const float4*>(a_blk + r * a_stride);
+    const float4* ar = reinterpret_cast<const float4*>(a_blk + r * MR);
     const float4* br = reinterpret_cast<const float4*>(b_blk + r * NT);
 #pragma unroll
     for (int h = 0; h < MR / 64; ++h) {
@@ -194,6 +279,60 @@ __device__ __forceinline__ void fma_stage(float (&acc)[MR / 16][8],
   }
 }
 
+// Phase 3: acc += A * B over one KC-deep stage on the tensor cores, in
+// three TF32 passes. Both operands are depth-major blocks: a_blk[depth *
+// a_stride + row] holds this warp's 64 output rows, b_blk[depth * b_stride
+// + col] its 32 output columns. Lane (g = lane / 4, t = lane % 4) loads
+// fragment elements (row g (+8), depth t (+4)) of A and (depth t (+4),
+// column g) of B: with strides of 8 (mod 32) floats the warp's 32 loads hit
+// 32 banks. The tensor cores truncate their fp32 sums (toward zero, after
+// aligning the terms with 2 guard bits), so each 8-deep step's three
+// passes go into a partial that starts from zero, and the partials are
+// added to acc on the FMA units, rounding to nearest: the truncation then
+// never acts on the running sum.
+__device__ __forceinline__ void mma_stage(float (&acc)[4][4][4],
+                                          const float* a_blk, int a_stride,
+                                          const float* b_blk, int b_stride,
+                                          int lane) {
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t b_big[2][4][2], b_small[2][4][2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float* q = b_blk + (k * 8 + t) * b_stride + j * 8 + g;
+      split_tf32(q[0], b_big[k][j][0], b_small[k][j][0]);
+      split_tf32(q[4 * b_stride], b_big[k][j][1], b_small[k][j][1]);
+    }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t a_big[2][4], a_small[2][4];
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const float* q = a_blk + (k * 8 + t) * a_stride + i * 16 + g;
+      split_tf32(q[0], a_big[k][0], a_small[k][0]);
+      split_tf32(q[8], a_big[k][1], a_small[k][1]);
+      split_tf32(q[4 * a_stride], a_big[k][2], a_small[k][2]);
+      split_tf32(q[4 * a_stride + 8], a_big[k][3], a_small[k][3]);
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      float part[4][4] = {};
+      // The small terms first, the big product last.
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(part[j], a_small[k], b_big[k][j]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(part[j], a_big[k], b_small[k][j]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) mma_tf32(part[j], a_big[k], b_big[k][j]);
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int h = 0; h < 4; ++h) acc[i][j][h] += part[j][h];
+    }
+  }
+}
+
 template <int MODE, bool DIAG, int MR>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_stats_kernel(const Params p) {
@@ -203,6 +342,7 @@ fused_stats_kernel(const Params p) {
   const int fd = t + d;                      // rows of A_ext
   const int fe = fd + 1;                     // columns of [x2 | x | 1]
   const int fe_pad = (fe + NT - 1) / NT * NT;
+  const int kps = kp + PAD;                  // posterior row stride
 
   // Restart lane: its parameters and its slices of the partial buffers.
   const int lane_r = blockIdx.y;
@@ -212,15 +352,18 @@ fused_stats_kernel(const Params p) {
   const float* __restrict__ g = p.g + (size_t)lane_r * kp;
 
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [bt][kp] logp, then w
-  float* as = ws + (size_t)bt * kp;             // [2][KC][NT] A_ext stages
-  float* fs = as + 2 * KC * NT;                 // [2][KC][NT] feature stages
-  float* xs = fs + 2 * KC * NT;                 // [bt][xstride], col d = 1
+  float* ws = reinterpret_cast<float*>(smem4);  // [bt][kps] logp, then w
+  float* as = ws + (size_t)bt * kps;            // [2][STAGE] A_ext stages [KC][NT]
+  float* fs = as + 2 * STAGE;                   // [2][STAGE] feature stages:
+                                                // [KC][MR] (phase 1), [KC][SROW] (3)
+  float* xs = fs + 2 * STAGE;                   // [bt][xstride], col d = 1
   int* pairs = reinterpret_cast<int*>(xs + (size_t)bt * xstride);  // [fe_pad]
 
   const int tid = threadIdx.x;
-  const int tx = tid & 15, ty = tid >> 4;
   const int lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 15, ty = tid >> 4;     // phase 1: 16 x 16 threads
+  const int wr = warp >> 2, wc = warp & 3;    // phase 3: this warp's tile
+  const int lr = lane >> 2, lc = 2 * (lane & 3);  // its accumulators' row, column
   const int num_tiles = (n + bt - 1) / bt;
   float* my_partial = nullptr;
   if (MODE != MODE_LOCAL_LSE)
@@ -229,6 +372,7 @@ fused_stats_kernel(const Params p) {
   bool first = true;
 
   build_pairs<DIAG>(pairs, d, fe, fe_pad);
+  PHASE_CLOCK_START
 
   for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
     const int64_t base = (int64_t)tile * bt;
@@ -244,39 +388,55 @@ fused_stats_kernel(const Params p) {
       xs[r * xstride + c] = v;
     }
     __syncthreads();
+    PHASE_CLOCK(0)
 
-    // Phase 1: logp[r][k] = -0.5 * sum_c feat[r][c] * A_ext[c][k] + g[k].
-    constexpr int LA = KC * NT / THREADS, LF = KC * MR / THREADS;
+    // Phase 1: logp[r][k] = -0.5 * sum_c feat[r][c] * A_ext[c][k] + g[k],
+    // on the FMA units (8 x 8 outputs per thread, 4 x 8 for 64-row tiles).
+    // The A_ext stage [KC][NT] arrives by 16-byte cp.async; the feature
+    // stage [KC][MR] is computed from the event tile, through registers.
+    constexpr int LA = KC * NT / 4 / THREADS, LF = KC * MR / THREADS;
     const int s1 = (fd + KC - 1) / KC;
     for (int n0 = 0; n0 < rows_r; n0 += MR) {
       for (int k0 = 0; k0 < kp; k0 += NT) {
         float acc[MR / 16][8] = {};
-        float ra[LA], rf[LF];
-        auto load = [&](int s) {
+        float rf[LF];
+        // A_ext rows s*KC.. of columns k0.. into stage buf, 16 bytes per
+        // copy; rows past fd are zero-filled.
+        auto copy_a = [&](int s, int buf) {
 #pragma unroll
           for (int it = 0; it < LA; ++it) {
-            const int e = tid + it * THREADS, c = s * KC + e / NT;
-            ra[it] = c < fd ? a_ext[(size_t)c * kp + k0 + e % NT] : 0.f;
+            const int e = tid + it * THREADS, r = e / (NT / 4), q = e % (NT / 4);
+            const int c = s * KC + r;
+            cp_async16(as + buf * STAGE + r * NT + q * 4,
+                       a_ext + (size_t)(c < fd ? c : 0) * kp + k0 + q * 4, c < fd);
           }
+          cp_async_commit();
+        };
+        auto load_f = [&](int s) {
 #pragma unroll
           for (int it = 0; it < LF; ++it) {
             const int e = tid + it * THREADS, c = s * KC + e / MR;
             rf[it] = c < fd ? feature(xs + (n0 + e % MR) * xstride, pairs[c]) : 0.f;
           }
         };
-        auto store = [&](int buf) {
+        auto store_f = [&](int buf) {
 #pragma unroll
-          for (int it = 0; it < LA; ++it) as[buf * KC * NT + tid + it * THREADS] = ra[it];
-#pragma unroll
-          for (int it = 0; it < LF; ++it) fs[buf * KC * NT + tid + it * THREADS] = rf[it];
+          for (int it = 0; it < LF; ++it) fs[buf * STAGE + tid + it * THREADS] = rf[it];
         };
-        load(0);
-        store(0);
+        copy_a(0, 0);
+        load_f(0);
+        store_f(0);
+        cp_async_wait_all();
         __syncthreads();
         for (int s = 0; s < s1; ++s) {
-          if (s + 1 < s1) load(s + 1);
-          fma_stage<MR>(acc, fs + (s & 1) * KC * NT, MR, as + (s & 1) * KC * NT, tx, ty);
-          if (s + 1 < s1) store((s + 1) & 1);
+          const int buf = s & 1;
+          if (s + 1 < s1) {
+            copy_a(s + 1, buf ^ 1);
+            load_f(s + 1);
+          }
+          fma_stage<MR>(acc, fs + buf * STAGE, as + buf * STAGE, tx, ty);
+          if (s + 1 < s1) store_f(buf ^ 1);
+          cp_async_wait_all();
           __syncthreads();
         }
 #pragma unroll
@@ -284,18 +444,19 @@ fused_stats_kernel(const Params p) {
 #pragma unroll
           for (int j = 0; j < 8; ++j) {
             const int k = k0 + own(tx, j);
-            ws[(n0 + own(ty, i)) * kp + k] = -0.5f * acc[i][j] + g[k];
+            ws[(size_t)(n0 + own(ty, i)) * kps + k] = -0.5f * acc[i][j] + g[k];
           }
       }
     }
     __syncthreads();
+    PHASE_CLOCK(1)
 
     // Phase 2, per event row (one warp each; xor butterflies, so every
     // lane holds the same bits). K1/K3: log-sum-exp over all K, w = e/s *
     // wt in place. K5: this shard's max and shifted sum over its k real
     // columns, written out. K6: w = exp(logp - logZ) * wt in place.
     for (int r = warp; r < rows_r; r += THREADS / 32) {
-      float* row = ws + r * kp;
+      float* row = ws + (size_t)r * kps;
       if (r >= rows) {
         if (MODE != MODE_LOCAL_LSE)
           for (int k = lane; k < kp; k += 32) row[k] = 0.f;
@@ -330,14 +491,18 @@ fused_stats_kernel(const Params p) {
       }
     }
     __syncthreads();
+    PHASE_CLOCK(2)
     if (MODE == MODE_LOCAL_LSE) continue;  // K5 ends here
 
     // Phase 3: out[k][c] += sum_r w[r][k] * feat[r][c], this CTA's slice.
+    // A = w^T, read in place from the posteriors [B_t][kps] (depth =
+    // event), B = the feature stage [KC][SROW] (column = feature); a warp
+    // owns 64 x 32 outputs.
     constexpr int L3 = KC * NT / THREADS;
     const int s3 = (rows + KC - 1) / KC;
     for (int k0 = 0; k0 < kp; k0 += NT) {
       for (int c0 = 0; c0 < fe_pad; c0 += NT) {
-        float acc[8][8] = {};
+        float acc[4][4][4] = {};
         float rf[L3];
         auto load = [&](int s) {
 #pragma unroll
@@ -348,33 +513,55 @@ fused_stats_kernel(const Params p) {
         };
         auto store = [&](int buf) {
 #pragma unroll
-          for (int it = 0; it < L3; ++it) fs[buf * KC * NT + tid + it * THREADS] = rf[it];
+          for (int it = 0; it < L3; ++it) {
+            const int e = tid + it * THREADS;
+            fs[buf * STAGE + (e / NT) * SROW + e % NT] = rf[it];
+          }
         };
         load(0);
         store(0);
         __syncthreads();
         for (int s = 0; s < s3; ++s) {
           if (s + 1 < s3) load(s + 1);
-          fma_stage<128>(acc, ws + (size_t)s * KC * kp + k0, kp,
-                         fs + (s & 1) * KC * NT, tx, ty);
+          mma_stage(acc, ws + (size_t)s * KC * kps + k0 + wr * 64, kps,
+                    fs + (s & 1) * STAGE + wc * 32, SROW, lane);
           if (s + 1 < s3) store((s + 1) & 1);
           __syncthreads();
         }
+        PHASE_CLOCK(3)
+        // Accumulator h of tile (i, j): row lr (+8 for h >= 2), column
+        // lc (+1 for odd h). All of this thread's earlier sums are read
+        // before any is written, so the loads overlap.
+        if (!first) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int k = k0 + own(ty, i), c = c0 + own(tx, j);
-            if (c < fe) {
-              float* q = my_partial + (size_t)k * fe + c;
-              *q = first ? acc[i][j] : *q + acc[i][j];
+            for (int j = 0; j < 4; ++j)
+#pragma unroll
+              for (int h = 0; h < 4; ++h) {
+                const int k = k0 + wr * 64 + i * 16 + lr + (h >> 1) * 8;
+                const int c = c0 + wc * 32 + j * 8 + lc + (h & 1);
+                if (c < fe) acc[i][j][h] += my_partial[(size_t)k * fe + c];
+              }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              const int k = k0 + wr * 64 + i * 16 + lr + (h >> 1) * 8;
+              const int c = c0 + wc * 32 + j * 8 + lc + (h & 1);
+              if (c < fe) my_partial[(size_t)k * fe + c] = acc[i][j][h];
             }
-          }
+        PHASE_CLOCK(4)
       }
     }
     first = false;
     __syncthreads();
+    PHASE_CLOCK(4)
   }
+  PHASE_CLOCK_END
   if (MODE == MODE_LOCAL_LSE) return;
 
   // This CTA's loglik: the 8 warp sums, in warp order.
@@ -461,8 +648,9 @@ int run(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
   p.xstride = (d + 1) | 1;  // odd row stride: no bank conflicts
   const int t = diag ? d : d * (d + 1) / 2;
   const int fe_pad = (t + d + 1 + NT - 1) / NT * NT;
-  const size_t smem = ((size_t)p.bt * p.kp + 4 * KC * NT + (size_t)p.bt * p.xstride) *
-                          sizeof(float) + fe_pad * sizeof(int);
+  const size_t smem =
+      ((size_t)p.bt * (p.kp + PAD) + 4 * STAGE + (size_t)p.bt * p.xstride) * sizeof(float) +
+      fe_pad * sizeof(int);
   cudaError_t err =
       mode == MODE_LOCAL_LSE  ? launch_mode<MODE_LOCAL_LSE>(p, diag, grid, r, smem, s)
       : mode == MODE_STATS_LOGZ ? launch_mode<MODE_STATS_LOGZ>(p, diag, grid, r, smem, s)
@@ -522,6 +710,17 @@ extern "C" int gmm_fused_stats_batched(const float* x, const float* wt,
                     ll_part, n, d, k, kp, bt),
              ll, nk, m1, m2, diag, grid, r, static_cast<cudaStream_t>(stream));
 }
+
+#ifdef GMM_PHASE_CLOCKS
+// Copies the phase cycles summed since the last call into out[PHASES] and
+// zeroes them; returns the CUDA error.
+extern "C" int gmm_phase_cycles(unsigned long long* out) {
+  static const unsigned long long zero[PHASES] = {};
+  cudaError_t err = cudaMemcpyFromSymbol(out, phase_cycles, sizeof(phase_cycles));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(phase_cycles, zero, sizeof(zero));
+  return (int)err;
+}
+#endif
 
 // Launches K5 on `stream`; returns cudaGetLastError(). K1's x, a_ext and g
 // for this shard's k clusters (padded to kp); m [n] and s [n] out.

@@ -44,8 +44,9 @@ def resolve_device(config: GMMConfig) -> torch.device:
 
 def setup_device(config: GMMConfig) -> torch.device:
     """:func:`resolve_device`, after refusing a matmul precision that is not
-    ported; on CUDA, 'highest' means no TF32 anywhere: the torch-ops
-    products (matmul) and any cuDNN call run in full fp32."""
+    ported; on CUDA, 'highest' turns TF32 off for the torch-ops products
+    (matmul) and any cuDNN call, which then run in full fp32 (the kernels
+    keep the same error class; csrc/fused_stats.cu)."""
     device = resolve_device(config)
     if config.matmul_precision != "highest":
         raise ValueError(

@@ -17,6 +17,13 @@ calls over the cluster axis combine them into the global log-evidence, and
 K6 accumulates this rank's statistics from it. Both are K1's kernel in
 another mode.
 
+Precision: the kernels run matmul_precision='highest' only, at plain
+fp32's error class. K1's kernel (and so K3, K5 and K6) forms logp on the
+fp32 FMA units and the statistics on the tensor cores in three TF32 passes
+(each operand split as big + small, the small*small term dropped, each
+8-deep partial added outside the tensor cores, which truncate their sums);
+'high' and 'default' are not ported.
+
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each counts its kernel launches
 on a plain integer attribute (``fused_stats.launches``, ``mstep.launches``,
@@ -53,13 +60,18 @@ K1_GRID = 132
 K1_SMEM_BYTES = 232448
 K1_POSTERIOR_BYTES = 131072
 TILE = 128  # K1's macro-tile width: K is padded to a multiple of it
+# K1 pads the posterior rows and its stage buffers' rows by 8 floats, so
+# that phase 3's tensor-core fragment loads are free of bank conflicts.
+ROW_PAD = 8
 
 
 def _check_precision(precision: str) -> None:
     if precision != "highest":
         raise ValueError(
             f"matmul_precision={precision!r} is not ported to the CUDA "
-            "kernels yet: only 'highest' (plain fp32, no TF32) is")
+            "kernels yet: only 'highest' (fp32-class error: logp on the "
+            "fp32 units, the statistics in three TF32 passes on the tensor "
+            "cores) is")
 
 
 def _check_cuda(*tensors) -> None:
@@ -149,7 +161,8 @@ def k1_tile(k_pad: int, d: int, block_b: int, diag: bool) -> int:
     bt = bt // TILE * TILE if bt >= TILE else 64
     t = d if diag else d * (d + 1) // 2
     fe_pad = -(-(t + d + 1) // TILE) * TILE
-    smem = 4 * (bt * k_pad + 4 * 16 * TILE + bt * ((d + 1) | 1) + fe_pad)
+    smem = 4 * (bt * (k_pad + ROW_PAD) + 4 * 16 * (TILE + ROW_PAD)
+                + bt * ((d + 1) | 1) + fe_pad)
     if d > 255 or smem > K1_SMEM_BYTES:
         raise ValueError(f"K1 does not fit D={d}, K_pad={k_pad} "
                          f"({smem} bytes of shared memory)")
