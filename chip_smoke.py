@@ -10,11 +10,15 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. build the hand-written kernels from csrc/ with nvcc (parallel, one nvcc
    per source) and print the card's name and power limit; beside the build,
    compile fused_stats.cu twice more: to a cubin with ``-Xptxas -v``, to
-   print each ``fused_stats_kernel`` instance's registers, static shared
-   memory and spills and, where the toolkit has cuobjdump, the HMMA
-   (tensor-core) instructions in its SASS; and with -DGMM_PHASE_CLOCKS, a
-   library whose kernel counts the cycles of its phases (phase 2 prints
-   each phase's share of one K1 launch at the main path's shapes);
+   print each ``fused_stats_kernel`` and ``shard_kernel`` instance's
+   registers, static shared memory and spills and, where the toolkit has
+   cuobjdump, the HMMA (tensor-core) instructions in its SASS, and for the
+   shard kernel (K5/K6 on a shard of at most 64 clusters) the CTAs per SM
+   that its registers and its shared memory at D=24 allow, beside the
+   card's occupancy calculator (which must fit the tile's CTAs per SM, and
+   more than one); and with -DGMM_PHASE_CLOCKS, a library whose kernels
+   count the cycles of their phases (phases 2 and 8 print each phase's
+   share of one K1, K5 and K6 launch);
 2. K1 (fused E+M statistics) against its plain PyTorch version at the main
    path's shapes (the N=1,000,000 real events of the 65536-event chunk
    grid, D=24, K=100; full and diag covariance) and on a ragged N with
@@ -67,8 +71,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    ``fused_stats_cuda_sharded`` combines them (torch max and sum in place
    of the all_reduce calls) side by side against K1 on the whole K in the
    phase-2 class, and against float64 at most twice the plain
-   combination's error. Times at the shape of one rank of phase 9 (the
-   first 524,288 events, 50 of the 100 clusters);
+   combination's error. The same checks at K_s = 64 (the 64-wide shard
+   kernel's widest shard), 65 (K1's kernel on one 128-wide tile) and 130
+   (two tiles), on the first 524,288 events. Times, phase shares and CTAs
+   per SM at the shape of one rank of phase 9 (the first 524,288 events,
+   50 of the 100 clusters), beside the torch-ops route that full
+   covariance takes on a cluster-sharded mesh today;
 9. the mesh path on the one card: a world of 4 ranks on cuda:0 (gloo,
    which stages the collectives through the host; a file:// store in the
    build directory), mesh (2, 2), each rank running ``fit_gmm`` on the
@@ -107,6 +115,7 @@ arithmetic without the two collectives).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import shutil
@@ -187,9 +196,10 @@ def route_bound(nbytes: float, fma_flops: float, tc_flops: float = 0.0) -> dict:
 
 KERNEL_MODES = {"0": "stats (K1/K3)", "1": "local_lse (K5)",
                 "2": "stats_logz (K6)"}
+SM_REGISTERS, REG_UNIT, THREADS = 65536, 8, 256  # per SM; per-thread unit; per CTA
 
 
-PHASES = ("events", "phase 1 (logp, FMA)", "phase 2 (log-sum-exp)",
+PHASES = ("events", "phase 1 (logp, FMA)", "phase 2 (log-sum-exp or w)",
           "phase 3 products (tensor cores)", "phase 3 partial-buffer update")
 
 
@@ -213,44 +223,72 @@ def start_extra_builds():
                            for c in cmds]
 
 
-def phase_shares(clocks, args, diag: bool) -> dict:
-    """One K1 launch through the -DGMM_PHASE_CLOCKS build on ``args``: each
-    phase's share of the cycles that thread 0 of every CTA counted between
-    the barriers (two launches more of K1, outside any counted run)."""
+def load_fused_stats(path):
+    """A build of fused_stats.cu loaded with ctypes, its K1/K3/K5/K6 entry
+    points typed."""
+    import ctypes
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import _build
+
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _build.SIGNATURES["fused_stats.cu"][:4]:
+        getattr(lib, name).argtypes = argtypes
+    return lib
+
+
+@contextlib.contextmanager
+def using_lib(lib):
+    """The kernel wrappers launch from ``lib`` (another build of
+    fused_stats.cu) inside the block."""
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import _build
+
+    saved = _build._libs["fused_stats.cu"]
+    _build._libs["fused_stats.cu"] = lib
+    try:
+        yield
+    finally:
+        _build._libs["fused_stats.cu"] = saved
+
+
+def phase_shares(clocks, launch) -> dict:
+    """``launch`` (a call of a K1, K5 or K6 wrapper) twice through the
+    -DGMM_PHASE_CLOCKS build: each phase's share of the cycles that thread 0
+    of every CTA counted between the barriers in the second call (two
+    launches more, outside any counted run)."""
     import ctypes
 
     import torch
 
-    from cuda_gmm_mpi_tpu_torch.ops.kernels import _build
-    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
-
-    lib = ctypes.CDLL(str(clocks))
-    for name, argtypes in _build.SIGNATURES["fused_stats.cu"]:
-        getattr(lib, name).argtypes = argtypes
+    lib = load_fused_stats(clocks)
     lib.gmm_phase_cycles.argtypes = [ctypes.c_void_p]
     cycles = np.zeros(len(PHASES), np.uint64)
-    saved = _build._libs["fused_stats.cu"]
-    _build._libs["fused_stats.cu"] = lib
-    try:
-        fs.fused_stats(*args, diag=diag)
+    with using_lib(lib):
+        launch()
         torch.cuda.synchronize()
         check(lib.gmm_phase_cycles(cycles.ctypes.data) == 0, "phase clocks reset")
-        fs.fused_stats(*args, diag=diag)
+        launch()
         torch.cuda.synchronize()
         check(lib.gmm_phase_cycles(cycles.ctypes.data) == 0, "phase clocks read")
-    finally:
-        _build._libs["fused_stats.cu"] = saved
     total = float(cycles.sum())
     return {name: float(c) / total for name, c in zip(PHASES, cycles)}
 
 
+def shares_line(shares: dict) -> str:
+    return ", ".join(f"{k} {100 * v:.1f}%" for k, v in shares.items())
+
+
 def kernel_report(cubin, procs) -> list:
     """Waits for :func:`start_extra_builds`; returns the registers, static
-    shared memory and spills of each fused_stats_kernel instance, and its
-    HMMA instructions where the toolkit has cuobjdump (else None)."""
+    shared memory and spills of each fused_stats_kernel and shard_kernel
+    instance, and its HMMA instructions where the toolkit has cuobjdump
+    (else None); for the shard kernel also the CTAs per SM that its
+    registers, its shared memory at D=DIMS (the mesh cell's) and the card's
+    occupancy calculator allow. Call after the libraries are built."""
+    import ctypes
     import re
 
     from cuda_gmm_mpi_tpu_torch.ops.kernels import _build
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
 
     logs = [proc.communicate(timeout=600)[0] for proc in procs]
     for proc, log in zip(procs, logs):
@@ -263,7 +301,8 @@ def kernel_report(cubin, procs) -> list:
         if m:
             current = m.group(1)
             continue
-        if current is None or "fused_stats_kernel" not in current:
+        if current is None or not re.search("fused_stats_kernel|shard_kernel",
+                                            current):
             continue
         rec = props.setdefault(current, {})
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
@@ -288,15 +327,37 @@ def kernel_report(cubin, procs) -> list:
             elif current and "HMMA" in line:
                 hmma[current] += 1
     out = []
+    lib = _build.library("fused_stats.cu")
     for name, rec in sorted(props.items()):
-        m = re.search(r"fused_stats_kernelILi(\d)ELb([01])ELi(\d+)E", name)
+        m = (re.search(r"fused_stats_kernelILi(\d)ELb([01])ELi(\d+)E", name)
+             or re.search(r"shard_kernelILi(\d)ELb([01])EE", name))
         check(m is not None and "registers" in rec,
               f"unparsed ptxas report for {name}: {rec}")
-        mode, diag, mr = m.groups()
-        out.append(dict(instance=f"{KERNEL_MODES[mode]} "
-                        f"{'diag' if diag == '1' else 'full'} {mr}-row tiles",
-                        hmma=hmma.get(name), **rec))
-    check(len(out) == 12, f"{len(out)} fused_stats_kernel instances reported")
+        mode, diag = m.group(1), m.group(2) == "1"
+        width = "diag" if diag else "full"
+        if "shard_kernel" not in name:
+            out.append(dict(instance=f"{KERNEL_MODES[mode]} {width} "
+                            f"{m.group(3)}-row tiles", hmma=hmma.get(name),
+                            **rec))
+            continue
+        tile = fs.shard_tile(RANK_CLUSTERS, DIMS, diag, stats=mode == "2")
+        regs = -(-rec["registers"] // REG_UNIT) * REG_UNIT
+        card = ctypes.c_int(0)
+        check(lib.gmm_shard_occupancy(int(mode), DIMS, int(diag),
+                                      ctypes.addressof(card)) == 0,
+              "gmm_shard_occupancy failed")
+        rec.update(
+            ctas_by_registers=SM_REGISTERS // (regs * THREADS),
+            ctas_by_smem=fs.SM_SMEM_BYTES // (tile.smem + rec["static_smem"]
+                                               + fs.CTA_RESERVED_SMEM),
+            ctas_card=card.value, ctas_tile=tile.ctas_per_sm,
+            smem=tile.smem)
+        check(card.value >= tile.ctas_per_sm > 1,
+              f"shard kernel {name}: {card.value} CTAs per SM fit on the card, "
+              f"the tile counts on {tile.ctas_per_sm}")
+        out.append(dict(instance=f"{KERNEL_MODES[mode]} {width} 64-wide shard "
+                        f"tile", hmma=hmma.get(name), **rec))
+    check(len(out) == 16, f"{len(out)} kernel instances reported")
     return out
 
 
@@ -412,10 +473,10 @@ def phase_k1(x_np, diag, inactive, label, timed, near=True, clocks=None):
               f"({rec['bound_by']}; fp32 non-tensor "
               f"{rec['fp32_bound_ms']:.3f} ms)")
         if clocks is not None:
-            rec["phase_shares"] = phase_shares(clocks, args, diag)
+            rec["phase_shares"] = phase_shares(
+                clocks, lambda: fs.fused_stats(*args, diag=diag))
             print(f"  K1 {label} phases (thread-0 cycles of every CTA): "
-                  + ", ".join(f"{k} {100 * v:.1f}%"
-                              for k, v in rec["phase_shares"].items()))
+                  + shares_line(rec["phase_shares"]))
     return rec, (state, out)
 
 
@@ -856,16 +917,16 @@ def combine_lse(lse):
     return big_m + torch.log(sum(torch.exp(m - big_m) * s for m, s in lse))
 
 
-def phase_k5_k6(x_np, shards, diag, label):
-    """K5/K6 per shard against plain, and the shards combined against K1
-    and float64; the last shard has every cluster inactive."""
+def phase_k5_k6(x_np, shards, diag, label, k=K0):
+    """K5/K6 per shard of k clusters against plain, and the shards combined
+    against K1 and float64; the last shard has every cluster inactive."""
     import torch
 
     from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
 
-    cols = shard_cols(K0, shards)
-    state, _, _, args = stats_inputs(x_np, K0, diag,
-                                     tuple(range(cols[-1].start, K0)))
+    cols = shard_cols(k, shards)
+    state, _, _, args = stats_inputs(x_np, k, diag,
+                                     tuple(range(cols[-1].start, k)))
     x, wt, A, h, g = args
     parts = [tuple(t[:, c].contiguous() for t in (A, h, g)) for c in cols]
     lse, lse_plain = [], []
@@ -945,10 +1006,11 @@ def phase_k5_k6(x_np, shards, diag, label):
             "k5_plain_fp64_err": max(worst64["m"][1], worst64["s"][1])}
 
 
-def time_k5_k6(x_np, diag, label):
+def time_k5_k6(x_np, diag, label, clocks):
     """K5 and K6 times at one phase-9 rank's shape: RANK_EVENTS events (the
     first data shard of the chunk grid), the first RANK_CLUSTERS clusters;
-    beside them the plain versions and the torch-ops route of that shard."""
+    beside them the plain versions, the torch-ops route of that shard and
+    each kernel's phase shares."""
     import torch
 
     from cuda_gmm_mpi_tpu_torch.ops.estep import log_densities
@@ -973,12 +1035,14 @@ def time_k5_k6(x_np, diag, label):
 
     f = p[0].shape[0]
     t = d if diag else d * (d + 1) // 2
-    rec5 = {"ms": time_ms(lambda: fs.local_lse(x, *p, diag=diag)),
+    k5 = lambda: fs.local_lse(x, *p, diag=diag)
+    k6 = lambda: fs.stats_logz(x, wt, logz, *p, diag=diag)
+    rec5 = {"ms": time_ms(k5),
             "plain_ms": time_ms(lambda: fs.local_lse_plain(x, *p, diag=diag)),
             "torch_ops_ms": time_ms(torch_ops_lse)}
     rec5.update(route_bound(4 * (n * d + f * ks + d * ks + ks + 2 * n),
                             2.0 * n * ks * (t + d)))
-    rec6 = {"ms": time_ms(lambda: fs.stats_logz(x, wt, logz, *p, diag=diag)),
+    rec6 = {"ms": time_ms(k6),
             "plain_ms": time_ms(
                 lambda: fs.stats_logz_plain(x, wt, logz, *p, diag=diag)),
             "torch_ops_ms": time_ms(lambda: accumulate_stats(
@@ -986,11 +1050,19 @@ def time_k5_k6(x_np, diag, label):
     rec6.update(route_bound(
         4 * (n * d + 2 * n + f * ks + d * ks + ks + 1 + ks + ks * d + ks * f),
         2.0 * n * ks * (t + d), 2.0 * n * ks * (t + d + 1)))
-    for name, r in (("K5", rec5), ("K6", rec6)):
+    for name, r, stats, launch in (("K5", rec5, False, k5),
+                                   ("K6", rec6, True, k6)):
+        tile = fs.shard_tile(ks, d, diag, stats=stats)
+        r.update(ctas_per_sm=tile.ctas_per_sm, grid=tile.grid, k_pad=tile.k_pad,
+                 bt=tile.bt, phase_shares=phase_shares(clocks, launch))
         print(f"  {name} {label} at {n} events x {ks} clusters: kernel "
               f"{r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, torch-ops "
               f"route {r['torch_ops_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']}; fp32 non-tensor {r['fp32_bound_ms']:.4f} ms)")
+              f"({r['bound_by']}; fp32 non-tensor {r['fp32_bound_ms']:.4f} ms); "
+              f"K_pad {tile.k_pad}, B_t {tile.bt}, grid {tile.grid}, "
+              f"{tile.ctas_per_sm} CTAs per SM")
+        print(f"  {name} {label} phases (thread-0 cycles of every CTA): "
+              + shares_line(r["phase_shares"]))
     return rec5, rec6
 
 
@@ -1180,6 +1252,17 @@ def phase_mesh(data, diag_ref, workdir: Path):
     return r0
 
 
+def shard_record(diag, full, instances, mode: str) -> dict:
+    """The K5 or K6 entries of the kernels line beyond the common keys:
+    tile, phase shares and the shard kernel's build."""
+    keys = ("ctas_per_sm", "grid", "k_pad", "bt", "phase_shares")
+    rec = {k: diag[k] for k in keys}
+    rec.update({f"full_{k}": full[k] for k in keys})
+    rec["build"] = [r for r in instances
+                    if r["instance"].startswith(mode) and "shard" in r["instance"]]
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1210,10 +1293,15 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s; card: {card}")
     for r in instances:
         hmma = "no cuobjdump" if r["hmma"] is None else f"{r['hmma']} HMMA"
-        print(f"  fused_stats_kernel {r['instance']}: {r['registers']} "
+        ctas = ("" if "ctas_card" not in r else
+                f"; CTAs per SM at D={DIMS}: {r['ctas_by_registers']} by "
+                f"registers, {r['ctas_by_smem']} by shared memory "
+                f"({r['smem']} bytes), {r['ctas_card']} on the card, the "
+                f"tile's {r['ctas_tile']}")
+        print(f"  {r['instance']}: {r['registers']} "
               f"registers, {r['static_smem']} bytes static shared memory, "
               f"spills {r.get('spill_stores', 0)} / {r.get('spill_loads', 0)} "
-              f"bytes (stores / loads), {hmma}")
+              f"bytes (stores / loads), {hmma}{ctas}")
 
     print("phase 2: K1 against its plain version")
     data = make_blobs(args.seed, N_EVENTS, DIMS, K_TARGET)
@@ -1265,8 +1353,16 @@ def main() -> int:
         for diag, name in ((False, "full"), (True, "diag")):
             k56[shards, diag] = phase_k5_k6(data, shards, diag,
                                             f"{name} C={shards}")
-    k5_diag, k6_diag = time_k5_k6(data, True, "diag")
-    k5_full, k6_full = time_k5_k6(data, False, "full")
+    for ks in (64, 65, 130):  # the 64-wide tile's edge; K1's kernel, 1 and 2 tiles
+        for diag, name in ((False, "full"), (True, "diag")):
+            k56[ks, diag] = phase_k5_k6(data[:RANK_EVENTS], 2, diag,
+                                        f"{name} K_s={ks}", k=2 * ks)
+    k5_diag, k6_diag = time_k5_k6(data, True, "diag", clocks)
+    k5_full, k6_full = time_k5_k6(data, False, "full", clocks)
+    print(f"  full covariance on a cluster-sharded mesh routes to torch ops: "
+          f"that route's statistics on one rank's shard (accumulate_stats, "
+          f"its per-chunk collectives left out) {k6_full['torch_ops_ms']:.3f} "
+          f"ms against K5 + K6 {k5_full['ms'] + k6_full['ms']:.3f} ms")
 
     print("phase 9: the mesh path on the one card")
     meshdir = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
@@ -1347,7 +1443,8 @@ def main() -> int:
              full_bound_ms=k5_full["bound_ms"],
              full_fp32_bound_ms=k5_full["fp32_bound_ms"],
              full_torch_ops_ms=k5_full["torch_ops_ms"],
-             mesh_breakdown_ms=mesh["breakdown_ms"]["K5"]),
+             mesh_breakdown_ms=mesh["breakdown_ms"]["K5"],
+             **shard_record(k5_diag, k5_full, instances, "local_lse")),
         dict(name="K6 stats_logz", route="cuda", source=src + "fused_stats.cu",
              replaces=pallas + "235", launches=launches["K6"],
              max_abs_err=k6_err, ms=k6_diag["ms"], plain_ms=k6_diag["plain_ms"],
@@ -1360,7 +1457,8 @@ def main() -> int:
              full_torch_ops_ms=k6_full["torch_ops_ms"],
              mesh_breakdown_ms=mesh["breakdown_ms"]["K6"],
              mesh_iteration_ms=mesh["em_s"] / mesh["iters"] * 1e3,
-             mesh_fit_breakdown_ms=mesh["fit_breakdown_ms"]),
+             mesh_fit_breakdown_ms=mesh["fit_breakdown_ms"],
+             **shard_record(k6_diag, k6_full, instances, "stats_logz")),
     ]
     print("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} pass" for k in kernels)

@@ -94,28 +94,31 @@
 // K5 and K6, the cluster-sharded pair: they replace `_local_lse_kernel` and
 // `_stats_logz_kernel` (launched by `_local_lse_call` and `_stats_logz_call`)
 // of the same file. A rank of a (data, cluster) mesh holds K_s = K / C
-// clusters, so the log-sum-exp over all K spans ranks. Both are K1's kernel
-// with a mode template parameter; phase 1 (logp against A_ext) is the same
-// in all three:
-//  * K5 (MODE_LOCAL_LSE) ends after phase 2: each warp row writes the
-//    event's max m over this shard's K_s clusters and the shifted sum
-//    s = sum exp(logp - m) to two float32 [N] outputs. The K_pad - K_s
-//    padding columns are left out of both, so an all-masked shard gives
-//    m = NEG_LARGE and s = K_s, as the TPU kernel (which has no padding
-//    columns) and the plain version do; the combination outside scales s
-//    by exp(m - M) = 0 then. No phase 3, no partial buffer, no reduction.
+// clusters, so the log-sum-exp over all K spans ranks:
+//  * K5 (MODE_LOCAL_LSE) writes each event's max m over this shard's K_s
+//    clusters and the shifted sum s = sum exp(logp - m) to two float32 [N]
+//    outputs. The K_pad - K_s padding columns are left out of both, so an
+//    all-masked shard gives m = NEG_LARGE and s = K_s, as the TPU kernel
+//    (which has no padding columns) and the plain version do; the
+//    combination outside scales s by exp(m - M) = 0 then.
 //  * The caller combines the shards with an all_reduce MAX of m (M) and an
 //    all_reduce SUM of exp(m - M) * s (S): logZ = M + log(S).
 //  * K6 (MODE_STATS_LOGZ) reads logZ [N] in place of its own max and sum:
-//    w = exp(logp - logZ) * wt, and adds logZ * wt to the warp's float64
-//    loglik. Phase 3 and the index-order float64 reduction are K1's, so
-//    K6 is deterministic from launch to launch too.
-// Bounds: K5 does 2 N K_s (T+D) flops on the FMA units (it has no phase
-// 3), K6 that plus 2 N K_s (T+D+1) three times on the tensor cores (the
-// accumulation), against ~4 N (D+2) bytes: operations, like K1. A shard of
-// K_s clusters still computes whole 128-wide macro tiles (50 clusters in
-// 128 columns at K = 100, C = 2), and K6 repeats K5's phase 1: both are
-// costs of this version.
+//    w = exp(logp - logZ) * wt, and adds logZ * wt to a float64 loglik.
+//    Its statistics and their index-order float64 reduction are K1's, so
+//    K6 is deterministic from launch to launch too. K6 recomputes K5's
+//    phase 1, as the TPU kernel does.
+// Bounds: K5 does 2 N K_s (T+D) flops on the FMA units, K6 that plus
+// 2 N K_s (T+D+1) three times on the tensor cores, against ~4 N (D+2)
+// bytes: operations, like K1. A shard of the mesh cell is small (K_s = 50
+// at K = 100, C = 2), so two routes, chosen by the shard's width:
+//  * K_s <= 64: `shard_kernel`, its own design for the shard (below): a
+//    64-wide cluster tile, the row reduction taken in phase 1's registers
+//    (no logp buffer, no phase-2 pass), and 3 (K5) or 2 (K6) CTAs per SM
+//    on a persistent grid of 132 times that.
+//  * K_s > 64 (e.g. 65 or 130 clusters): K1's kernel in the K5/K6 mode, on
+//    K1's tile and grid: 128-wide column tiles, phase 2 a pass over the
+//    logp buffer in shared memory, one CTA per SM.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -136,8 +139,9 @@ enum { MODE_STATS = 0, MODE_LOCAL_LSE = 1, MODE_STATS_LOGZ = 2 };
 // A build with -DGMM_PHASE_CLOCKS (chip_smoke.py makes one) times the
 // phases: each thread reads clock64() at the barriers that end them, and
 // thread 0 of each CTA of restart lane 0 adds its cycles to phase_cycles
-// at the end: the tile's events, phase 1, phase 2, phase 3's products,
-// phase 3's read-modify-write of the partial buffer.
+// at the end: the tile's events, phase 1, phase 2 (on the shard kernel the
+// reduction in phase 1's registers), phase 3's products, phase 3's
+// read-modify-write of the partial buffer.
 constexpr int PHASES = 5;
 __device__ unsigned long long phase_cycles[PHASES];
 #define PHASE_CLOCK_START \
@@ -158,7 +162,9 @@ __device__ unsigned long long phase_cycles[PHASES];
 #endif
 
 // Operands of one launch. Pointers a mode does not use are null: K1/K3 have
-// no logz/m/s, K5 no wt/lanes/partial/ll_part, K1/K5/K6 no lanes.
+// no logz/m/s, K5 no wt/lanes/partial/ll_part, K1/K5/K6 no lanes. kp is a
+// multiple of 128 on K1's kernel and 64 on the shard kernel (K5/K6 with
+// k <= 64), whose bt is 128.
 struct Params {
   const float* x;      // [n, d] events
   const float* wt;     // [n] event weights
@@ -252,37 +258,40 @@ __device__ __forceinline__ void cp_async_wait_all() {
 __device__ __forceinline__ int own(int t, int i) { return (i >> 2) * 64 + t * 4 + (i & 3); }
 
 // Phase 1: acc[i][j] += a[i] * b[j] over one stage on the fp32 FMA units;
-// a from a [KC][MR] block (MR rows of the output), b from a [KC][NT] block.
-template <int MR>
-__device__ __forceinline__ void fma_stage(float (&acc)[MR / 16][8],
+// a from a [KC][MR] block (MR rows of the output), b from a [KC][16 NC]
+// block: NC = 8 columns per thread in a 128-wide tile (K1's), 4 in the
+// 64-wide shard tile (columns tx*4 .. tx*4+3).
+template <int MR, int NC = 8>
+__device__ __forceinline__ void fma_stage(float (&acc)[MR / 16][NC],
                                           const float* a_blk, const float* b_blk,
                                           int tx, int ty) {
 #pragma unroll
   for (int r = 0; r < KC; ++r) {
-    float a[MR / 16], b[8];
+    float a[MR / 16], b[NC];
     const float4* ar = reinterpret_cast<const float4*>(a_blk + r * MR);
-    const float4* br = reinterpret_cast<const float4*>(b_blk + r * NT);
+    const float4* br = reinterpret_cast<const float4*>(b_blk + r * (16 * NC));
 #pragma unroll
     for (int h = 0; h < MR / 64; ++h) {
       const float4 v = ar[h * 16 + ty];
       a[h * 4] = v.x; a[h * 4 + 1] = v.y; a[h * 4 + 2] = v.z; a[h * 4 + 3] = v.w;
     }
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
+    for (int h = 0; h < NC / 4; ++h) {
       const float4 v = br[h * 16 + tx];
       b[h * 4] = v.x; b[h * 4 + 1] = v.y; b[h * 4 + 2] = v.z; b[h * 4 + 3] = v.w;
     }
 #pragma unroll
     for (int i = 0; i < MR / 16; ++i)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] += a[i] * b[j];
+      for (int j = 0; j < NC; ++j) acc[i][j] += a[i] * b[j];
   }
 }
 
 // Phase 3: acc += A * B over one KC-deep stage on the tensor cores, in
 // three TF32 passes. Both operands are depth-major blocks: a_blk[depth *
 // a_stride + row] holds this warp's 64 output rows, b_blk[depth * b_stride
-// + col] its 32 output columns. Lane (g = lane / 4, t = lane % 4) loads
+// + col] its 8 NJ output columns (32 in K1's 2 x 4 warp layout, 16 in the
+// shard kernel's 1 x 8). Lane (g = lane / 4, t = lane % 4) loads
 // fragment elements (row g (+8), depth t (+4)) of A and (depth t (+4),
 // column g) of B: with strides of 8 (mod 32) floats the warp's 32 loads hit
 // 32 banks. The tensor cores truncate their fp32 sums (toward zero, after
@@ -290,16 +299,17 @@ __device__ __forceinline__ void fma_stage(float (&acc)[MR / 16][8],
 // passes go into a partial that starts from zero, and the partials are
 // added to acc on the FMA units, rounding to nearest: the truncation then
 // never acts on the running sum.
-__device__ __forceinline__ void mma_stage(float (&acc)[4][4][4],
+template <int NJ = 4>
+__device__ __forceinline__ void mma_stage(float (&acc)[4][NJ][4],
                                           const float* a_blk, int a_stride,
                                           const float* b_blk, int b_stride,
                                           int lane) {
   const int g = lane >> 2, t = lane & 3;
-  uint32_t b_big[2][4][2], b_small[2][4][2];
+  uint32_t b_big[2][NJ][2], b_small[2][NJ][2];
 #pragma unroll
   for (int k = 0; k < 2; ++k)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
+    for (int j = 0; j < NJ; ++j) {
       const float* q = b_blk + (k * 8 + t) * b_stride + j * 8 + g;
       split_tf32(q[0], b_big[k][j][0], b_small[k][j][0]);
       split_tf32(q[4 * b_stride], b_big[k][j][1], b_small[k][j][1]);
@@ -317,16 +327,16 @@ __device__ __forceinline__ void mma_stage(float (&acc)[4][4][4],
     }
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
-      float part[4][4] = {};
+      float part[NJ][4] = {};
       // The small terms first, the big product last.
 #pragma unroll
-      for (int j = 0; j < 4; ++j) mma_tf32(part[j], a_small[k], b_big[k][j]);
+      for (int j = 0; j < NJ; ++j) mma_tf32(part[j], a_small[k], b_big[k][j]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) mma_tf32(part[j], a_big[k], b_small[k][j]);
+      for (int j = 0; j < NJ; ++j) mma_tf32(part[j], a_big[k], b_small[k][j]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) mma_tf32(part[j], a_big[k], b_big[k][j]);
+      for (int j = 0; j < NJ; ++j) mma_tf32(part[j], a_big[k], b_big[k][j]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
         for (int h = 0; h < 4; ++h) acc[i][j][h] += part[j][h];
     }
@@ -621,6 +631,262 @@ __global__ void reduce_partials(const float* __restrict__ partial,
   else nk[kk] = (float)s;
 }
 
+// K5 and K6 on a shard of at most NS clusters: one NS-wide column tile,
+// SR-event tiles. Phase 1 is K1's SIMT product at this width: thread
+// (tx, ty) holds rows own(ty, i), i < 8, and columns tx*4 + j, j < 4, so
+// the NS columns of a row sit in the 16 threads of one half-warp. The
+// per-row reduction (phase 2 of K1's kernel) is done in phase 1's
+// registers: 4-step xor shuffles inside the half-warp, no logp buffer, no
+// second pass over shared memory.
+//  * K5: m = max over the real columns (< k) and s = sum exp(logp - m)
+//    over the same; lane tx = i of the half-warp writes row own(ty, i).
+//  * K6: w = exp(logp - logZ) * wt into the [SR][KPS] posterior buffer
+//    (0 for padding columns and rows past n, with no expf), logZ * wt
+//    into the float64 loglik of lane tx = 0, row by row; then phase 3 at
+//    this width, K_pad = 64 rows of statistics against 128-wide feature
+//    tiles, its 8 warps side by side (1 x 8 warp tiles of 64 x 16 outputs).
+// Shared memory: the A_ext and feature stages and the event tile; K6 adds
+// the posterior buffer. The kernels are compiled for K5_CTAS / K6_CTAS
+// CTAs per SM (the registers each thread may use follow from that).
+constexpr int NS = 64;            // shard tile width: K_pad of a shard of <= 64
+constexpr int SR = 128;           // events per tile (B_t)
+constexpr int KPS = NS + PAD;     // posterior row stride: 72 = 8 (mod 32)
+constexpr int K5_CTAS = 3, K6_CTAS = 2;
+
+__device__ __forceinline__ float half_max(float v) {
+  for (int m = 8; m > 0; m >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+  for (int m = 8; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
+template <int MODE, bool DIAG>
+__global__ void __launch_bounds__(THREADS, MODE == MODE_LOCAL_LSE ? K5_CTAS : K6_CTAS)
+shard_kernel(const Params p) {
+  constexpr bool STATS = MODE == MODE_STATS_LOGZ;
+  const int n = p.n, d = p.d, k = p.k, xstride = p.xstride;
+  const float* __restrict__ x = p.x;
+  const float* __restrict__ a_ext = p.a_ext;
+  const int t = DIAG ? d : d * (d + 1) / 2;
+  const int fd = t + d;                      // rows of A_ext
+  const int fe = fd + 1;                     // columns of [x2 | x | 1]
+  const int fe_pad = (fe + NT - 1) / NT * NT;
+
+  extern __shared__ float4 smem4[];
+  float* ws = reinterpret_cast<float*>(smem4);  // K6: [SR][KPS] posteriors
+  float* as = ws + (STATS ? SR * KPS : 0);      // [2][KC][NS] A_ext stages
+  float* fs = as + 2 * KC * NS;                 // [2][STAGE] feature stages:
+                                                // [KC][SR] (phase 1), [KC][SROW] (3)
+  float* xs = fs + 2 * STAGE;                   // [SR][xstride], col d = 1
+  int* pairs = reinterpret_cast<int*>(xs + SR * xstride);  // [fe_pad]
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int tx = tid & 15, ty = tid >> 4;     // phase 1: 16 x 16 threads
+  const int lr = lane >> 2, lc = 2 * (lane & 3);  // phase 3 accumulators' row, column
+  const int num_tiles = (n + SR - 1) / SR;
+  float* my_partial = STATS ? p.partial + (size_t)blockIdx.x * NS * fe : nullptr;
+  // K6's loglik: slot ty is lane tx = 0's running float64 sum of its rows.
+  __shared__ double red[THREADS / 16];
+  if (tid < THREADS / 16) red[tid] = 0.0;
+  bool first = true;
+
+  build_pairs<DIAG>(pairs, d, fe, fe_pad);
+  PHASE_CLOCK_START
+
+  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+    const int64_t base = (int64_t)tile * SR;
+    const int64_t left = n - base;
+    const int rows = left < SR ? (int)left : SR;
+
+    // Events of the tile, plus the constant-1 column; rows past n are 0.
+    for (int e = tid; e < SR * (d + 1); e += THREADS) {
+      const int r = e / (d + 1), c = e % (d + 1);
+      float v = 1.f;
+      if (c < d) v = r < rows ? x[(base + r) * d + c] : 0.f;
+      xs[r * xstride + c] = v;
+    }
+    __syncthreads();
+    PHASE_CLOCK(0)
+
+    // Phase 1: logp[r][k] = -0.5 * sum_c feat[r][c] * A_ext[c][k] + g[k],
+    // 8 x 4 outputs per thread. One 16-byte cp.async per thread brings an
+    // A_ext stage [KC][NS]; the feature stage [KC][SR] is computed from
+    // the event tile, through registers.
+    constexpr int LF = KC * SR / THREADS;
+    static_assert(KC * NS / 4 == THREADS, "one A_ext copy per thread and stage");
+    const int s1 = (fd + KC - 1) / KC;
+    float acc[SR / 16][4] = {};
+    float rf[LF];
+    auto copy_a = [&](int s, int buf) {
+      const int r = tid / (NS / 4), q = tid % (NS / 4);
+      const int c = s * KC + r;
+      cp_async16(as + buf * KC * NS + r * NS + q * 4,
+                 a_ext + (size_t)(c < fd ? c : 0) * NS + q * 4, c < fd);
+      cp_async_commit();
+    };
+    auto load_f = [&](int s) {
+#pragma unroll
+      for (int it = 0; it < LF; ++it) {
+        const int e = tid + it * THREADS, c = s * KC + e / SR;
+        rf[it] = c < fd ? feature(xs + (e % SR) * xstride, pairs[c]) : 0.f;
+      }
+    };
+    auto store_f = [&](int buf) {
+#pragma unroll
+      for (int it = 0; it < LF; ++it) fs[buf * STAGE + tid + it * THREADS] = rf[it];
+    };
+    copy_a(0, 0);
+    load_f(0);
+    store_f(0);
+    cp_async_wait_all();
+    __syncthreads();
+    for (int s = 0; s < s1; ++s) {
+      const int buf = s & 1;
+      if (s + 1 < s1) {
+        copy_a(s + 1, buf ^ 1);
+        load_f(s + 1);
+      }
+      fma_stage<SR, 4>(acc, fs + buf * STAGE, as + buf * KC * NS, tx, ty);
+      if (s + 1 < s1) store_f(buf ^ 1);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float gk = p.g[tx * 4 + j];  // NEG_LARGE on padding columns
+#pragma unroll
+      for (int i = 0; i < SR / 16; ++i) acc[i][j] = -0.5f * acc[i][j] + gk;
+    }
+    PHASE_CLOCK(1)
+
+    if constexpr (!STATS) {
+      // Phase 2 in registers: this shard's max and shifted sum over its k
+      // real columns; all 16 lanes of the half-warp end with the same bits.
+      float my_m = 0.f, my_s = 0.f;
+#pragma unroll
+      for (int i = 0; i < SR / 16; ++i) {
+        float m = __int_as_float(0xff800000);  // -inf
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (tx * 4 + j < k) m = fmaxf(m, acc[i][j]);
+        m = half_max(m);
+        float s = 0.f;
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (tx * 4 + j < k) s += expf(acc[i][j] - m);
+        s = half_sum(s);
+        if (i == tx) {
+          my_m = m;
+          my_s = s;
+        }
+      }
+      if (tx < SR / 16) {
+        const int r = own(ty, tx);
+        if (r < rows) {
+          p.m_out[base + r] = my_m;
+          p.s_out[base + r] = my_s;
+        }
+      }
+      PHASE_CLOCK(2)  // K5 ends here
+    } else {
+      // Phase 2 in registers (K6): w = exp(logp - logZ) * wt into the
+      // posterior buffer; lane tx = 0 adds logZ * wt of its rows, in order.
+#pragma unroll
+      for (int i = 0; i < SR / 16; ++i) {
+        const int r = own(ty, i);
+        const bool real = r < rows;
+        const float lz = real ? p.logz[base + r] : 0.f;
+        const float w_ev = real ? p.wt[base + r] : 0.f;
+        float w[4];
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          w[j] = real && tx * 4 + j < k ? expf(acc[i][j] - lz) * w_ev : 0.f;
+        *reinterpret_cast<float4*>(ws + r * KPS + tx * 4) = make_float4(w[0], w[1], w[2], w[3]);
+        if (tx == 0 && real) red[ty] += (double)(lz * w_ev);
+      }
+      __syncthreads();
+      PHASE_CLOCK(2)
+
+      // Phase 3: out[k][c] += sum_r w[r][k] * feat[r][c], this CTA's slice;
+      // A = w^T in place from the posteriors (all NS rows in every warp),
+      // B = the feature stage [KC][SROW]; warp w owns columns w*16 .. +15.
+      constexpr int L3 = KC * NT / THREADS;
+      const int s3 = (rows + KC - 1) / KC;
+      for (int c0 = 0; c0 < fe_pad; c0 += NT) {
+        float acc3[4][2][4] = {};
+        float rf3[L3];
+        auto load = [&](int s) {
+#pragma unroll
+          for (int it = 0; it < L3; ++it) {
+            const int e = tid + it * THREADS;
+            rf3[it] = feature(xs + (s * KC + e / NT) * xstride, pairs[c0 + e % NT]);
+          }
+        };
+        auto store = [&](int buf) {
+#pragma unroll
+          for (int it = 0; it < L3; ++it) {
+            const int e = tid + it * THREADS;
+            fs[buf * STAGE + (e / NT) * SROW + e % NT] = rf3[it];
+          }
+        };
+        load(0);
+        store(0);
+        __syncthreads();
+        for (int s = 0; s < s3; ++s) {
+          if (s + 1 < s3) load(s + 1);
+          mma_stage<2>(acc3, ws + (size_t)s * KC * KPS, KPS,
+                       fs + (s & 1) * STAGE + warp * 16, SROW, lane);
+          if (s + 1 < s3) store((s + 1) & 1);
+          __syncthreads();
+        }
+        PHASE_CLOCK(3)
+        // Accumulator h of tile (i, j): row lr (+8 for h >= 2), column
+        // lc (+1 for odd h).
+        if (!first) {
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+#pragma unroll
+            for (int j = 0; j < 2; ++j)
+#pragma unroll
+              for (int h = 0; h < 4; ++h) {
+                const int kk = i * 16 + lr + (h >> 1) * 8;
+                const int c = c0 + warp * 16 + j * 8 + lc + (h & 1);
+                if (c < fe) acc3[i][j][h] += my_partial[(size_t)kk * fe + c];
+              }
+        }
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+#pragma unroll
+            for (int h = 0; h < 4; ++h) {
+              const int kk = i * 16 + lr + (h >> 1) * 8;
+              const int c = c0 + warp * 16 + j * 8 + lc + (h & 1);
+              if (c < fe) my_partial[(size_t)kk * fe + c] = acc3[i][j][h];
+            }
+        PHASE_CLOCK(4)
+      }
+      first = false;
+      __syncthreads();
+      PHASE_CLOCK(4)
+    }
+  }
+  PHASE_CLOCK_END
+  if (!STATS) return;
+
+  // This CTA's loglik: the 16 row-owning lanes' sums, in ty order.
+  __syncthreads();
+  if (tid == 0) {
+    double s = 0.0;
+    for (int i = 0; i < THREADS / 16; ++i) s += red[i];
+    p.ll_part[blockIdx.x] = s;
+  }
+}
+
 template <int MODE, bool DIAG, int MR>
 cudaError_t launch(const Params& p, int grid, int r, size_t smem, cudaStream_t s) {
   auto kern = fused_stats_kernel<MODE, DIAG, MR>;
@@ -641,6 +907,17 @@ cudaError_t launch_mode(const Params& p, int diag, int grid, int r, size_t smem,
               : launch<MODE, false, 64>(p, grid, r, smem, s);
 }
 
+// The reduction of the r lanes' per-CTA partials into ll/nk/m1/m2.
+int launch_reduce(const Params& p, float* ll, float* nk, float* m1, float* m2,
+                  int diag, int grid, int r, cudaStream_t s) {
+  const int d = p.d;
+  const int f = diag ? d : d * d;
+  const int64_t outs = (int64_t)p.k * (f + d + 1);
+  reduce_partials<<<dim3((unsigned)((outs + 255) / 256), r), 256, 0, s>>>(
+      p.partial, p.ll_part, p.lanes, grid, p.k, p.kp, d, diag, ll, nk, m1, m2);
+  return (int)cudaGetLastError();
+}
+
 // The statistics kernel of `mode` on `s`, then (K1/K3/K6) the reduction.
 int run(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
         int diag, int grid, int r, cudaStream_t s) {
@@ -656,11 +933,58 @@ int run(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
       : mode == MODE_STATS_LOGZ ? launch_mode<MODE_STATS_LOGZ>(p, diag, grid, r, smem, s)
                                 : launch_mode<MODE_STATS>(p, diag, grid, r, smem, s);
   if (err != cudaSuccess || mode == MODE_LOCAL_LSE) return (int)err;
-  const int f = diag ? d : d * d;
-  const int64_t outs = (int64_t)p.k * (f + d + 1);
-  reduce_partials<<<dim3((unsigned)((outs + 255) / 256), r), 256, 0, s>>>(
-      p.partial, p.ll_part, p.lanes, grid, p.k, p.kp, d, diag, ll, nk, m1, m2);
-  return (int)cudaGetLastError();
+  return launch_reduce(p, ll, nk, m1, m2, diag, grid, r, s);
+}
+
+// Dynamic shared memory of the shard kernel (K6 adds the posterior buffer).
+size_t shard_smem(int mode, int d, int diag) {
+  const int t = diag ? d : d * (d + 1) / 2;
+  const int fe_pad = (t + d + 1 + NT - 1) / NT * NT;
+  return ((mode == MODE_STATS_LOGZ ? (size_t)SR * KPS : 0) + 2 * KC * NS + 2 * STAGE +
+          (size_t)SR * ((d + 1) | 1)) * sizeof(float) + fe_pad * sizeof(int);
+}
+
+// Launches the shard kernel, or (ctas != null) only reports how many of its
+// CTAs fit on one SM from its registers and shared memory.
+template <int MODE, bool DIAG>
+cudaError_t launch_shard(const Params& p, int grid, size_t smem, cudaStream_t s,
+                         int* ctas) {
+  auto kern = shard_kernel<MODE, DIAG>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return err;
+  if (ctas) return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern, THREADS, smem);
+  kern<<<grid, THREADS, smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+template <int MODE>
+cudaError_t launch_shard_mode(const Params& p, int diag, int grid, size_t smem,
+                              cudaStream_t s, int* ctas) {
+  return diag ? launch_shard<MODE, true>(p, grid, smem, s, ctas)
+              : launch_shard<MODE, false>(p, grid, smem, s, ctas);
+}
+
+// K5 or K6 on one cluster shard. A shard of at most NS clusters (kp == NS)
+// runs the shard kernel on SR-event tiles; a wider one (kp a multiple of
+// NT, e.g. K_s = 65 or 130) runs K1's kernel in that mode, with phase 2 as
+// a pass over the logp buffer in shared memory. The caller picks the route
+// by the shard's width: kp, bt and grid come from the wrapper's tile.
+int run_shard(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
+              int diag, int grid, cudaStream_t s) {
+  if (p.kp != NS) return run(mode, p, ll, nk, m1, m2, diag, grid, 1, s);
+  if (p.bt != SR || p.k > NS) return (int)cudaErrorInvalidValue;
+  p.xstride = (p.d + 1) | 1;  // odd row stride: no bank conflicts
+  const size_t smem = shard_smem(mode, p.d, diag);
+  cudaError_t err =
+      mode == MODE_LOCAL_LSE
+          ? launch_shard_mode<MODE_LOCAL_LSE>(p, diag, grid, smem, s, nullptr)
+          : launch_shard_mode<MODE_STATS_LOGZ>(p, diag, grid, smem, s, nullptr);
+  if (err != cudaSuccess || mode == MODE_LOCAL_LSE) return (int)err;
+  return launch_reduce(p, ll, nk, m1, m2, diag, grid, 1, s);
 }
 
 Params params(const float* x, const float* wt, const float* lanes,
@@ -723,26 +1047,41 @@ extern "C" int gmm_phase_cycles(unsigned long long* out) {
 #endif
 
 // Launches K5 on `stream`; returns cudaGetLastError(). K1's x, a_ext and g
-// for this shard's k clusters (padded to kp); m [n] and s [n] out.
+// for this shard's k clusters, padded to kp: 64 (the shard kernel, bt =
+// 128, grid up to 132 x K5_CTAS) when k <= 64, else a multiple of 128 (K1's
+// kernel and tile); m [n] and s [n] out.
 extern "C" int gmm_local_lse(const float* x, const float* a_ext, const float* g,
                              float* m, float* s, int n, int d, int k, int kp,
                              int diag, int bt, int grid, void* stream) {
-  return run(MODE_LOCAL_LSE,
-             params(x, nullptr, nullptr, nullptr, a_ext, g, m, s, nullptr,
-                    nullptr, n, d, k, kp, bt),
-             nullptr, nullptr, nullptr, nullptr, diag, grid, 1,
-             static_cast<cudaStream_t>(stream));
+  return run_shard(MODE_LOCAL_LSE,
+                   params(x, nullptr, nullptr, nullptr, a_ext, g, m, s, nullptr,
+                          nullptr, n, d, k, kp, bt),
+                   nullptr, nullptr, nullptr, nullptr, diag, grid,
+                   static_cast<cudaStream_t>(stream));
 }
 
 // Launches K6 (both kernels) on `stream`; returns cudaGetLastError(). K1's
-// operands and outputs, plus logz [n], the global per-event evidence.
+// operands and outputs, plus logz [n], the global per-event evidence; kp,
+// bt and grid (up to 132 x K6_CTAS on the shard kernel) as for K5.
 extern "C" int gmm_stats_logz(const float* x, const float* wt, const float* logz,
                               const float* a_ext, const float* g, float* partial,
                               double* ll_part, float* ll, float* nk, float* m1,
                               float* m2, int n, int d, int k, int kp, int diag,
                               int bt, int grid, void* stream) {
-  return run(MODE_STATS_LOGZ,
-             params(x, wt, nullptr, logz, a_ext, g, nullptr, nullptr, partial,
-                    ll_part, n, d, k, kp, bt),
-             ll, nk, m1, m2, diag, grid, 1, static_cast<cudaStream_t>(stream));
+  return run_shard(MODE_STATS_LOGZ,
+                   params(x, wt, nullptr, logz, a_ext, g, nullptr, nullptr, partial,
+                          ll_part, n, d, k, kp, bt),
+                   ll, nk, m1, m2, diag, grid, static_cast<cudaStream_t>(stream));
+}
+
+// How many CTAs of the shard kernel of `mode` (1 = K5, 2 = K6) fit on one
+// SM at dimension d, from its registers and shared memory (the card's own
+// occupancy calculator), into *ctas; returns the CUDA error.
+extern "C" int gmm_shard_occupancy(int mode, int d, int diag, int* ctas) {
+  const Params p = params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, nullptr, nullptr, 0, d, 0, NS, SR);
+  const size_t smem = shard_smem(mode, d, diag);
+  return (int)(mode == MODE_LOCAL_LSE
+                   ? launch_shard_mode<MODE_LOCAL_LSE>(p, diag, 0, smem, nullptr, ctas)
+                   : launch_shard_mode<MODE_STATS_LOGZ>(p, diag, 0, smem, nullptr, ctas));
 }

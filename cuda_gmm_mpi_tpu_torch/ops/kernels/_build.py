@@ -35,7 +35,8 @@ SIGNATURES = {
     "fused_stats.cu": [("gmm_fused_stats", [_P] * 10 + [_I] * 7 + [_P]),
                        ("gmm_fused_stats_batched", [_P] * 11 + [_I] * 8 + [_P]),
                        ("gmm_local_lse", [_P] * 5 + [_I] * 7 + [_P]),
-                       ("gmm_stats_logz", [_P] * 11 + [_I] * 7 + [_P])],
+                       ("gmm_stats_logz", [_P] * 11 + [_I] * 7 + [_P]),
+                       ("gmm_shard_occupancy", [_I] * 3 + [_P])],
     "mstep.cu": [("gmm_mstep", [_P] * 8 + [_I] * 3 + [_P]),
                  ("gmm_mstep_batched", [_P] * 8 + [_I] * 4 + [_P])],
 }

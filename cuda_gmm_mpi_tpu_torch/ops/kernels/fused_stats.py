@@ -14,8 +14,9 @@ replace ``_local_lse_kernel`` and ``_stats_logz_kernel``, the two passes of
 the cluster-sharded statistics (``fused_stats_cuda_sharded``): K5 gives
 each event's max and shifted sum over this rank's clusters, two all_reduce
 calls over the cluster axis combine them into the global log-evidence, and
-K6 accumulates this rank's statistics from it. Both are K1's kernel in
-another mode.
+K6 accumulates this rank's statistics from it. A shard of at most 64
+clusters runs them on a kernel of their own, 64 columns wide, with several
+CTAs per SM (``shard_tile``); a wider shard runs K1's kernel in their mode.
 
 Precision: the kernels run matmul_precision='highest' only, at plain
 fp32's error class. K1's kernel (and so K3, K5 and K6) forms logp on the
@@ -41,6 +42,7 @@ JAX counterpart).
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -63,6 +65,18 @@ TILE = 128  # K1's macro-tile width: K is padded to a multiple of it
 # K1 pads the posterior rows and its stage buffers' rows by 8 floats, so
 # that phase 3's tensor-core fragment loads are free of bank conflicts.
 ROW_PAD = 8
+STAGE_DEPTH = 16  # rows of one shared-memory stage (KC in fused_stats.cu)
+# K5/K6 on a shard of at most SHARD_TILE clusters: the shard kernel's
+# column tile and event tile, and the CTAs per SM each is compiled for
+# (K5_CTAS, K6_CTAS in fused_stats.cu). Its persistent grid is K1_GRID x
+# the CTAs per SM: a constant of the shapes too.
+SHARD_TILE = 64
+SHARD_ROWS = 128
+SHARD_CTAS = {False: 3, True: 2}  # keyed by stats: K5 3, K6 2
+# Shared memory of one SM (the H100's 228 KB), of which each resident CTA
+# holds 1 KB for the system; K1_SMEM_BYTES is the most one CTA may ask for.
+SM_SMEM_BYTES = 233472
+CTA_RESERVED_SMEM = 1024
 
 
 def _check_precision(precision: str) -> None:
@@ -153,20 +167,72 @@ def fused_stats_plain(x, wt, A, h, g, *, diag: bool):
             w.T @ x, w.T @ x2)
 
 
+def _fe_pad(d: int, diag: bool) -> int:
+    """Columns of the augmented feature row [x2 packed | x | 1], padded to
+    TILE (the pair table's length)."""
+    t = d if diag else d * (d + 1) // 2
+    return -(-(t + d + 1) // TILE) * TILE
+
+
+def _k1_smem(bt: int, k_pad: int, d: int, diag: bool) -> int:
+    """Dynamic shared memory of K1's kernel (``run`` in fused_stats.cu)."""
+    return 4 * (bt * (k_pad + ROW_PAD) + 4 * STAGE_DEPTH * (TILE + ROW_PAD)
+                + bt * ((d + 1) | 1) + _fe_pad(d, diag))
+
+
 def k1_tile(k_pad: int, d: int, block_b: int, diag: bool) -> int:
     """K1's event tile: ``block_b`` lowered until the tile's posteriors fit
     their shared-memory share, to a multiple of 128 (or 64, where K1 then
     uses 64-row tiles)."""
     bt = min(block_b, K1_POSTERIOR_BYTES // (4 * k_pad))
     bt = bt // TILE * TILE if bt >= TILE else 64
-    t = d if diag else d * (d + 1) // 2
-    fe_pad = -(-(t + d + 1) // TILE) * TILE
-    smem = 4 * (bt * (k_pad + ROW_PAD) + 4 * 16 * (TILE + ROW_PAD)
-                + bt * ((d + 1) | 1) + fe_pad)
+    smem = _k1_smem(bt, k_pad, d, diag)
     if d > 255 or smem > K1_SMEM_BYTES:
         raise ValueError(f"K1 does not fit D={d}, K_pad={k_pad} "
                          f"({smem} bytes of shared memory)")
     return bt
+
+
+class ShardTile(NamedTuple):
+    """How K5 or K6 runs one cluster shard: its K_pad columns, events per
+    tile, persistent grid (its most CTAs; fewer when N has fewer tiles),
+    CTAs per SM and dynamic shared memory per CTA in bytes."""
+    k_pad: int
+    bt: int
+    grid: int
+    ctas_per_sm: int
+    smem: int
+
+
+def wide_shard_tile(k: int, d: int, diag: bool, block_b: int = 512
+                    ) -> ShardTile:
+    """K5/K6 on K1's kernel: K padded to a multiple of TILE, K1's tile and
+    grid, one CTA per SM (the route of a shard wider than SHARD_TILE)."""
+    k_pad = -(-k // TILE) * TILE
+    bt = k1_tile(k_pad, d, block_b, diag)
+    return ShardTile(k_pad, bt, K1_GRID, 1, _k1_smem(bt, k_pad, d, diag))
+
+
+def shard_tile(k: int, d: int, diag: bool, *, stats: bool,
+               block_b: int = 512) -> ShardTile:
+    """The tile of K5 (``stats=False``) or K6 (``stats=True``) on a shard of
+    ``k`` clusters. At most SHARD_TILE clusters: the shard kernel, K_pad =
+    64, SHARD_ROWS-event tiles and SHARD_CTAS CTAs per SM where their shared
+    memory fits (fewer where it does not; ValueError where not even one
+    does). Wider: :func:`wide_shard_tile`. Depends on the shapes alone, so
+    the grid and every bit of the result do too."""
+    if k > SHARD_TILE:
+        return wide_shard_tile(k, d, diag, block_b)
+    smem = 4 * ((SHARD_ROWS * (SHARD_TILE + ROW_PAD) if stats else 0)
+                + 2 * STAGE_DEPTH * SHARD_TILE
+                + 2 * STAGE_DEPTH * (TILE + ROW_PAD)
+                + SHARD_ROWS * ((d + 1) | 1) + _fe_pad(d, diag))
+    ctas = min(SHARD_CTAS[stats],
+               SM_SMEM_BYTES // (smem + CTA_RESERVED_SMEM))
+    if d > 255 or smem > K1_SMEM_BYTES or ctas < 1:
+        raise ValueError(f"{'K6' if stats else 'K5'} does not fit D={d} "
+                         f"({smem} bytes of shared memory)")
+    return ShardTile(SHARD_TILE, SHARD_ROWS, K1_GRID * ctas, ctas, smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -187,13 +253,14 @@ def _packed_a(A: torch.Tensor, d: int) -> torch.Tensor:
     return a[..., i, j, :] + torch.where(off, a[..., j, i, :], 0.0)
 
 
-def _ext_operands(A, h, g, d: int, diag: bool):
-    """K1/K3's parameter operands, per lane of any leading axes:
-    A_ext = [A (packed); -2h] [..., T+D, K_pad] and g [..., K_pad], padded
-    to K_pad columns whose g is NEG_LARGE (inert, exactly like an inactive
-    cluster)."""
+def _ext_operands(A, h, g, d: int, diag: bool, width: int = TILE):
+    """The kernels' parameter operands, per lane of any leading axes:
+    A_ext = [A (packed); -2h] [..., T+D, K_pad] and g [..., K_pad], K
+    padded to a multiple of ``width`` (K1's TILE, or a shard's SHARD_TILE)
+    with columns whose A_ext is 0 and g NEG_LARGE (inert, exactly like an
+    inactive cluster)."""
     lead, k = A.shape[:-2], A.shape[-1]
-    k_pad = -(-k // TILE) * TILE
+    k_pad = -(-k // width) * width
     a_sym = A if diag else _packed_a(A, d)
     t = a_sym.shape[-2]
     a_ext = torch.zeros(lead + (t + d, k_pad), dtype=torch.float32,
@@ -375,58 +442,60 @@ def stats_logz_plain(x, wt, logz, A, h, g, *, diag: bool):
             w.T @ x, w.T @ x2)
 
 
-def local_lse(x, A, h, g, *, diag: bool, block_b: int = 512,
-              precision: str = "highest"):
-    """K5: (m, s) as in :func:`local_lse_plain`. CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+def _shard_operands(A, h, g, d: int, diag: bool):
+    """A_ext and g of one cluster shard, padded to its tile width: 64
+    columns for K_s <= SHARD_TILE, else a multiple of TILE."""
+    width = SHARD_TILE if A.shape[-1] <= SHARD_TILE else TILE
+    a_ext, g_pad, _ = _ext_operands(A, h, g, d, diag, width)
+    return a_ext, g_pad
+
+
+def _shard_prep(name, x, wt, A, h, g, diag: bool, precision: str):
+    """None for CPU tensors (the caller takes the plain versions); else the
+    checks of K5/K6's inputs and the shard's padded operands, built once
+    for both kernels."""
     if x.device.type == "cpu":
-        return local_lse_plain(x, A, h, g, diag=diag)
+        return None
     _check_precision(precision)
-    _check_cuda(x, A, h, g)
-    _check_k1_shapes("K5", x, None, A, h, g, diag)
+    _check_cuda(*(t for t in (x, wt, A, h, g) if t is not None))
+    _check_k1_shapes(name, x, wt, A, h, g, diag)
+    return _shard_operands(A, h, g, x.shape[1], diag)
+
+
+def _local_lse_launch(x, ops, k: int, diag: bool, block_b: int):
+    """K5 on a shard's prepared operands (:func:`_shard_prep`)."""
     from ._build import library
 
     n, d = x.shape
-    k = A.shape[1]
-    a_ext, g_pad, _ = _ext_operands(A, h, g, d, diag)
-    k_pad = g_pad.shape[-1]
-    bt = k1_tile(k_pad, d, block_b, diag)
-    grid = min(-(-n // bt), K1_GRID)
+    a_ext, g_pad = ops
+    tile = shard_tile(k, d, diag, stats=False, block_b=block_b)
+    grid = min(-(-n // tile.bt), tile.grid)
     m = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     s = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     fn = library("fused_stats.cu").gmm_local_lse
     err = fn(x.data_ptr(), a_ext.data_ptr(), g_pad.data_ptr(), m.data_ptr(),
-             s.data_ptr(), n, d, k, k_pad, int(diag), bt, grid,
+             s.data_ptr(), n, d, k, tile.k_pad, int(diag), tile.bt, grid,
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "K5 (local_lse)")
     local_lse.launches += 1
     return m, s
 
 
-local_lse.launches = 0
-
-
-def stats_logz(x, wt, logz, A, h, g, *, diag: bool, block_b: int = 512,
-               precision: str = "highest"):
-    """K6: (ll, nk, m1, m2) as in :func:`stats_logz_plain`. CPU tensors
-    take the plain version; CUDA tensors launch the kernel."""
-    if x.device.type == "cpu":
-        return stats_logz_plain(x, wt, logz, A, h, g, diag=diag)
-    _check_precision(precision)
-    _check_cuda(x, wt, logz, A, h, g)
-    _check_k1_shapes("K6", x, wt, A, h, g, diag)
-    n, d = x.shape
-    f, k = A.shape
-    if logz.shape != (n, 1):
-        raise ValueError(f"K6: logz {tuple(logz.shape)} for {n} events")
+def _stats_logz_launch(x, wt, logz, ops, k: int, diag: bool, block_b: int):
+    """K6 on a shard's prepared operands, as :func:`_local_lse_launch`."""
     from ._build import library
 
-    a_ext, g_pad, t = _ext_operands(A, h, g, d, diag)
-    k_pad = g_pad.shape[-1]
-    bt = k1_tile(k_pad, d, block_b, diag)
-    grid = min(-(-n // bt), K1_GRID)
+    n, d = x.shape
+    _check_cuda(logz)
+    if logz.shape != (n, 1):
+        raise ValueError(f"K6: logz {tuple(logz.shape)} for {n} events")
+    a_ext, g_pad = ops
+    tile = shard_tile(k, d, diag, stats=True, block_b=block_b)
+    f = d if diag else d * d
+    t = a_ext.shape[0] - d
+    grid = min(-(-n // tile.bt), tile.grid)
     dev = x.device
-    partial = torch.empty((grid, k_pad, t + d + 1), dtype=torch.float32,
+    partial = torch.empty((grid, tile.k_pad, t + d + 1), dtype=torch.float32,
                           device=dev)
     ll_part = torch.empty(grid, dtype=torch.float64, device=dev)
     ll = torch.empty((1, 1), dtype=torch.float32, device=dev)
@@ -437,11 +506,34 @@ def stats_logz(x, wt, logz, A, h, g, *, diag: bool, block_b: int = 512,
     err = fn(x.data_ptr(), wt.data_ptr(), logz.data_ptr(), a_ext.data_ptr(),
              g_pad.data_ptr(), partial.data_ptr(), ll_part.data_ptr(),
              ll.data_ptr(), nk.data_ptr(), m1.data_ptr(), m2.data_ptr(), n, d,
-             k, k_pad, int(diag), bt, grid,
+             k, tile.k_pad, int(diag), tile.bt, grid,
              torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "K6 (stats_logz)")
     stats_logz.launches += 1
     return ll, nk, m1, m2
+
+
+def local_lse(x, A, h, g, *, diag: bool, block_b: int = 512,
+              precision: str = "highest"):
+    """K5: (m, s) as in :func:`local_lse_plain`. CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
+    ops = _shard_prep("K5", x, None, A, h, g, diag, precision)
+    if ops is None:
+        return local_lse_plain(x, A, h, g, diag=diag)
+    return _local_lse_launch(x, ops, A.shape[1], diag, block_b)
+
+
+local_lse.launches = 0
+
+
+def stats_logz(x, wt, logz, A, h, g, *, diag: bool, block_b: int = 512,
+               precision: str = "highest"):
+    """K6: (ll, nk, m1, m2) as in :func:`stats_logz_plain`. CPU tensors
+    take the plain version; CUDA tensors launch the kernel."""
+    ops = _shard_prep("K6", x, wt, A, h, g, diag, precision)
+    if ops is None:
+        return stats_logz_plain(x, wt, logz, A, h, g, diag=diag)
+    return _stats_logz_launch(x, wt, logz, ops, A.shape[1], diag, block_b)
 
 
 stats_logz.launches = 0
@@ -458,8 +550,9 @@ def fused_stats_cuda_sharded(state, data_chunks, wts_chunks, *,
     M = MAX over the shards of m, S = SUM of exp(m - M) * s, logZ =
     M + log(S) (a shard whose clusters are all inactive has m = NEG_LARGE,
     so its exp(m - M) is exactly 0); K6 accumulates the statistics from
-    logZ. Only [N, 1] per-event scalars cross ranks. The loglik is the same
-    on every rank of the group. ``n_events`` as in
+    logZ. Only [N, 1] per-event scalars cross ranks. The shard's padded
+    operands are built once and read by both kernels. The loglik is the
+    same on every rank of the group. ``n_events`` as in
     :func:`fused_stats_cuda`."""
     c, b, d = data_chunks.shape
     K = state.means.shape[0]
@@ -467,14 +560,22 @@ def fused_stats_cuda_sharded(state, data_chunks, wts_chunks, *,
     if n_events is not None:
         x, wt = x[:n_events], wt[:n_events]
     A, h, g = _prep_params(state, d, diag_only)
-    kw = dict(diag=diag_only, block_b=block_b, precision=precision)
-    m, s = local_lse(x, A, h, g, **kw)
+    ops = _shard_prep("K5/K6", x, wt, A, h, g, diag_only, precision)
+    if ops is None:
+        m, s = local_lse_plain(x, A, h, g, diag=diag_only)
+    else:
+        m, s = _local_lse_launch(x, ops, K, diag_only, block_b)
     big_m = m.clone()
     dist.all_reduce(big_m, op=dist.ReduceOp.MAX, group=cluster_group)
     big_s = torch.exp(m - big_m) * s
     dist.all_reduce(big_s, op=dist.ReduceOp.SUM, group=cluster_group)
     logz = big_m + torch.log(big_s)
-    ll, nk, m1, m2 = stats_logz(x, wt, logz, A, h, g, **kw)
+    if ops is None:
+        ll, nk, m1, m2 = stats_logz_plain(x, wt, logz, A, h, g,
+                                          diag=diag_only)
+    else:
+        ll, nk, m1, m2 = _stats_logz_launch(x, wt, logz, ops, K, diag_only,
+                                            block_b)
     dt = data_chunks.dtype
     return SuffStats(loglik=ll[0, 0].to(dt), Nk=nk[0].to(dt), M1=m1.to(dt),
                      M2=(m2 if diag_only else m2.reshape(K, d, d)).to(dt))

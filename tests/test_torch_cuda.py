@@ -269,12 +269,20 @@ def _normwise(a, b) -> float:
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-@pytest.mark.parametrize("n,d,k,shards", [(4099, 6, 70, 2), (20000, 24, 100, 4)])
+@pytest.mark.parametrize("n,d,k,shards", [
+    (4099, 6, 70, 2), (20000, 24, 100, 4),
+    # K_s = 1, 50 and 64 (the 64-wide shard kernel), 65 (K1's kernel, one
+    # 128-wide tile) and 130 (two tiles); N is never a multiple of B_t
+    (1001, 5, 2, 2), (5003, 24, 100, 2), (4097, 10, 128, 2),
+    (3001, 6, 130, 2), (2053, 6, 260, 2),
+    # more event tiles than twice either grid (K5 396 CTAs, K6 264): every
+    # CTA accumulates over several tiles
+    (120001, 6, 100, 2)])
 @pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
 def test_k5_k6_match_plain_and_their_shards_match_k1(dev, n, d, k, shards, diag):
-    """K5 and K6 per cluster shard, the last shard with every cluster
-    inactive, combined as fused_stats_cuda_sharded does (torch max and sum
-    standing in for the all_reduce calls)."""
+    """K5 and K6 per cluster shard (K_s = ceil(k / shards)), the last shard
+    with every cluster inactive, combined as fused_stats_cuda_sharded does
+    (torch max and sum standing in for the all_reduce calls)."""
     rng = np.random.default_rng(n + k + 2)
     ks = -(-k // shards)
     state = state_from_numpy(_state(rng, k, d, diag,
@@ -323,6 +331,25 @@ def test_k5_k6_match_plain_and_their_shards_match_k1(dev, n, d, k, shards, diag)
         rtol, atol = TOL[name]
         assert float((a - c).abs().max()) <= atol + rtol * float(c.abs().max()), name
     assert not outs[-1][1].any()
+
+
+@pytest.mark.parametrize("d", [6, 24, 32])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_shard_kernels_fit_the_ctas_per_sm_of_their_tile(dev, d, diag):
+    """The card's occupancy calculator, from the shard kernels' registers
+    and shared memory, fits at least the CTAs per SM that shard_tile
+    reports (its persistent grid is 132 x that), and more than one."""
+    import ctypes
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels._build import library
+
+    lib = library("fused_stats.cu")
+    for mode, stats in ((1, False), (2, True)):
+        tile = fs.shard_tile(50, d, diag, stats=stats)
+        ctas = ctypes.c_int(0)
+        assert lib.gmm_shard_occupancy(mode, d, int(diag),
+                                       ctypes.addressof(ctas)) == 0
+        assert ctas.value >= tile.ctas_per_sm > 1, (mode, ctas.value, tile)
 
 
 def test_two_rank_mesh_em_through_k5_k6_matches_single_device(dev, tmp_path):
