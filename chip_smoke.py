@@ -32,15 +32,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    global mean (|x| ~ 170), where two float32 evaluations of the expanded
    quadratic form differ by more than the class, only this float64 check
    applies;
-3. K2 (M-step epilogue) against its plain version: torch.equal;
+3. K2 (the whole M-step: the guarded update and the Cholesky constants,
+   one launch) on the main path's state and K1's statistics, on the same
+   with the guard cases forced (an empty cluster, a dead-zone one, an M2
+   whose update is not positive definite, a NaN in M2) and with a cluster
+   of condition number ~1e6 (full and diag): ok, N, means and R
+   torch.equal to the plain version and to the torch-ops ``apply_mstep``,
+   ok equal to the torch-ops and the float64 flags; Rinv and constant
+   against a float64 ``compute_constants`` of the same updated R at most
+   twice the torch-ops path's normwise error (floored at 2^-23); pi within
+   4 ulps of torch ops; two launches bit-identical. Times: the launch
+   alone on prebuilt operands, the whole M-step hook, torch-ops
+   ``apply_mstep``, the plain version, and the launch floor (the same
+   kernel at K = 1, D = 1);
 4. the main path: a fit of 1,000,000 x 24 float32 events (well-separated
    Gaussian blobs made from --seed with numpy) from K=100 down to 96 with
    min = max = 20 EM iterations through K1/K2, with .summary and .results
    written; the launch counters must match the iteration counts; the same
    fit on the torch-ops path must select the same K and merge pairs with
    the final loglik within rtol 1e-4; then a shorter diag-only fit through
-   the kernels, and a small float32 kernel fit against a float64 torch-ops
-   fit on the CPU;
+   the kernels, a small float32 kernel fit against a float64 torch-ops
+   fit on the CPU, and a torch.profiler window (the card's activity only)
+   over 5 EM iterations of the main path at full width (after a warm-up):
+   the device's busy and idle share, device time by kernel name (top 10),
+   and the mean gap between the end of one K1 launch and the start of the
+   next;
 5. K3 (restart-batched statistics) on R = 4 lanes at the main path's shapes
    (full and diag): four k-means++ seeds of the centred data, one lane with
    inactive clusters, lane 2 frozen by the lane mask. Every live lane must
@@ -51,9 +67,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    loop (``run_em_batched``, 4 lanes, min 3 and per-lane max 40/8/40/20
    iterations) against ``run_em`` per lane through K1/K2: the same
    iteration counts and torch.equal loglik, means and R;
-6. K4 (restart-batched M-step epilogue) against its plain version, and per
-   lane against K2 and ``mstep_update``, with forced Nk = 0 and Nk = 0.7
-   clusters in every lane: torch.equal;
+6. K4 (restart-batched M-step, R = 4 lanes) on K3's statistics and with
+   phase 3's guard cases forced in every lane: each lane torch.equal to K2
+   on its operands and held to the torch-ops M-step as K2 is; times as in
+   phase 3 (torch ops: ``apply_mstep`` lane by lane);
 7. the restart path: the phase-4 blobs fitted K = 100 -> 96 with min = max
    = 20 iterations, n_init = 4, restart_batch_size = 4 through K3/K4 (K3
    launches once per batched iteration plus once per sweep step, K4 once
@@ -105,7 +122,10 @@ what its function needs on this run's real events: 2 N K (T+D) for logp
 and 2 N K (T+D+1) for Nk/M1/M2, with T = D(D+1)/2 distinct products of the
 symmetric x x^T (T = D in diag mode). That is less than the TPU kernel's
 own estimate of 4 N K D^2, which counts both triangles of x x^T. K3's are
-the same per live lane; K2/K4 count their bytes. K5's operations are
+the same per live lane. K2/K4's are the update's ~8 per covariance entry,
+D^3/3 per cluster for the Cholesky and D^3/3 each for L^-1 and L^-T L^-1
+where the factorization held, against their bytes (M2 in, R and Rinv out;
+bytes bound them). K5's operations are
 2 N K_s (T+D) for its shard's K_s clusters, K6's that plus
 2 N K_s (T+D+1). K5 and K6 have no PyTorch call that computes their
 function; beside them stands the torch-ops route of the same shard (its
@@ -480,40 +500,190 @@ def phase_k1(x_np, diag, inactive, label, timed, near=True, clocks=None):
     return rec, (state, out)
 
 
-def phase_k2(state, stats_out, diag, label):
+def guard_stats(stats, diag, rng):
+    """The main path's statistics with the M-step's guard cases forced in
+    clusters 1-4: empty (Nk = 0), dead zone (Nk = 0.7), an M2 whose update
+    has a negative eigenvalue, a NaN in M2 below the diagonal."""
     import torch
 
-    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import SuffStats
+
+    nk, m2 = stats.Nk.clone(), stats.M2.clone()
+    nk[1], nk[2], nk[3], nk[4] = 0.0, 0.7, 50.0, 50.0
+    d = stats.M1.shape[-1]
+    for c, last in ((3, -1.0), (4, 1.0)):
+        mu = stats.M1[c] / nk[c]
+        if diag:
+            m2[c] = nk[c] * (mu * mu + 1.0)
+        else:
+            q, _ = torch.linalg.qr(torch.as_tensor(
+                rng.normal(size=(d, d)), dtype=torch.float32, device="cuda"))
+            lam = torch.ones(d, device="cuda")
+            lam[-1] = last
+            m2[c] = nk[c] * (torch.outer(mu, mu) + (q * lam) @ q.T)
+    if diag:
+        m2[3, 0] -= 2.0 * nk[3]
+        m2[4, 1] = float("nan")
+    else:
+        m2[4, 3, 1] = float("nan")
+    return SuffStats(stats.loglik, nk, stats.M1, m2)
+
+
+def ill_conditioned(state, stats, diag, rng, c=5):
+    """Cluster ``c`` made to update to R = M2 with condition number 1e6
+    (Nk = 1, zero mean and loading; M2 = Q diag(1 .. 1e-6) Q^T, or that
+    diagonal). Returns (state, stats, cond)."""
+    import torch
+
     from cuda_gmm_mpi_tpu_torch.ops.mstep import SuffStats, mstep_update
 
+    d = stats.M1.shape[-1]
+    lam = np.logspace(0.0, -6.0, d)
+    q, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    nk, m1, m2 = stats.Nk.clone(), stats.M1.clone(), stats.M2.clone()
+    nk[c], m1[c] = 1.0, 0.0
+    m2[c] = torch.as_tensor(lam if diag else (q * lam) @ q.T,
+                            dtype=torch.float32, device="cuda")
+    avgvar = state.avgvar.clone()
+    avgvar[c] = 0.0
+    state = state.replace(avgvar=avgvar)
+    stats = SuffStats(stats.loglik, nk, m1, m2)
+    R = mstep_update(state, stats, diag_only=diag)[2][c].double()
+    return state, stats, float(torch.linalg.cond(R))
+
+
+def hold_mstep(out, state, stats, diag, label, only=slice(None)):
+    """K2's (or one K4 lane's) outputs against the torch-ops M-step
+    (``apply_mstep``, which the plain version computes term for term):
+    ``ok`` equal to its flag, N, means and R torch.equal; Rinv and constant
+    (of the clusters ``only``) against a float64 ``compute_constants`` of
+    the same updated R at most twice the torch-ops path's normwise error
+    (floored at 2^-23); pi within 4 ulps. Returns the float64 errors."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.constants import constants
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import apply_mstep, mstep_update
+
+    n, mean, R, Rinv, constant, pi, ok = out
+    N, means, R_upd = mstep_update(state, stats, diag_only=diag)
+    ref = apply_mstep(state, stats, diag_only=diag)
+    ref_ok = constants(N, R_upd, state.active, diag_only=diag)[4]
+    check(torch.equal(ok, ref_ok), f"{label}: ok differs from torch ops")
+    check(torch.equal(n, ref.N) and torch.equal(mean, ref.means)
+          and torch.equal(R, ref.R), f"{label}: N, means or R differ from "
+          "torch ops")
+    _, rinv64, const64, _, ok64 = constants(N.double(), R_upd.double(),
+                                            state.active, diag_only=diag)
+    check(torch.equal(ok64, ok), f"{label}: ok differs from float64's")
+    errs = {}
+    for name, a, b, c in (("rinv", Rinv, ref.Rinv, rinv64),
+                          ("const", constant, ref.constant, const64)):
+        e, p = normwise(a[only], c[only]), normwise(b[only], c[only])
+        check(e <= 2.0 * max(p, FP32_EPS), f"{label}: {name} float64 error "
+              f"{e:.2e} > 2 x the torch-ops path's {p:.2e}")
+        errs[name + "_fp64_err"], errs["plain_" + name + "_fp64_err"] = e, p
+    spacing = torch.nextafter(ref.pi.abs(), torch.full_like(ref.pi, np.inf))
+    ulps = float(((pi - ref.pi).abs() / (spacing - ref.pi.abs())).max())
+    check(ulps <= 4.0, f"{label}: pi {ulps:.1f} ulps from torch ops")
+    errs["pi_ulps"] = ulps
+    return errs
+
+
+def mstep_bound(out, k: int, d: int, diag: bool, lanes: int = 1):
+    """(bound ms, by) of K2/K4 on these outputs: the bytes of each input
+    read once and each output written once, against the update's ~8 flops
+    per element, the Cholesky's D^3/3 per cluster and D^3/3 each for L^-1
+    and L^-T L^-1 where the factorization held (full); the reciprocal and
+    log per diagonal entry (diag)."""
+    f = d if diag else d * d
+    nbytes = lanes * (4 * (2 * k + k * d + k * f) + k  # nk, avgvar, m1, m2; act
+                      + 4 * (3 * k + k * d + 2 * k * d * d) + k)  # outputs; ok
+    n_ok = int(out[6].sum())
+    flops = lanes * 8.0 * k * f + (2.0 * lanes * k * d if diag else
+                                   lanes * k * d ** 3 / 3 + n_ok * 2 * d ** 3 / 3)
+    return bound_ms(nbytes, flops)
+
+
+def mstep_times(ops, hook, torch_ops, launch, plain, floor_ops) -> dict:
+    """K2's or K4's times (CUDA events, 20 calls): the launch alone on
+    prebuilt operands, the whole M-step hook, the torch-ops M-step, the
+    plain version, and the same kernel at K = 1, D = 1 (the launch
+    floor)."""
+    return {"ms": time_ms(lambda: launch(*ops), reps=20),
+            "hook_ms": time_ms(hook, reps=20),
+            "torch_ops_ms": time_ms(torch_ops, reps=20),
+            "plain_ms": time_ms(lambda: plain(*ops), reps=20),
+            "launch_floor_ms": time_ms(lambda: launch(*floor_ops), reps=20)}
+
+
+def floor_operands(diag, lanes=()):
+    """K = 1, D = 1 operands (an empty cluster) for the launch floor."""
+    import torch
+
+    z = lambda *s: torch.zeros(lanes + s, device="cuda")
+    return (z(1), z(1, 1), z(1, 1), z(1),
+            torch.ones(lanes + (1,), dtype=torch.bool, device="cuda"))
+
+
+def phase_k2(state, stats_out, diag, label, seed):
+    """K2 on the main path's state and K1's statistics (the main path's
+    case), the same with the guard cases forced, and with a cluster of
+    condition number 1e6; then its times."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import GMMConfig
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import make_mstep_fn
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import SuffStats, apply_mstep
+
+    rng = np.random.default_rng(seed)
     ll, nk, m1, m2 = stats_out
     K, D = state.means.shape
-    nk = nk[0].clone()
-    nk[1], nk[2] = 0.0, 0.7  # force the empty and dead-zone guards
-    stats = SuffStats(ll[0, 0], nk, m1, m2 if diag else m2.reshape(K, D, D))
+    stats = SuffStats(ll[0, 0], nk[0], m1, m2 if diag else m2.reshape(K, D, D))
+    cases = {"main path": (state, stats),
+             "guards": (state, guard_stats(stats, diag, rng))}
+    st_c, stats_c, cond = ill_conditioned(state, stats, diag, rng)
+    check(3e5 < cond < 3e6, f"K2 {label}: cond {cond:.2e}, not ~1e6")
+    cases["cond 1e6"] = (st_c, stats_c)
+    rec = {"cond": cond}
+    for case, (st, sts) in cases.items():
+        ops = fs._mstep_operands(st, sts, diag)
+        out = fs.mstep(*ops, diag=diag)
+        again = fs.mstep(*ops, diag=diag)
+        plain = fs.mstep_plain(*ops, diag=diag)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(out, again)),
+              f"K2 {label} {case}: two launches differ")
+        check(all(torch.equal(out[i], plain[i]) for i in (0, 1, 2, 6)),
+              f"K2 {label} {case}: ok, N, means or R differ from plain")
+        errs = hold_mstep(out, st, sts, diag, f"K2 {label} {case}",
+                          only=slice(5, 6) if case == "cond 1e6" else slice(None))
+        if case == "guards":
+            check(not out[6][3] and not out[6][4] and bool(out[6][1:3].all()),
+                  f"K2 {label}: guard clusters' ok {out[6][1:5].tolist()}")
+        tag = {"main path": "", "guards": "guards_", "cond 1e6": "cond_"}[case]
+        rec.update({tag + key: v for key, v in errs.items()})
+        print(f"  K2 {label} {case}: ok, N, means, R torch.equal to plain and "
+              f"torch ops; float64 error Rinv {errs['rinv_fp64_err']:.2e} "
+              f"(torch ops {errs['plain_rinv_fp64_err']:.2e}), constant "
+              f"{errs['const_fp64_err']:.2e} ({errs['plain_const_fp64_err']:.2e}"
+              f"), pi {errs['pi_ulps']:.1f} ulps")
     ops = fs._mstep_operands(state, stats, diag)
     out = fs.mstep(*ops, diag=diag)
-    ref = fs.mstep_plain(*ops, diag=diag)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("n", "mean", "cov"), out, ref):
-        check(torch.equal(a, b), f"K2 {label}: {name} differs from plain")
-    N, means, R = mstep_update(state, stats, diag_only=diag)
-    cov = torch.diag_embed(out[2]) if diag else out[2].reshape(K, D, D)
-    check(torch.equal(out[0][:, 0], N) and torch.equal(out[1], means)
-          and torch.equal(cov, R), f"K2 {label}: differs from mstep_update")
-    f = ops[2].shape[1]
-    nbytes = 4 * (3 * K + K * D + K * f + K + K * D + K * f)
-    rec = {"max_abs_err": max(float((a - b).abs().max())
-                              for a, b in zip(out, ref))}
-    rec["ms"] = time_ms(lambda: fs.mstep(*ops, diag=diag), reps=20)
-    rec["plain_ms"] = time_ms(lambda: fs.mstep_plain(*ops, diag=diag), reps=20)
-    rec["torch_ops_ms"] = time_ms(
-        lambda: mstep_update(state, stats, diag_only=diag), reps=20)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 8.0 * K * f)
-    print(f"  K2 {label}: torch.equal to plain and to mstep_update; kernel "
-          f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, torch-ops "
-          f"mstep_update {rec['torch_ops_ms']:.4f} ms, bound "
-          f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
+    rec["max_abs_err"] = max(float((a.float() - b.float()).abs().max())
+                             for a, b in zip(out, fs.mstep_plain(*ops, diag=diag)))
+    hook = make_mstep_fn(GMMConfig(diag_only=diag))
+    rec.update(mstep_times(
+        ops, lambda: hook(state, stats),
+        lambda: apply_mstep(state, stats, diag_only=diag),
+        functools.partial(fs.mstep, diag=diag),
+        functools.partial(fs.mstep_plain, diag=diag), floor_operands(diag)))
+    rec["bound_ms"], rec["bound_by"] = mstep_bound(out, K, D, diag)
+    print(f"  K2 {label}: launch {rec['ms']:.4f} ms, hook {rec['hook_ms']:.4f}"
+          f" ms, torch-ops apply_mstep {rec['torch_ops_ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, launch floor (K = D = 1) "
+          f"{rec['launch_floor_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
+          f"({rec['bound_by']})")
     return rec
 
 
@@ -636,6 +806,68 @@ def phase_small_reference(seed: int):
     check(err < 1e-3, f"small fit: means differ by {err:.2e}")
     print(f"  small input (2000 x 5, K 8 -> 4): same merge pairs as the "
           f"float64 CPU torch-ops fit, means within {err:.1e}")
+
+
+def profile_em(data, iters: int = 5) -> dict:
+    """A torch.profiler window over ``iters`` EM iterations of the main path
+    at full width (``GMMModel.run_em`` from the phase-2 state, after a
+    warm-up run). The profiler traces the card only (tracing host ops would
+    slow the host loop it measures), so the window is the device's: from
+    the start of the initial E-step's K1 to the end of the last K1. In it:
+    the device's busy and idle share, device time by kernel name, and the
+    mean gap between one K1 launch's end (its reduction kernel) and the
+    next one's start -- the rest of the iteration, as the card sees it."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, GMMModel
+    from cuda_gmm_mpi_tpu_torch.ops.formulas import convergence_epsilon
+
+    state, chunks, wts, _ = stats_inputs(data, K0, False)
+    model = GMMModel(GMMConfig(min_iters=iters, max_iters=iters))
+    run = functools.partial(model.run_em, state, chunks, wts,
+                            convergence_epsilon(*data.shape),
+                            n_events=len(data))
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in dev if "fused_stats_kernel" in e.name]
+    ends = [e.time_range.end for e in dev if "reduce_partials" in e.name]
+    check(len(starts) == iters + 1 and len(ends) == iters + 1,
+          f"profiler: {len(starts)} K1 kernels, {len(ends)} reductions for "
+          f"{iters} iterations + the initial E-step")
+    lo, hi = starts[0], ends[-1]
+    busy, end = 0.0, lo
+    for e in dev:  # the union of the device intervals inside the window
+        a, b = max(e.time_range.start, end), min(e.time_range.end, hi)
+        if b > a:
+            busy += b - a
+        end = max(end, e.time_range.end)
+    by_name: dict = {}
+    for e in dev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    gaps = [s - e for s, e in zip(starts[1:], ends[:-1])]
+    rec = {"window_ms": (hi - lo) / 1e3, "iterations": iters,
+           "device_busy_share": busy / (hi - lo),
+           "device_idle_share": 1.0 - busy / (hi - lo),
+           "k1_gap_ms": float(np.mean(gaps)) / 1e3,
+           "k1_ms": float(np.mean([e - s for s, e in zip(starts, ends)])) / 1e3,
+           "top_kernels_ms": {n: t / 1e3 for n, t in top}}
+    print(f"  profiler window (device): {iters} EM iterations from the "
+          f"initial E-step's K1 to the last K1, {rec['window_ms']:.3f} ms; "
+          f"device busy {100 * rec['device_busy_share']:.1f}%, idle "
+          f"{100 * rec['device_idle_share']:.1f}%; K1 (kernel + reduction) "
+          f"{rec['k1_ms']:.3f} ms, mean gap between K1 launches "
+          f"{rec['k1_gap_ms']:.3f} ms")
+    print("  device time by kernel (ms, whole window): " + "; ".join(
+        f"{n[:60]} {t:.3f}" for n, t in rec["top_kernels_ms"].items()))
+    return rec
 
 
 def restart_rows(x_np, seed: int):
@@ -792,52 +1024,72 @@ def phase_em_batched(lanes_in):
           f"{time.perf_counter() - t0:.2f} s")
 
 
-def phase_k4(states, k3_out, diag, label):
+def phase_k4(states, k3_out, diag, label, seed):
+    """K4 on R = 4 lanes of K3's statistics with the guard cases forced in
+    every lane: each lane torch.equal to K2 on its operands and held to
+    the torch-ops M-step as K2 is; then its times."""
     import torch
 
+    from cuda_gmm_mpi_tpu_torch import GMMConfig
+    from cuda_gmm_mpi_tpu_torch.models.gmm import lane_loop_mstep
     from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
-    from cuda_gmm_mpi_tpu_torch.ops.mstep import SuffStats, mstep_update
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import make_mstep_fn
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import SuffStats, apply_mstep
     from cuda_gmm_mpi_tpu_torch.state import lane, stack_states
 
+    rng = np.random.default_rng(seed)
     ll, nk, m1, m2 = k3_out
     R, K, D = m1.shape
-    nk = nk[:, 0].clone()
-    nk[:, 1], nk[:, 2] = 0.0, 0.7  # force the empty and dead-zone guards
-    stats = SuffStats(ll[:, 0, 0], nk, m1,
-                      m2 if diag else m2.reshape(R, K, D, D))
     b_states = stack_states(states)
+    stats = SuffStats(ll[:, 0, 0], nk[:, 0], m1,
+                      m2 if diag else m2.reshape(R, K, D, D))
+    guarded = stack_states([guard_stats(lane(stats, r), diag, rng)
+                            for r in range(R)])
+    rec = {}
+    for case, sts in (("K3 statistics", stats), ("guards", guarded)):
+        ops = fs._mstep_operands(b_states, sts, diag)
+        out = fs.mstep_batched(*ops, diag=diag)
+        plain = fs.mstep_batched_plain(*ops, diag=diag)
+        torch.cuda.synchronize()
+        check(all(torch.equal(out[i], plain[i]) for i in (0, 1, 2, 6)),
+              f"K4 {label} {case}: ok, N, means or R differ from plain")
+        worst = {}
+        for r in range(R):
+            one = fs.mstep(*(o[r] for o in ops), diag=diag)
+            check(all(torch.equal(a[r], b) for a, b in zip(out, one)),
+                  f"K4 {label} {case}: lane {r} differs from K2")
+            errs = hold_mstep(tuple(o[r] for o in out), lane(b_states, r),
+                              lane(sts, r), diag, f"K4 {label} {case} lane {r}")
+            worst = {k: max(v, worst.get(k, 0.0)) for k, v in errs.items()}
+        if case == "guards":
+            rec.update({"guards_" + k: v for k, v in worst.items()})
+        else:
+            rec.update(worst)
+        print(f"  K4 {label} {case}: each lane torch.equal to K2, ok, N, "
+              f"means, R to plain and torch ops; worst float64 error Rinv "
+              f"{worst['rinv_fp64_err']:.2e} (torch ops "
+              f"{worst['plain_rinv_fp64_err']:.2e}), constant "
+              f"{worst['const_fp64_err']:.2e} "
+              f"({worst['plain_const_fp64_err']:.2e}), pi "
+              f"{worst['pi_ulps']:.1f} ulps")
     ops = fs._mstep_operands(b_states, stats, diag)
     out = fs.mstep_batched(*ops, diag=diag)
-    ref = fs.mstep_batched_plain(*ops, diag=diag)
-    torch.cuda.synchronize()
-    for name, a, b in zip(("n", "mean", "cov"), out, ref):
-        check(torch.equal(a, b), f"K4 {label}: {name} differs from plain")
-    for r in range(R):
-        one = fs.mstep(*(o[r] for o in ops), diag=diag)
-        check(all(torch.equal(a[r], b) for a, b in zip(out, one)),
-              f"K4 {label}: lane {r} differs from K2")
-        N, means, Rm = mstep_update(lane(b_states, r), lane(stats, r),
-                                    diag_only=diag)
-        cov = torch.diag_embed(out[2][r]) if diag else out[2][r].reshape(K, D, D)
-        check(torch.equal(out[0][r, :, 0], N) and torch.equal(out[1][r], means)
-              and torch.equal(cov, Rm),
-              f"K4 {label}: lane {r} differs from mstep_update")
-    f = ops[2].shape[-1]
-    nbytes = 4 * R * (3 * K + K * D + K * f + K + K * D + K * f)
-    rec = {"max_abs_err": max(float((a - b).abs().max())
-                              for a, b in zip(out, ref))}
-    rec["ms"] = time_ms(lambda: fs.mstep_batched(*ops, diag=diag), reps=20)
-    rec["plain_ms"] = time_ms(lambda: fs.mstep_batched_plain(*ops, diag=diag),
-                              reps=20)
-    rec["torch_ops_ms"] = time_ms(lambda: [
-        mstep_update(lane(b_states, r), lane(stats, r), diag_only=diag)
-        for r in range(R)], reps=20)
-    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, 8.0 * R * K * f)
-    print(f"  K4 {label}: torch.equal to plain, per lane to K2 and "
-          f"mstep_update; kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, torch-ops mstep_update x {R} "
-          f"{rec['torch_ops_ms']:.4f} ms, bound {rec['bound_ms']:.5f} ms "
-          f"({rec['bound_by']})")
+    rec["max_abs_err"] = max(
+        float((a.float() - b.float()).abs().max())
+        for a, b in zip(out, fs.mstep_batched_plain(*ops, diag=diag)))
+    hook = make_mstep_fn(GMMConfig(diag_only=diag), batched=True)
+    lanes = lane_loop_mstep(functools.partial(apply_mstep, diag_only=diag))
+    rec.update(mstep_times(
+        ops, lambda: hook(b_states, stats), lambda: lanes(b_states, stats),
+        functools.partial(fs.mstep_batched, diag=diag),
+        functools.partial(fs.mstep_batched_plain, diag=diag),
+        floor_operands(diag, (R,))))
+    rec["bound_ms"], rec["bound_by"] = mstep_bound(out, K, D, diag, R)
+    print(f"  K4 {label}: launch {rec['ms']:.4f} ms, hook {rec['hook_ms']:.4f}"
+          f" ms, torch-ops apply_mstep x {R} lanes {rec['torch_ops_ms']:.4f} "
+          f"ms, plain {rec['plain_ms']:.4f} ms, launch floor (K = D = 1, "
+          f"{R} lanes) {rec['launch_floor_ms']:.4f} ms, bound "
+          f"{rec['bound_ms']:.5f} ms ({rec['bound_by']})")
     return rec
 
 
@@ -1252,6 +1504,13 @@ def phase_mesh(data, diag_ref, workdir: Path):
     return r0
 
 
+def mstep_record(full: dict, diag: dict) -> dict:
+    """K2's or K4's line: the full-covariance record, and the diag one's
+    times, bound and errors under ``diag_`` keys."""
+    return dict(full, **{"diag_" + k: v for k, v in diag.items()
+                         if k not in ("cond", "bound_by")})
+
+
 def shard_record(diag, full, instances, mode: str) -> dict:
     """The K5 or K6 entries of the kernels line beyond the common keys:
     tile, phase shares and the shard kernel's build."""
@@ -1316,9 +1575,9 @@ def main() -> int:
                               near=False)
     del far
 
-    print("phase 3: K2 against its plain version")
-    k2_full = phase_k2(state_full, out_full, False, "full")
-    phase_k2(state_diag, out_diag, True, "diag")
+    print("phase 3: K2 against its plain version and the torch-ops M-step")
+    k2_full = phase_k2(state_full, out_full, False, "full", args.seed)
+    k2_diag = phase_k2(state_diag, out_diag, True, "diag", args.seed)
 
     print("phase 4: the main path")
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
@@ -1327,6 +1586,7 @@ def main() -> int:
         launches, _ = phase_main_path(data, workdir)
         diag_ref = phase_diag(data)
         phase_small_reference(args.seed)
+        em_profile = profile_em(data)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
@@ -1338,9 +1598,9 @@ def main() -> int:
     lanes_diag = restart_lanes(x_c, rows, True)
     k3_diag, k3_out_diag = phase_k3(lanes_diag, True, "diag")
 
-    print("phase 6: K4 against its plain version and K2")
-    k4_full = phase_k4(lanes_full[0], k3_out, False, "full")
-    phase_k4(lanes_diag[0], k3_out_diag, True, "diag")
+    print("phase 6: K4 against its plain version, K2 and the torch-ops M-step")
+    k4_full = phase_k4(lanes_full[0], k3_out, False, "full", args.seed)
+    k4_diag = phase_k4(lanes_diag[0], k3_out_diag, True, "diag", args.seed)
     del lanes_full, lanes_diag, k3_out, k3_out_diag, x_c
 
     print("phase 7: the restart path")
@@ -1402,10 +1662,8 @@ def main() -> int:
              diag_phase_shares=k1_diag["phase_shares"], build=instances),
         dict(name="K2 mstep", route="cuda", source=src + "mstep.cu",
              replaces=pallas + "681", launches=launches["K2"],
-             max_abs_err=k2_full["max_abs_err"], ms=k2_full["ms"],
-             plain_ms=k2_full["plain_ms"], bound_ms=k2_full["bound_ms"],
-             bound_by=k2_full["bound_by"], library_ms=None,
-             torch_ops_ms=k2_full["torch_ops_ms"]),
+             library_ms=None, **mstep_record(k2_full, k2_diag),
+             em_profile=em_profile),
         dict(name="K3 fused_stats_batched", route="cuda",
              source=src + "fused_stats.cu", replaces=pallas + "475",
              launches=launches["K3"], max_abs_err=k3_full["max_abs_err"],
@@ -1424,10 +1682,7 @@ def main() -> int:
              diag_fp32_bound_ms=k3_diag["fp32_bound_ms"]),
         dict(name="K4 mstep_batched", route="cuda", source=src + "mstep.cu",
              replaces=pallas + "690", launches=launches["K4"],
-             max_abs_err=k4_full["max_abs_err"], ms=k4_full["ms"],
-             plain_ms=k4_full["plain_ms"], bound_ms=k4_full["bound_ms"],
-             bound_by=k4_full["bound_by"], library_ms=None,
-             torch_ops_ms=k4_full["torch_ops_ms"]),
+             library_ms=None, **mstep_record(k4_full, k4_diag)),
         dict(name="K5 local_lse", route="cuda", source=src + "fused_stats.cu",
              replaces=pallas + "218", launches=launches["K5"],
              max_abs_err=k5_err,

@@ -79,6 +79,27 @@ def chol_inverse_logdet(R: torch.Tensor, diag_only: bool = False):
     return Rinv, log_det, ok
 
 
+def constants(N, R, active, diag_only: bool = False, cluster_group=None):
+    """(R, Rinv, constant, pi, ok) of :func:`compute_constants` from the
+    updated N [..., K], R [..., K, D, D] and active mask; ``ok`` is False
+    where R was not positive definite and was reset to the identity."""
+    D = R.shape[-1]
+    Rinv, log_det, ok = chol_inverse_logdet(R, diag_only=diag_only)
+    eye = _eye_like(R)
+    R = torch.where(ok[..., None, None], R, eye)
+    Rinv = torch.where(ok[..., None, None], Rinv, eye)
+    log_det = torch.where(ok, log_det, torch.zeros_like(log_det))
+    constant = (-D * 0.5) * LOG_2PI - 0.5 * log_det
+    # Normalised within each lane of a restart-batched state.
+    n_total = torch.where(active, N, torch.zeros_like(N)).sum(dim=-1,
+                                                             keepdim=True)
+    if cluster_group is not None:
+        dist.all_reduce(n_total, op=dist.ReduceOp.SUM, group=cluster_group)
+    pi = torch.where(N < 0.5, torch.full_like(N, 1e-10),
+                     N / torch.clamp(n_total, min=1e-30))
+    return R, Rinv, constant, pi, ok
+
+
 def compute_constants(state, diag_only: bool = False, cluster_group=None):
     """Recompute Rinv, constant and pi from R and N.
 
@@ -89,18 +110,6 @@ def compute_constants(state, diag_only: bool = False, cluster_group=None):
     With ``cluster_group`` (the process group of a sharded cluster axis)
     pi's denominator is the global soft count, an all_reduce over it.
     """
-    D = state.num_dimensions
-    Rinv, log_det, ok = chol_inverse_logdet(state.R, diag_only=diag_only)
-    eye = _eye_like(state.R)
-    R = torch.where(ok[..., None, None], state.R, eye)
-    Rinv = torch.where(ok[..., None, None], Rinv, eye)
-    log_det = torch.where(ok, log_det, torch.zeros_like(log_det))
-    constant = (-D * 0.5) * LOG_2PI - 0.5 * log_det
-    # Normalised within each lane of a restart-batched state.
-    n_total = torch.where(state.active, state.N,
-                          torch.zeros_like(state.N)).sum(dim=-1, keepdim=True)
-    if cluster_group is not None:
-        dist.all_reduce(n_total, op=dist.ReduceOp.SUM, group=cluster_group)
-    pi = torch.where(state.N < 0.5, torch.full_like(state.N, 1e-10),
-                     state.N / torch.clamp(n_total, min=1e-30))
+    R, Rinv, constant, pi, _ = constants(state.N, state.R, state.active,
+                                         diag_only, cluster_group)
     return state.replace(R=R, Rinv=Rinv, constant=constant, pi=pi)

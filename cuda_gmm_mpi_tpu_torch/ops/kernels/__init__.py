@@ -1,11 +1,11 @@
 """Hand-written Hopper kernels -- the ``estep_backend='cuda'`` hot path.
 
-K1 (fused E+M statistics) and K2 (the M-step epilogue) plug into the EM
-loop's ``stats_fn``/``mstep_fn`` hooks, so with backend 'cuda' one EM
-iteration is one K1 launch, one K2 launch and the K-sized Cholesky
-constants. K3 and K4 are their restart-batched forms on the hooks of
-``em_while_loop_batched``: one EM iteration of a whole restart batch is one
-K3 launch, one K4 launch and the [R, K]-sized constants. On a mesh whose
+K1 (fused E+M statistics) and K2 (the whole M-step: the guarded update
+and the Cholesky constants) plug into the EM loop's ``stats_fn``/
+``mstep_fn`` hooks, so with backend 'cuda' one EM iteration is one K1
+launch and one K2 launch. K3 and K4 are their restart-batched forms on the
+hooks of ``em_while_loop_batched``: one EM iteration of a whole restart
+batch is one K3 launch and one K4 launch. On a mesh whose
 cluster axis is sharded (parallel/), K5 and K6 take K1's place: the
 statistics of one EM iteration are one K5 launch, two all_reduce calls of
 [N] per-event scalars over the cluster axis and one K6 launch, and the
@@ -32,7 +32,6 @@ from __future__ import annotations
 
 import functools
 
-from ..constants import compute_constants
 from .fused_stats import (
     fused_mstep_cuda, fused_mstep_cuda_batched, fused_stats_cuda,
     fused_stats_cuda_batched, fused_stats_cuda_sharded,
@@ -93,20 +92,15 @@ def make_batched_stats_fn(config):
 
 def make_mstep_fn(config, batched: bool = False,
                   cluster_sharded: bool = False):
-    """mstep_fn hook (K2, or K4 with ``batched``, + constants), or None for
-    the torch-ops path. None on cluster-sharded meshes too: pi's
-    denominator there is an all_reduce inside the torch-ops update."""
+    """mstep_fn hook (K2, or K4 with ``batched``: one launch per M-step),
+    or None for the torch-ops path. None on cluster-sharded meshes too:
+    pi's denominator there is an all_reduce inside the torch-ops update."""
     backend, _ = resolve_estep_backend(config, cluster_sharded)
     if backend != "cuda" or cluster_sharded:
         return None
-    diag_only = config.diag_only
-    update = fused_mstep_cuda_batched if batched else fused_mstep_cuda
-
-    def mstep(state, stats):
-        return compute_constants(update(state, stats, diag_only=diag_only),
-                                 diag_only=diag_only)
-
-    return mstep
+    return functools.partial(
+        fused_mstep_cuda_batched if batched else fused_mstep_cuda,
+        diag_only=config.diag_only)
 
 
 __all__ = ["fused_stats_cuda", "fused_stats_cuda_batched",

@@ -25,7 +25,8 @@ BUILD_DIR = _PKG / "build"
 ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 BASE_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 # Per-source extra flags: K2/K4 must not contract a*b-c into an FMA (their
-# output is held bit-identical to the torch-ops update).
+# N, means and R are held bit-identical to the torch-ops update; the
+# factorization spells its FMAs out).
 EXTRA_FLAGS = {"mstep.cu": ["--fmad=false"]}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -37,8 +38,7 @@ SIGNATURES = {
                        ("gmm_local_lse", [_P] * 5 + [_I] * 7 + [_P]),
                        ("gmm_stats_logz", [_P] * 11 + [_I] * 7 + [_P]),
                        ("gmm_shard_occupancy", [_I] * 3 + [_P])],
-    "mstep.cu": [("gmm_mstep", [_P] * 8 + [_I] * 3 + [_P]),
-                 ("gmm_mstep_batched", [_P] * 8 + [_I] * 4 + [_P])],
+    "mstep.cu": [("gmm_mstep", [_P] * 12 + [_I] * 4 + [_P])],
 }
 
 _lock = threading.Lock()

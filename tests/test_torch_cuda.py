@@ -9,7 +9,11 @@ Tolerances: K1 (three TF32 passes on the tensor cores) is held to the
 tests/test_pallas.py class (float32 reassociation between two summation
 orders) and must be bit-identical from launch to launch; on blobs far from
 the mean K1, K3 and K6 are held against float64 at twice the plain
-version's error; K2 must equal its plain version exactly (torch.equal).
+version's error. K2 (the whole M-step) must give the torch-ops M-step's
+``ok``, N, means and R exactly (torch.equal), Rinv and constant within
+twice its error against a float64 compute_constants of the same updated R
+(its Cholesky is another float32 factorization), and pi within 4 ulps
+(another summation order); one M-step hook call is one kernel on the card.
 Each live lane of K3 must equal K1 on its operands and each lane of K4 K2
 (torch.equal): they run the same kernels. K5's per-event max is held to
 its plain version normwise at 1e-6 (it is one of the logp values). Its
@@ -17,7 +21,7 @@ shifted sum adds exponentials of float32 logp differences, so two float32
 evaluations differ by ~|logp| x 1e-7 relative (2.5e-6 normwise measured on
 an H100 where clusters overlap): it is held against a float64 evaluation,
 at most twice the plain version's error there. K6 is held to the K1 class, and the shards of K5 + K6 put side by side to K1 on the whole
-K; both repeat bit for bit. The mesh test runs a 2-rank gloo world on the
+K; both repeat bit for bit. The mesh tests run 2-rank gloo worlds on the
 one GPU against single-device EM (float32, loglik rtol 1e-5).
 """
 
@@ -29,7 +33,10 @@ from cuda_gmm_mpi_tpu_torch import GMMConfig, GMMModel, fit_gmm
 from cuda_gmm_mpi_tpu_torch.interop import state_from_numpy
 from cuda_gmm_mpi_tpu_torch.models.gmm import chunk_events
 from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
-from cuda_gmm_mpi_tpu_torch.ops.mstep import SuffStats, accumulate_stats, mstep_update
+from cuda_gmm_mpi_tpu_torch.ops.mstep import (
+    SuffStats, accumulate_stats, apply_mstep, mstep_update,
+)
+from cuda_gmm_mpi_tpu_torch.state import lane, stack_states
 
 TOL = {"loglik": (1e-5, 0.0), "Nk": (1e-5, 1e-5), "M1": (1e-4, 1e-4),
        "M2": (1e-4, 1e-3)}
@@ -151,26 +158,178 @@ def test_k1_no_less_accurate_than_plain_far_from_the_mean(dev, diag):
         _within_twice_plain(a, b, c, "K6 " + name)
 
 
+# K2/K4: the guard cases of the M-step, forced into a state of K clusters.
+EMPTY, DEAD, INACTIVE, NON_PD, NAN_M2 = 3, 4, 6, 8, 9
+
+
+def _mstep_inputs(rng, k, d, diag, dev, n=3000):
+    """A state (cluster INACTIVE inactive) and statistics of random events
+    under it, with the guard cases forced: an empty cluster, a dead-zone
+    one (Nk = 0.7), an M2 whose update has a negative eigenvalue and a NaN
+    in M2 below the diagonal."""
+    state = state_from_numpy(_state(rng, k, d, diag, inactive=(INACTIVE,)),
+                             device=dev)
+    chunks, wts = chunk_events(rng.normal(scale=2.0, size=(n, d))
+                               .astype(np.float32), 1024)
+    st = accumulate_stats(state, torch.as_tensor(chunks, device=dev),
+                          torch.as_tensor(wts, device=dev), diag_only=diag)
+    nk, m2 = st.Nk.clone(), st.M2.clone()
+    nk[EMPTY], nk[DEAD], nk[NON_PD], nk[NAN_M2] = 0.0, 0.7, 50.0, 50.0
+    for c in (NON_PD, NAN_M2):
+        mu = st.M1[c] / nk[c]
+        if diag:
+            m2[c] = nk[c] * (mu * mu + 1.0)
+        else:
+            q, _ = torch.linalg.qr(torch.as_tensor(
+                rng.normal(size=(d, d)), dtype=torch.float32, device=dev))
+            lam = torch.ones(d, device=dev)
+            lam[-1] = -1.0 if c == NON_PD else 1.0
+            m2[c] = nk[c] * (torch.outer(mu, mu) + (q * lam) @ q.T)
+    if diag:
+        m2[NON_PD, 0] -= 2.0 * nk[NON_PD]  # variance ~ -1
+        m2[NAN_M2, 1] = float("nan")
+    else:
+        m2[NAN_M2, 3, 1] = float("nan")
+    return state, SuffStats(st.loglik, nk, st.M1, m2)
+
+
+def _ulps(a, b):
+    """|a - b| in units of b's last place."""
+    spacing = torch.nextafter(b.abs(), torch.full_like(b, float("inf"))) - b.abs()
+    return float(((a - b).abs() / spacing).max())
+
+
+def _hold_mstep(out, state, stats, diag, label, only=slice(None)):
+    """K2's (or one K4 lane's) outputs against the torch-ops M-step: ``ok``
+    equal to the torch-ops flag, N, means and R torch.equal where it
+    agrees, Rinv and constant (of the clusters ``only``) against a float64
+    compute_constants of the same updated R within twice the torch-ops
+    error, pi within 4 ulps."""
+    from cuda_gmm_mpi_tpu_torch.ops.constants import constants
+
+    n, mean, R, Rinv, constant, pi, ok = out
+    N, means, R_upd = mstep_update(state, stats, diag_only=diag)
+    ref = apply_mstep(state, stats, diag_only=diag)
+    _, _, _, _, ref_ok = constants(N, R_upd, state.active, diag_only=diag)
+    assert torch.equal(ok, ref_ok), label
+    assert torch.equal(n, ref.N) and torch.equal(mean, ref.means), label
+    assert torch.equal(R, ref.R), label
+    _, Rinv64, const64, _, ok64 = constants(N.double(), R_upd.double(),
+                                            state.active, diag_only=diag)
+    assert torch.equal(ok64, ok), label
+    _within_twice_plain(Rinv[only], ref.Rinv[only], Rinv64[only],
+                        label + " Rinv")
+    _within_twice_plain(constant[only], ref.constant[only], const64[only],
+                        label + " constant")
+    assert _ulps(pi, ref.pi) <= 4.0, (label, _ulps(pi, ref.pi))
+
+
 @pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
 def test_k2_equals_plain_and_mstep_update(dev, diag):
+    """K2 at the main path's K = 100, D = 24, with every guard case: the
+    torch-ops M-step's ok, N, means and R exactly, Rinv and constant
+    within twice its float64 error, pi within 4 ulps; the plain version's
+    ok, N, means and R exactly; two launches bit for bit."""
     rng = np.random.default_rng(5)
-    k, d = 40, 24
-    state = state_from_numpy(_state(rng, k, d, diag, inactive=(6,)), device=dev)
-    chunks, wts = chunk_events(rng.normal(scale=2.0, size=(3000, d))
-                               .astype(np.float32), 1024)
-    stats = accumulate_stats(state, torch.as_tensor(chunks, device=dev),
-                             torch.as_tensor(wts, device=dev), diag_only=diag)
-    nk = stats.Nk.clone()
-    nk[3], nk[4] = 0.0, 0.7  # the empty and dead-zone guards
-    stats = SuffStats(stats.loglik, nk, stats.M1, stats.M2)
+    k, d = 100, 24
+    state, stats = _mstep_inputs(rng, k, d, diag, dev)
     ops = fs._mstep_operands(state, stats, diag)
+    before = fs.mstep.launches
     out = fs.mstep(*ops, diag=diag)
-    for a, b in zip(out, fs.mstep_plain(*ops, diag=diag)):
-        assert torch.equal(a, b)
-    N, means, R = mstep_update(state, stats, diag_only=diag)
-    assert torch.equal(out[0][:, 0], N) and torch.equal(out[1], means)
-    assert torch.equal(torch.diag_embed(out[2]) if diag
-                       else out[2].reshape(k, d, d), R)
+    again = fs.mstep(*ops, diag=diag)
+    torch.cuda.synchronize()
+    assert fs.mstep.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(out, again))
+    plain = fs.mstep_plain(*ops, diag=diag)
+    for i in (0, 1, 2, 6):  # n, mean, R, ok
+        assert torch.equal(out[i], plain[i]), i
+    assert not out[6][NON_PD] and not out[6][NAN_M2]
+    assert bool(out[6][[EMPTY, DEAD, INACTIVE]].all())
+    _hold_mstep(out, state, stats, diag, "K2")
+
+
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_k2_ill_conditioned_cluster_within_twice_torch_ops(dev, diag):
+    """A cluster whose updated R has condition number ~1e6 (Nk = 1, zero
+    mean and loading, so R = M2: Q diag(1 .. 1e-6) Q^T, or that diagonal):
+    its Rinv and constant against float64 within twice the torch-ops
+    path's error."""
+    rng = np.random.default_rng(8)
+    k, d, c = 100, 24, 10
+    state, stats = _mstep_inputs(rng, k, d, diag, dev)
+    lam = np.logspace(0.0, -6.0, d)
+    q, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    m2 = lam if diag else (q * lam) @ q.T
+    stats.Nk[c] = 1.0
+    stats.M1[c] = 0.0
+    stats.M2[c] = torch.as_tensor(m2, dtype=torch.float32, device=dev)
+    avgvar = state.avgvar.clone()
+    avgvar[c] = 0.0
+    state = state.replace(avgvar=avgvar)
+    R = mstep_update(state, stats, diag_only=diag)[2][c].double()
+    cond = float(torch.linalg.cond(R))
+    assert 3e5 < cond < 3e6, cond
+    out = fs.mstep(*fs._mstep_operands(state, stats, diag), diag=diag)
+    _hold_mstep(out, state, stats, diag, "K2 cond 1e6", only=slice(c, c + 1))
+
+
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_k4_equals_plain_and_k2_per_lane(dev, diag):
+    """K4 on 3 lanes of the guard cases: each lane torch.equal to K2 on
+    its operands, and held to the torch-ops M-step as K2 is."""
+    rng = np.random.default_rng(6)
+    k, d = 40, 24
+    cases = [_mstep_inputs(rng, k, d, diag, dev) for _ in range(3)]
+    states = stack_states([s for s, _ in cases])
+    stats = stack_states([st for _, st in cases])
+    ops = fs._mstep_operands(states, stats, diag)
+    before = fs.mstep_batched.launches
+    out = fs.mstep_batched(*ops, diag=diag)
+    assert fs.mstep_batched.launches == before + 1
+    plain = fs.mstep_batched_plain(*ops, diag=diag)
+    for i in (0, 1, 2, 6):
+        assert torch.equal(out[i], plain[i]), i
+    for r in range(3):
+        for a, b in zip(out, fs.mstep(*(o[r] for o in ops), diag=diag)):
+            assert torch.equal(a[r], b)
+        _hold_mstep(tuple(o[r] for o in out), lane(states, r),
+                    lane(stats, r), diag, f"K4 lane {r}")
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["K2", "K4"])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_mstep_hook_is_one_kernel_launch(dev, diag, batched):
+    """On the kernel path one M-step is one CUDA kernel: the profiler sees
+    exactly one device activity (no copy, no fill) in one hook call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import make_mstep_fn
+
+    rng = np.random.default_rng(9)
+    state, stats = _mstep_inputs(rng, 100, 24, diag, dev)
+    if batched:
+        state, stats = stack_states([state] * 4), stack_states([stats] * 4)
+    hook = make_mstep_fn(GMMConfig(diag_only=diag), batched=batched)
+    hook(state, stats)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        new = hook(state, stats)
+        torch.cuda.synchronize()
+    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert len(device) == 1 and "mstep_kernel" in device[0], device
+    assert new.Rinv.shape == state.R.shape
+
+
+def test_k2_refuses_a_d_beyond_its_shared_memory(dev):
+    k, d = 2, 170  # two 170 x 170 float buffers exceed the 227 KB of a CTA
+    z = lambda *s: torch.zeros(s, device=dev)
+    act = torch.ones(k, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="D=170"):
+        fs.mstep(z(k), z(k, d), z(k, d * d), z(k), act, diag=False)
+    out = fs.mstep(z(k), z(k, d), z(k, d), z(k), act, diag=True)
+    assert torch.equal(out[3][0], torch.eye(d, device=dev))  # empty: I
 
 
 def test_fit_through_kernels_matches_torch_ops(dev):
@@ -221,29 +380,6 @@ def test_k3_lanes_equal_k1_and_frozen_lane_is_zero(dev, n, d, k, diag):
         rtol, atol = TOL[name]
         err = float((a - c).abs().max())
         assert err <= atol + rtol * float(c.abs().max()), (name, err)
-
-
-@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
-def test_k4_equals_plain_and_k2_per_lane(dev, diag):
-    from cuda_gmm_mpi_tpu_torch.state import stack_states
-
-    rng = np.random.default_rng(6)
-    k, d = 40, 24
-    states = [state_from_numpy(_state(rng, k, d, diag, inactive=(6,)), device=dev)
-              for _ in range(3)]
-    chunks, wts = chunk_events(rng.normal(scale=2.0, size=(3000, d))
-                               .astype(np.float32), 1024)
-    c, w = torch.as_tensor(chunks, device=dev), torch.as_tensor(wts, device=dev)
-    stats = stack_states([accumulate_stats(s, c, w, diag_only=diag)
-                          for s in states])
-    stats.Nk[:, 3], stats.Nk[:, 4] = 0.0, 0.7  # the empty and dead-zone guards
-    ops = fs._mstep_operands(stack_states(states), stats, diag)
-    out = fs.mstep_batched(*ops, diag=diag)
-    for a, b in zip(out, fs.mstep_batched_plain(*ops, diag=diag)):
-        assert torch.equal(a, b)
-    for r in range(3):
-        for a, b in zip(out, fs.mstep(*(o[r] for o in ops), diag=diag)):
-            assert torch.equal(a[r], b)
 
 
 def test_batched_restarts_through_k3_k4_match_sequential(dev):
@@ -381,12 +517,48 @@ def test_two_rank_mesh_em_through_k5_k6_matches_single_device(dev, tmp_path):
                              n_events=data.shape[0])
     for r in ranks:
         assert r["backend"] == "cuda" and r["iters"] == it
-        assert r["launches"] == [iters + 1, iters + 1, 0]  # K5, K6, K1
+        assert r["launches"] == [iters + 1, iters + 1, 0, 0]  # K5, K6, K1, K2
         np.testing.assert_allclose(r["loglik"], ll, rtol=1e-5)
     means = np.concatenate([r["state"]["means"] for r in ranks])
     scale = float(np.abs(s.means.cpu().numpy()).max())
     np.testing.assert_allclose(means, s.means.cpu().numpy(), rtol=1e-5,
                                atol=1e-5 * scale)
+
+
+def test_data_only_mesh_em_through_k1_k2_matches_single_device(dev, tmp_path):
+    """A (2, 1) mesh (events split over two ranks of a gloo world on the
+    one GPU, clusters whole) runs ShardedGMMModel.run_em through K1 and the
+    one-launch M-step K2 on every rank, and matches GMMModel.run_em."""
+    from cuda_gmm_mpi_tpu_torch.interop import state_to_numpy
+    from cuda_gmm_mpi_tpu_torch.ops.formulas import convergence_epsilon
+    from cuda_gmm_mpi_tpu_torch.ops.seeding import seed_clusters
+
+    from .torch_mesh_worker import run_em_case, spawn_world
+
+    rng = np.random.default_rng(4)
+    c = rng.normal(scale=6, size=(6, 5))
+    data = np.concatenate([rng.normal(c[i], 1, (700, 5))
+                           for i in range(6)]).astype(np.float32)
+    state_np = state_to_numpy(seed_clusters(torch.as_tensor(data), 6))
+    iters, chunk = 8, 1024
+    ranks = spawn_world(run_em_case, 2, tmp_path, data, state_np, iters,
+                        (2, 1), chunk, "float32", False, "auto", "cuda",
+                        device="cuda")
+    model = GMMModel(GMMConfig(min_iters=iters, max_iters=iters,
+                               chunk_size=chunk))
+    chunks, wts = chunk_events(data, chunk)
+    s, ll, it = model.run_em(state_from_numpy(state_np, device=dev),
+                             torch.as_tensor(chunks, device=dev),
+                             torch.as_tensor(wts, device=dev),
+                             convergence_epsilon(*data.shape),
+                             n_events=data.shape[0])
+    for r in ranks:
+        assert r["backend"] == "cuda" and r["iters"] == it
+        assert r["launches"] == [0, 0, iters + 1, iters]  # K5, K6, K1, K2
+        np.testing.assert_allclose(r["loglik"], ll, rtol=1e-5)
+        scale = float(np.abs(s.means.cpu().numpy()).max())
+        np.testing.assert_allclose(r["state"]["means"], s.means.cpu().numpy(),
+                                   rtol=1e-5, atol=1e-5 * scale)
 
 
 _MMA_PROBE = r"""

@@ -75,14 +75,11 @@ def test_em_loop_through_kernel_hooks_matches_pallas(rng, diag):
     j_state, j_ll, _ = JModel(cfg, stats_fn=pallas).run_em(
         jstate, jnp.asarray(chunks), jnp.asarray(wts), eps)
 
-    from cuda_gmm_mpi_tpu_torch.ops.constants import compute_constants
-
     model = GMMModel(
         GMMConfig(min_iters=4, max_iters=4, chunk_size=128, device="cpu",
                   diag_only=diag),
         stats_fn=functools.partial(fs.fused_stats_cuda, diag_only=diag),
-        mstep_fn=lambda s, st: compute_constants(
-            fs.fused_mstep_cuda(s, st, diag_only=diag), diag_only=diag))
+        mstep_fn=functools.partial(fs.fused_mstep_cuda, diag_only=diag))
     t_state, t_ll, t_iters = model.run_em(
         state_from_numpy(jstate), torch.as_tensor(chunks),
         torch.as_tensor(wts), eps)

@@ -74,7 +74,7 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="not ported"):
         fs.fused_stats(*args, diag=False, precision="high")
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fs.mstep(meta(4, 1), meta(4, 3), meta(4, 9), meta(4, 1), meta(4, 1),
+        fs.mstep(meta(4), meta(4, 3), meta(4, 9), meta(4), meta(4),
                  diag=False)
     assert (fs.fused_stats.launches, fs.mstep.launches) == before
 
@@ -87,8 +87,8 @@ def test_batched_kernel_wrappers_do_not_fall_back_off_the_cpu():
     with pytest.raises(ValueError, match="CUDA tensors"):
         fs.fused_stats_batched(*args, diag=False)
     with pytest.raises(ValueError, match="CUDA tensors"):
-        fs.mstep_batched(meta(2, 4, 1), meta(2, 4, 3), meta(2, 4, 9),
-                         meta(2, 4, 1), meta(2, 4, 1), diag=False)
+        fs.mstep_batched(meta(2, 4), meta(2, 4, 3), meta(2, 4, 9),
+                         meta(2, 4), meta(2, 4), diag=False)
     assert (fs.fused_stats_batched.launches,
             fs.mstep_batched.launches) == before
 

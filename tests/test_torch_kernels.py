@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from cuda_gmm_mpi_tpu.ops.constants import compute_constants as j_constants
 from cuda_gmm_mpi_tpu.ops.mstep import SuffStats as JStats
 from cuda_gmm_mpi_tpu.ops.mstep import accumulate_stats as j_accumulate
 from cuda_gmm_mpi_tpu.ops.pallas.fused_stats import (
@@ -23,6 +24,8 @@ from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
 from cuda_gmm_mpi_tpu_torch.ops.mstep import SuffStats, mstep_update
 from cuda_gmm_mpi_tpu_torch.state import stack_states
 
+from .test_torch_mstep_constants import FIELDS as MSTEP_FIELDS
+from .test_torch_mstep_constants import f32_close
 from .test_torch_ops import F32_TOL, make_state_np, to_jax
 
 CASES = {
@@ -111,26 +114,28 @@ def _mstep_case(rng, diag):
 
 @pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
 def test_mstep_plain_matches_pallas(rng, diag):
+    """K2's plain version (the whole M-step) against fused_mstep_pallas in
+    interpret mode followed by JAX's compute_constants (the float32 rule
+    of tests/test_torch_mstep_constants.py)."""
     s, stats = _mstep_case(rng, diag)
     ours = fs.fused_mstep_cuda(
         state_from_numpy(s),
         SuffStats(**{k: torch.tensor(v) for k, v in stats.items()}),
         diag_only=diag)
-    theirs = fused_mstep_pallas(
+    theirs = j_constants(fused_mstep_pallas(
         to_jax(s), JStats(**{k: jnp.asarray(v) for k, v in stats.items()}),
-        diag_only=diag, interpret=True)
-    for name in ("N", "means", "R"):
-        np.testing.assert_allclose(getattr(ours, name).numpy(),
-                                   np.asarray(getattr(theirs, name)),
-                                   rtol=1e-6, atol=1e-6, err_msg=name)
+        diag_only=diag, interpret=True), diag_only=diag)
+    for name in MSTEP_FIELDS:
+        f32_close(name, getattr(ours, name).numpy(), getattr(theirs, name))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["float32", "float64"])
 @pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
 def test_mstep_plain_equals_mstep_update(rng, diag, dtype):
-    """K2's plain version is the torch-ops update's division half, bit for
-    bit (the kernel is held to the same bar on the card)."""
+    """K2's plain version is the torch-ops update bit for bit (the kernel
+    is held to the same bar on the card), and every cluster here is
+    positive definite."""
     s, stats = _mstep_case(rng, diag)
     state = state_from_numpy(s)
     state = state.replace(**{k: getattr(state, k).to(dtype)
@@ -139,13 +144,13 @@ def test_mstep_plain_equals_mstep_update(rng, diag, dtype):
     st = SuffStats(**{k: torch.tensor(v, dtype=dtype) for k, v in stats.items()})
     K, D = state.means.shape
     m2 = st.M2 if diag else st.M2.reshape(K, D * D)
-    n, mean, cov = fs.mstep_plain(st.Nk[:, None], st.M1, m2,
-                                  state.avgvar[:, None],
-                                  state.active.to(dtype)[:, None], diag=diag)
-    N, means, R = mstep_update(state, st, diag_only=diag)
-    assert torch.equal(n[:, 0], N)
+    n, mean, R, *_, ok = fs.mstep_plain(st.Nk, st.M1, m2, state.avgvar,
+                                        state.active, diag=diag)
+    N, means, R_ref = mstep_update(state, st, diag_only=diag)
+    assert bool(ok.all())
+    assert torch.equal(n, N)
     assert torch.equal(mean, means)
-    assert torch.equal(torch.diag_embed(cov) if diag else cov.reshape(K, D, D), R)
+    assert torch.equal(R, R_ref)
 
 
 # ------------------------------------------------ K3 / K4 (restart-batched)
@@ -198,7 +203,8 @@ def test_fused_stats_batched_plain_matches_pallas(rng, diag):
 @pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
 def test_mstep_batched_plain_matches_pallas(rng, diag):
     """K4's plain version against fused_mstep_pallas on a batched state
-    (interpret mode), and per lane bit for bit K2's plain version."""
+    (interpret mode) and JAX's compute_constants per lane, and per lane bit
+    for bit K2's plain version."""
     cases = [_mstep_case(rng, diag) for _ in range(3)]
     states = stack_states([state_from_numpy(s) for s, _ in cases])
     stats = SuffStats(**{k: torch.stack([torch.tensor(st[k]) for _, st in cases])
@@ -209,10 +215,12 @@ def test_mstep_batched_plain_matches_pallas(rng, diag):
         JStats(**{k: jnp.asarray(getattr(stats, k).numpy())
                   for k in ("loglik", "Nk", "M1", "M2")}),
         diag_only=diag, interpret=True)
-    for name in ("N", "means", "R"):
-        np.testing.assert_allclose(getattr(ours, name).numpy(),
-                                   np.asarray(getattr(theirs, name)),
-                                   rtol=1e-6, atol=1e-6, err_msg=name)
+    for r in range(3):
+        lane_r = j_constants(jax.tree_util.tree_map(lambda v: v[r], theirs),
+                             diag_only=diag)
+        for name in MSTEP_FIELDS:
+            f32_close(name, getattr(ours, name)[r].numpy(),
+                      getattr(lane_r, name))
     ops = fs._mstep_operands(states, stats, diag)
     out = fs.mstep_batched(*ops, diag=diag)
     for r in range(3):

@@ -78,7 +78,7 @@ def run_em_case(data, state_np, iters, mesh_shape, chunk, dtype="float64",
     state, chunks, wts = model.prepare(state_from_numpy(state_np), chunks,
                                        wts)
     eps = convergence_epsilon(*data.shape)
-    counters = (fs.local_lse, fs.stats_logz, fs.fused_stats)
+    counters = (fs.local_lse, fs.stats_logz, fs.fused_stats, fs.mstep)
     before = [c.launches for c in counters]
     s, ll, it = model.run_em(state, chunks, wts, eps,
                              n_events=data.shape[0])
