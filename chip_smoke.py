@@ -10,7 +10,8 @@ Phases (any failure exits non-zero, and no result line is printed):
 1. build the hand-written kernels from csrc/ with nvcc (parallel, one nvcc
    per source) and print the card's name and power limit; beside the build,
    compile fused_stats.cu twice more: to a cubin with ``-Xptxas -v``, to
-   print each ``fused_stats_kernel`` and ``shard_kernel`` instance's
+   print each ``fused_stats_kernel`` instance's (the 'high' and 'default'
+   ones of K1/K3 among them) and ``shard_kernel`` instance's
    registers, static shared memory and spills and, where the toolkit has
    cuobjdump, the HMMA (tensor-core) instructions in its SASS, and for the
    shard kernel (K5/K6 on a shard of at most 64 clusters) the CTAs per SM
@@ -47,8 +48,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    kernel at K = 1, D = 1);
 4. the main path: a fit of 1,000,000 x 24 float32 events (well-separated
    Gaussian blobs made from --seed with numpy) from K=100 down to 96 with
-   min = max = 20 EM iterations through K1/K2, with .summary and .results
-   written; the launch counters must match the iteration counts; the same
+   min = max = 20 EM iterations through K1/K2, read from BIN and with
+   .summary and .results written through the native I/O library
+   (``use_native='always'``); then the Python reader and writer
+   (``'never'``) on the same file and model, timed the same way, the two
+   .results held to tests/test_native_io.py's rule (a line may differ only
+   in a last digit, on a tie) and both with-I/O walls printed; the launch
+   counters must match the iteration counts; the same
    fit on the torch-ops path must select the same K and merge pairs with
    the final loglik within rtol 1e-4; then a shorter diag-only fit through
    the kernels, a small float32 kernel fit against a float64 torch-ops
@@ -105,18 +111,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    synchronised on the host clock; the rest is the host loop), so that the
    pieces add up to the iteration time; then, outside the fit, one
    iteration at K = 100 split finer (K5, the two collectives of [N]
-   scalars, K6, the data all_reduce, the M-step).
+   scalars, K6, the data all_reduce, the M-step);
+10. the matmul precisions 'high' (three bf16 passes) and 'default' (one):
+   K1 on phase 2's events, full and diag, held against its plain version
+   at that precision (the phase-2 class), against float64 at most twice
+   the plain version's error, and bit-identical from launch to launch,
+   timed beside its plain version, torch-ops ``accumulate_stats`` at that
+   precision and its phase shares; K3 as in phase 5 at each precision
+   (each live lane torch.equal to K1 at that precision); then the main
+   path (K 100 -> 96, 20 iterations) and the restart path (phase 7's batch)
+   at each precision through the kernels, counted from zero, and at 'high'
+   the main path on torch ops at 'high' beside it: the same K and merge
+   pairs, final loglik within rtol 1e-4, EM iterations/s of both and of
+   phase 4's 'highest' run.
 
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Times come from CUDA events; the
 bound is the larger of the bytes over 3.35 TB/s and the operations over the
 peak of the units that run them, for an H100 SXM at 700 W. K1's kernel
-(K1, K3, K5, K6) runs phase 1 (logp) on the fp32 FMA units, 67 TFLOP/s,
-and phase 3 (the statistics) on the tensor cores in three TF32 passes
-(what matmul_precision 'highest' runs there, at fp32-class error), three
-times its operations at 495 TFLOP/s; the units run side by side, so its
-bound is the larger of the two times. The figure with every operation on
+(K1, K3, K5, K6) at 'highest' runs phase 1 (logp) on the fp32 FMA units,
+67 TFLOP/s, and phase 3 (the statistics) on the tensor cores in three TF32
+passes (fp32-class error), three times its operations at 495 TFLOP/s; the
+units run side by side, so its bound is the larger of the two times. At
+'high' and 'default' (K1, K3) both products run on the tensor cores in
+three or one bf16 passes at 989 TFLOP/s. The figure with every operation on
 the FMA units stands beside it as ``fp32_bound_ms``. K1's operations are
 what its function needs on this run's real events: 2 N K (T+D) for logp
 and 2 N K (T+D+1) for Nk/M1/M2, with T = D(D+1)/2 distinct products of the
@@ -137,6 +156,7 @@ from __future__ import annotations
 import argparse
 import contextlib
 import functools
+import itertools
 import json
 import shutil
 import subprocess
@@ -149,7 +169,9 @@ import numpy as np
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 TF32_FLOPS_PER_S = 495e12
+BF16_FLOPS_PER_S = 989e12
 TF32_PASSES = 3  # K1's kernel: small*big + big*small + big*big
+BF16_PASSES = {"high": 3, "default": 1}  # K1/K3's bf16 modes, both products
 N_EVENTS, DIMS, K0, K_TARGET, ITERS = 1_000_000, 24, 100, 96, 20
 LANES = 4  # restarts per batch in phases 5-7
 FROZEN = 2  # the lane phase 5 freezes through the lane mask
@@ -201,13 +223,19 @@ def bound_ms(nbytes: float, flops: float):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def route_bound(nbytes: float, fma_flops: float, tc_flops: float = 0.0) -> dict:
-    """The bound of K1's kernel (K1, K3, K5, K6) on its route: phase 1's
-    flops on the fp32 FMA units, phase 3's three TF32 passes on the tensor
-    cores; the two units run side by side, so the larger time. Beside it
-    the figure with every flop on the FMA units."""
-    t_ops = max(fma_flops / FP32_FLOPS_PER_S,
-                TF32_PASSES * tc_flops / TF32_FLOPS_PER_S) * 1e3
+def route_bound(nbytes: float, fma_flops: float, tc_flops: float = 0.0,
+                precision: str = "highest") -> dict:
+    """The bound of K1's kernel (K1, K3, K5, K6) on its route: at 'highest'
+    phase 1's flops on the fp32 FMA units and phase 3's three TF32 passes
+    on the tensor cores, which run side by side, so the larger time; at
+    'high' / 'default' both products on the tensor cores in three / one
+    bf16 passes. Beside it the figure with every flop on the FMA units."""
+    if precision == "highest":
+        t_ops = max(fma_flops / FP32_FLOPS_PER_S,
+                    TF32_PASSES * tc_flops / TF32_FLOPS_PER_S) * 1e3
+    else:
+        t_ops = (BF16_PASSES[precision] * (fma_flops + tc_flops)
+                 / BF16_FLOPS_PER_S * 1e3)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -349,16 +377,18 @@ def kernel_report(cubin, procs) -> list:
     out = []
     lib = _build.library("fused_stats.cu")
     for name, rec in sorted(props.items()):
-        m = (re.search(r"fused_stats_kernelILi(\d)ELb([01])ELi(\d+)E", name)
+        m = (re.search(r"fused_stats_kernelILi(\d)ELb([01])ELi(\d+)ELi(\d)E",
+                       name)
              or re.search(r"shard_kernelILi(\d)ELb([01])EE", name))
         check(m is not None and "registers" in rec,
               f"unparsed ptxas report for {name}: {rec}")
         mode, diag = m.group(1), m.group(2) == "1"
         width = "diag" if diag else "full"
         if "shard_kernel" not in name:
+            prec = ("", " high", " default")[int(m.group(4))]
             out.append(dict(instance=f"{KERNEL_MODES[mode]} {width} "
-                            f"{m.group(3)}-row tiles", hmma=hmma.get(name),
-                            **rec))
+                            f"{m.group(3)}-row tiles{prec}",
+                            hmma=hmma.get(name), **rec))
             continue
         tile = fs.shard_tile(RANK_CLUSTERS, DIMS, diag, stats=mode == "2")
         regs = -(-rec["registers"] // REG_UNIT) * REG_UNIT
@@ -377,7 +407,9 @@ def kernel_report(cubin, procs) -> list:
               f"the tile counts on {tile.ctas_per_sm}")
         out.append(dict(instance=f"{KERNEL_MODES[mode]} {width} 64-wide shard "
                         f"tile", hmma=hmma.get(name), **rec))
-    check(len(out) == 16, f"{len(out)} kernel instances reported")
+    # 12 'highest' instances of K1's kernel (3 modes x full/diag x 64/128-row
+    # tiles), 8 of K1/K3 in 'high'/'default', 4 of the shard kernel.
+    check(len(out) == 24, f"{len(out)} kernel instances reported")
     return out
 
 
@@ -431,10 +463,12 @@ def normwise(a, ref64) -> float:
     return err / max(float(ref64.abs().max()), 1e-300)
 
 
-def phase_k1(x_np, diag, inactive, label, timed, near=True, clocks=None):
-    """K1 against its plain version (the tolerance class, where the data are
-    well conditioned) and both against float64 (always); when timed, its
-    time and (with the ``clocks`` library) its phases' shares."""
+def phase_k1(x_np, diag, inactive, label, timed, near=True, clocks=None,
+             precision="highest"):
+    """K1 against its plain version at ``precision`` (the tolerance class,
+    where the data are well conditioned) and both against float64
+    (always); when timed, its time and (with the ``clocks`` library) its
+    phases' shares."""
     import torch
 
     from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
@@ -444,9 +478,11 @@ def phase_k1(x_np, diag, inactive, label, timed, near=True, clocks=None):
     chunk = 65536 if timed else x_np.shape[0]  # one unpadded chunk
     state, chunks, wts, args = stats_inputs(x_np, k, diag, inactive, chunk)
     x, wt, A, h, g = args
-    out = fs.fused_stats(*args, diag=diag)
-    out2 = fs.fused_stats(*args, diag=diag)
-    ref = fs.fused_stats_plain(*args, diag=diag)
+    k1 = functools.partial(fs.fused_stats, *args, diag=diag,
+                           precision=precision)
+    plain = functools.partial(fs.fused_stats_plain, *args, diag=diag,
+                              precision=precision)
+    out, out2, ref = k1(), k1(), plain()
     ref64 = fs.fused_stats_plain(*(t.double() for t in args), diag=diag)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(out, out2)),
@@ -481,20 +517,20 @@ def phase_k1(x_np, diag, inactive, label, timed, near=True, clocks=None):
         t = d if diag else d * (d + 1) // 2
         nbytes = 4 * (n * d + n + A.numel() + h.numel() + g.numel()
                       + 1 + k + k * d + k * f)
-        rec["ms"] = time_ms(lambda: fs.fused_stats(*args, diag=diag))
-        rec["plain_ms"] = time_ms(lambda: fs.fused_stats_plain(*args, diag=diag))
+        rec["ms"] = time_ms(k1)
+        rec["plain_ms"] = time_ms(plain)
         rec["library_ms"] = time_ms(
-            lambda: accumulate_stats(state, chunks, wts, diag_only=diag))
+            lambda: accumulate_stats(state, chunks, wts, diag_only=diag,
+                                     matmul_precision=precision))
         rec.update(route_bound(nbytes, 2.0 * n * k * (t + d),
-                               2.0 * n * k * (t + d + 1)))
+                               2.0 * n * k * (t + d + 1), precision))
         print(f"  K1 {label}: kernel {rec['ms']:.3f} ms, plain "
               f"{rec['plain_ms']:.3f} ms, torch-ops accumulate_stats "
               f"{rec['library_ms']:.3f} ms, bound {rec['bound_ms']:.3f} ms "
               f"({rec['bound_by']}; fp32 non-tensor "
               f"{rec['fp32_bound_ms']:.3f} ms)")
         if clocks is not None:
-            rec["phase_shares"] = phase_shares(
-                clocks, lambda: fs.fused_stats(*args, diag=diag))
+            rec["phase_shares"] = phase_shares(clocks, k1)
             print(f"  K1 {label} phases (thread-0 cycles of every CTA): "
                   + shares_line(rec["phase_shares"]))
     return rec, (state, out)
@@ -710,12 +746,16 @@ def phase_main_path(data, workdir: Path):
     fs.fused_stats.launches = 0
     fs.mstep.launches = 0
     t0 = time.perf_counter()
-    events = read_data(str(infile))
+    events = read_data(str(infile), use_native="always")
+    t_read = time.perf_counter() - t0
     result, model, config, fit_s = fit(events, K0, K_TARGET, ITERS)
     write_summary(str(workdir / "out.summary"), result)
+    t1 = time.perf_counter()
     n_written = stream_results(str(workdir / "out.results"),
-                               iter_memberships(result, events, config, model))
+                               iter_memberships(result, events, config, model),
+                               use_native="always")
     torch.cuda.synchronize()
+    t_write = time.perf_counter() - t1
     wall = time.perf_counter() - t0
     launches = {"K1": fs.fused_stats.launches, "K2": fs.mstep.launches}
     check(model.estep_backend == "cuda",
@@ -746,7 +786,8 @@ def phase_main_path(data, workdir: Path):
           ".results memberships")
     check(np.isfinite(result.means).all() and np.isfinite(result.final_loglik),
           "non-finite model")
-    (workdir / "out.results").unlink()
+    io = native_io(infile, workdir, result, events, config, model, wall,
+                   t_read, t_write)
 
     # --- the same fit on the torch-ops path (the yardstick)
     ref, ref_model, _, ref_s = fit(events, K0, K_TARGET, ITERS,
@@ -768,7 +809,70 @@ def phase_main_path(data, workdir: Path):
     em_ref = sum(r[4] for r in ref.sweep_log)
     print(f"  EM iters/s: kernels {total_iters / em_kernel:.2f}, torch ops "
           f"{sum(r[3] for r in ref.sweep_log) / em_ref:.2f}")
-    return launches, result
+    io["em_iters_per_s"] = total_iters / em_kernel
+    return launches, result, io
+
+
+def _results_tie_rule(a_path, b_path) -> int:
+    """tests/test_native_io.py's rule between the native and the Python
+    .results: a line may differ only in last digits on ties (every value
+    within 2e-6, the same field count). Returns the differing lines."""
+    differ = 0
+    with open(a_path) as fa, open(b_path) as fb:
+        for n, (x, y) in enumerate(itertools.zip_longest(fa, fb)):
+            check(x is not None and y is not None,
+                  f".results line counts differ at line {n}")
+            if x == y:
+                continue
+            differ += 1
+            xs = x.replace("\t", ",").split(",")
+            ys = y.replace("\t", ",").split(",")
+            check(len(xs) == len(ys) and np.allclose(
+                np.array(xs, float), np.array(ys, float), rtol=0, atol=2e-6),
+                f".results line {n} differs beyond a tie: {x!r} / {y!r}")
+    return differ
+
+
+def native_io(infile, workdir, result, events, config, model, wall, t_read,
+              t_write) -> dict:
+    """Phase 4's I/O: the counted run read the BIN file and wrote .results
+    through the native library (use_native='always'); here the Python
+    reader and writer ('never') on the same file and model, timed the same
+    way, and the two .results held to the tie rule. The with-I/O walls
+    differ by the reader's and the writer's times."""
+    from cuda_gmm_mpi_tpu_torch.io import read_data, stream_results
+    from cuda_gmm_mpi_tpu_torch.models import iter_memberships
+
+    t0 = time.perf_counter()
+    py_events = read_data(str(infile), use_native="never")
+    py_read = time.perf_counter() - t0
+    check(np.array_equal(py_events, events), "native and Python readers differ")
+    t0 = time.perf_counter()
+    stream_results(str(workdir / "py.results"),
+                   iter_memberships(result, events, config, model),
+                   use_native="never")
+    py_write = time.perf_counter() - t0
+    t0 = time.perf_counter()  # the memberships alone, formatted by neither
+    for _ in iter_memberships(result, events, config, model):
+        pass
+    memb_s = time.perf_counter() - t0
+    differ = _results_tie_rule(workdir / "out.results", workdir / "py.results")
+    rec = {"native_read_s": t_read, "native_write_s": t_write,
+           "python_read_s": py_read, "python_write_s": py_write,
+           "with_io_native_s": wall,
+           "with_io_python_s": wall - t_read - t_write + py_read + py_write,
+           "memberships_s": memb_s,
+           "results_lines_differing_on_ties": differ}
+    print(f"  I/O: reader native {t_read:.2f} s, Python {py_read:.2f} s; "
+          f".results writer native {t_write:.2f} s, Python {py_write:.2f} s "
+          f"({differ} lines differ on ties), of which the memberships "
+          f"(posteriors on the card, copied to the host) {memb_s:.2f} s; "
+          f"with-I/O wall native "
+          f"{rec['with_io_native_s']:.2f} s, Python "
+          f"{rec['with_io_python_s']:.2f} s")
+    for f in ("out.results", "py.results"):
+        (workdir / f).unlink()
+    return rec
 
 
 def phase_diag(data):
@@ -910,8 +1014,9 @@ def restart_lanes(x_np, rows, diag, chunk=65536):
     return states, chunks, wts, x[:n], wt[:n]
 
 
-def phase_k3(lanes_in, diag, label):
-    """K3 against K1 per lane (torch.equal), its plain version and float64."""
+def phase_k3(lanes_in, diag, label, precision="highest"):
+    """K3 against K1 per lane (torch.equal), its plain version and float64,
+    at ``precision``."""
     import torch
 
     from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
@@ -925,16 +1030,17 @@ def phase_k3(lanes_in, diag, label):
     lanes[FROZEN] = 0.0
     live = [r for r in range(LANES) if r != FROZEN]
     args = (x, wt, lanes, A, h, g)
-    out = fs.fused_stats_batched(*args, diag=diag)
-    out2 = fs.fused_stats_batched(*args, diag=diag)
-    ref = fs.fused_stats_batched_plain(*args, diag=diag)
+    kw = dict(diag=diag, precision=precision)
+    out = fs.fused_stats_batched(*args, **kw)
+    out2 = fs.fused_stats_batched(*args, **kw)
+    ref = fs.fused_stats_batched_plain(*args, **kw)
     ref64 = fs.fused_stats_batched_plain(*(t.double() for t in args),
                                          diag=diag)
     torch.cuda.synchronize()
     check(all(torch.equal(a, b) for a, b in zip(out, out2)),
           f"K3 {label}: two launches differ")
     for r in live:
-        one = fs.fused_stats(x, wt, *params[r], diag=diag)
+        one = fs.fused_stats(x, wt, *params[r], **kw)
         check(all(torch.equal(a[r], b) for a, b in zip(out, one)),
               f"K3 {label}: lane {r} differs from K1 on its operands")
     check(not any(bool(o[FROZEN].any()) for o in out),
@@ -967,19 +1073,20 @@ def phase_k3(lanes_in, diag, label):
                   + LANES * (1 + K0 + K0 * d + K0 * f))
     rec = {"max_abs_err": worst, "fp64_err": worst64,
            "plain_fp64_err": worst64_plain}
-    rec["ms"] = time_ms(lambda: fs.fused_stats_batched(*args, diag=diag))
+    rec["ms"] = time_ms(lambda: fs.fused_stats_batched(*args, **kw))
     all_live = torch.ones_like(lanes)
     rec["all_live_ms"] = time_ms(
-        lambda: fs.fused_stats_batched(x, wt, all_live, A, h, g, diag=diag))
+        lambda: fs.fused_stats_batched(x, wt, all_live, A, h, g, **kw))
     rec["k1_x4_ms"] = LANES * time_ms(
-        lambda: fs.fused_stats(x, wt, *params[0], diag=diag))
+        lambda: fs.fused_stats(x, wt, *params[0], **kw))
     rec["plain_ms"] = time_ms(
-        lambda: fs.fused_stats_batched_plain(*args, diag=diag), reps=2)
+        lambda: fs.fused_stats_batched_plain(*args, **kw), reps=2)
     rec["library_ms"] = time_ms(lambda: [
-        accumulate_stats(states[r], chunks, wts, diag_only=diag)
+        accumulate_stats(states[r], chunks, wts, diag_only=diag,
+                         matmul_precision=precision)
         for r in live], reps=2)
     rec.update(route_bound(nbytes, len(live) * 2.0 * n * K0 * (t + d),
-                           len(live) * 2.0 * n * K0 * (t + d + 1)))
+                           len(live) * 2.0 * n * K0 * (t + d + 1), precision))
     print(f"  K3 {label}: every live lane torch.equal to K1, frozen lane "
           f"zeros; kernel {rec['ms']:.3f} ms ({len(live)} live lanes), "
           f"{rec['all_live_ms']:.3f} ms ({LANES} live lanes), {LANES} x K1 "
@@ -1152,6 +1259,86 @@ def phase_restarts(data):
           f"{t['em']:.2f} s, {steps - 1} merge scans {t['merge']:.2f} s, "
           f"rest {rest:.2f} s of {fit_s:.2f} s")
     check(rest >= 0.0, f"the fit's parts exceed its wall by {-rest:.3f} s")
+    return launches
+
+
+def phase_precision_path(data, precision: str, highest_rate: float) -> dict:
+    """The main path (K 100 -> 96, ITERS iterations per K) at ``precision``
+    through K1/K2, counted from zero; at 'high' the same fit on torch ops at
+    'high' beside it: the same K and merge pairs, final loglik within rtol
+    1e-4. Prints EM iterations/s of both and of phase 4's 'highest' run."""
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    fs.fused_stats.launches = 0
+    fs.mstep.launches = 0
+    result, model, _, fit_s = fit(data, K0, K_TARGET, ITERS,
+                                  matmul_precision=precision)
+    launches = {"K1": fs.fused_stats.launches, "K2": fs.mstep.launches}
+    iters = sum(r[3] for r in result.sweep_log)
+    n_k = len(result.sweep_log)
+    check(model.estep_backend == "cuda",
+          f"{precision} main path resolved to {model.estep_backend!r}")
+    check(launches["K1"] == iters + n_k and launches["K2"] == iters,
+          f"{precision} main path: launches {launches} for {iters} "
+          f"iterations and {n_k} Ks")
+    check(result.ideal_num_clusters == K_TARGET
+          and np.isfinite(result.final_loglik)
+          and np.isfinite(result.means).all(), f"{precision} main path result")
+    rate = iters / sum(r[4] for r in result.sweep_log)
+    rec = {"launches": launches, "em_iters_per_s": rate, "fit_s": fit_s}
+    line = (f"  main path at '{precision}': K {K0} -> "
+            f"{result.ideal_num_clusters}, {iters} EM iterations, fit "
+            f"{fit_s:.2f} s; launches {launches}; EM iters/s: kernels "
+            f"{rate:.2f}")
+    if precision == "high":
+        ref, ref_model, _, _ = fit(data, K0, K_TARGET, ITERS,
+                                   estep_backend="torch",
+                                   matmul_precision=precision)
+        check(ref_model.estep_backend == "torch", "reference backend")
+        pairs = [m[1] for m in result.merges]
+        ref_pairs = [m[1] for m in ref.merges]
+        check(ref.ideal_num_clusters == result.ideal_num_clusters
+              and pairs == ref_pairs,
+              f"'high': kernels K {result.ideal_num_clusters} pairs {pairs}, "
+              f"torch ops K {ref.ideal_num_clusters} pairs {ref_pairs}")
+        rel = abs(result.final_loglik - ref.final_loglik) / abs(ref.final_loglik)
+        check(rel <= 1e-4, f"'high' final loglik rtol {rel:.2e} > 1e-4")
+        rec["torch_ops_em_iters_per_s"] = (
+            sum(r[3] for r in ref.sweep_log) / sum(r[4] for r in ref.sweep_log))
+        rec["final_loglik_rtol"] = rel
+        line += (f", torch ops at 'high' {rec['torch_ops_em_iters_per_s']:.2f}"
+                 f" (same K and merge pairs, final loglik rtol {rel:.2e})")
+    print(line + f"; 'highest' (phase 4) {highest_rate:.2f}")
+    return rec
+
+
+def phase_precision_restarts(data, precision: str) -> dict:
+    """The restart path (phase 7's batch of LANES inits) at ``precision``
+    through K3/K4, counted from zero."""
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    counted = (fs.fused_stats, fs.mstep, fs.fused_stats_batched,
+               fs.mstep_batched)
+    for fn in counted:
+        fn.launches = 0
+    result, model, _, fit_s = fit(data, K0, K_TARGET, ITERS, n_init=LANES,
+                                  restart_batch_size=LANES,
+                                  matmul_precision=precision)
+    launches = dict(zip(("K1", "K2", "K3", "K4"),
+                        (fn.launches for fn in counted)))
+    iters = sum(r[3] for r in result.sweep_log)
+    steps = len(result.sweep_log)
+    check(model.estep_backend == "cuda" and launches["K3"] == iters + steps
+          and launches["K4"] == iters and launches["K1"] == 0
+          and launches["K2"] == 0,
+          f"{precision} restart path: launches {launches} for {iters} "
+          f"iterations and {steps} sweep steps")
+    check(result.ideal_num_clusters == K_TARGET
+          and np.isfinite(result.final_loglik), f"{precision} restart result")
+    em_s = sum(r[4] for r in result.sweep_log)
+    print(f"  restart path at '{precision}': {LANES} inits, winner init "
+          f"{result.init_index}, fit {fit_s:.2f} s, EM {em_s:.2f} s = "
+          f"{LANES * iters / em_s:.2f} lane-iterations/s; launches {launches}")
     return launches
 
 
@@ -1522,6 +1709,18 @@ def shard_record(diag, full, instances, mode: str) -> dict:
     return rec
 
 
+def precision_record(name, replaces, launches, full, diag, **extra) -> dict:
+    """A 'high' or 'default' entry of the kernels line: K1's or K3's full
+    record at that precision, the diag one's under ``diag_`` keys."""
+    rec = dict(name=name, route="cuda",
+               source="cuda_gmm_mpi_tpu_torch/csrc/fused_stats.cu",
+               replaces=replaces, launches=launches)
+    rec.update(full)
+    rec.update({"diag_" + k: v for k, v in diag.items() if k != "bound_by"})
+    rec.update(extra)
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1583,7 +1782,7 @@ def main() -> int:
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
     try:
-        launches, _ = phase_main_path(data, workdir)
+        launches, _, main_io = phase_main_path(data, workdir)
         diag_ref = phase_diag(data)
         phase_small_reference(args.seed)
         em_profile = profile_em(data)
@@ -1633,6 +1832,29 @@ def main() -> int:
     finally:
         shutil.rmtree(meshdir, ignore_errors=True)
     launches.update(K5=mesh["launches"]["K5"], K6=mesh["launches"]["K6"])
+
+    print("phase 10: K1 and K3 in 'high' and 'default'; the main and restart "
+          "paths at those precisions")
+    prec_k1, prec_k3, prec_paths = {}, {}, {}
+    for prec in BF16_PASSES:
+        for diag, name, inactive in ((False, "full", (7, 50)),
+                                     (True, "diag", (7,))):
+            prec_k1[prec, diag], _ = phase_k1(
+                data, diag, inactive, f"{name} {prec}", True, clocks=clocks,
+                precision=prec)
+    x_c, rows = restart_rows(data, args.seed)
+    for diag, name in ((False, "full"), (True, "diag")):
+        lanes_in = restart_lanes(x_c, rows, diag)
+        for prec in BF16_PASSES:
+            prec_k3[prec, diag], _ = phase_k3(lanes_in, diag, f"{name} {prec}",
+                                              precision=prec)
+        del lanes_in
+    del x_c
+    for prec in BF16_PASSES:
+        prec_paths[prec] = phase_precision_path(data, prec,
+                                                main_io["em_iters_per_s"])
+        restart = phase_precision_restarts(data, prec)
+        prec_paths[prec]["launches"].update(K3=restart["K3"], K4=restart["K4"])
     k5_err = max(v["k5_err"] for v in k56.values())
     k6_err = max(v["k6_err"] for v in k56.values())
 
@@ -1659,7 +1881,8 @@ def main() -> int:
              diag_bound_ms=k1_diag["bound_ms"],
              diag_fp32_bound_ms=k1_diag["fp32_bound_ms"],
              phase_shares=k1_full["phase_shares"],
-             diag_phase_shares=k1_diag["phase_shares"], build=instances),
+             diag_phase_shares=k1_diag["phase_shares"], build=instances,
+             main_path_io=main_io),
         dict(name="K2 mstep", route="cuda", source=src + "mstep.cu",
              replaces=pallas + "681", launches=launches["K2"],
              library_ms=None, **mstep_record(k2_full, k2_diag),
@@ -1715,6 +1938,15 @@ def main() -> int:
              mesh_fit_breakdown_ms=mesh["fit_breakdown_ms"],
              **shard_record(k6_diag, k6_full, instances, "stats_logz")),
     ]
+    for prec in BF16_PASSES:
+        kernels.append(precision_record(
+            f"K1 fused_stats {prec}", pallas + "94",
+            prec_paths[prec]["launches"]["K1"], prec_k1[prec, False],
+            prec_k1[prec, True], main_path=prec_paths[prec]))
+        kernels.append(precision_record(
+            f"K3 fused_stats_batched {prec}", pallas + "475",
+            prec_paths[prec]["launches"]["K3"], prec_k3[prec, False],
+            prec_k3[prec, True]))
     print("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} pass" for k in kernels)
         + f"; total {time.perf_counter() - t_start:.1f} s")

@@ -35,11 +35,20 @@ class GMMConfig:
     # epsilon = nparams_per_cluster * ln(N*D) * scale (gaussian.cu:458).
     epsilon_scale: float = 0.01
     dtype: str = "float32"
-    # 'highest' = fp32-class products: plain fp32 (or fp64) multiply-adds on
-    # the torch-ops path (TF32 off); in the CUDA kernels the statistics run
-    # in three TF32 passes on the tensor cores. The 3-pass bf16 'high' and
-    # 1-pass 'default' modes are not ported yet.
+    # Matmul precision of every product (the TPU's three modes, spelled out
+    # on any device by ops/estep.py::kdot and, on the card, by K1/K3):
+    # 'highest' = fp32-class products (TF32 off; K1's statistics in three
+    # TF32 passes on the tensor cores, its logp on the fp32 FMA units);
+    # 'high' = bf16_3x (each fp32 operand split into two bf16 parts, three
+    # bf16 passes); 'default' = one bf16 pass. The cluster-sharded kernels
+    # K5/K6 run 'highest' only.
     matmul_precision: str = "highest"
+    # Quadratic-form evaluation: 'expanded' = x Rinv x^T - 2 b x + c as
+    # products (data centered at fit time keeps it well-conditioned);
+    # 'packed' = the same on the D(D+1)/2 upper-triangle features;
+    # 'centered' = explicit (x - mu) staging (most stable; torch ops only,
+    # the kernels compute the expanded form).
+    quad_mode: str = "expanded"
     # Events per step of the torch-ops statistics loop; also the padded
     # chunk grid the event data is laid out in.
     chunk_size: int = 65536
@@ -49,6 +58,11 @@ class GMMConfig:
     # 'torch' the torch-ops path, 'auto' picks by device and dtype
     # (ops/kernels/__init__.py::resolve_estep_backend).
     estep_backend: str = "auto"
+    # Hoist the [N, F] quadratic features of ``quad_mode`` out of the EM
+    # loop on the torch-ops path: built once per EM run and held in device
+    # memory (N*F*itemsize bytes), read every iteration. Full-covariance,
+    # 'expanded'/'packed' only; the kernels build their features on chip.
+    precompute_features: bool = False
     # Upper bound on the events K1 holds in shared memory per tile (the
     # kernel lowers it to fit its shared-memory budget at large K).
     pallas_block_b: int = 512
@@ -99,6 +113,8 @@ class GMMConfig:
         if self.matmul_precision not in ("highest", "high", "default"):
             raise ValueError(
                 f"unknown matmul_precision: {self.matmul_precision!r}")
+        if self.quad_mode not in ("expanded", "packed", "centered"):
+            raise ValueError(f"unknown quad_mode: {self.quad_mode!r}")
         if self.estep_backend not in ("auto", "cuda", "torch"):
             raise ValueError(
                 f"unknown estep_backend: {self.estep_backend!r} "
@@ -117,6 +133,21 @@ class GMMConfig:
         if self.restart_batch_size is not None and self.restart_batch_size < 1:
             raise ValueError("restart_batch_size must be >= 1 (or None for "
                              "the memory-sized default)")
+        if self.precompute_features:
+            if self.diag_only:
+                raise ValueError(
+                    "precompute_features is a full-covariance optimization "
+                    "(diag builds no [N, F] features)")
+            if self.quad_mode == "centered":
+                raise ValueError(
+                    "precompute_features requires quad_mode='expanded' or "
+                    "'packed' (the 'centered' staging has no loop-invariant "
+                    "feature matrix to hoist)")
+            if self.estep_backend == "cuda":
+                raise ValueError(
+                    "precompute_features is the torch-ops feature hoist; "
+                    "the CUDA kernels build their features on chip -- drop "
+                    "one flag")
         if self.mesh_shape is not None and (
                 len(self.mesh_shape) != 2 or min(self.mesh_shape) < 1):
             raise ValueError(f"mesh_shape must be (data, cluster) with both "

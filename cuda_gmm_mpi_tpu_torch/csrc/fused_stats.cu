@@ -16,25 +16,40 @@
 // What bounds it on an H100: operations. The function needs
 // 2*N*K*(T+D) flops for logp plus 2*N*K*(T+D+1) for the accumulation, with
 // T = D(D+1)/2 symmetric feature columns (T = D in diag mode): 1.3e11 flops
-// at N=1M, K=100, D=24, against ~100 MB of event data. The two products run
-// on different units, for accuracy (matmul_precision='highest' holds both
-// to fp32's error class):
-//  * Phase 3, the accumulation, runs on the tensor cores: warp-level
-//    mma.sync m16n8k8 with TF32 inputs, in three passes (3xTF32). Each
-//    operand value v is split as it is loaded into a fragment, big =
-//    tf32(v) (round to nearest, 10 mantissa bits) and small = tf32(v - big);
-//    each 8-deep step issues small_a*big_b, big_a*small_b, then big_a*big_b
-//    into a partial that starts from zero, and the partial is added to the
-//    fp32 accumulator on the FMA units. The tensor cores truncate their
-//    fp32 sums toward zero (after aligning the terms with 2 guard bits), so
-//    a sum kept inside them drifts; rounded to nearest outside, phase 3's
-//    error stays under the float32 floor (tests/test_torch_tf32_split.py
-//    emulates this arithmetic).
-//  * Phase 1, logp, stays on the fp32 FMA units. The expanded quadratic
-//    form cancels terms far larger than logp, and there 3xTF32 (operands
-//    kept to ~22 of fp32's 24 bits, sums truncated) lands several times
-//    further from float64 than the plain version does, against a bar of
-//    twice (PERF.md, PR 5).
+// at N=1M, K=100, D=24, against ~100 MB of event data. The precision (the
+// PREC template parameter, the TPU kernel's static `precision`, which it
+// runs through `_kdot`) picks the units:
+//  * PREC = HIGHEST ('highest', fp32's error class). Phase 3, the
+//    accumulation, runs on the tensor cores: warp-level mma.sync m16n8k8
+//    with TF32 inputs, in three passes (3xTF32). Each operand value v is
+//    split as it is loaded into a fragment, big = tf32(v) (round to nearest,
+//    10 mantissa bits) and small = tf32(v - big); each 8-deep step issues
+//    small_a*big_b, big_a*small_b, then big_a*big_b into a partial that
+//    starts from zero, and the partial is added to the fp32 accumulator on
+//    the FMA units. The tensor cores truncate their fp32 sums toward zero
+//    (after aligning the terms with 2 guard bits), so a sum kept inside them
+//    drifts; rounded to nearest outside, phase 3's error stays under the
+//    float32 floor (tests/test_torch_tf32_split.py emulates this
+//    arithmetic). Phase 1, logp, stays on the fp32 FMA units: the expanded
+//    quadratic form cancels terms far larger than logp, and there 3xTF32
+//    (operands kept to ~22 of fp32's 24 bits, sums truncated) lands several
+//    times further from float64 than the plain version does, against a bar
+//    of twice (PERF.md, section 6).
+//  * PREC = HIGH ('high', bf16_3x) and DEFAULT ('default', one bf16 pass):
+//    both products run on the tensor cores, mma.sync m16n8k16 with bf16
+//    inputs and fp32 accumulators, one 16-deep step per shared-memory
+//    stage. Each operand value is split as it enters a fragment, big =
+//    bf16_rn(v), small = bf16_rn(v - big) (the TPU kernel's split); HIGH
+//    issues small_a*big_b, big_a*small_b, big_a*big_b (al*bl dropped, as in
+//    `_kdot`), DEFAULT big_a*big_b. The products of bf16 values are exact
+//    in fp32; each step's partial starts from zero and is added outside the
+//    tensor cores, as above, so their truncated sums act on 48 (or 16)
+//    terms only, far under the bf16 split's error. Nk is the fp32 sum of
+//    the posteriors in every mode, as the TPU kernel's `jnp.sum(w)`: the
+//    warps that hold the Nk column add the w values of their A fragments on
+//    the FMA units and put that sum in place of the tensor cores'. The
+//    fragments hold bf16 pairs along the depth, so their stage rows are
+//    padded to strides of 4 (mod 32) floats, where 3xTF32's are 8.
 //  * x2 is symmetric, so only its upper triangle is formed: T = D(D+1)/2
 //    packed columns instead of D*D (300 vs 576 at D=24). The wrapper sums
 //    A's mirrored entries into a packed A; the reduction writes each packed
@@ -120,6 +135,7 @@
 //    K1's tile and grid: 128-wide column tiles, phase 2 a pass over the
 //    logp buffer in shared memory, one CTA per SM.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -128,12 +144,15 @@ namespace {
 constexpr int THREADS = 256;  // phase 1: 16 x 16 threads; phase 3: 2 x 4 warps
 constexpr int NT = 128;       // macro-tile width
 constexpr int KC = 16;        // depth of one shared-memory stage
-constexpr int PAD = 8;        // row padding for fragment loads: strides of 8 (mod 32)
+constexpr int PAD = 8;        // row padding for TF32 fragment loads: strides of 8 (mod 32)
+constexpr int BPAD = 4;       // for bf16 fragment loads (pairs along the depth): 4 (mod 32)
 constexpr int SROW = NT + PAD;    // row stride of a phase-3 stage
 constexpr int STAGE = KC * SROW;  // floats of one stage buffer
 constexpr float NEG_LARGE = -1e30f;
 
 enum { MODE_STATS = 0, MODE_LOCAL_LSE = 1, MODE_STATS_LOGZ = 2 };
+// matmul_precision: 'highest', 'high' (bf16_3x), 'default' (one bf16 pass).
+enum { P_HIGHEST = 0, P_HIGH = 1, P_DEFAULT = 2 };
 
 #ifdef GMM_PHASE_CLOCKS
 // A build with -DGMM_PHASE_CLOCKS (chip_smoke.py makes one) times the
@@ -343,7 +362,108 @@ __device__ __forceinline__ void mma_stage(float (&acc)[4][NJ][4],
   }
 }
 
-template <int MODE, bool DIAG, int MR>
+// (v0, v1) = big + small as packed bf16 pairs (round to nearest even;
+// v0 in the low half): the TPU kernel's split xh = bf16(x), xl = bf16(x - xh).
+// v - bf16(v) is exact in fp32.
+__device__ __forceinline__ void split_bf16x2(float v0, float v1, uint32_t& big,
+                                             uint32_t& small) {
+  const __nv_bfloat162 b = __floats2bfloat162_rn(v0, v1);
+  const float2 bf = __bfloat1622float2(b);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(v0 - bf.x, v1 - bf.y);
+  big = *reinterpret_cast<const uint32_t*>(&b);
+  small = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+// c += a * b on one m16n8k16 tile: bf16 inputs, fp32 accumulators.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc += A * B over one KC-deep stage on the tensor cores in bf16: three
+// passes (PREC = HIGH: small_a*big_b, big_a*small_b, big_a*big_b) or one
+// (DEFAULT), into a partial that starts from zero and is added to acc
+// outside the tensor cores. Operands depth-major as in mma_stage; lane
+// (g = lane / 4, t = lane % 4) loads A elements (row g (+8), depth 2t, 2t+1
+// (+8)) and B elements (depth 2t, 2t+1 (+8), column g), each pair along the
+// depth packed into one register. With strides of 4 (mod 32) floats the 32
+// loads of a warp hit 32 banks. With nk_on, nk[i][h] also sums the A
+// values of rows g (h = 0) and g + 8 (h = 1) of m16 tile i over this
+// lane's depths, in fp32 on the FMA units.
+template <int NJ, int PREC>
+__device__ __forceinline__ void mma_stage_bf16(float (&acc)[4][NJ][4],
+                                               const float* a_blk, int a_stride,
+                                               const float* b_blk, int b_stride,
+                                               int lane, bool nk_on,
+                                               float (&nk)[4][2]) {
+  const int g = lane >> 2, t = lane & 3;
+  uint32_t b_big[NJ][2], b_small[NJ][2];
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const float* q = b_blk + 2 * t * b_stride + j * 8 + g;
+    split_bf16x2(q[0], q[b_stride], b_big[j][0], b_small[j][0]);
+    split_bf16x2(q[8 * b_stride], q[9 * b_stride], b_big[j][1], b_small[j][1]);
+  }
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float* q = a_blk + 2 * t * a_stride + i * 16 + g;
+    const float v[8] = {q[0],              q[a_stride],          q[8],
+                        q[a_stride + 8],   q[8 * a_stride],      q[9 * a_stride],
+                        q[8 * a_stride + 8], q[9 * a_stride + 8]};
+    uint32_t a_big[4], a_small[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) split_bf16x2(v[2 * r], v[2 * r + 1], a_big[r], a_small[r]);
+    if (nk_on) {
+      nk[i][0] += (v[0] + v[1]) + (v[4] + v[5]);
+      nk[i][1] += (v[2] + v[3]) + (v[6] + v[7]);
+    }
+    float part[NJ][4] = {};
+    if (PREC == P_HIGH) {
+      // The small terms first, the big product last.
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_bf16(part[j], a_small, b_big[j]);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) mma_bf16(part[j], a_big, b_small[j]);
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) mma_bf16(part[j], a_big, b_big[j]);
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int h = 0; h < 4; ++h) acc[i][j][h] += part[j][h];
+  }
+}
+
+// The Nk column of a bf16 phase-3 tile: each lane's fp32 sums (see
+// mma_stage_bf16) summed over the four lanes of its row group (xor
+// butterflies, so all four hold the same bits), then written over the
+// tensor cores' value of column `col` (0..7) of m8 tile `jn`.
+template <int NJ>
+__device__ __forceinline__ void put_nk(float (&acc)[4][NJ][4], float (&nk)[4][2],
+                                       int jn, int col, int lane) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      nk[i][h] += __shfl_xor_sync(0xffffffffu, nk[i][h], 1);
+      nk[i][h] += __shfl_xor_sync(0xffffffffu, nk[i][h], 2);
+    }
+  if (2 * (lane & 3) != (col & 6)) return;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      if (j == jn) {
+        acc[i][j][col & 1] = nk[i][0];
+        acc[i][j][2 + (col & 1)] = nk[i][1];
+      }
+}
+
+template <int MODE, bool DIAG, int MR, int PREC>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_stats_kernel(const Params p) {
   const int n = p.n, d = p.d, kp = p.kp, bt = p.bt, xstride = p.xstride;
@@ -352,7 +472,9 @@ fused_stats_kernel(const Params p) {
   const int fd = t + d;                      // rows of A_ext
   const int fe = fd + 1;                     // columns of [x2 | x | 1]
   const int fe_pad = (fe + NT - 1) / NT * NT;
-  const int kps = kp + PAD;                  // posterior row stride
+  constexpr bool BF = PREC != P_HIGHEST;     // bf16 passes on the tensor cores
+  constexpr int RP = BF ? BPAD : PAD;        // fragment-row padding
+  const int kps = kp + RP;                   // posterior row stride
 
   // Restart lane: its parameters and its slices of the partial buffers.
   const int lane_r = blockIdx.y;
@@ -363,9 +485,9 @@ fused_stats_kernel(const Params p) {
 
   extern __shared__ float4 smem4[];
   float* ws = reinterpret_cast<float*>(smem4);  // [bt][kps] logp, then w
-  float* as = ws + (size_t)bt * kps;            // [2][STAGE] A_ext stages [KC][NT]
+  float* as = ws + (size_t)bt * kps;            // [2][STAGE] A_ext stages [KC][AR]
   float* fs = as + 2 * STAGE;                   // [2][STAGE] feature stages:
-                                                // [KC][MR] (phase 1), [KC][SROW] (3)
+                                                // [KC][FR] (phase 1), [KC][SR3] (3)
   float* xs = fs + 2 * STAGE;                   // [bt][xstride], col d = 1
   int* pairs = reinterpret_cast<int*>(xs + (size_t)bt * xstride);  // [fe_pad]
 
@@ -400,15 +522,22 @@ fused_stats_kernel(const Params p) {
     __syncthreads();
     PHASE_CLOCK(0)
 
-    // Phase 1: logp[r][k] = -0.5 * sum_c feat[r][c] * A_ext[c][k] + g[k],
-    // on the FMA units (8 x 8 outputs per thread, 4 x 8 for 64-row tiles).
+    // Phase 1: logp[r][k] = -0.5 * sum_c feat[r][c] * A_ext[c][k] + g[k].
+    // HIGHEST: on the FMA units (8 x 8 outputs per thread, 4 x 8 for 64-row
+    // tiles). HIGH/DEFAULT: on the tensor cores in bf16 (phase 3's 2 x 4
+    // warp tiles of 64 x 32 outputs; 1 x 8 of 64 x 16 for 64-row tiles).
     // The A_ext stage [KC][NT] arrives by 16-byte cp.async; the feature
     // stage [KC][MR] is computed from the event tile, through registers.
     constexpr int LA = KC * NT / 4 / THREADS, LF = KC * MR / THREADS;
+    constexpr int AR = BF ? NT + BPAD : NT;  // A_ext stage row stride
+    constexpr int FR = BF ? MR + BPAD : MR;  // feature stage row stride
+    constexpr int NJ1 = MR == 128 ? 4 : 2;   // bf16: m8 column tiles per warp
     const int s1 = (fd + KC - 1) / KC;
     for (int n0 = 0; n0 < rows_r; n0 += MR) {
       for (int k0 = 0; k0 < kp; k0 += NT) {
-        float acc[MR / 16][8] = {};
+        float acc[MR / 16][8] = {};       // FMA route
+        float acc1[4][NJ1][4] = {};       // tensor-core route
+        float no_nk[4][2] = {};           // phase 1 has no Nk column
         float rf[LF];
         // A_ext rows s*KC.. of columns k0.. into stage buf, 16 bytes per
         // copy; rows past fd are zero-filled.
@@ -417,7 +546,7 @@ fused_stats_kernel(const Params p) {
           for (int it = 0; it < LA; ++it) {
             const int e = tid + it * THREADS, r = e / (NT / 4), q = e % (NT / 4);
             const int c = s * KC + r;
-            cp_async16(as + buf * STAGE + r * NT + q * 4,
+            cp_async16(as + buf * STAGE + r * AR + q * 4,
                        a_ext + (size_t)(c < fd ? c : 0) * kp + k0 + q * 4, c < fd);
           }
           cp_async_commit();
@@ -431,7 +560,10 @@ fused_stats_kernel(const Params p) {
         };
         auto store_f = [&](int buf) {
 #pragma unroll
-          for (int it = 0; it < LF; ++it) fs[buf * STAGE + tid + it * THREADS] = rf[it];
+          for (int it = 0; it < LF; ++it) {
+            const int e = tid + it * THREADS;
+            fs[buf * STAGE + (e / MR) * FR + e % MR] = rf[it];
+          }
         };
         copy_a(0, 0);
         load_f(0);
@@ -444,18 +576,42 @@ fused_stats_kernel(const Params p) {
             copy_a(s + 1, buf ^ 1);
             load_f(s + 1);
           }
-          fma_stage<MR>(acc, fs + buf * STAGE, as + buf * STAGE, tx, ty);
+          if constexpr (!BF)
+            fma_stage<MR>(acc, fs + buf * STAGE, as + buf * STAGE, tx, ty);
+          else if constexpr (MR == 128)
+            mma_stage_bf16<NJ1, PREC>(acc1, fs + buf * STAGE + wr * 64, FR,
+                                      as + buf * STAGE + wc * 32, AR, lane, false, no_nk);
+          else
+            mma_stage_bf16<NJ1, PREC>(acc1, fs + buf * STAGE, FR,
+                                      as + buf * STAGE + warp * 16, AR, lane, false, no_nk);
           if (s + 1 < s1) store_f(buf ^ 1);
           cp_async_wait_all();
           __syncthreads();
         }
+        if constexpr (BF) {
+          // Accumulator h of tile (i, j): row lr (+8 for h >= 2), column
+          // lc (+1 for odd h).
+          const int r0 = n0 + (MR == 128 ? wr * 64 : 0) + lr;
+          const int c1 = k0 + (MR == 128 ? wc * 32 : warp * 16) + lc;
 #pragma unroll
-        for (int i = 0; i < MR / 16; ++i)
+          for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) {
-            const int k = k0 + own(tx, j);
-            ws[(size_t)(n0 + own(ty, i)) * kps + k] = -0.5f * acc[i][j] + g[k];
-          }
+            for (int j = 0; j < NJ1; ++j)
+#pragma unroll
+              for (int h = 0; h < 4; ++h) {
+                const int k = c1 + j * 8 + (h & 1);
+                ws[(size_t)(r0 + i * 16 + (h >> 1) * 8) * kps + k] =
+                    -0.5f * acc1[i][j][h] + g[k];
+              }
+        } else {
+#pragma unroll
+          for (int i = 0; i < MR / 16; ++i)
+#pragma unroll
+            for (int j = 0; j < 8; ++j) {
+              const int k = k0 + own(tx, j);
+              ws[(size_t)(n0 + own(ty, i)) * kps + k] = -0.5f * acc[i][j] + g[k];
+            }
+        }
       }
     }
     __syncthreads();
@@ -506,13 +662,18 @@ fused_stats_kernel(const Params p) {
 
     // Phase 3: out[k][c] += sum_r w[r][k] * feat[r][c], this CTA's slice.
     // A = w^T, read in place from the posteriors [B_t][kps] (depth =
-    // event), B = the feature stage [KC][SROW] (column = feature); a warp
-    // owns 64 x 32 outputs.
+    // event), B = the feature stage [KC][SR3] (column = feature); a warp
+    // owns 64 x 32 outputs. In bf16 the Nk column (fe - 1) is the fp32 sum
+    // of the w values, taken by the warps that hold it.
     constexpr int L3 = KC * NT / THREADS;
+    constexpr int SR3 = BF ? NT + BPAD : SROW;
     const int s3 = (rows + KC - 1) / KC;
+    const int nk_c = fe - 1;
     for (int k0 = 0; k0 < kp; k0 += NT) {
       for (int c0 = 0; c0 < fe_pad; c0 += NT) {
         float acc[4][4][4] = {};
+        float nk[4][2] = {};
+        const bool nk_on = BF && c0 == nk_c / NT * NT && wc == nk_c % NT / 32;
         float rf[L3];
         auto load = [&](int s) {
 #pragma unroll
@@ -525,7 +686,7 @@ fused_stats_kernel(const Params p) {
 #pragma unroll
           for (int it = 0; it < L3; ++it) {
             const int e = tid + it * THREADS;
-            fs[buf * STAGE + (e / NT) * SROW + e % NT] = rf[it];
+            fs[buf * STAGE + (e / NT) * SR3 + e % NT] = rf[it];
           }
         };
         load(0);
@@ -533,11 +694,17 @@ fused_stats_kernel(const Params p) {
         __syncthreads();
         for (int s = 0; s < s3; ++s) {
           if (s + 1 < s3) load(s + 1);
-          mma_stage(acc, ws + (size_t)s * KC * kps + k0 + wr * 64, kps,
-                    fs + (s & 1) * STAGE + wc * 32, SROW, lane);
+          if constexpr (BF)
+            mma_stage_bf16<4, PREC>(acc, ws + (size_t)s * KC * kps + k0 + wr * 64, kps,
+                                    fs + (s & 1) * STAGE + wc * 32, SR3, lane, nk_on, nk);
+          else
+            mma_stage(acc, ws + (size_t)s * KC * kps + k0 + wr * 64, kps,
+                      fs + (s & 1) * STAGE + wc * 32, SROW, lane);
           if (s + 1 < s3) store((s + 1) & 1);
           __syncthreads();
         }
+        if constexpr (BF)
+          if (nk_on) put_nk(acc, nk, nk_c % 32 / 8, nk_c % 8, lane);
         PHASE_CLOCK(3)
         // Accumulator h of tile (i, j): row lr (+8 for h >= 2), column
         // lc (+1 for odd h). All of this thread's earlier sums are read
@@ -887,9 +1054,9 @@ shard_kernel(const Params p) {
   }
 }
 
-template <int MODE, bool DIAG, int MR>
+template <int MODE, bool DIAG, int MR, int PREC>
 cudaError_t launch(const Params& p, int grid, int r, size_t smem, cudaStream_t s) {
-  auto kern = fused_stats_kernel<MODE, DIAG, MR>;
+  auto kern = fused_stats_kernel<MODE, DIAG, MR, PREC>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -897,14 +1064,14 @@ cudaError_t launch(const Params& p, int grid, int r, size_t smem, cudaStream_t s
   return cudaGetLastError();
 }
 
-template <int MODE>
+template <int MODE, int PREC = P_HIGHEST>
 cudaError_t launch_mode(const Params& p, int diag, int grid, int r, size_t smem,
                         cudaStream_t s) {
   if (p.bt % 128 == 0)
-    return diag ? launch<MODE, true, 128>(p, grid, r, smem, s)
-                : launch<MODE, false, 128>(p, grid, r, smem, s);
-  return diag ? launch<MODE, true, 64>(p, grid, r, smem, s)
-              : launch<MODE, false, 64>(p, grid, r, smem, s);
+    return diag ? launch<MODE, true, 128, PREC>(p, grid, r, smem, s)
+                : launch<MODE, false, 128, PREC>(p, grid, r, smem, s);
+  return diag ? launch<MODE, true, 64, PREC>(p, grid, r, smem, s)
+              : launch<MODE, false, 64, PREC>(p, grid, r, smem, s);
 }
 
 // The reduction of the r lanes' per-CTA partials into ll/nk/m1/m2.
@@ -919,8 +1086,12 @@ int launch_reduce(const Params& p, float* ll, float* nk, float* m1, float* m2,
 }
 
 // The statistics kernel of `mode` on `s`, then (K1/K3/K6) the reduction.
+// Only K1/K3 (MODE_STATS) take a precision other than P_HIGHEST: the
+// (MODE, PREC) instances are those a route launches.
 int run(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
-        int diag, int grid, int r, cudaStream_t s) {
+        int diag, int grid, int r, cudaStream_t s, int prec = P_HIGHEST) {
+  if (prec < P_HIGHEST || prec > P_DEFAULT || (prec != P_HIGHEST && mode != MODE_STATS))
+    return (int)cudaErrorInvalidValue;
   const int d = p.d;
   p.xstride = (d + 1) | 1;  // odd row stride: no bank conflicts
   const int t = diag ? d : d * (d + 1) / 2;
@@ -931,7 +1102,9 @@ int run(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
   cudaError_t err =
       mode == MODE_LOCAL_LSE  ? launch_mode<MODE_LOCAL_LSE>(p, diag, grid, r, smem, s)
       : mode == MODE_STATS_LOGZ ? launch_mode<MODE_STATS_LOGZ>(p, diag, grid, r, smem, s)
-                                : launch_mode<MODE_STATS>(p, diag, grid, r, smem, s);
+      : prec == P_HIGH        ? launch_mode<MODE_STATS, P_HIGH>(p, diag, grid, r, smem, s)
+      : prec == P_DEFAULT     ? launch_mode<MODE_STATS, P_DEFAULT>(p, diag, grid, r, smem, s)
+                              : launch_mode<MODE_STATS>(p, diag, grid, r, smem, s);
   if (err != cudaSuccess || mode == MODE_LOCAL_LSE) return (int)err;
   return launch_reduce(p, ll, nk, m1, m2, diag, grid, r, s);
 }
@@ -1004,35 +1177,36 @@ Params params(const float* x, const float* wt, const float* lanes,
 // Shapes: x [n, d], wt [n], a_ext [t+d, kp] (t = D(D+1)/2, or d in diag
 // mode), g [kp], partial [grid, kp, t+d+1], ll_part [grid] (float64),
 // ll [1], nk [k], m1 [k, d], m2 [k, f] with f = diag ? d : d*d. kp is a
-// multiple of 128;
-// bt a multiple of 128, or 64 (then the 64-row tiles are used).
+// multiple of 128; bt a multiple of 128, or 64 (then the 64-row tiles are
+// used). prec: 0 'highest', 1 'high', 2 'default'.
 extern "C" int gmm_fused_stats(const float* x, const float* wt, const float* a_ext,
                                const float* g, float* partial, double* ll_part,
                                float* ll, float* nk, float* m1, float* m2, int n,
                                int d, int k, int kp, int diag, int bt, int grid,
-                               void* stream) {
+                               int prec, void* stream) {
   return run(MODE_STATS,
              params(x, wt, nullptr, nullptr, a_ext, g, nullptr, nullptr,
                     partial, ll_part, n, d, k, kp, bt),
-             ll, nk, m1, m2, diag, grid, 1, static_cast<cudaStream_t>(stream));
+             ll, nk, m1, m2, diag, grid, 1, static_cast<cudaStream_t>(stream), prec);
 }
 
 // Launches K3 (both kernels) on `stream`; returns cudaGetLastError().
 // K1's shapes with a leading restart axis r on every per-lane array:
 // lanes [r] (0 = frozen lane), a_ext [r, t+d, kp], g [r, kp],
 // partial [r, grid, kp, t+d+1], ll_part [r, grid], ll [r], nk [r, k],
-// m1 [r, k, d], m2 [r, k, f]. x and wt are shared by every lane.
+// m1 [r, k, d], m2 [r, k, f]. x and wt are shared by every lane; prec as
+// for K1.
 extern "C" int gmm_fused_stats_batched(const float* x, const float* wt,
                                        const float* lanes, const float* a_ext,
                                        const float* g, float* partial,
                                        double* ll_part, float* ll, float* nk,
                                        float* m1, float* m2, int n, int d, int k,
                                        int kp, int diag, int bt, int grid, int r,
-                                       void* stream) {
+                                       int prec, void* stream) {
   return run(MODE_STATS,
              params(x, wt, lanes, nullptr, a_ext, g, nullptr, nullptr, partial,
                     ll_part, n, d, k, kp, bt),
-             ll, nk, m1, m2, diag, grid, r, static_cast<cudaStream_t>(stream));
+             ll, nk, m1, m2, diag, grid, r, static_cast<cudaStream_t>(stream), prec);
 }
 
 #ifdef GMM_PHASE_CLOCKS

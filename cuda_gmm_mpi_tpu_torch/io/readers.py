@@ -1,6 +1,9 @@
-"""Input data readers: CSV (with header drop) and BIN, on the numpy path.
+"""Input data readers: CSV (with header drop) and BIN, native or numpy.
 
-Python/NumPy implementation of the reference's ``readData.cpp`` semantics:
+``use_native`` picks the reader: 'auto' tries the native C++ reader
+(``io/native.py``, native/gmm_io.cpp) and falls back to the Python path;
+'always' requires it; 'never' forces the Python path. The Python/NumPy path
+implements the reference's ``readData.cpp`` semantics:
 
 - dispatch on filename: names ending in "bin" -> binary, else CSV
   (readData.cpp:25-33 -- the reference compares the last 3 chars)
@@ -22,9 +25,52 @@ class TruncatedInputError(ValueError):
     declared size (a partial copy, a crashed writer)."""
 
 
-def read_data(path: str) -> np.ndarray:
-    """Read every event of ``path`` as a float32 [num_events, D] array."""
+def read_data(path: str, use_native: str = "auto") -> np.ndarray:
+    """Read every event of ``path`` as a float32 [num_events, D] array.
+
+    A BIN file the native reader rejects is re-read by the Python reader,
+    so a torn header or payload surfaces as :class:`TruncatedInputError`
+    (as in the JAX package's reader)."""
+    from .native import select
+
+    native = select(use_native)
+    if native is not None:
+        try:
+            return native.read_data(path)
+        except ValueError:
+            if not path.endswith("bin"):
+                raise
     return read_bin(path) if path.endswith("bin") else read_csv(path)
+
+
+def data_shape(path: str, use_native: str = "auto"):
+    """(num_events, num_dimensions) without loading the payload: BIN reads
+    its 8-byte header, CSV makes one streaming pass counting the non-blank
+    lines after the header."""
+    from .native import select
+
+    native = select(use_native)
+    if native is not None:
+        return native.data_shape(path)
+    if path.endswith("bin"):
+        with open(path, "rb") as f:
+            header = np.fromfile(f, dtype=np.int32, count=2)
+        if header.size != 2:
+            raise TruncatedInputError(f"{path}: truncated BIN header")
+        return int(header[0]), int(header[1])
+    num_dims, rows = None, 0
+    with open(path, "rb") as f:
+        for raw in f:
+            line = raw.decode("utf-8").strip("\r\n")
+            if line == "":
+                continue
+            if num_dims is None:
+                num_dims = line.count(",") + 1
+            else:
+                rows += 1
+    if num_dims is None:
+        raise ValueError(f"{path}: empty input file")
+    return rows, num_dims
 
 
 def read_bin(path: str) -> np.ndarray:

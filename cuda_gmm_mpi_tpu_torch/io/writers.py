@@ -54,21 +54,35 @@ def write_summary(path: str, result) -> None:
             f.write("\n\n")
 
 
-def write_results(path: str, data: np.ndarray, memberships: np.ndarray) -> None:
+def write_results(path: str, data: np.ndarray, memberships: np.ndarray,
+                  use_native: str = "auto") -> None:
     """``<outfile>.results`` (gaussian.cu:1042-1059): data CSV, tab,
     per-cluster membership CSV, one line per event."""
-    stream_results(path, [(data, memberships)])
+    stream_results(path, [(data, memberships)], use_native=use_native)
 
 
-def stream_results(path: str, chunk_iter) -> int:
+def stream_results(path: str, chunk_iter, use_native: str = "auto") -> int:
     """Streaming ``.results`` writer: bounded memory at any N.
 
     ``chunk_iter`` yields ``(data_block [B, D], memberships_block [B, K])``
-    pairs in original data coordinates; each block is formatted with one
-    ``%`` over its flattened values (``'%f' % x`` is the same text as
-    ``f'{x:f}'``) and appended. Returns the number of events written.
+    pairs in original data coordinates. ``use_native`` as in
+    ``readers.read_data``: the native writer (``native.ResultsWriter``,
+    printf ``%f`` of the float32 values) under 'auto' when the library
+    loads and under 'always', else the Python path, which formats each
+    block with one ``%`` over its flattened values (``'%f' % x`` is the same
+    text as ``f'{x:f}'``). The two may differ in the last digit on ties.
+    Returns the number of events written.
     """
+    from .native import select
+
     written = 0
+    native = select(use_native)
+    if native is not None:
+        with native.ResultsWriter(path) as w:
+            for block, memb in chunk_iter:
+                w.append(block, memb)
+                written += block.shape[0]
+        return written
     with open(path, "w") as f:
         for block, memb in chunk_iter:
             rows = block.shape[0]

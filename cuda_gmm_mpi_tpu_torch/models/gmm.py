@@ -27,7 +27,7 @@ import numpy as np
 import torch
 
 from ..config import GMMConfig
-from ..ops.estep import posteriors
+from ..ops.estep import features, posteriors
 from ..ops.mstep import SuffStats, accumulate_stats, apply_mstep, zeros_stats
 from ..state import lane, stack_states, where_lanes
 
@@ -43,15 +43,12 @@ def resolve_device(config: GMMConfig) -> torch.device:
 
 
 def setup_device(config: GMMConfig) -> torch.device:
-    """:func:`resolve_device`, after refusing a matmul precision that is not
-    ported; on CUDA, 'highest' turns TF32 off for the torch-ops products
-    (matmul) and any cuDNN call, which then run in full fp32 (the kernels
-    keep the same error class; csrc/fused_stats.cu)."""
+    """:func:`resolve_device`; on CUDA, TF32 is turned off for the torch-ops
+    products (matmul) and any cuDNN call, which then run in full fp32 at
+    every ``matmul_precision``: 'high' and 'default' spell their bf16
+    passes out themselves (ops/estep.py::kdot), as the kernels do
+    (csrc/fused_stats.cu)."""
     device = resolve_device(config)
-    if config.matmul_precision != "highest":
-        raise ValueError(
-            f"matmul_precision={config.matmul_precision!r} is not ported "
-            "yet: only 'highest' (plain fp32/fp64 products) is")
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -170,12 +167,19 @@ class GMMModel:
         if self.batched_stats_fn is None:
             self.batched_stats_fn = lane_loop_stats(
                 stats_fn or functools.partial(accumulate_stats,
-                                              diag_only=diag_only),
+                                              **self.numerics),
                 diag_only=diag_only)
         if self.batched_mstep_fn is None:
             self.batched_mstep_fn = lane_loop_mstep(
                 mstep_fn or functools.partial(apply_mstep,
                                               diag_only=diag_only))
+
+    @property
+    def numerics(self) -> dict:
+        """The torch-ops E-step's switches from the config."""
+        cfg = self.config
+        return dict(diag_only=cfg.diag_only, quad_mode=cfg.quad_mode,
+                    matmul_precision=cfg.matmul_precision)
 
     def place(self, array: np.ndarray) -> torch.Tensor:
         """A host array as a tensor of the model's device and dtype."""
@@ -198,8 +202,8 @@ class GMMModel:
             state, data_chunks, wts_chunks, epsilon,
             cfg.min_iters if min_iters is None else min_iters,
             cfg.max_iters if max_iters is None else max_iters,
-            diag_only=cfg.diag_only, stats_fn=stats_fn,
-            mstep_fn=self.mstep_fn)
+            stats_fn=stats_fn, mstep_fn=self.mstep_fn,
+            precompute_features=cfg.precompute_features, **self.numerics)
 
     def run_em_batched(self, states, data_chunks, wts_chunks, epsilon: float,
                        min_iters=None, max_iters=None,
@@ -218,6 +222,17 @@ class GMMModel:
         stats_fn = self.batched_stats_fn
         if n_events is not None and self.estep_backend == "cuda":
             stats_fn = functools.partial(stats_fn, n_events=n_events)
+        cfg = self.config
+        # No unbatched stats_fn: the batched E-step is torch ops lane by lane.
+        feats = (hoisted_features(
+            data_chunks, precompute_features=cfg.precompute_features,
+            diag_only=cfg.diag_only, quad_mode=cfg.quad_mode)
+            if self.stats_fn is None else None)
+        if feats is not None:
+            stats_fn = lane_loop_stats(
+                functools.partial(accumulate_stats, feats_chunks=feats,
+                                  **self.numerics),
+                diag_only=cfg.diag_only)
         return em_while_loop_batched(
             states, data_chunks, wts_chunks, epsilon, lo, hi,
             batched_stats_fn=stats_fn, mstep_fn=self.batched_mstep_fn)
@@ -230,7 +245,7 @@ class GMMModel:
     def infer_posteriors(self, state, xb):
         """(w [B, K], logZ [B]) for one block of events (torch-ops path)."""
         return posteriors(state, torch.as_tensor(xb, device=self.device),
-                          diag_only=self.config.diag_only)
+                          **self.numerics)
 
     def memberships(self, state, data_chunks) -> np.ndarray:
         """Posteriors [N_padded, K] recomputed from the final parameters
@@ -241,8 +256,23 @@ class GMMModel:
              for i in range(data_chunks.shape[0])], axis=0)
 
 
+def hoisted_features(data_chunks: torch.Tensor, *, precompute_features: bool,
+                     diag_only: bool, quad_mode: str):
+    """The [C, B, F] features of ``quad_mode`` for every chunk, when
+    ``precompute_features`` applies to the torch-ops E-step (full
+    covariance, 'expanded' or 'packed'); else None. Built by the same
+    function the inline path calls on each chunk."""
+    if (not precompute_features or diag_only
+            or quad_mode not in ("expanded", "packed")):
+        return None
+    return torch.stack([features(c, quad_mode) for c in data_chunks])
+
+
 def em_while_loop(state, data_chunks, wts_chunks, epsilon: float,
                   min_iters: int, max_iters: int, *, diag_only: bool = False,
+                  quad_mode: str = "expanded",
+                  matmul_precision: str = "highest",
+                  precompute_features: bool = False,
                   stats_fn: Optional[Callable] = None,
                   mstep_fn: Optional[Callable] = None,
                   reduce_stats: Optional[Callable] = None,
@@ -255,17 +285,30 @@ def em_while_loop(state, data_chunks, wts_chunks, epsilon: float,
     ``reduce_stats(stats) -> SuffStats`` is applied to every E-step's
     statistics before the loglik is read (the data-axis all_reduce of a
     mesh, parallel/sharded_em.py); ``cluster_group`` is the process group
-    of a sharded cluster axis, handed to the torch-ops E- and M-step. The
-    loglik and the change are computed in the data's dtype, as on the device
-    in the reference, and read to the host once per iteration.
+    of a sharded cluster axis, handed to the torch-ops E- and M-step.
+    ``quad_mode`` and ``matmul_precision`` are the torch-ops E-step's
+    switches; ``precompute_features`` hoists its [C, B, F] features out of
+    the loop (built once here, when no ``stats_fn`` is bound, for full
+    covariance in 'expanded'/'packed' mode, as the JAX package's loop
+    does). The loglik and the change are computed in the data's dtype, as
+    on the device in the reference, and read to the host once per
+    iteration.
     """
+    feats = None
+    if stats_fn is None:
+        feats = hoisted_features(
+            data_chunks, precompute_features=precompute_features,
+            diag_only=diag_only, quad_mode=quad_mode)
+
     def estep(s) -> SuffStats:
         if stats_fn is not None:
             stats = stats_fn(s, data_chunks, wts_chunks)
         else:
             stats = accumulate_stats(s, data_chunks, wts_chunks,
-                                     diag_only=diag_only,
-                                     cluster_group=cluster_group)
+                                     diag_only=diag_only, quad_mode=quad_mode,
+                                     matmul_precision=matmul_precision,
+                                     cluster_group=cluster_group,
+                                     feats_chunks=feats)
         return reduce_stats(stats) if reduce_stats is not None else stats
 
     def mstep(s, stats):

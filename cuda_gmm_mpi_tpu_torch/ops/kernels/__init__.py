@@ -19,6 +19,8 @@ device, dtype, ``estep_backend``   resolves to
 =================================  ======================================
 any, any, 'torch'                  'torch' (the torch-ops yardstick)
 any, float64, 'auto' or 'cuda'     'torch' -- kernel is float32-only
+quad_mode='centered' (full), auto  'torch' -- the kernels compute the
+                                   expanded form ('cuda' raises)
 sharded clusters, full covariance  'torch' -- the two-pass kernels would
                                    run the dominant contraction twice
 cuda, float32, 'auto' or 'cuda'    'cuda' (K1 + K2; K5 + K6 with sharded
@@ -26,6 +28,11 @@ cuda, float32, 'auto' or 'cuda'    'cuda' (K1 + K2; K5 + K6 with sharded
 cpu, float32, 'auto'               'torch'
 cpu, float32, 'cuda'               raises: the kernels need a CUDA device
 =================================  ======================================
+
+Every matmul precision routes alike: K1/K3 run 'highest', 'high' and
+'default' (``PREC`` in csrc/fused_stats.cu); 'packed' stays on the kernels,
+which form only the upper triangle of x x^T already. K5/K6 run 'highest'
+only and raise for the others.
 """
 
 from __future__ import annotations
@@ -47,6 +54,12 @@ def resolve_estep_backend(config, cluster_sharded: bool = False):
         return "torch", "estep_backend=torch (explicit)"
     if config.dtype != "float32":
         return "torch", f"kernel is float32-only (dtype={config.dtype})"
+    if config.quad_mode == "centered" and not config.diag_only:
+        if mode == "cuda":
+            raise ValueError("quad_mode='centered' runs on torch ops only: "
+                             "the CUDA kernels compute the expanded form")
+        return "torch", ("quad_mode=centered stays on torch ops (the "
+                         "kernels compute the expanded form)")
     if cluster_sharded and not config.diag_only:
         # Full covariance is bound by its [N, T+D] x [T+D, K] product: the
         # two-pass kernels (K5, then K6) would run it twice, the torch-ops

@@ -19,12 +19,17 @@ K6 accumulates this rank's statistics from it. A shard of at most 64
 clusters runs them on a kernel of their own, 64 columns wide, with several
 CTAs per SM (``shard_tile``); a wider shard runs K1's kernel in their mode.
 
-Precision: the kernels run matmul_precision='highest' only, at plain
-fp32's error class. K1's kernel (and so K3, K5 and K6) forms logp on the
-fp32 FMA units and the statistics on the tensor cores in three TF32 passes
-(each operand split as big + small, the small*small term dropped, each
-8-deep partial added outside the tensor cores, which truncate their sums);
-'high' and 'default' are not ported.
+Precision: K1's kernel (and so K3) runs all three matmul precisions, as
+the TPU kernels do through ``_kdot``. 'highest' (fp32's error class)
+forms logp on the fp32 FMA units and the statistics on the tensor cores in
+three TF32 passes (each operand split as big + small, the small*small term
+dropped, each 8-deep partial added outside the tensor cores, which truncate
+their sums). 'high' (bf16_3x) and 'default' (one bf16 pass) run both
+products on the tensor cores in bf16 m16n8k16 passes: three (each operand
+split as bf16 big + bf16 small, small*small dropped) or one; Nk stays a
+plain fp32 sum of the posteriors in every mode. K5/K6 run 'highest' only.
+The plain versions take ``precision`` and run the same arithmetic through
+``ops.estep.kdot``.
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each counts its kernel launches
@@ -51,7 +56,7 @@ import torch.distributed as dist
 
 from ...state import lane
 from ..constants import constants
-from ..estep import expand_features
+from ..estep import expand_features, kdot
 from ..mstep import SuffStats
 
 NEG_LARGE = -1e30  # stand-in for -inf: exp() underflows to 0, avoids inf-inf
@@ -82,13 +87,17 @@ SM_SMEM_BYTES = 233472
 CTA_RESERVED_SMEM = 1024
 
 
+# The kernels' precision codes (PREC in fused_stats.cu).
+PRECISIONS = {"highest": 0, "high": 1, "default": 2}
+
+
 def _check_precision(precision: str) -> None:
+    """K5/K6: 'highest' only in this port so far."""
     if precision != "highest":
         raise ValueError(
-            f"matmul_precision={precision!r} is not ported to the CUDA "
-            "kernels yet: only 'highest' (fp32-class error: logp on the "
-            "fp32 units, the statistics in three TF32 passes on the tensor "
-            "cores) is")
+            f"matmul_precision={precision!r} is not ported to the cluster-"
+            "sharded kernels K5/K6 yet (their 'high'/'default' modes are the "
+            "next precision work): only 'highest' is")
 
 
 def _check_cuda(*tensors, dtype=torch.float32) -> None:
@@ -148,18 +157,20 @@ def _prep_params(state, d: int, diag_only: bool):
     return A.T.contiguous(), h.T.contiguous(), g
 
 
-def _logp_plain(x, A, h, g, diag: bool):
+def _logp_plain(x, A, h, g, diag: bool, precision: str = "highest"):
     """(logp [N, K], features [N, F]) as the TPU kernels' ``_logp_tile``."""
     x2 = x * x if diag else expand_features(x)
-    q = x2 @ A
-    q = q - 2.0 * (x @ h)
+    q = kdot(x2, A, precision)
+    q = q - 2.0 * kdot(x, h, precision)
     return -0.5 * q + g, x2
 
 
-def fused_stats_plain(x, wt, A, h, g, *, diag: bool):
+def fused_stats_plain(x, wt, A, h, g, *, diag: bool,
+                      precision: str = "highest"):
     """K1's function in plain torch: (ll [1, 1], nk [1, K], m1 [K, D],
-    m2 [K, F]) from x [N, D], wt [N], A [F, K], h [D, K], g [1, K]."""
-    logp, x2 = _logp_plain(x, A, h, g, diag)
+    m2 [K, F]) from x [N, D], wt [N], A [F, K], h [D, K], g [1, K]; the
+    products at ``precision`` (``kdot``), Nk a plain sum."""
+    logp, x2 = _logp_plain(x, A, h, g, diag, precision)
     m = torch.clamp(logp.max(dim=1, keepdim=True).values, min=NEG_LARGE)
     e = torch.exp(logp - m)
     s = e.sum(dim=1, keepdim=True)
@@ -167,7 +178,7 @@ def fused_stats_plain(x, wt, A, h, g, *, diag: bool):
     logz = (m + torch.log(s)) * w8
     w = (e / s) * w8
     return (logz.sum().reshape(1, 1), w.sum(dim=0, keepdim=True),
-            w.T @ x, w.T @ x2)
+            kdot(w.T, x, precision), kdot(w.T, x2, precision))
 
 
 def _fe_pad(d: int, diag: bool) -> int:
@@ -281,8 +292,8 @@ def fused_stats(x, wt, A, h, g, *, diag: bool, block_b: int = 512,
     """K1: (ll, nk, m1, m2) as in :func:`fused_stats_plain`. CPU tensors
     take the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
-        return fused_stats_plain(x, wt, A, h, g, diag=diag)
-    _check_precision(precision)
+        return fused_stats_plain(x, wt, A, h, g, diag=diag,
+                                 precision=precision)
     _check_cuda(x, wt, A, h, g)
     _check_k1_shapes("K1", x, wt, A, h, g, diag)
     n, d = x.shape
@@ -304,7 +315,8 @@ def fused_stats(x, wt, A, h, g, *, diag: bool, block_b: int = 512,
     err = fn(x.data_ptr(), wt.data_ptr(), a_ext.data_ptr(), g_pad.data_ptr(),
              partial.data_ptr(), ll_part.data_ptr(), ll.data_ptr(),
              nk.data_ptr(), m1.data_ptr(), m2.data_ptr(), n, d, k, k_pad,
-             int(diag), bt, grid, torch.cuda.current_stream(x.device).cuda_stream)
+             int(diag), bt, grid, PRECISIONS[precision],
+             torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "K1 (fused_stats)")
     fused_stats.launches += 1
     return ll, nk, m1, m2
@@ -335,12 +347,14 @@ def fused_stats_cuda(state, data_chunks, wts_chunks, *, diag_only=False,
 
 # ---------------------------------------------------------------- K3
 
-def fused_stats_batched_plain(x, wt, lanes, A, h, g, *, diag: bool):
+def fused_stats_batched_plain(x, wt, lanes, A, h, g, *, diag: bool,
+                              precision: str = "highest"):
     """K3's function in plain torch: K1's plain version on each lane r,
     with the event weights scaled by ``lanes[r]`` (the TPU kernel's folded
     lane mask). x [N, D], wt [N], lanes [R], A [R, F, K], h [R, D, K],
     g [R, 1, K] -> (ll [R, 1, 1], nk [R, 1, K], m1 [R, K, D], m2 [R, K, F])."""
-    outs = [fused_stats_plain(x, wt * lanes[r], A[r], h[r], g[r], diag=diag)
+    outs = [fused_stats_plain(x, wt * lanes[r], A[r], h[r], g[r], diag=diag,
+                              precision=precision)
             for r in range(A.shape[0])]
     return tuple(torch.stack(o) for o in zip(*outs))
 
@@ -352,8 +366,8 @@ def fused_stats_batched(x, wt, lanes, A, h, g, *, diag: bool,
     comes out exactly zero. CPU tensors take the plain version; CUDA
     tensors launch the kernel."""
     if x.device.type == "cpu":
-        return fused_stats_batched_plain(x, wt, lanes, A, h, g, diag=diag)
-    _check_precision(precision)
+        return fused_stats_batched_plain(x, wt, lanes, A, h, g, diag=diag,
+                                         precision=precision)
     _check_cuda(x, wt, lanes, A, h, g)
     n, d = x.shape
     r, f, k = A.shape
@@ -384,7 +398,7 @@ def fused_stats_batched(x, wt, lanes, A, h, g, *, diag: bool,
     err = fn(x.data_ptr(), wt.data_ptr(), lanes.data_ptr(), a_ext.data_ptr(),
              g_pad.data_ptr(), partial.data_ptr(), ll_part.data_ptr(),
              ll.data_ptr(), nk.data_ptr(), m1.data_ptr(), m2.data_ptr(), n, d,
-             k, k_pad, int(diag), bt, grid, r,
+             k, k_pad, int(diag), bt, grid, r, PRECISIONS[precision],
              torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "K3 (fused_stats_batched)")
     fused_stats_batched.launches += 1

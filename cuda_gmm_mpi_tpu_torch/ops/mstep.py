@@ -26,7 +26,7 @@ from typing import Optional
 import torch
 
 from .constants import compute_constants
-from .estep import expand_features, posteriors
+from .estep import expand_features, features, kdot, posteriors, unpack_sym
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,33 +56,49 @@ def zeros_stats(K: int, D: int, dtype, device, diag_only: bool = False):
 
 
 def chunk_stats(state, x: torch.Tensor, wts: Optional[torch.Tensor] = None,
-                *, diag_only: bool = False, cluster_group=None) -> SuffStats:
+                *, diag_only: bool = False, quad_mode: str = "expanded",
+                matmul_precision: str = "highest", cluster_group=None,
+                xouter: Optional[torch.Tensor] = None) -> SuffStats:
     """Fused E+M statistics for one chunk of events.
 
     ``wts`` is a [B] row of nonnegative per-event weights (0 on padding).
-    With ``cluster_group`` the statistics are this rank's cluster shard's
-    and the loglik is the same on every rank of the group."""
+    ``xouter`` optionally supplies the chunk's features of ``quad_mode``
+    (the EM loop's ``precompute_features`` hoist). With ``cluster_group``
+    the statistics are this rank's cluster shard's and the loglik is the
+    same on every rank of the group. M1/M2 go through ``kdot`` at
+    ``matmul_precision``; Nk is a plain sum, as in the JAX package."""
     K, D = state.means.shape
-    xouter = None if diag_only else expand_features(x)
-    w, logZ = posteriors(state, x, diag_only=diag_only, xouter=xouter,
+    prec = matmul_precision
+    if xouter is None and not diag_only and quad_mode != "centered":
+        xouter = features(x, quad_mode)
+    w, logZ = posteriors(state, x, diag_only=diag_only, quad_mode=quad_mode,
+                         matmul_precision=prec, xouter=xouter,
                          cluster_group=cluster_group)
     if wts is not None:
         w = w * wts[:, None]
         logZ = logZ * wts
-    M1 = w.T @ x
+    M1 = kdot(w.T, x, prec)
     if diag_only:
-        M2 = w.T @ (x * x)
+        M2 = kdot(w.T, x * x, prec)
+    elif quad_mode == "packed":
+        # The upper triangle only, mirrored by one gather: exactly symmetric.
+        M2 = unpack_sym(kdot(w.T, xouter, prec), D)
     else:
-        M2 = (w.T @ xouter).reshape(K, D, D)
+        if xouter is None:
+            xouter = expand_features(x)
+        M2 = kdot(w.T, xouter, prec).reshape(K, D, D)
     return SuffStats(loglik=logZ.sum(), Nk=w.sum(dim=0), M1=M1, M2=M2)
 
 
 def accumulate_stats(state, data_chunks: torch.Tensor,
                      wts_chunks: Optional[torch.Tensor] = None, *,
-                     diag_only: bool = False, cluster_group=None) -> SuffStats:
+                     diag_only: bool = False, quad_mode: str = "expanded",
+                     matmul_precision: str = "highest", cluster_group=None,
+                     feats_chunks: Optional[torch.Tensor] = None) -> SuffStats:
     """Sum the fused E+M pass over [num_chunks, B, D] event chunks, in chunk
     order; the working set is one chunk's intermediates, so the N x K
-    posteriors and N x D^2 features never exist at once."""
+    posteriors and N x D^2 features never exist at once (unless
+    ``feats_chunks``, [num_chunks, B, F] hoisted features, holds them)."""
     num_chunks, B, D = data_chunks.shape
     K = state.means.shape[0]
     acc = zeros_stats(K, D, data_chunks.dtype, data_chunks.device,
@@ -91,7 +107,9 @@ def accumulate_stats(state, data_chunks: torch.Tensor,
         acc = acc + chunk_stats(
             state, data_chunks[c],
             None if wts_chunks is None else wts_chunks[c],
-            diag_only=diag_only, cluster_group=cluster_group)
+            diag_only=diag_only, quad_mode=quad_mode,
+            matmul_precision=matmul_precision, cluster_group=cluster_group,
+            xouter=None if feats_chunks is None else feats_chunks[c])
     return acc
 
 

@@ -168,7 +168,9 @@ class ShardedGMMModel:
             state, data_chunks, wts_chunks, epsilon,
             cfg.min_iters if min_iters is None else min_iters,
             cfg.max_iters if max_iters is None else max_iters,
-            diag_only=cfg.diag_only, stats_fn=stats_fn,
+            diag_only=cfg.diag_only, quad_mode=cfg.quad_mode,
+            matmul_precision=cfg.matmul_precision,
+            precompute_features=cfg.precompute_features, stats_fn=stats_fn,
             mstep_fn=self.mstep_fn, reduce_stats=self._reduce,
             cluster_group=self.mesh.cluster_group)
 
@@ -228,8 +230,10 @@ class ShardedGMMModel:
 
     def infer_posteriors(self, state, xb):
         """(w [B, K], logZ [B]) for one block of events, on this rank."""
+        cfg = self.config
         return posteriors(state, torch.as_tensor(xb, device=self.device),
-                          diag_only=self.config.diag_only)
+                          diag_only=cfg.diag_only, quad_mode=cfg.quad_mode,
+                          matmul_precision=cfg.matmul_precision)
 
     def memberships(self, state, data_chunks) -> np.ndarray:
         """Posteriors [N_padded, K] from a full (gathered) state."""

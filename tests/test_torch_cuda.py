@@ -7,7 +7,9 @@ neither jax nor the JAX package, so it also runs on a machine without jax:
 
 Tolerances: K1 (three TF32 passes on the tensor cores) is held to the
 tests/test_pallas.py class (float32 reassociation between two summation
-orders) and must be bit-identical from launch to launch; on blobs far from
+orders) and must be bit-identical from launch to launch; so is K1 at
+'high' and 'default' (bf16 passes) against its plain version at the same
+precision, and within twice that version's error against float64; on blobs far from
 the mean K1, K3 and K6 are held against float64 at twice the plain
 version's error. K2 (the whole M-step) must give the torch-ops M-step's
 ``ok``, N, means and R exactly (torch.equal), Rinv and constant within
@@ -101,13 +103,19 @@ def _far_state(rng, k, d, diag):
     return s
 
 
-def _within_twice_plain(out, ref, ref64, name):
+def _within_twice_plain(out, ref, ref64, name, floor=2.0 ** -23):
     """Normwise against float64: at most twice the plain version's error
-    (floored at the float32 epsilon)."""
+    (floored at the arithmetic's unit roundoff: the float32 epsilon)."""
     scale = float(ref64.abs().max())
     err = float((out.double() - ref64).abs().max()) / scale
     plain = float((ref.double() - ref64).abs().max()) / scale
-    assert err <= 2.0 * max(plain, 2.0 ** -23), (name, err, plain)
+    assert err <= 2.0 * max(plain, floor), (name, err, plain)
+
+
+# The unit roundoff of each bf16 mode, the floor of its float64 bar: 'high'
+# keeps 16 of fp32's 24 mantissa bits of each operand (bf16 big + bf16
+# small), 'default' 8.
+BF16_FLOOR = {"high": 2.0 ** -17, "default": 2.0 ** -9}
 
 
 @pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
@@ -156,6 +164,124 @@ def test_k1_no_less_accurate_than_plain_far_from_the_mean(dev, diag):
     ref64 = fs.stats_logz_plain(*(t.double() for t in args6), diag=diag)
     for a, b, c, name in zip(out, ref, ref64, TOL):
         _within_twice_plain(a, b, c, "K6 " + name)
+
+
+@pytest.mark.parametrize("n,d,k,block_b", [
+    (1000, 3, 5, 512), (20000, 24, 100, 512),
+    (4099, 6, 70, 64),       # 64-event tiles at K_pad = 128
+    (30000, 32, 512, 512),   # K_pad = 512: the tile drops to 64 events
+])
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_k1_bf16_modes_match_plain_float64_and_repeat(dev, n, d, k, block_b,
+                                                      precision, diag):
+    """K1 at 'high' (three bf16 passes) and 'default' (one) against its
+    plain version at the same precision (the tests/test_pallas.py class),
+    against a float64 evaluation (at most twice the plain version's error,
+    floored at the mode's unit roundoff, 2^-17 or 2^-9), and bit-identical
+    from launch to launch; also on blobs far from the mean (|x| ~ 170),
+    where only the float64 bar applies. The floor matters for the loglik at
+    'high': the tensor cores truncate the sums of phase 1's bf16 products
+    (toward zero, a few fp32 ulps per 16-deep step), where the plain
+    version rounds to nearest; measured on an H100 at N = 30000, D = 32,
+    K = 512: 1.07e-5 against the plain version's 4.88e-6, under
+    2 x 2^-17 = 1.53e-5."""
+    rng = np.random.default_rng(n + k + 7)
+    for far in (False, True):
+        s = (_far_state(rng, k, d, diag) if far
+             else _state(rng, k, d, diag, inactive=(1,)))
+        state = state_from_numpy(s, device=dev)
+        xs = (s["means"][rng.integers(0, k, n)] + rng.normal(size=(n, d))
+              if far else rng.normal(scale=2.0, size=(n, d)))
+        x = torch.as_tensor(xs, dtype=torch.float32, device=dev)
+        wt = torch.as_tensor(rng.uniform(0.0, 2.0, size=n),
+                             dtype=torch.float32, device=dev)
+        args = (x, wt) + fs._prep_params(state, d, diag)
+        kw = dict(diag=diag, block_b=block_b, precision=precision)
+        out = fs.fused_stats(*args, **kw)
+        again = fs.fused_stats(*args, **kw)
+        ref = fs.fused_stats_plain(*args, diag=diag, precision=precision)
+        ref64 = fs.fused_stats_plain(*(t.double() for t in args), diag=diag)
+        torch.cuda.synchronize()
+        assert float(out[1][0, 1]) == 0.0
+        for a, b, c, c64, name in zip(out, again, ref, ref64, TOL):
+            assert torch.equal(a, b), name
+            _within_twice_plain(a, c, c64, f"K1 {precision} {name}",
+                                BF16_FLOOR[precision])
+            if far:
+                continue
+            rtol, atol = TOL[name]
+            err = float((a - c).abs().max())
+            assert err <= atol + rtol * float(c.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("n,d,k", [(4099, 6, 70), (3000, 6, 400)])
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_k3_bf16_modes_lanes_equal_k1(dev, n, d, k, precision, diag):
+    """Each live K3 lane torch.equal to K1 at the same precision; a frozen
+    lane all zeros."""
+    rng = np.random.default_rng(n + k + 5)
+    states = [state_from_numpy(_state(rng, k, d, diag, inactive=inact),
+                               device=dev) for inact in ((1,), (), (0, 3))]
+    x = torch.as_tensor(rng.normal(scale=2.0, size=(n, d)), dtype=torch.float32,
+                        device=dev)
+    wt = torch.ones(n, dtype=torch.float32, device=dev)
+    params = [fs._prep_params(s, d, diag) for s in states]
+    A, h, g = (torch.stack(p) for p in zip(*params))
+    lanes = torch.tensor([1.0, 0.0, 1.0], device=dev)
+    out = fs.fused_stats_batched(x, wt, lanes, A, h, g, diag=diag,
+                                 precision=precision)
+    for r in (0, 2):
+        one = fs.fused_stats(x, wt, *params[r], diag=diag, precision=precision)
+        for a, b in zip(out, one):
+            assert torch.equal(a[r], b)
+    assert not any(bool(a[1].any()) for a in out)
+
+
+def test_k5_k6_refuse_the_bf16_modes(dev):
+    """K5/K6 keep 'highest' only: 'high' and 'default' raise a ValueError
+    that names the next precision work; nothing routes around it."""
+    rng = np.random.default_rng(3)
+    state = state_from_numpy(_state(rng, 10, 4, False), device=dev)
+    x = torch.as_tensor(rng.normal(size=(500, 4)), dtype=torch.float32,
+                        device=dev)
+    wt = torch.ones(500, dtype=torch.float32, device=dev)
+    A, h, g = fs._prep_params(state, 4, False)
+    logz = torch.zeros((500, 1), dtype=torch.float32, device=dev)
+    for precision in ("high", "default"):
+        with pytest.raises(ValueError, match="K5/K6"):
+            fs.local_lse(x, A, h, g, diag=False, precision=precision)
+        with pytest.raises(ValueError, match="K5/K6"):
+            fs.stats_logz(x, wt, logz, A, h, g, diag=False,
+                          precision=precision)
+
+
+@pytest.mark.parametrize("precision", ["high", "default"])
+def test_fit_bf16_modes_through_kernels_match_torch_ops(dev, precision):
+    """A fit through K1/K2 at 'high' and 'default'. At 'high', against the
+    torch-ops path at 'high' (ops/estep.py::kdot): the same merge pairs,
+    final loglik within rtol 1e-4 (the float32 fit class). At 'default' the
+    two paths' one-pass bf16 roundings of w (steps of 2^-9) flip wherever
+    two float32 evaluations of w straddle a bf16 boundary, so their merge
+    choices part ways (seen on an H100); there the kernel fit is held to
+    what the path promises: every K of the sweep, finite, down to the
+    target."""
+    rng = np.random.default_rng(11)
+    c = rng.normal(scale=10, size=(4, 5))
+    x = np.concatenate([rng.normal(c[i], 1, (500, 5))
+                        for i in range(4)]).astype(np.float32)
+    kw = dict(min_iters=10, max_iters=10, matmul_precision=precision)
+    k1 = fs.fused_stats.launches
+    res = fit_gmm(x, 8, 4, config=GMMConfig(**kw))
+    assert res.model.estep_backend == "cuda" and fs.fused_stats.launches > k1
+    assert res.ideal_num_clusters == 4 and np.isfinite(res.final_loglik)
+    assert np.isfinite(res.means).all()
+    if precision == "default":
+        return
+    ref = fit_gmm(x, 8, 4, config=GMMConfig(estep_backend="torch", **kw))
+    assert [m[1] for m in res.merges] == [m[1] for m in ref.merges]
+    np.testing.assert_allclose(res.final_loglik, ref.final_loglik, rtol=1e-4)
 
 
 # K2/K4: the guard cases of the M-step, forced into a state of K clusters.

@@ -71,8 +71,10 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
     before = (fs.fused_stats.launches, fs.mstep.launches)
     with pytest.raises(ValueError, match="CUDA tensors"):
         fs.fused_stats(*args, diag=False)
-    with pytest.raises(ValueError, match="not ported"):
+    with pytest.raises(ValueError, match="CUDA tensors"):  # K1 runs 'high'
         fs.fused_stats(*args, diag=False, precision="high")
+    with pytest.raises(ValueError, match="not ported"):  # K5/K6 do not yet
+        fs.local_lse(*args[:1], *args[2:], diag=False, precision="high")
     with pytest.raises(ValueError, match="CUDA tensors"):
         fs.mstep(meta(4), meta(4, 3), meta(4, 9), meta(4), meta(4),
                  diag=False)
