@@ -14,6 +14,10 @@ with the same command, and rank 0 writes the outputs:
 
 or with ``--coordinator HOST:PORT --num-processes R --process-id I`` on each
 rank in place of torchrun.
+
+``--init-from MODEL.summary`` seeds the fit's means from a saved model;
+``--predict-from MODEL.summary`` fits nothing and writes the memberships of
+infile under a saved model (the num_clusters positional is ignored).
 """
 
 from __future__ import annotations
@@ -48,9 +52,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="diagonal covariance (DIAG_ONLY, gaussian.h:23); "
                    "shorthand for --covariance-type=diag")
     p.add_argument("--covariance-type", default="full",
-                   choices=["full", "diag"],
-                   help="covariance family: the reference's full or "
-                   "diagonal (DIAG_ONLY)")
+                   choices=["full", "diag", "spherical", "tied"],
+                   help="covariance family: the reference's full/diag plus "
+                   "spherical (sigma^2 I per cluster) and tied (one shared "
+                   "covariance)")
+    p.add_argument("--criterion", default="rissanen",
+                   choices=["rissanen", "bic", "aic", "aicc"],
+                   help="model-order selection score: the reference's "
+                   "Rissanen/MDL (gaussian.cu:826), or BIC/AIC/AICc with "
+                   "the family's free-parameter count")
     p.add_argument("--min-iters", type=int, default=100,
                    help="MIN_ITERS (gaussian.h:27)")
     p.add_argument("--max-iters", type=int, default=100,
@@ -107,6 +117,15 @@ def build_parser() -> argparse.ArgumentParser:
                    "rank on the event axis")
     p.add_argument("--verbose", "-v", action="store_true",
                    help="status prints (ENABLE_PRINT, gaussian.h:35)")
+    p.add_argument("--init-from", default=None, metavar="MODEL.summary",
+                   help="warm-start: initial means from a saved .summary "
+                   "model (its K must equal num_clusters); covariances/"
+                   "weights restart from the reference seed recipe")
+    p.add_argument("--predict-from", default=None, metavar="MODEL.summary",
+                   help="skip fitting: load a saved .summary model (this "
+                   "package's, the JAX package's or the reference's own "
+                   "output) and write <outfile>.results memberships for "
+                   "infile under it; the num_clusters positional is ignored")
     d = p.add_argument_group(
         "distributed (the reference's mpirun; run the SAME command on every "
         "rank, or launch with torchrun, which sets RANK and WORLD_SIZE)")
@@ -144,7 +163,7 @@ def main(argv=None) -> int:
     try:
         config = GMMConfig(
             dtype=args.dtype, diag_only=args.diag_only,
-            covariance_type=args.covariance_type,
+            covariance_type=args.covariance_type, criterion=args.criterion,
             min_iters=args.min_iters, max_iters=args.max_iters,
             max_clusters=args.max_clusters,
             covariance_dynamic_range=args.dynamic_range,
@@ -160,6 +179,27 @@ def main(argv=None) -> int:
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
+    if args.predict_from is not None:
+        # Inference only: K comes from the model file, so the fit's
+        # cluster-count checks do not apply; flags that only a fit reads
+        # are refused rather than ignored.
+        if (args.coordinator is not None or args.num_processes is not None
+                or args.process_id is not None):
+            print("--predict-from is a single-process mode", file=sys.stderr)
+            return 1
+        fit_only = [
+            ("--init-from", args.init_from),
+            ("--n-init", args.n_init != 1),
+            ("--restart-batch-size", args.restart_batch_size is not None),
+            ("--mesh", args.mesh),
+            ("--seed-method", args.seed_method != "even"),
+        ]
+        for flag, present in fit_only:
+            if present:
+                print(f"{flag} has no effect with --predict-from",
+                      file=sys.stderr)
+                return 1
+        return _predict_main(args, config)
     if not (1 <= args.num_clusters <= config.max_clusters):
         print("Invalid number of starting clusters\n", file=sys.stderr)  # :1122
         return 1
@@ -186,21 +226,32 @@ def main(argv=None) -> int:
 def _run(args, config, rank: int, world: int) -> int:
     import dataclasses
 
-    from .io import TruncatedInputError, read_data, stream_results, write_summary
+    from .io import read_summary, stream_results, write_summary
     from .models import fit_gmm, iter_memberships
     from .models.order_search import default_model
     from .validation import InvalidInputError
 
     if rank != 0:  # status prints from rank 0 only
         config = dataclasses.replace(config, enable_print=False)
-    try:
-        data = read_data(args.infile)
-    except (OSError, ValueError) as e:
-        print("Error parsing input file. This could be due to an empty file "
-              f"or an inconsistent number of dimensions. Aborting. ({e})",
-              file=sys.stderr)
-        return 74 if isinstance(e, (OSError, TruncatedInputError)) else 1
+    data, rc = _read_events(args.infile)
+    if data is None:
+        return rc
     n_events, n_dims = data.shape
+    init_means = None
+    if args.init_from:
+        # Every rank reads the same file, so every rank takes the same
+        # branch here.
+        try:
+            init_means = read_summary(args.init_from)["means"]
+        except (OSError, ValueError) as e:
+            print(f"Cannot load --init-from={args.init_from!r}: {e}",
+                  file=sys.stderr)
+            return 1
+        if init_means.shape != (args.num_clusters, n_dims):
+            print(f"--init-from model is {init_means.shape[0]} clusters x "
+                  f"{init_means.shape[1]} dims but this fit needs "
+                  f"({args.num_clusters}, {n_dims}).", file=sys.stderr)
+            return 1
     try:
         model = default_model(config)
     except (RuntimeError, ValueError) as e:
@@ -218,7 +269,7 @@ def _run(args, config, rank: int, world: int) -> int:
                   f"rank(s); collective backend: {model.collective_backend}")
     try:
         result = fit_gmm(data, args.num_clusters, args.target_num_clusters,
-                         config=config, model=model)
+                         config=config, model=model, init_means=init_means)
     except InvalidInputError as e:
         print(str(e), file=sys.stderr)
         return 1
@@ -227,6 +278,70 @@ def _run(args, config, rank: int, world: int) -> int:
     write_summary(args.outfile + ".summary", result)
     stream_results(args.outfile + ".results",
                    iter_memberships(result, data, config, model))
+    return 0
+
+
+def _read_events(path):
+    """(events, 0), or (None, exit code) after the reference's abort
+    message (gaussian.cu:204-205): 74 for an unreadable or torn file, 1 for
+    malformed content."""
+    from .io import TruncatedInputError, read_data
+
+    try:
+        return read_data(path), 0
+    except (OSError, ValueError) as e:
+        print("Error parsing input file. This could be due to an empty file "
+              f"or an inconsistent number of dimensions. Aborting. ({e})",
+              file=sys.stderr)
+        return None, 74 if isinstance(e, (OSError, TruncatedInputError)) else 1
+
+
+def _predict_main(args, config) -> int:
+    """Inference only: the memberships of infile under a saved model,
+    written as ``<outfile>.results`` beside a ``.summary`` echo of the model
+    (the reference has no such mode: its .summary is write-only)."""
+    import numpy as np
+
+    from .estimator import GaussianMixture
+    from .io import stream_results, write_summary
+    from .models import iter_memberships
+    from .validation import InvalidInputError, validate_finite
+
+    # The model first: a bad model path fails before a large infile is read.
+    try:
+        gm = GaussianMixture.from_summary(args.predict_from, config=config)
+    except (OSError, ValueError, RuntimeError) as e:
+        print(f"Cannot load model {args.predict_from!r}: {e}",
+              file=sys.stderr)
+        return 1
+    data, rc = _read_events(args.infile)
+    if data is None:
+        return rc
+    try:
+        validate_finite(data, dtype=np.dtype(config.dtype))
+    except InvalidInputError as e:
+        print(str(e), file=sys.stderr)
+        return 1
+    d_model = gm.result_.num_dimensions
+    if data.shape[1] != d_model:
+        print(f"Model has {d_model} dimensions but {args.infile!r} has "
+              f"{data.shape[1]}.", file=sys.stderr)
+        return 1
+    if config.enable_print:
+        print(f"Number of events: {data.shape[0]}")
+        print(f"Scoring under {gm.n_components_}-cluster model "
+              f"{args.predict_from!r}.")
+    echo_path = args.outfile + ".summary"
+    if (os.path.exists(echo_path)
+            and os.path.samefile(echo_path, args.predict_from)):
+        # The echo is re-derived (pi from N, non-PD R reset), not a byte
+        # copy: it must never overwrite the model it was loaded from.
+        print(f"outfile would overwrite the loaded model {echo_path!r}; "
+              "skipping the .summary echo", file=sys.stderr)
+    else:
+        write_summary(echo_path, gm.result_)
+    stream_results(args.outfile + ".results",
+                   iter_memberships(gm.result_, data, config, gm._model))
     return 0
 
 

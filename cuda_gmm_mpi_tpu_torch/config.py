@@ -27,11 +27,18 @@ class GMMConfig:
     max_clusters: int = 512
     covariance_dynamic_range: float = 1e3
     diag_only: bool = False
-    # 'full' (reference default) or 'diag' (the reference's DIAG_ONLY; the
-    # same setting as diag_only=True).
+    # 'full' (reference default) | 'diag' (the reference's DIAG_ONLY; the
+    # same setting as diag_only=True) | 'spherical' (sigma^2 I per cluster;
+    # the diagonal statistics path) | 'tied' (one shared D x D covariance;
+    # the full statistics path). The merge scan scores merges with the
+    # unconstrained pooled covariance and EM re-imposes the family each K.
     covariance_type: str = "full"
     min_iters: int = 100
     max_iters: int = 100
+    # Model-order selection score: 'rissanen' = the reference's MDL score
+    # (gaussian.cu:826); 'bic'/'aic'/'aicc' count the family's free
+    # parameters and use the event count N.
+    criterion: str = "rissanen"
     # epsilon = nparams_per_cluster * ln(N*D) * scale (gaussian.cu:458).
     epsilon_scale: float = 0.01
     dtype: str = "float32"
@@ -41,7 +48,7 @@ class GMMConfig:
     # TF32 passes on the tensor cores, its logp on the fp32 FMA units);
     # 'high' = bf16_3x (each fp32 operand split into two bf16 parts, three
     # bf16 passes); 'default' = one bf16 pass. The cluster-sharded kernels
-    # K5/K6 run 'highest' only.
+    # K5/K6 take all three as well.
     matmul_precision: str = "highest"
     # Quadratic-form evaluation: 'expanded' = x Rinv x^T - 2 b x + c as
     # products (data centered at fit time keeps it well-conditioned);
@@ -98,16 +105,21 @@ class GMMConfig:
                 f"({self.max_iters})")
         if self.max_clusters < 1:
             raise ValueError("max_clusters must be >= 1")
-        if self.covariance_type not in ("full", "diag"):
+        if self.covariance_type not in ("full", "diag", "spherical", "tied"):
             raise ValueError(
-                f"unknown covariance_type: {self.covariance_type!r} "
-                "(expected 'full' or 'diag')")
+                f"unknown covariance_type: {self.covariance_type!r}")
+        if self.criterion not in ("rissanen", "bic", "aic", "aicc"):
+            raise ValueError(f"unknown criterion: {self.criterion!r}")
         # diag_only and covariance_type are one setting: keep them coherent
         # whichever way the caller spells it.
-        if self.diag_only:
+        if self.diag_only and self.covariance_type == "full":
             object.__setattr__(self, "covariance_type", "diag")
-        elif self.covariance_type == "diag":
+        elif self.covariance_type in ("diag", "spherical"):
             object.__setattr__(self, "diag_only", True)
+        elif self.diag_only and self.covariance_type == "tied":
+            raise ValueError(
+                "covariance_type='tied' needs full-covariance statistics; "
+                "it cannot combine with diag_only=True")
         if self.dtype not in ("float32", "float64"):
             raise ValueError(f"unknown dtype: {self.dtype!r}")
         if self.matmul_precision not in ("highest", "high", "default"):

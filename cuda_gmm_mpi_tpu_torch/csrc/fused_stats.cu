@@ -1086,11 +1086,20 @@ int launch_reduce(const Params& p, float* ll, float* nk, float* m1, float* m2,
 }
 
 // The statistics kernel of `mode` on `s`, then (K1/K3/K6) the reduction.
-// Only K1/K3 (MODE_STATS) take a precision other than P_HIGHEST: the
-// (MODE, PREC) instances are those a route launches.
+// Every mode takes every precision: K1/K3 (MODE_STATS), and K5/K6 on this
+// kernel, which is their route at 'high' and 'default' for any shard width
+// (the shard kernel is 'highest' only).
+template <int MODE>
+cudaError_t launch_prec(const Params& p, int diag, int grid, int r, size_t smem,
+                        cudaStream_t s, int prec) {
+  return prec == P_HIGH      ? launch_mode<MODE, P_HIGH>(p, diag, grid, r, smem, s)
+         : prec == P_DEFAULT ? launch_mode<MODE, P_DEFAULT>(p, diag, grid, r, smem, s)
+                             : launch_mode<MODE>(p, diag, grid, r, smem, s);
+}
+
 int run(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
         int diag, int grid, int r, cudaStream_t s, int prec = P_HIGHEST) {
-  if (prec < P_HIGHEST || prec > P_DEFAULT || (prec != P_HIGHEST && mode != MODE_STATS))
+  if (prec < P_HIGHEST || prec > P_DEFAULT || p.kp % NT != 0)
     return (int)cudaErrorInvalidValue;
   const int d = p.d;
   p.xstride = (d + 1) | 1;  // odd row stride: no bank conflicts
@@ -1100,11 +1109,9 @@ int run(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
       ((size_t)p.bt * (p.kp + PAD) + 4 * STAGE + (size_t)p.bt * p.xstride) * sizeof(float) +
       fe_pad * sizeof(int);
   cudaError_t err =
-      mode == MODE_LOCAL_LSE  ? launch_mode<MODE_LOCAL_LSE>(p, diag, grid, r, smem, s)
-      : mode == MODE_STATS_LOGZ ? launch_mode<MODE_STATS_LOGZ>(p, diag, grid, r, smem, s)
-      : prec == P_HIGH        ? launch_mode<MODE_STATS, P_HIGH>(p, diag, grid, r, smem, s)
-      : prec == P_DEFAULT     ? launch_mode<MODE_STATS, P_DEFAULT>(p, diag, grid, r, smem, s)
-                              : launch_mode<MODE_STATS>(p, diag, grid, r, smem, s);
+      mode == MODE_LOCAL_LSE    ? launch_prec<MODE_LOCAL_LSE>(p, diag, grid, r, smem, s, prec)
+      : mode == MODE_STATS_LOGZ ? launch_prec<MODE_STATS_LOGZ>(p, diag, grid, r, smem, s, prec)
+                                : launch_prec<MODE_STATS>(p, diag, grid, r, smem, s, prec);
   if (err != cudaSuccess || mode == MODE_LOCAL_LSE) return (int)err;
   return launch_reduce(p, ll, nk, m1, m2, diag, grid, r, s);
 }
@@ -1141,14 +1148,17 @@ cudaError_t launch_shard_mode(const Params& p, int diag, int grid, size_t smem,
               : launch_shard<MODE, false>(p, grid, smem, s, ctas);
 }
 
-// K5 or K6 on one cluster shard. A shard of at most NS clusters (kp == NS)
-// runs the shard kernel on SR-event tiles; a wider one (kp a multiple of
-// NT, e.g. K_s = 65 or 130) runs K1's kernel in that mode, with phase 2 as
-// a pass over the logp buffer in shared memory. The caller picks the route
-// by the shard's width: kp, bt and grid come from the wrapper's tile.
+// K5 or K6 on one cluster shard at precision `prec`. At 'highest' a shard
+// of at most NS clusters (kp == NS) runs the shard kernel on SR-event
+// tiles; a wider one (kp a multiple of NT, e.g. K_s = 65 or 130) runs K1's
+// kernel in that mode, with phase 2 as a pass over the logp buffer in
+// shared memory. At 'high' and 'default' every shard runs K1's kernel (kp a
+// multiple of NT, K_s <= 64 included): its bf16 phase 1 is K1's. The
+// caller picks the route: kp, bt and grid come from the wrapper's tile.
 int run_shard(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
-              int diag, int grid, cudaStream_t s) {
-  if (p.kp != NS) return run(mode, p, ll, nk, m1, m2, diag, grid, 1, s);
+              int diag, int grid, cudaStream_t s, int prec) {
+  if (p.kp != NS || prec != P_HIGHEST)
+    return run(mode, p, ll, nk, m1, m2, diag, grid, 1, s, prec);
   if (p.bt != SR || p.k > NS) return (int)cudaErrorInvalidValue;
   p.xstride = (p.d + 1) | 1;  // odd row stride: no bank conflicts
   const size_t smem = shard_smem(mode, p.d, diag);
@@ -1221,31 +1231,32 @@ extern "C" int gmm_phase_cycles(unsigned long long* out) {
 #endif
 
 // Launches K5 on `stream`; returns cudaGetLastError(). K1's x, a_ext and g
-// for this shard's k clusters, padded to kp: 64 (the shard kernel, bt =
-// 128, grid up to 132 x K5_CTAS) when k <= 64, else a multiple of 128 (K1's
-// kernel and tile); m [n] and s [n] out.
+// for this shard's k clusters, padded to kp: at prec 0 ('highest') 64 (the
+// shard kernel, bt = 128, grid up to 132 x K5_CTAS) when k <= 64, else a
+// multiple of 128 (K1's kernel and tile); at prec 1 'high' / 2 'default'
+// always a multiple of 128 (K1's kernel). m [n] and s [n] out.
 extern "C" int gmm_local_lse(const float* x, const float* a_ext, const float* g,
                              float* m, float* s, int n, int d, int k, int kp,
-                             int diag, int bt, int grid, void* stream) {
+                             int diag, int bt, int grid, int prec, void* stream) {
   return run_shard(MODE_LOCAL_LSE,
                    params(x, nullptr, nullptr, nullptr, a_ext, g, m, s, nullptr,
                           nullptr, n, d, k, kp, bt),
                    nullptr, nullptr, nullptr, nullptr, diag, grid,
-                   static_cast<cudaStream_t>(stream));
+                   static_cast<cudaStream_t>(stream), prec);
 }
 
 // Launches K6 (both kernels) on `stream`; returns cudaGetLastError(). K1's
 // operands and outputs, plus logz [n], the global per-event evidence; kp,
-// bt and grid (up to 132 x K6_CTAS on the shard kernel) as for K5.
+// bt, grid (up to 132 x K6_CTAS on the shard kernel) and prec as for K5.
 extern "C" int gmm_stats_logz(const float* x, const float* wt, const float* logz,
                               const float* a_ext, const float* g, float* partial,
                               double* ll_part, float* ll, float* nk, float* m1,
                               float* m2, int n, int d, int k, int kp, int diag,
-                              int bt, int grid, void* stream) {
+                              int bt, int grid, int prec, void* stream) {
   return run_shard(MODE_STATS_LOGZ,
                    params(x, wt, nullptr, logz, a_ext, g, nullptr, nullptr, partial,
                           ll_part, n, d, k, kp, bt),
-                   ll, nk, m1, m2, diag, grid, static_cast<cudaStream_t>(stream));
+                   ll, nk, m1, m2, diag, grid, static_cast<cudaStream_t>(stream), prec);
 }
 
 // How many CTAs of the shard kernel of `mode` (1 = K5, 2 = K6) fit on one

@@ -153,3 +153,50 @@ def write_bin(path: str, data: np.ndarray) -> None:
     with open(path, "wb") as f:
         np.asarray([data.shape[0], data.shape[1]], np.int32).tofile(f)
         data.tofile(f)
+
+
+def read_summary(path: str) -> dict:
+    """Parse a ``.summary`` model file back into arrays.
+
+    Inverse of ``writers.write_summary`` and format-compatible with the
+    reference's own output (writeCluster, gaussian.cu:1180-1197), which the
+    reference never reads back; this reader makes the format a model
+    interchange (``GaussianMixture.from_summary``, ``--init-from``,
+    ``--predict-from``). Means and R carry the format's 3 decimals;
+    Probability and N printf %f's 6.
+
+    Returns ``{"pi": [K], "N": [K], "means": [K, D], "R": [K, D, D]}``,
+    float64; ValueError on a file that is not a well-formed summary.
+    """
+    pis, ns, means, Rs = [], [], [], []
+    cur_R = None
+    with open(path) as f:
+        for line in f:
+            line = line.rstrip("\n")
+            if line.startswith("Cluster #"):
+                cur_R = None
+            elif line.startswith("Probability: "):
+                pis.append(float(line.split(": ", 1)[1]))
+            elif line.startswith("N: "):
+                ns.append(float(line.split(": ", 1)[1]))
+            elif line.startswith("Means: "):
+                means.append([float(v) for v in line.split()[1:]])
+            elif line.startswith("R Matrix:"):
+                cur_R = []
+                Rs.append(cur_R)
+            elif cur_R is not None and line.strip():
+                cur_R.append([float(v) for v in line.split()])
+    if not pis or not (len(pis) == len(ns) == len(means) == len(Rs)):
+        raise ValueError(f"{path}: not a well-formed .summary file")
+    d = len(means[0])
+    R = np.asarray(Rs, np.float64)
+    if R.shape != (len(pis), d, d):
+        raise ValueError(
+            f"{path}: R blocks have shape {R.shape}, expected "
+            f"({len(pis)}, {d}, {d})")
+    return {
+        "pi": np.asarray(pis, np.float64),
+        "N": np.asarray(ns, np.float64),
+        "means": np.asarray(means, np.float64),
+        "R": R,
+    }

@@ -98,12 +98,23 @@ def lane_loop_mstep(mstep_fn: Callable) -> Callable:
 
 
 def chunk_events(data: np.ndarray, chunk_size: int, num_shards: int = 1,
-                 num_chunks: Optional[int] = None) -> Tuple[np.ndarray, np.ndarray]:
+                 num_chunks: Optional[int] = None,
+                 sample_weight: Optional[np.ndarray] = None
+                 ) -> Tuple[np.ndarray, np.ndarray]:
     """Pad and reshape events to [num_chunks, chunk_size, D] plus a [num_chunks,
     chunk_size] weight row (1 for events, 0 for padding). The chunk count is
     padded to a multiple of ``num_shards`` (the data-axis size), so every
-    data shard holds the same number of chunks."""
+    data shard holds the same number of chunks.
+
+    ``sample_weight`` ([n] nonnegative) replaces the 1s of the weight row
+    (padding stays 0). Every statistic multiplies the posteriors and the
+    log-evidence by this row, so an integer weight w equals replicating the
+    event w times."""
     n, d = data.shape
+    if sample_weight is not None and np.asarray(sample_weight).shape != (n,):
+        raise ValueError(
+            f"sample_weight must be [{n}], got "
+            f"{np.asarray(sample_weight).shape}")
     if num_chunks is not None:
         total = num_chunks * chunk_size
         if total < n:
@@ -118,7 +129,7 @@ def chunk_events(data: np.ndarray, chunk_size: int, num_shards: int = 1,
     padded = np.zeros((total, d), dtype=data.dtype)
     padded[:n] = data
     wts = np.zeros((total,), dtype=data.dtype)
-    wts[:n] = 1.0
+    wts[:n] = 1.0 if sample_weight is None else sample_weight
     num_chunks = total // chunk_size
     return (padded.reshape(num_chunks, chunk_size, d),
             wts.reshape(num_chunks, chunk_size))
@@ -171,8 +182,9 @@ class GMMModel:
                 diag_only=diag_only)
         if self.batched_mstep_fn is None:
             self.batched_mstep_fn = lane_loop_mstep(
-                mstep_fn or functools.partial(apply_mstep,
-                                              diag_only=diag_only))
+                mstep_fn or functools.partial(
+                    apply_mstep, diag_only=diag_only,
+                    covariance_type=config.covariance_type))
 
     @property
     def numerics(self) -> dict:
@@ -203,7 +215,8 @@ class GMMModel:
             cfg.min_iters if min_iters is None else min_iters,
             cfg.max_iters if max_iters is None else max_iters,
             stats_fn=stats_fn, mstep_fn=self.mstep_fn,
-            precompute_features=cfg.precompute_features, **self.numerics)
+            precompute_features=cfg.precompute_features,
+            covariance_type=cfg.covariance_type, **self.numerics)
 
     def run_em_batched(self, states, data_chunks, wts_chunks, epsilon: float,
                        min_iters=None, max_iters=None,
@@ -247,13 +260,23 @@ class GMMModel:
         return posteriors(state, torch.as_tensor(xb, device=self.device),
                           **self.numerics)
 
-    def memberships(self, state, data_chunks) -> np.ndarray:
+    def memberships(self, state, data_chunks, return_logz: bool = False):
         """Posteriors [N_padded, K] recomputed from the final parameters
         (the loop ends on an E-step, so these are its memberships). Padded
-        tail rows are garbage; callers slice to the true event count."""
-        return np.concatenate(
-            [self.infer_posteriors(state, data_chunks[i])[0].cpu().numpy()
-             for i in range(data_chunks.shape[0])], axis=0)
+        tail rows are garbage; callers slice to the true event count. With
+        ``return_logz`` also the per-event log evidence [N_padded]."""
+        return _memberships(self, state, data_chunks, return_logz)
+
+
+def _memberships(model, state, data_chunks, return_logz: bool):
+    """``memberships`` of a model with ``infer_posteriors``: the chunks'
+    posteriors (and log evidence) copied to the host."""
+    outs = [model.infer_posteriors(state, data_chunks[i])
+            for i in range(data_chunks.shape[0])]
+    w = np.concatenate([o[0].cpu().numpy() for o in outs], axis=0)
+    if return_logz:
+        return w, np.concatenate([o[1].cpu().numpy() for o in outs], axis=0)
+    return w
 
 
 def hoisted_features(data_chunks: torch.Tensor, *, precompute_features: bool,
@@ -276,7 +299,8 @@ def em_while_loop(state, data_chunks, wts_chunks, epsilon: float,
                   stats_fn: Optional[Callable] = None,
                   mstep_fn: Optional[Callable] = None,
                   reduce_stats: Optional[Callable] = None,
-                  cluster_group=None):
+                  cluster_group=None,
+                  covariance_type: Optional[str] = None):
     """The per-K EM algorithm as a host loop. Returns (state, loglik, iters).
 
     ``stats_fn(state, data_chunks, wts_chunks) -> SuffStats`` replaces the
@@ -290,9 +314,10 @@ def em_while_loop(state, data_chunks, wts_chunks, epsilon: float,
     switches; ``precompute_features`` hoists its [C, B, F] features out of
     the loop (built once here, when no ``stats_fn`` is bound, for full
     covariance in 'expanded'/'packed' mode, as the JAX package's loop
-    does). The loglik and the change are computed in the data's dtype, as
-    on the device in the reference, and read to the host once per
-    iteration.
+    does). ``covariance_type`` is the torch-ops M-step's family (None:
+    'diag' or 'full' from ``diag_only``). The loglik and the change are
+    computed in the data's dtype, as on the device in the reference, and
+    read to the host once per iteration.
     """
     feats = None
     if stats_fn is None:
@@ -315,7 +340,8 @@ def em_while_loop(state, data_chunks, wts_chunks, epsilon: float,
         if mstep_fn is not None:
             return mstep_fn(s, stats)
         return apply_mstep(s, stats, diag_only=diag_only,
-                           cluster_group=cluster_group)
+                           cluster_group=cluster_group,
+                           covariance_type=covariance_type)
 
     eps = float(torch.tensor(epsilon, dtype=data_chunks.dtype))
     stats = estep(state)  # initial E-step (gaussian.cu:487-516)

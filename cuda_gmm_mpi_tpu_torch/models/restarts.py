@@ -6,12 +6,14 @@ independent fits of the same device-resident data, so a batch of them
 shares every launch:
 
 - seeding: each init's seed rows come from ``order_search._seed_rows`` with
-  the sequential path's recipe (init 0 the caller's ``seed_method``,
-  init i >= 1 k-means++ at ``seed + i``), and ``seed_states_batched``
-  stacks the states;
+  the sequential path's recipe (init 0 the caller's ``init_means`` or
+  ``seed_method``, init i >= 1 k-means++ at ``seed + i``), and
+  ``seed_states_batched`` stacks the states; the events' weight row (the
+  fit's ``sample_weight``) is shared by every lane;
 - EM: ``GMMModel.run_em_batched`` -- on the kernel path one K3 launch and
   one K4 launch per iteration for the whole batch, with per-lane freeze-out
-  so each lane iterates as its own fit would;
+  so each lane iterates as its own fit would ('spherical' and 'tied' run
+  K3 and the torch-ops M-step lane by lane: K4 takes full and diag);
 - order reduction: ``eliminate_and_reduce_batched`` (one host read per
   lane per sweep step), merged lanes selected with ``where_lanes``.
 
@@ -113,9 +115,10 @@ def resolve_restart_batch_size(config, data, num_clusters: int,
 
 def fit_restarts_batched(prepared, num_clusters: int,
                          target_num_clusters: int, config, model,
-                         verbose: bool, batch_size: int):
+                         verbose: bool, batch_size: int, init_means=None):
     """``n_init`` restarts in batches of ``batch_size``, one batched sweep
-    each, on ``prepared`` (``order_search._prepare_data``'s result);
+    each, on ``prepared`` (``order_search._prepare_data``'s result), init 0
+    seeded from ``init_means`` when given;
     returns the GMMResult of the winner, the same init the sequential path
     picks at the same seeds (``init_index``). Its ``timings`` sum the
     host-clock seconds of the batches' seeding, EM and merge scans."""
@@ -132,13 +135,14 @@ def fit_restarts_batched(prepared, num_clusters: int,
         idxs = list(range(b0, min(b0 + batch_size, config.n_init)))
         out = _run_batch(model, config, data, num_clusters, stop_number,
                          target_num_clusters, chunks, wts, n_events, n_dims,
-                         shift, var_mean, epsilon, idxs, verbose)
+                         shift, var_mean, epsilon, idxs, verbose,
+                         init_means)
         for part, secs in out["timings"].items():
             timings[part] += secs
         if verbose:
             for j, g in enumerate(idxs):
-                print(f"init {g}: rissanen={out['min_riss'][j]:.6e} "
-                      f"K={out['n_active'][j]}")
+                print(f"init {g}: {config.criterion}="
+                      f"{out['min_riss'][j]:.6e} K={out['n_active'][j]}")
         # The sequential first-best rule across batches: within a batch
         # _run_batch already picked first-best, so comparing batch winners
         # in batch order is the same rule.
@@ -148,7 +152,8 @@ def fit_restarts_batched(prepared, num_clusters: int,
             winner = w
     if verbose:
         print(f"best of {config.n_init} inits: "
-              f"rissanen={winner['min_riss']:.6e} K={winner['n_active']}")
+              f"{config.criterion}={winner['min_riss']:.6e} "
+              f"K={winner['n_active']}")
     return GMMResult(
         state=winner["state"], ideal_num_clusters=winner["n_active"],
         min_rissanen=float(winner["min_riss"]),
@@ -161,7 +166,8 @@ def fit_restarts_batched(prepared, num_clusters: int,
 
 def _run_batch(model, config, data, num_clusters, stop_number,
                target_num_clusters, chunks, wts, n_events, n_dims, shift,
-               var_mean, epsilon, batch_indices, verbose) -> dict:
+               var_mean, epsilon, batch_indices, verbose,
+               init_means=None) -> dict:
     """One batch of restarts through the whole fixed-width sweep.
 
     A ragged tail batch runs at its own width: PyTorch compiles nothing per
@@ -179,7 +185,8 @@ def _run_batch(model, config, data, num_clusters, stop_number,
         np.asarray(_seed_rows(
             data, num_clusters, n_events,
             seed_method=config.seed_method if g == 0 else "kmeans++",
-            seed=config.seed + g), dtype)
+            seed=config.seed + g,
+            init_means=init_means if g == 0 else None), dtype)
         for g in batch_indices]) - np.asarray(shift, dtype)[None, None, :]
     states = seed_states_batched(
         rows, n_events, var_mean, num_clusters,
@@ -211,12 +218,14 @@ def _run_batch(model, config, data, num_clusters, stop_number,
         for r in np.flatnonzero(live):
             ll_f = float(ll_np[r])
             k = int(k_r[r])
-            riss = model_score(ll_f, k, n_events, n_dims)
+            riss = model_score(ll_f, k, n_events, n_dims,
+                               criterion=config.criterion,
+                               covariance_type=config.covariance_type)
             sweep_logs[r].append((k, ll_f, riss, int(iters_np[r]), dt))
             if verbose:
                 print(f"init {batch_indices[r]} K={k}: loglik={ll_f:.6e} "
-                      f"rissanen={riss:.6e} iters={int(iters_np[r])} "
-                      f"({dt:.2f}s)")
+                      f"{config.criterion}={riss:.6e} "
+                      f"iters={int(iters_np[r])} ({dt:.2f}s)")
             # gaussian.cu:839 per lane; a NaN score never takes the slot.
             if math.isfinite(riss) and (
                     k == num_clusters

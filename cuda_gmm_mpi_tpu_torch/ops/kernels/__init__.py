@@ -29,10 +29,16 @@ cpu, float32, 'auto'               'torch'
 cpu, float32, 'cuda'               raises: the kernels need a CUDA device
 =================================  ======================================
 
-Every matmul precision routes alike: K1/K3 run 'highest', 'high' and
-'default' (``PREC`` in csrc/fused_stats.cu); 'packed' stays on the kernels,
-which form only the upper triangle of x x^T already. K5/K6 run 'highest'
-only and raise for the others.
+Every matmul precision routes alike: K1/K3 and K5/K6 run 'highest',
+'high' and 'default' (``PREC`` in csrc/fused_stats.cu; K5/K6 at 'high' and
+'default' on K1's kernel for every shard width); 'packed' stays on the
+kernels, which form only the upper triangle of x x^T already.
+
+Covariance families: 'spherical' runs the diag statistics (K1/K3, or K5/K6
+on a cluster-sharded mesh) and 'tied' the full ones (K1/K3); their M-step
+is the torch-ops ``apply_mstep(covariance_type=...)``, as in the JAX
+package, whose M-step kernel takes full and diag only: ``make_mstep_fn``
+returns None for them.
 """
 
 from __future__ import annotations
@@ -107,9 +113,13 @@ def make_mstep_fn(config, batched: bool = False,
                   cluster_sharded: bool = False):
     """mstep_fn hook (K2, or K4 with ``batched``: one launch per M-step),
     or None for the torch-ops path. None on cluster-sharded meshes too:
-    pi's denominator there is an all_reduce inside the torch-ops update."""
+    pi's denominator there is an all_reduce inside the torch-ops update.
+    None for 'spherical' and 'tied', as in the JAX package: K2 is the
+    reference's full/diag update, and their ties across dimensions or
+    clusters stay in the torch-ops update."""
     backend, _ = resolve_estep_backend(config, cluster_sharded)
-    if backend != "cuda" or cluster_sharded:
+    if (backend != "cuda" or cluster_sharded
+            or config.covariance_type not in ("full", "diag")):
         return None
     return functools.partial(
         fused_mstep_cuda_batched if batched else fused_mstep_cuda,

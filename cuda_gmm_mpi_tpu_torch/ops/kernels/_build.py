@@ -35,8 +35,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "fused_stats.cu": [("gmm_fused_stats", [_P] * 10 + [_I] * 8 + [_P]),
                        ("gmm_fused_stats_batched", [_P] * 11 + [_I] * 9 + [_P]),
-                       ("gmm_local_lse", [_P] * 5 + [_I] * 7 + [_P]),
-                       ("gmm_stats_logz", [_P] * 11 + [_I] * 7 + [_P]),
+                       ("gmm_local_lse", [_P] * 5 + [_I] * 8 + [_P]),
+                       ("gmm_stats_logz", [_P] * 11 + [_I] * 8 + [_P]),
                        ("gmm_shard_occupancy", [_I] * 3 + [_P])],
     "mstep.cu": [("gmm_mstep", [_P] * 12 + [_I] * 4 + [_P])],
 }

@@ -16,8 +16,9 @@ the cluster-sharded statistics (``fused_stats_cuda_sharded``): K5 gives
 each event's max and shifted sum over this rank's clusters, two all_reduce
 calls over the cluster axis combine them into the global log-evidence, and
 K6 accumulates this rank's statistics from it. A shard of at most 64
-clusters runs them on a kernel of their own, 64 columns wide, with several
-CTAs per SM (``shard_tile``); a wider shard runs K1's kernel in their mode.
+clusters runs them at 'highest' on a kernel of their own, 64 columns wide,
+with several CTAs per SM (``shard_tile``); a wider shard, and every shard at
+'high' or 'default', runs K1's kernel in their mode.
 
 Precision: K1's kernel (and so K3) runs all three matmul precisions, as
 the TPU kernels do through ``_kdot``. 'highest' (fp32's error class)
@@ -27,16 +28,19 @@ dropped, each 8-deep partial added outside the tensor cores, which truncate
 their sums). 'high' (bf16_3x) and 'default' (one bf16 pass) run both
 products on the tensor cores in bf16 m16n8k16 passes: three (each operand
 split as bf16 big + bf16 small, small*small dropped) or one; Nk stays a
-plain fp32 sum of the posteriors in every mode. K5/K6 run 'highest' only.
-The plain versions take ``precision`` and run the same arithmetic through
-``ops.estep.kdot``.
+plain fp32 sum of the posteriors in every mode. K5/K6 run all three too:
+'highest' on the shard kernel (K_s <= 64) or K1's, 'high'/'default' on K1's
+bf16 instances for every shard width. The plain versions take
+``precision`` and run the same arithmetic through ``ops.estep.kdot``.
 
 Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each counts its kernel launches
 on a plain integer attribute (``fused_stats.launches``, ``mstep.launches``,
 ``fused_stats_batched.launches``, ``mstep_batched.launches``,
 ``local_lse.launches``, ``stats_logz.launches``) so a run can show that it
-went through the kernels.
+went through the kernels; K5 and K6 also count per precision
+(``local_lse.precision_launches``, ``stats_logz.precision_launches``,
+``collections.Counter`` keyed by the precision's name).
 
 Layouts follow the JAX package: the features' column j*D+i holds x_i*x_j,
 ``A = Rinv.reshape(K, D*D).T`` is [F, K], and M2 [K, F] reshapes to
@@ -47,6 +51,7 @@ JAX counterpart).
 
 from __future__ import annotations
 
+import collections
 import functools
 import math
 from typing import NamedTuple
@@ -89,15 +94,6 @@ CTA_RESERVED_SMEM = 1024
 
 # The kernels' precision codes (PREC in fused_stats.cu).
 PRECISIONS = {"highest": 0, "high": 1, "default": 2}
-
-
-def _check_precision(precision: str) -> None:
-    """K5/K6: 'highest' only in this port so far."""
-    if precision != "highest":
-        raise ValueError(
-            f"matmul_precision={precision!r} is not ported to the cluster-"
-            "sharded kernels K5/K6 yet (their 'high'/'default' modes are the "
-            "next precision work): only 'highest' is")
 
 
 def _check_cuda(*tensors, dtype=torch.float32) -> None:
@@ -227,15 +223,22 @@ def wide_shard_tile(k: int, d: int, diag: bool, block_b: int = 512
     return ShardTile(k_pad, bt, K1_GRID, 1, _k1_smem(bt, k_pad, d, diag))
 
 
+def on_shard_kernel(k: int, precision: str) -> bool:
+    """Whether K5/K6 on a shard of ``k`` clusters run the shard kernel
+    ('highest' only, at most SHARD_TILE clusters) rather than K1's."""
+    return k <= SHARD_TILE and precision == "highest"
+
+
 def shard_tile(k: int, d: int, diag: bool, *, stats: bool,
-               block_b: int = 512) -> ShardTile:
+               block_b: int = 512, precision: str = "highest") -> ShardTile:
     """The tile of K5 (``stats=False``) or K6 (``stats=True``) on a shard of
-    ``k`` clusters. At most SHARD_TILE clusters: the shard kernel, K_pad =
-    64, SHARD_ROWS-event tiles and SHARD_CTAS CTAs per SM where their shared
-    memory fits (fewer where it does not; ValueError where not even one
-    does). Wider: :func:`wide_shard_tile`. Depends on the shapes alone, so
-    the grid and every bit of the result do too."""
-    if k > SHARD_TILE:
+    ``k`` clusters at ``precision``. On the shard kernel
+    (:func:`on_shard_kernel`): K_pad = 64, SHARD_ROWS-event tiles and
+    SHARD_CTAS CTAs per SM where their shared memory fits (fewer where it
+    does not; ValueError where not even one does). Else
+    :func:`wide_shard_tile`. Depends on the shapes and the precision alone,
+    so the grid and every bit of the result do too."""
+    if not on_shard_kernel(k, precision):
         return wide_shard_tile(k, d, diag, block_b)
     smem = 4 * ((SHARD_ROWS * (SHARD_TILE + ROW_PAD) if stats else 0)
                 + 2 * STAGE_DEPTH * SHARD_TILE
@@ -438,31 +441,35 @@ def fused_stats_cuda_batched(states, data_chunks, wts_chunks, lane_mask=None,
 
 # ---------------------------------------------------------------- K5 / K6
 
-def local_lse_plain(x, A, h, g, *, diag: bool):
+def local_lse_plain(x, A, h, g, *, diag: bool, precision: str = "highest"):
     """K5's function in plain torch: per event, the max m [N, 1] of logp
     over this shard's K_s clusters and the shifted sum s [N, 1] of
-    exp(logp - m), from K1's x, A [F, K_s], h [D, K_s], g [1, K_s]. An
+    exp(logp - m), from K1's x, A [F, K_s], h [D, K_s], g [1, K_s]; logp's
+    products at ``precision`` (the TPU kernel's ``_logp_tile``). An
     all-masked shard gives m = NEG_LARGE and s = K_s."""
-    logp, _ = _logp_plain(x, A, h, g, diag)
+    logp, _ = _logp_plain(x, A, h, g, diag, precision)
     m = logp.max(dim=1, keepdim=True).values
     return m, torch.exp(logp - m).sum(dim=1, keepdim=True)
 
 
-def stats_logz_plain(x, wt, logz, A, h, g, *, diag: bool):
+def stats_logz_plain(x, wt, logz, A, h, g, *, diag: bool,
+                     precision: str = "highest"):
     """K6's function in plain torch: K1's outputs for this shard's clusters
     with w = exp(logp - logz) * wt from the global log-evidence logz
-    [N, 1], and ll = sum logz * wt (the same on every shard)."""
-    logp, x2 = _logp_plain(x, A, h, g, diag)
+    [N, 1], and ll = sum logz * wt (the same on every shard); the products
+    at ``precision``, Nk a plain sum."""
+    logp, x2 = _logp_plain(x, A, h, g, diag, precision)
     w8 = wt[:, None]
     w = torch.exp(logp - logz) * w8
     return ((logz * w8).sum().reshape(1, 1), w.sum(dim=0, keepdim=True),
-            w.T @ x, w.T @ x2)
+            kdot(w.T, x, precision), kdot(w.T, x2, precision))
 
 
-def _shard_operands(A, h, g, d: int, diag: bool):
+def _shard_operands(A, h, g, d: int, diag: bool, precision: str = "highest"):
     """A_ext and g of one cluster shard, padded to its tile width: 64
-    columns for K_s <= SHARD_TILE, else a multiple of TILE."""
-    width = SHARD_TILE if A.shape[-1] <= SHARD_TILE else TILE
+    columns on the shard kernel (:func:`on_shard_kernel`), else a multiple
+    of TILE."""
+    width = SHARD_TILE if on_shard_kernel(A.shape[-1], precision) else TILE
     a_ext, g_pad, _ = _ext_operands(A, h, g, d, diag, width)
     return a_ext, g_pad
 
@@ -473,32 +480,36 @@ def _shard_prep(name, x, wt, A, h, g, diag: bool, precision: str):
     for both kernels."""
     if x.device.type == "cpu":
         return None
-    _check_precision(precision)
     _check_cuda(*(t for t in (x, wt, A, h, g) if t is not None))
     _check_k1_shapes(name, x, wt, A, h, g, diag)
-    return _shard_operands(A, h, g, x.shape[1], diag)
+    return _shard_operands(A, h, g, x.shape[1], diag, precision)
 
 
-def _local_lse_launch(x, ops, k: int, diag: bool, block_b: int):
+def _local_lse_launch(x, ops, k: int, diag: bool, block_b: int,
+                      precision: str):
     """K5 on a shard's prepared operands (:func:`_shard_prep`)."""
     from ._build import library
 
     n, d = x.shape
     a_ext, g_pad = ops
-    tile = shard_tile(k, d, diag, stats=False, block_b=block_b)
+    tile = shard_tile(k, d, diag, stats=False, block_b=block_b,
+                      precision=precision)
     grid = min(-(-n // tile.bt), tile.grid)
     m = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     s = torch.empty((n, 1), dtype=torch.float32, device=x.device)
     fn = library("fused_stats.cu").gmm_local_lse
     err = fn(x.data_ptr(), a_ext.data_ptr(), g_pad.data_ptr(), m.data_ptr(),
              s.data_ptr(), n, d, k, tile.k_pad, int(diag), tile.bt, grid,
+             PRECISIONS[precision],
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "K5 (local_lse)")
     local_lse.launches += 1
+    local_lse.precision_launches[precision] += 1
     return m, s
 
 
-def _stats_logz_launch(x, wt, logz, ops, k: int, diag: bool, block_b: int):
+def _stats_logz_launch(x, wt, logz, ops, k: int, diag: bool, block_b: int,
+                       precision: str):
     """K6 on a shard's prepared operands, as :func:`_local_lse_launch`."""
     from ._build import library
 
@@ -507,7 +518,8 @@ def _stats_logz_launch(x, wt, logz, ops, k: int, diag: bool, block_b: int):
     if logz.shape != (n, 1):
         raise ValueError(f"K6: logz {tuple(logz.shape)} for {n} events")
     a_ext, g_pad = ops
-    tile = shard_tile(k, d, diag, stats=True, block_b=block_b)
+    tile = shard_tile(k, d, diag, stats=True, block_b=block_b,
+                      precision=precision)
     f = d if diag else d * d
     t = a_ext.shape[0] - d
     grid = min(-(-n // tile.bt), tile.grid)
@@ -523,10 +535,11 @@ def _stats_logz_launch(x, wt, logz, ops, k: int, diag: bool, block_b: int):
     err = fn(x.data_ptr(), wt.data_ptr(), logz.data_ptr(), a_ext.data_ptr(),
              g_pad.data_ptr(), partial.data_ptr(), ll_part.data_ptr(),
              ll.data_ptr(), nk.data_ptr(), m1.data_ptr(), m2.data_ptr(), n, d,
-             k, tile.k_pad, int(diag), tile.bt, grid,
+             k, tile.k_pad, int(diag), tile.bt, grid, PRECISIONS[precision],
              torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "K6 (stats_logz)")
     stats_logz.launches += 1
+    stats_logz.precision_launches[precision] += 1
     return ll, nk, m1, m2
 
 
@@ -536,11 +549,12 @@ def local_lse(x, A, h, g, *, diag: bool, block_b: int = 512,
     version; CUDA tensors launch the kernel."""
     ops = _shard_prep("K5", x, None, A, h, g, diag, precision)
     if ops is None:
-        return local_lse_plain(x, A, h, g, diag=diag)
-    return _local_lse_launch(x, ops, A.shape[1], diag, block_b)
+        return local_lse_plain(x, A, h, g, diag=diag, precision=precision)
+    return _local_lse_launch(x, ops, A.shape[1], diag, block_b, precision)
 
 
 local_lse.launches = 0
+local_lse.precision_launches = collections.Counter()
 
 
 def stats_logz(x, wt, logz, A, h, g, *, diag: bool, block_b: int = 512,
@@ -549,11 +563,14 @@ def stats_logz(x, wt, logz, A, h, g, *, diag: bool, block_b: int = 512,
     take the plain version; CUDA tensors launch the kernel."""
     ops = _shard_prep("K6", x, wt, A, h, g, diag, precision)
     if ops is None:
-        return stats_logz_plain(x, wt, logz, A, h, g, diag=diag)
-    return _stats_logz_launch(x, wt, logz, ops, A.shape[1], diag, block_b)
+        return stats_logz_plain(x, wt, logz, A, h, g, diag=diag,
+                                precision=precision)
+    return _stats_logz_launch(x, wt, logz, ops, A.shape[1], diag, block_b,
+                              precision)
 
 
 stats_logz.launches = 0
+stats_logz.precision_launches = collections.Counter()
 
 
 def fused_stats_cuda_sharded(state, data_chunks, wts_chunks, *,
@@ -579,9 +596,9 @@ def fused_stats_cuda_sharded(state, data_chunks, wts_chunks, *,
     A, h, g = _prep_params(state, d, diag_only)
     ops = _shard_prep("K5/K6", x, wt, A, h, g, diag_only, precision)
     if ops is None:
-        m, s = local_lse_plain(x, A, h, g, diag=diag_only)
+        m, s = local_lse_plain(x, A, h, g, diag=diag_only, precision=precision)
     else:
-        m, s = _local_lse_launch(x, ops, K, diag_only, block_b)
+        m, s = _local_lse_launch(x, ops, K, diag_only, block_b, precision)
     big_m = m.clone()
     dist.all_reduce(big_m, op=dist.ReduceOp.MAX, group=cluster_group)
     big_s = torch.exp(m - big_m) * s
@@ -589,10 +606,10 @@ def fused_stats_cuda_sharded(state, data_chunks, wts_chunks, *,
     logz = big_m + torch.log(big_s)
     if ops is None:
         ll, nk, m1, m2 = stats_logz_plain(x, wt, logz, A, h, g,
-                                          diag=diag_only)
+                                          diag=diag_only, precision=precision)
     else:
         ll, nk, m1, m2 = _stats_logz_launch(x, wt, logz, ops, K, diag_only,
-                                            block_b)
+                                            block_b, precision)
     dt = data_chunks.dtype
     return SuffStats(loglik=ll[0, 0].to(dt), Nk=nk[0].to(dt), M1=m1.to(dt),
                      M2=(m2 if diag_only else m2.reshape(K, d, d)).to(dt))

@@ -13,6 +13,9 @@ The torch-ops backend of the reference's ``mstep_N`` (``gaussian_kernel.cu:
   means = M1/Nk if Nk > 0.5 else 0                       (gaussian.cu:614-618)
   cov_sums zeroed when Nk < 1                            (gaussian_kernel.cu:658-668)
   R     = (cov_sum + avgvar*I) / Nk if Nk > 0.5 else I   (gaussian.cu:663-679)
+and the two families the reference lacks, as the JAX package updates them:
+'spherical' (the diag update, each cluster's variances replaced by their
+mean) and 'tied' (one covariance pooled over the clusters).
 
 This path is the parity baseline for the kernels K1/K2 and their yardstick
 on the card.
@@ -24,6 +27,7 @@ import dataclasses
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
 from .constants import compute_constants
 from .estep import expand_features, features, kdot, posteriors, unpack_sym
@@ -113,12 +117,19 @@ def accumulate_stats(state, data_chunks: torch.Tensor,
     return acc
 
 
-def mstep_update(state, stats: SuffStats, *, diag_only: bool = False):
+def mstep_update(state, stats: SuffStats, *, diag_only: bool = False,
+                 covariance_type: Optional[str] = None, cluster_group=None):
     """The division/guard half of :func:`apply_mstep`: (N, means, R).
 
-    The kernel K2 (ops/kernels) computes exactly these expressions; its
-    plain version is held to equal this function bit for bit.
+    For 'full' and 'diag' the kernel K2 (ops/kernels) computes exactly
+    these expressions; its plain version is held to equal this function
+    bit for bit. ``covariance_type`` (None: 'diag' or 'full' from
+    ``diag_only``) adds the JAX package's 'spherical' (needs diag_only) and
+    'tied' (needs full statistics; on a sharded cluster axis its pool and
+    count are summed and its loading maxed over ``cluster_group``).
     """
+    if covariance_type is None:
+        covariance_type = "diag" if diag_only else "full"
     dtype = state.R.dtype
     K, D = state.means.shape
     Nk = stats.Nk
@@ -134,7 +145,17 @@ def mstep_update(state, stats: SuffStats, *, diag_only: bool = False):
         cov_sum = cov_sum + state.avgvar[:, None]  # diagonal loading (:673-675)
         var = torch.where(nonempty[:, None], cov_sum / nk_safe[:, None],
                           torch.ones_like(cov_sum))
+        if covariance_type == "spherical":
+            # MLE under sigma^2 I: the mean of the per-dim variances; empty
+            # clusters stay at var == 1 (the mean of ones).
+            var = var.mean(dim=1, keepdim=True) + torch.zeros_like(var)
         R = torch.diag_embed(var)
+    elif covariance_type == "tied":
+        mmT = means[:, :, None] * means[:, None, :]
+        cov_sum = stats.M2 - Nk[:, None, None] * mmT
+        cov_sum = torch.where((Nk >= 1.0)[:, None, None], cov_sum,
+                              torch.zeros_like(cov_sum))
+        R = _tied_covariance(state, Nk, cov_sum, eye, cluster_group)
     else:
         mmT = means[:, :, None] * means[:, None, :]
         cov_sum = stats.M2 - Nk[:, None, None] * mmT
@@ -152,12 +173,41 @@ def mstep_update(state, stats: SuffStats, *, diag_only: bool = False):
     return N, means, R
 
 
+def _tied_covariance(state, Nk, cov_sum, eye, cluster_group):
+    """The shared covariance of the 'tied' family, broadcast to [K, D, D]:
+    the active clusters' centred scatter (zeroed where Nk < 1) pooled and
+    divided by the pooled count of the clusters with Nk >= 1 (a cluster in
+    the (0.5, 1) dead zone adds neither), loaded once with the largest
+    active avgvar; the identity when no cluster counts. On a sharded
+    cluster axis the pool and count are summed and the loading maxed over
+    ``cluster_group`` (the JAX package's psum/pmax)."""
+    K, D = cov_sum.shape[:2]
+    act = state.active
+    counted = act & (Nk >= 1.0)
+    pool = torch.where(act[:, None, None], cov_sum,
+                       torch.zeros_like(cov_sum)).sum(dim=0)
+    cnt = torch.where(counted, Nk, torch.zeros_like(Nk)).sum()
+    avg = torch.where(act, state.avgvar, torch.zeros_like(state.avgvar)).max()
+    if cluster_group is not None:
+        flat = torch.cat([pool.reshape(-1), cnt.reshape(1)])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=cluster_group)
+        pool, cnt = flat[:-1].reshape(D, D), flat[-1]
+        avg = avg.clone()
+        dist.all_reduce(avg, op=dist.ReduceOp.MAX, group=cluster_group)
+    shared = torch.where(cnt >= 1.0,
+                         (pool + avg * eye) / torch.clamp(cnt, min=1e-30), eye)
+    return shared.expand(K, D, D)
+
+
 def apply_mstep(state, stats: SuffStats, *, diag_only: bool = False,
-                cluster_group=None):
+                cluster_group=None, covariance_type: Optional[str] = None):
     """Parameter update from sufficient statistics, then the constants
     (gaussian.cu:611-701). Returns the new state. On a sharded cluster axis
     (``cluster_group``) each rank updates its own clusters and pi is
-    normalised by the global soft count."""
-    N, means, R = mstep_update(state, stats, diag_only=diag_only)
+    normalised by the global soft count; ``covariance_type`` as in
+    :func:`mstep_update`."""
+    N, means, R = mstep_update(state, stats, diag_only=diag_only,
+                               covariance_type=covariance_type,
+                               cluster_group=cluster_group)
     return compute_constants(state.replace(N=N, means=means, R=R),
                              diag_only=diag_only, cluster_group=cluster_group)

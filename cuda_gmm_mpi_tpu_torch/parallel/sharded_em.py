@@ -36,7 +36,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import GMMConfig
-from ..models.gmm import em_while_loop, setup_device
+from ..models.gmm import _memberships, em_while_loop, setup_device
 from ..ops.estep import posteriors
 from ..ops.mstep import SuffStats
 from ..state import compact_to
@@ -172,7 +172,8 @@ class ShardedGMMModel:
             matmul_precision=cfg.matmul_precision,
             precompute_features=cfg.precompute_features, stats_fn=stats_fn,
             mstep_fn=self.mstep_fn, reduce_stats=self._reduce,
-            cluster_group=self.mesh.cluster_group)
+            cluster_group=self.mesh.cluster_group,
+            covariance_type=cfg.covariance_type)
 
     def gather_state(self, state):
         """The full state of this rank's mesh row, with the cluster padding
@@ -235,8 +236,7 @@ class ShardedGMMModel:
                           diag_only=cfg.diag_only, quad_mode=cfg.quad_mode,
                           matmul_precision=cfg.matmul_precision)
 
-    def memberships(self, state, data_chunks) -> np.ndarray:
-        """Posteriors [N_padded, K] from a full (gathered) state."""
-        return np.concatenate(
-            [self.infer_posteriors(state, data_chunks[i])[0].cpu().numpy()
-             for i in range(data_chunks.shape[0])], axis=0)
+    def memberships(self, state, data_chunks, return_logz: bool = False):
+        """Posteriors [N_padded, K] (and with ``return_logz`` the log
+        evidence [N_padded]) from a full (gathered) state."""
+        return _memberships(self, state, data_chunks, return_logz)

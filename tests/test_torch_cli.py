@@ -66,3 +66,66 @@ def test_cli_exit_codes_match_jax(blob_csv, tmp_path, capsys, argv, code):
     argv[2] = str(tmp_path / argv[2])
     assert torch_main(argv + ["--device=cpu"]) == code
     assert jax_main(argv + ["--device=cpu"]) == code
+
+
+@pytest.fixture(scope="module")
+def model4(blob_csv, tmp_path_factory):
+    """A 4-cluster .summary written by the JAX CLI's float64 fit."""
+    out = tmp_path_factory.mktemp("model") / "m"
+    assert jax_main(_args(blob_csv, str(out))) == 0
+    return str(out) + ".summary"
+
+
+@pytest.mark.parametrize("flags", [
+    ["8", "4", "--covariance-type=spherical"],
+    ["8", "4", "--covariance-type=tied"],
+    ["8", None, "--criterion=bic"],  # the search down to 1, scored by BIC
+    ["4", "4", "--init-from={model}"],
+    ["1", None, "--predict-from={model}"],
+], ids=["spherical", "tied", "bic", "init-from", "predict-from"])
+def test_cli_new_flags_byte_identical_to_jax(blob_csv, model4, tmp_path,
+                                             flags):
+    """The estimator surface's flags at float64: the port's .summary and
+    .results byte for byte the JAX CLI's (--predict-from fits nothing: its
+    .summary echoes the model it loaded)."""
+    k, target, *extra = flags
+    extra = [f.replace("{model}", model4) for f in extra]
+    argv = lambda out: ([k, blob_csv, str(tmp_path / out)]
+                        + ([target] if target else []) + ARGS[4:] + extra)
+    assert jax_main(argv("j")) == 0
+    assert torch_main(argv("t")) == 0
+    for ext in (".summary", ".results"):
+        assert ((tmp_path / ("t" + ext)).read_bytes()
+                == (tmp_path / ("j" + ext)).read_bytes()), ext
+    assert (tmp_path / "t.results").read_text().count("\n") == 2000
+
+
+@pytest.mark.parametrize("flags,code,message", [
+    (["--init-from={model}"], 1, "this fit needs"),          # K 8, model 4
+    (["--init-from={csv}"], 1, "Cannot load --init-from"),
+    (["--predict-from={csv}"], 1, "Cannot load model"),
+    (["--predict-from={model}", "--n-init=2"], 1, "no effect"),
+    (["--predict-from={model}", "--process-id=0"], 1, "single-process"),
+], ids=["init-from-k", "init-from-bad", "predict-from-bad",
+        "predict-from-fit-flag", "predict-from-distributed"])
+def test_cli_model_file_errors_match_jax(blob_csv, model4, tmp_path, capsys,
+                                         flags, code, message):
+    extra = [f.replace("{model}", model4).replace("{csv}", blob_csv)
+             for f in flags]
+    argv = ["8", blob_csv, str(tmp_path / "o"), "--device=cpu"] + extra
+    assert torch_main(argv) == code
+    assert message in capsys.readouterr().err
+    assert jax_main(argv) == code
+    assert message in capsys.readouterr().err
+
+
+def test_cli_predict_from_never_clobbers_its_model(blob_csv, model4,
+                                                   tmp_path, capsys):
+    model = tmp_path / "m.summary"
+    model.write_bytes(open(model4, "rb").read())
+    before = model.read_bytes()
+    assert torch_main(["1", blob_csv, str(tmp_path / "m"), "--device=cpu",
+                       "--dtype=float64", f"--predict-from={model}"]) == 0
+    assert "skipping the .summary echo" in capsys.readouterr().err
+    assert model.read_bytes() == before
+    assert (tmp_path / "m.results").exists()

@@ -23,8 +23,14 @@ shifted sum adds exponentials of float32 logp differences, so two float32
 evaluations differ by ~|logp| x 1e-7 relative (2.5e-6 normwise measured on
 an H100 where clusters overlap): it is held against a float64 evaluation,
 at most twice the plain version's error there. K6 is held to the K1 class, and the shards of K5 + K6 put side by side to K1 on the whole
-K; both repeat bit for bit. The mesh tests run 2-rank gloo worlds on the
-one GPU against single-device EM (float32, loglik rtol 1e-5).
+K; both repeat bit for bit. At 'high' and 'default' K5/K6 run on K1's
+kernel for every shard width and are held as ``_hold_stat`` says: against
+float64 at twice the plain version's error (floored at the mode's unit
+roundoff) always, and in the class of the plain version wherever that
+version itself lies within the class of float64. The mesh tests run 2-rank
+gloo worlds on the one GPU against single-device EM (float32, loglik rtol
+1e-5). ``GaussianMixture`` fits spherical and tied on the card (K1 for the
+statistics, the torch-ops M-step) against the same fits on torch ops.
 """
 
 import numpy as np
@@ -116,6 +122,34 @@ def _within_twice_plain(out, ref, ref64, name, floor=2.0 ** -23):
 # keeps 16 of fp32's 24 mantissa bits of each operand (bf16 big + bf16
 # small), 'default' 8.
 BF16_FLOOR = {"high": 2.0 ** -17, "default": 2.0 ** -9}
+
+
+def _hold_stat(a, c, c64, label, name, precision):
+    """A K5/K6 output ``a`` at a bf16 precision against its plain version
+    ``c`` at that precision and a float64 evaluation ``c64``: always within
+    twice the plain version's float64 error (floored at the mode's unit
+    roundoff), and in the tests/test_pallas.py class of ``c``, which it may
+    miss only where the plain version itself lies outside that class of
+    float64: there two evaluations of the mode differ by their own error:
+    K6's weights
+    exp(logp - logZ) carry logp's absolute error (no normalisation cancels
+    it, as K1's e/s does), and one bf16 pass rounds each w to 8 bits, which
+    two float32 evaluations of w straddle here and there. Measured on an
+    H100: K6 'default' M2 1.02e-4 normwise against its plain version at
+    N = 2053, D = 6, K_s = 130 (class 1e-4). An all-zero output (the
+    all-masked shard) must be exactly zero."""
+    if float(c64.abs().max()) == 0.0:
+        assert not a.any(), (label, name)
+        return
+    _within_twice_plain(a, c, c64, f"{label} {name}", BF16_FLOOR[precision])
+    assert (_within(a, c, TOL[name])
+            or _normwise(c.double(), c64) > TOL[name][0]), (
+        label, name, _normwise(a, c))
+
+
+def _within(a, c, bar) -> bool:
+    rtol, atol = bar
+    return float((a - c).abs().max()) <= atol + rtol * float(c.abs().max())
 
 
 @pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
@@ -239,22 +273,127 @@ def test_k3_bf16_modes_lanes_equal_k1(dev, n, d, k, precision, diag):
     assert not any(bool(a[1].any()) for a in out)
 
 
-def test_k5_k6_refuse_the_bf16_modes(dev):
-    """K5/K6 keep 'highest' only: 'high' and 'default' raise a ValueError
-    that names the next precision work; nothing routes around it."""
-    rng = np.random.default_rng(3)
-    state = state_from_numpy(_state(rng, 10, 4, False), device=dev)
-    x = torch.as_tensor(rng.normal(size=(500, 4)), dtype=torch.float32,
+@pytest.mark.parametrize("n,d,k", [
+    (4099, 6, 70),     # K_s = 35: the shard kernel's width, K1's kernel here
+    (5003, 24, 100),   # K_s = 50, the mesh cell's shard
+    (3001, 6, 130),    # K_s = 65: one 128-wide tile
+    (2053, 6, 260)])   # K_s = 130: two tiles
+@pytest.mark.parametrize("precision", ["high", "default"])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_k5_k6_bf16_modes_match_plain_and_k1(dev, n, d, k, precision, diag):
+    """K5/K6 at 'high' and 'default' (K1's kernel in their modes, bf16
+    passes, for every shard width) on two cluster shards, the last one all
+    inactive: K5's max in the tests/test_pallas.py class of its plain
+    version at that precision, its shifted sum against float64 at twice the
+    plain version's error floored at the mode's unit roundoff; K6's
+    statistics and the shards combined side by side against K1 held as
+    ``_hold_stat`` holds them; bit-identical from launch to launch; counted
+    under their precision. And the route is really the bf16 one: K5's max
+    differs from the 'highest' launch's."""
+    rng = np.random.default_rng(n + k + 5)
+    shards, ks = 2, -(-k // 2)
+    state = state_from_numpy(_state(rng, k, d, diag,
+                                    inactive=range(ks, k)), device=dev)
+    x = torch.as_tensor(rng.normal(scale=2.0, size=(n, d)), dtype=torch.float32,
                         device=dev)
-    wt = torch.ones(500, dtype=torch.float32, device=dev)
-    A, h, g = fs._prep_params(state, 4, False)
-    logz = torch.zeros((500, 1), dtype=torch.float32, device=dev)
-    for precision in ("high", "default"):
-        with pytest.raises(ValueError, match="K5/K6"):
-            fs.local_lse(x, A, h, g, diag=False, precision=precision)
-        with pytest.raises(ValueError, match="K5/K6"):
-            fs.stats_logz(x, wt, logz, A, h, g, diag=False,
-                          precision=precision)
+    wt = torch.as_tensor(rng.uniform(0.0, 2.0, size=n), dtype=torch.float32,
+                         device=dev)
+    A, h, g = fs._prep_params(state, d, diag)
+    cols = [slice(i * ks, min(k, (i + 1) * ks)) for i in range(shards)]
+    parts = [tuple(t[:, c].contiguous() for t in (A, h, g)) for c in cols]
+    kw = dict(diag=diag, precision=precision)
+    before = (fs.local_lse.precision_launches[precision],
+              fs.stats_logz.precision_launches[precision])
+    lse = [fs.local_lse(x, *p, **kw) for p in parts]
+    for p, (m, s) in zip(parts, lse):
+        m2, s2 = fs.local_lse(x, *p, **kw)
+        pm, ps = fs.local_lse_plain(x, *p, **kw)
+        _, ps64 = fs.local_lse_plain(x.double(), *(t.double() for t in p),
+                                     diag=diag)
+        assert torch.equal(m, m2) and torch.equal(s, s2)
+        assert _normwise(m, pm) <= TOL["loglik"][0]
+        assert (_normwise(s.double(), ps64) <= 2.0 * max(
+            _normwise(ps.double(), ps64), BF16_FLOOR[precision]))
+    m0_highest, _ = fs.local_lse(x, *parts[0], diag=diag)
+    assert not torch.equal(lse[0][0], m0_highest)
+    assert bool((lse[-1][0] == fs.NEG_LARGE).all())
+    big_m = torch.stack([m for m, _ in lse]).max(dim=0).values
+    logz = big_m + torch.log(sum(torch.exp(m - big_m) * s for m, s in lse))
+    outs = []
+    for p in parts:
+        out = fs.stats_logz(x, wt, logz, *p, **kw)
+        again = fs.stats_logz(x, wt, logz, *p, **kw)
+        ref = fs.stats_logz_plain(x, wt, logz, *p, **kw)
+        ref64 = fs.stats_logz_plain(x.double(), wt.double(), logz.double(),
+                                    *(t.double() for t in p), diag=diag)
+        for a, b, c, c64, name in zip(out, again, ref, ref64, TOL):
+            assert torch.equal(a, b), name
+            _hold_stat(a, c, c64, f"K6 {precision}", name, precision)
+        outs.append(out)
+    torch.cuda.synchronize()
+    assert fs.local_lse.precision_launches[precision] - before[0] == 2 * shards
+    assert fs.stats_logz.precision_launches[precision] - before[1] == 2 * shards
+    k1 = fs.fused_stats(x, wt, A, h, g, **kw)
+    k1_plain = fs.fused_stats_plain(x, wt, A, h, g, **kw)
+    k1_64 = fs.fused_stats_plain(*(t.double() for t in (x, wt, A, h, g)),
+                                 diag=diag)
+    side = (outs[0][0], torch.cat([o[1] for o in outs], dim=1),
+            torch.cat([o[2] for o in outs]), torch.cat([o[3] for o in outs]))
+    for a, c, c1, c64, name in zip(side, k1, k1_plain, k1_64, TOL):
+        _within_twice_plain(a, c1, c64, f"K5+K6 {precision} {name}",
+                            BF16_FLOOR[precision])
+        assert (_within(a, c, TOL[name])
+                or _normwise(c1.double(), c64) > TOL[name][0]), (
+            name, _normwise(a, c))
+    assert not outs[-1][1].any()
+
+
+@pytest.mark.parametrize("family", ["spherical", "tied"])
+def test_gaussian_mixture_family_on_the_card(dev, family):
+    """A spherical (diag statistics) and a tied (full statistics) fit of
+    ``GaussianMixture`` on the card: K1 runs every E-step, the M-step is
+    the torch-ops update (no K2 launch, as in the JAX package); the torch-ops
+    fit's K and merge pairs, loglik within rtol 1e-4; the family's
+    structure holds; inference sums to the fit's loglik."""
+    from cuda_gmm_mpi_tpu_torch import GaussianMixture
+
+    rng = np.random.default_rng(19)
+    c = rng.normal(scale=10, size=(4, 5))
+    x = np.concatenate([rng.normal(c[i], 1, (500, 5))
+                        for i in range(4)]).astype(np.float32)
+    kw = dict(covariance_type=family, min_iters=10, max_iters=10)
+    launches = (fs.fused_stats.launches, fs.mstep.launches)
+    gm = GaussianMixture(8, 4, **kw).fit(x)
+    assert gm._model.estep_backend == "cuda"
+    assert fs.fused_stats.launches - launches[0] > 0
+    assert fs.mstep.launches == launches[1]
+    ref = GaussianMixture(8, 4, estep_backend="torch", **kw).fit(x)
+    assert gm.n_components_ == ref.n_components_ == 4
+    assert [m[1] for m in gm.result_.merges] == [m[1] for m in
+                                                 ref.result_.merges]
+    np.testing.assert_allclose(gm.loglik_, ref.loglik_, rtol=1e-4)
+    cov = gm.covariances_
+    for i in range(4):
+        if family == "tied":
+            np.testing.assert_array_equal(cov[i], cov[0])
+        else:
+            assert np.ptp(np.diag(cov[i])) == 0.0
+    np.testing.assert_allclose(gm.score_samples(x).sum(), gm.loglik_,
+                               rtol=1e-4)
+    np.testing.assert_allclose(gm.predict_proba(x).sum(axis=1), 1.0,
+                               atol=1e-5)
+
+
+def test_gaussian_mixture_lands_on_the_card_by_default(dev):
+    from cuda_gmm_mpi_tpu_torch import GaussianMixture
+
+    rng = np.random.default_rng(23)
+    x = rng.normal(size=(600, 3)).astype(np.float32)
+    gm = GaussianMixture(3, 2, min_iters=3, max_iters=3)
+    assert gm.config.device == "cuda"
+    gm.fit(x)
+    assert gm._model.device.type == "cuda"
+    assert gm._model.estep_backend == "cuda"
 
 
 @pytest.mark.parametrize("precision", ["high", "default"])

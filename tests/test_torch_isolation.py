@@ -17,7 +17,7 @@ import numpy as np
 import pytest
 import torch
 
-from cuda_gmm_mpi_tpu_torch import GMMConfig, GMMModel, fit_gmm
+from cuda_gmm_mpi_tpu_torch import GaussianMixture, GMMConfig, GMMModel, fit_gmm
 from cuda_gmm_mpi_tpu_torch.cli import main as torch_main
 from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
 from cuda_gmm_mpi_tpu_torch.ops.kernels import resolve_estep_backend
@@ -40,6 +40,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(files) > 15
     assert {"sharded_em.py", "mesh.py", "distributed.py"} <= {
         p.name for p in files if p.parent.name == "parallel"}
+    assert (REPO / "cuda_gmm_mpi_tpu_torch" / "estimator.py") in files
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -53,6 +54,8 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path, capsys):
     data = np.random.default_rng(0).normal(size=(64, 2)).astype(np.float32)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         fit_gmm(data, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GaussianMixture(2).fit(data)
     csv = tmp_path / "e.csv"
     csv.write_text("a,b\n" + "\n".join(f"{a},{b}" for a, b in data))
     assert torch_main(["2", str(csv), str(tmp_path / "o")]) == 1
@@ -73,7 +76,7 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
         fs.fused_stats(*args, diag=False)
     with pytest.raises(ValueError, match="CUDA tensors"):  # K1 runs 'high'
         fs.fused_stats(*args, diag=False, precision="high")
-    with pytest.raises(ValueError, match="not ported"):  # K5/K6 do not yet
+    with pytest.raises(ValueError, match="CUDA tensors"):  # K5 runs 'high'
         fs.local_lse(*args[:1], *args[2:], diag=False, precision="high")
     with pytest.raises(ValueError, match="CUDA tensors"):
         fs.mstep(meta(4), meta(4, 3), meta(4, 9), meta(4), meta(4),

@@ -51,11 +51,12 @@ def _numpy_state(state):
 
 
 def run_em_case(data, state_np, iters, mesh_shape, chunk, dtype="float64",
-                diag=False, stats="auto", device="cpu"):
+                diag=False, stats="auto", device="cpu", precision="highest"):
     """``ShardedGMMModel.run_em`` on this rank's shard. ``stats='sharded'``
     passes ``fused_stats_cuda_sharded`` (K5 + collectives + K6; their plain
-    versions on the CPU) as an explicit stats_fn. Returns this rank's mesh
-    position, local state (numpy), loglik and iterations."""
+    versions on the CPU) at ``precision`` as an explicit stats_fn. Returns
+    this rank's mesh position, local state (numpy), loglik and
+    iterations."""
     from cuda_gmm_mpi_tpu_torch import GMMConfig
     from cuda_gmm_mpi_tpu_torch.interop import state_from_numpy
     from cuda_gmm_mpi_tpu_torch.models.gmm import chunk_events
@@ -65,13 +66,13 @@ def run_em_case(data, state_np, iters, mesh_shape, chunk, dtype="float64",
 
     cfg = GMMConfig(min_iters=iters, max_iters=iters, chunk_size=chunk,
                     dtype=dtype, diag_only=diag, device=device,
-                    mesh_shape=mesh_shape)
+                    mesh_shape=mesh_shape, matmul_precision=precision)
     mesh = make_mesh(mesh_shape)
     stats_fn = None
     if stats == "sharded":
         stats_fn = functools.partial(fs.fused_stats_cuda_sharded,
                                      cluster_group=mesh.cluster_group,
-                                     diag_only=diag)
+                                     diag_only=diag, precision=precision)
     model = ShardedGMMModel(cfg, mesh=mesh, stats_fn=stats_fn)
     chunks, wts = chunk_events(np.asarray(data, dtype), chunk,
                                num_shards=model.data_size)
