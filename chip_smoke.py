@@ -155,6 +155,30 @@ Phases (any failure exits non-zero, and no result line is printed):
    the 1M-event .results would add ~18 s), the --predict-from memberships
    held to the tie rule against ``from_summary(...).predict_proba``'s.
 
+12. containment and resume on the card, at phase 4's main path (K 100 ->
+   96, 20 iterations): (a) the fit with ``metrics_file`` and
+   ``checkpoint_dir`` beside the same fit without them, in turns (bare,
+   instrumented, instrumented, bare), EM iterations/s of each and the
+   checkpoint write per K; with ``--parent DIR`` (a checkout of another
+   commit, e.g. ``git archive`` of the parent) also that commit's main path
+   in subprocesses, in turns with this one's (parent, this, this, parent),
+   each subprocess ``python chip_smoke.py --rate-of ROOT`` building ROOT's
+   kernels and timing its main path; (b) an injected ``nan_loglik`` at
+   iteration 3 of K = 100 armed twice, so rung 1 (regularize, K1/K2) stays
+   fatal and rung 2 ('centered') rebuilds the model on torch ops: each
+   rung's route printed with its reason, the final K and merge pairs
+   equal to the torch-ops path's under the same injection (loglik rtol
+   1e-4), and the EM iterations/s the sticky 'centered' rung runs at; (c) a
+   NaN in one cluster's mean through K1 (full, diag) and K3 (lane 2 of 4):
+   the loglik non-finite and ``nonfinite_loglik`` set, as on the plain
+   version (K1 takes its row maxima with fmaxf, which drops a NaN); (d) an
+   injected ``preempt`` landing in the sweep's second K (K = 99), then
+   resume: final loglik, K, sweep log and merge pairs ``==`` phase 4's
+   uninterrupted fit, with the emergency and per-K checkpoint times; (e)
+   4 batched restarts through K3/K4 with ``nan_loglik`` on restart 2: the
+   same dropped restart and winner as the torch-ops batched path; (f) the
+   event stream of (a) validated by the port's schema, its event counts.
+
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Whatever happens, it leaves no
@@ -189,6 +213,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import itertools
 import json
@@ -197,6 +222,7 @@ import shutil
 import signal
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -2215,15 +2241,318 @@ def precision_record(name, replaces, launches, full, diag, **extra) -> dict:
     return rec
 
 
+# ------------------------------------------------- phase 12: containment
+
+def main_path_rate(data, **cfg):
+    """(EM iterations/s, result, model) of the main path (K0 -> K_TARGET,
+    ITERS per K): the sweep log's iterations over its EM seconds."""
+    result, model, _, _ = fit(data, K0, K_TARGET, ITERS, **cfg)
+    iters = sum(r[3] for r in result.sweep_log)
+    return iters / sum(r[4] for r in result.sweep_log), result, model
+
+
+@contextlib.contextmanager
+def timed_checkpoints():
+    """Times every ``SweepCheckpointer`` save, sub-step save and restore
+    made inside the block: {"save": [s, ...], "save_substep": [...], ...}."""
+    from cuda_gmm_mpi_tpu_torch.utils.checkpoint import SweepCheckpointer
+
+    times = {"save": [], "save_substep": [], "restore": [],
+             "restore_substep": []}
+    originals = {name: getattr(SweepCheckpointer, name) for name in times}
+
+    def wrap(name, fn):
+        @functools.wraps(fn)
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                times[name].append(time.perf_counter() - t0)
+        return timed
+
+    for name, fn in originals.items():
+        setattr(SweepCheckpointer, name, wrap(name, fn))
+    try:
+        yield times
+    finally:
+        for name, fn in originals.items():
+            setattr(SweepCheckpointer, name, fn)
+
+
+def rate_of(root: str, seed: int) -> dict:
+    """``--rate-of ROOT``: the main path's EM iterations/s of the package
+    under ROOT (its kernels built from ROOT's sources), after a warm-up
+    fit; and, where that package has the telemetry and checkpoint fields,
+    the instrumented rate too. Run in a subprocess, one per commit."""
+    import torch
+
+    sys.path.insert(0, root)
+    import cuda_gmm_mpi_tpu_torch as pkg
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import _build
+
+    check(Path(pkg.__file__).resolve().is_relative_to(Path(root).resolve()),
+          f"--rate-of imported {pkg.__file__}, not the package under {root}")
+    _build.build_all()
+    data = make_blobs(seed, N_EVENTS, DIMS, K_TARGET)
+    fit(data, K0, K0 - 1, 2)  # warm-up: kernels loaded, allocator primed
+    out = {"root": root, "bare": main_path_rate(data)[0]}
+    fields = {f.name for f in dataclasses.fields(pkg.GMMConfig)}
+    if {"metrics_file", "checkpoint_dir"} <= fields:
+        from cuda_gmm_mpi_tpu_torch import supervisor
+
+        with tempfile.TemporaryDirectory() as tmp, supervisor.use(
+                supervisor.RunSupervisor(install_signals=False)):
+            out["instrumented"] = main_path_rate(
+                data, metrics_file=os.path.join(tmp, "m.jsonl"),
+                checkpoint_dir=os.path.join(tmp, "ck"))[0]
+    torch.cuda.synchronize()
+    return out
+
+
+def _rate_subprocess(root: str, seed: int) -> dict:
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--rate-of", root,
+         "--seed", str(seed)], capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0,
+          f"--rate-of {root} failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def phase_containment(data, main_result, main_rate, workdir: Path,
+                      parent, seed: int) -> dict:
+    """Phase 12 (see the module docstring)."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import health, supervisor
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import accumulate_stats
+    from cuda_gmm_mpi_tpu_torch.state import stack_states
+    from cuda_gmm_mpi_tpu_torch.telemetry import read_stream, validate_stream
+    from cuda_gmm_mpi_tpu_torch.testing import faults
+
+    rec = {}
+    # --- (a) the instrumented main path against the bare one (and parent)
+    metrics = workdir / "a.jsonl"
+    rates = {"bare": [], "instrumented": []}
+    with timed_checkpoints() as ck_times:
+        for turn in ("bare", "instrumented", "instrumented", "bare"):
+            cfg = {} if turn == "bare" else dict(
+                metrics_file=str(metrics),
+                checkpoint_dir=str(workdir / f"ck{len(rates[turn])}"))
+            with contextlib.ExitStack() as stack:
+                if turn != "bare":  # supervised, as the CLI runs it
+                    stack.enter_context(supervisor.use(
+                        supervisor.RunSupervisor(install_signals=False)))
+                rate, res, model = main_path_rate(data, **cfg)
+            check(model.estep_backend == "cuda", f"(a) {turn} route")
+            check(res.final_loglik == main_result.final_loglik
+                  and [m[1] for m in res.merges]
+                  == [m[1] for m in main_result.merges],
+                  f"(a) the {turn} fit differs from phase 4's")
+            rates[turn].append(rate)
+    ck_files = sorted((workdir / "ck0" / "sweep").glob("*.npz"))
+    ck_bytes = ck_files[-1].stat().st_size if ck_files else 0
+    bare, inst = (float(np.mean(rates[k])) for k in ("bare", "instrumented"))
+    rec["a"] = {"bare_em_iters_per_s": rates["bare"],
+                "instrumented_em_iters_per_s": rates["instrumented"],
+                "instrumented_cost": 1.0 - inst / bare,
+                "checkpoint_save_ms": [1e3 * t for t in ck_times["save"]],
+                "checkpoint_bytes": ck_bytes}
+    print(f"  (a) main path EM iters/s: bare {rates['bare']}, with "
+          f"metrics_file + checkpoint_dir {rates['instrumented']} "
+          f"({100 * (1 - inst / bare):+.2f}% cost); checkpoint write per K "
+          f"{1e3 * np.mean(ck_times['save']):.2f} ms "
+          f"({len(ck_times['save'])} writes of {ck_bytes} bytes); "
+          f"phase 4's rate {main_rate:.2f}")
+    if parent:
+        turns = [("parent", parent), ("this", str(Path(__file__).parent)),
+                 ("this", str(Path(__file__).parent)), ("parent", parent)]
+        runs = [(who, _rate_subprocess(root, seed)) for who, root in turns]
+        par = [r["bare"] for who, r in runs if who == "parent"]
+        this = [r["bare"] for who, r in runs if who == "this"]
+        this_inst = [r["instrumented"] for who, r in runs if who == "this"]
+        rec["a"]["parent"] = {"parent_em_iters_per_s": par,
+                              "this_em_iters_per_s": this,
+                              "this_instrumented_em_iters_per_s": this_inst,
+                              "cost_vs_parent": 1 - np.mean(this)
+                              / np.mean(par),
+                              "instrumented_cost_vs_parent":
+                              1 - np.mean(this_inst) / np.mean(par)}
+        print(f"  (a) against {parent} in subprocesses (parent, this, this, "
+              f"parent): parent {par}, this {this}, this instrumented "
+              f"{this_inst}: health counts "
+              f"{100 * rec['a']['parent']['cost_vs_parent']:+.2f}%, with "
+              f"the recorder and checkpoints "
+              f"{100 * rec['a']['parent']['instrumented_cost_vs_parent']:+.2f}%")
+
+    # --- (f) the stream of (a) under the port's schema
+    stream = read_stream(str(metrics))
+    errors = validate_stream(stream)
+    check(not errors, f"(f) stream errors: {errors[:5]}")
+    counts = {}
+    for r in stream:
+        counts[r["event"]] = counts.get(r["event"], 0) + 1
+    check(stream[0]["event"] == "run_start"
+          and stream[0]["platform"] == "gpu"
+          and stream[-1]["event"] == "run_summary",
+          "(f) stream head and tail")
+    rec["f"] = counts
+    print(f"  (f) stream of (a): {len(stream)} records valid; {counts}")
+
+    # --- (b) nan_loglik at iteration 3 of K = 100, armed twice
+    spec = {"nan_loglik": {"iter": 3, "times": 2}}
+    out = {}
+    for backend in ("auto", "torch"):
+        path = workdir / f"b_{backend}.jsonl"
+        with faults.use(spec):
+            res, model, _, secs = fit(data, K0, K_TARGET, ITERS,
+                                      estep_backend=backend,
+                                      metrics_file=str(path))
+        out[backend] = (res, model, read_stream(str(path)), secs)
+    res, primary, stream, secs = out["auto"]
+    ref = out["torch"][0]
+    rungs = [r for r in stream if r["event"] == "recovery"]
+    routes = {"regularize": (primary.estep_backend,
+                             primary.estep_backend_reason),
+              "centered": (res.model.estep_backend,
+                           res.model.estep_backend_reason)}
+    for r in rungs:
+        backend, why = routes[r["action"]]
+        print(f"  (b) K={r['k']} rung {r['attempt']} ({r['action']}): "
+              f"{r['outcome']}; route {backend} ({why})")
+    check([(r["action"], r["outcome"]) for r in rungs]
+          == [("regularize", "fatal"), ("centered", "recovered")],
+          f"(b) rungs {[(r['action'], r['outcome']) for r in rungs]}")
+    check(primary.estep_backend == "cuda" and res.model.estep_backend == "torch",
+          "(b) routes: rung 1 on K1/K2, 'centered' on torch ops")
+    pairs, ref_pairs = ([m[1] for m in r.merges] for r in (res, ref))
+    rel = abs(res.final_loglik - ref.final_loglik) / abs(ref.final_loglik)
+    check(res.ideal_num_clusters == ref.ideal_num_clusters
+          and pairs == ref_pairs and rel <= 1e-4,
+          f"(b) K {res.ideal_num_clusters}/{ref.ideal_num_clusters}, pairs "
+          f"{pairs}/{ref_pairs}, loglik rtol {rel:.2e}")
+    after = res.sweep_log[1:]  # the Ks after the escalation, all 'centered'
+    centered_rate = sum(r[3] for r in after) / sum(r[4] for r in after)
+    rec["b"] = {"rungs": [(r["action"], r["outcome"]) for r in rungs],
+                "centered_em_iters_per_s": centered_rate,
+                "k1_em_iters_per_s": main_rate, "loglik_rtol": rel,
+                "first_k_s": res.sweep_log[0][4]}
+    print(f"  (b) same K ({res.ideal_num_clusters}) and merge pairs {pairs} "
+          f"as torch ops under the injection, loglik rtol {rel:.2e}; the "
+          f"sticky 'centered' rung runs {centered_rate:.2f} EM iters/s on "
+          f"torch ops against K1/K2's {main_rate:.2f} (phase 4); K = {K0} "
+          f"with its two rungs {res.sweep_log[0][4]:.2f} s")
+
+    # --- (c) a NaN mean through K1 and K3
+    rec["c"] = {}
+    for diag in (False, True):
+        state, chunks, wts, _ = stats_inputs(data, K0, diag)
+        means = state.means.clone()
+        means[5] = float("nan")
+        bad = state.replace(means=means)
+        k1 = fs.fused_stats_cuda(bad, chunks, wts, diag_only=diag,
+                                 n_events=len(data))
+        plain = accumulate_stats(bad, chunks, wts, diag_only=diag)
+        lanes = {}
+        for name, st in (("K1", k1), ("plain", plain)):
+            c = health.iteration_counts(bad, st, st.loglik).cpu().numpy()
+            lanes[name] = (float(st.loglik), int(c[health.NONFINITE_LOGLIK]))
+            check(not np.isfinite(lanes[name][0])
+                  and lanes[name][1] == 1,
+                  f"(c) {name} diag={diag}: loglik {lanes[name][0]}, "
+                  f"nonfinite_loglik {lanes[name][1]}")
+        k3 = fs.fused_stats_cuda_batched(
+            stack_states([state, state, bad, state]), chunks, wts,
+            diag_only=diag, n_events=len(data))
+        ll3 = k3.loglik.cpu().numpy()
+        check(not np.isfinite(ll3[2]) and np.isfinite(ll3[[0, 1, 3]]).all(),
+              f"(c) K3 diag={diag}: lane logliks {ll3}")
+        rec["c"]["diag" if diag else "full"] = {
+            "k1_loglik": lanes["K1"][0], "plain_loglik": lanes["plain"][0],
+            "k3_lane_logliks": ll3.tolist()}
+        print(f"  (c) {'diag' if diag else 'full'}: a NaN in cluster 5's "
+              f"mean gives K1 loglik {lanes['K1'][0]}, the plain version "
+              f"{lanes['plain'][0]}, K3 lanes {ll3.tolist()}; "
+              f"nonfinite_loglik set on both")
+        del state, chunks, wts, bad, k1, plain, k3
+
+    # --- (d) preempt in the sweep's second K, then resume
+    ckdir = workdir / "d_ck"
+    with timed_checkpoints() as ck_times:
+        stops = []
+        for _ in range(2):  # K = 100 at iteration 10, then K = 99 at 10
+            with faults.use({"preempt": {"iter": 10}}), supervisor.use(
+                    supervisor.RunSupervisor(install_signals=False)):
+                try:
+                    fit(data, K0, K_TARGET, ITERS, checkpoint_dir=str(ckdir))
+                    check(False, "(d) the injected preempt did not stop")
+                except supervisor.PreemptedError as e:
+                    stops.append((e.step, e.em_iter, e.checkpointed))
+        check(stops == [(0, 10, True), (1, 10, True)], f"(d) stops {stops}")
+        with supervisor.use(supervisor.RunSupervisor(install_signals=False)):
+            res, _, _, secs = fit(data, K0, K_TARGET, ITERS,
+                                  checkpoint_dir=str(ckdir))
+    check(res.final_loglik == main_result.final_loglik
+          and res.ideal_num_clusters == main_result.ideal_num_clusters
+          and [r[:4] for r in res.sweep_log]
+          == [r[:4] for r in main_result.sweep_log]
+          and [m[1] for m in res.merges]
+          == [m[1] for m in main_result.merges[1:]],
+          "(d) the resumed fit differs from phase 4's uninterrupted one")
+    rec["d"] = {"stops": stops, "resumed_fit_s": secs,
+                "emergency_save_ms": [1e3 * t for t in
+                                      ck_times["save_substep"]],
+                "save_ms": [1e3 * t for t in ck_times["save"]],
+                "restore_substep_ms": [1e3 * t for t in
+                                       ck_times["restore_substep"]]}
+    print(f"  (d) stopped at (step, iteration) {[s[:2] for s in stops]}, "
+          f"resumed: final loglik, K, sweep log and merge pairs == phase "
+          f"4's; emergency checkpoint {rec['d']['emergency_save_ms']} ms, "
+          f"per-K checkpoint {np.mean(rec['d']['save_ms']):.2f} ms, "
+          f"sub-step restore {rec['d']['restore_substep_ms']} ms")
+
+    # --- (e) batched restarts with nan_loglik on restart 2
+    sel = {}
+    for backend in ("auto", "torch"):
+        path = workdir / f"e_{backend}.jsonl"
+        with faults.use({"nan_loglik": {"iter": 3, "restart": 2}}):
+            res, model, _, _ = fit(data, K0, K_TARGET, ITERS, n_init=LANES,
+                                   restart_batch_size=LANES,
+                                   estep_backend=backend,
+                                   metrics_file=str(path))
+        pick = next(r for r in read_stream(str(path))
+                    if r["event"] == "restart_select")
+        sel[backend] = (pick["dropped"], pick["winner"],
+                        res.ideal_num_clusters, model.estep_backend)
+    check(sel["auto"][3] == "cuda", "(e) the batched path left K3/K4")
+    check(sel["auto"][:3] == sel["torch"][:3] and sel["auto"][0] == [2],
+          f"(e) kernels {sel['auto'][:3]}, torch ops {sel['torch'][:3]}")
+    rec["e"] = {"dropped": sel["auto"][0], "winner": sel["auto"][1]}
+    print(f"  (e) {LANES} batched restarts, nan_loglik on restart 2: "
+          f"dropped {sel['auto'][0]}, winner init {sel['auto'][1]}, K "
+          f"{sel['auto'][2]}, as on the torch-ops batched path")
+    torch.cuda.synchronize()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", default=None, metavar="DIR",
+                    help="phase 12 (a) also times the main path of the "
+                    "checkout in DIR, in turns with this one")
+    ap.add_argument("--rate-of", default=None, metavar="ROOT",
+                    help=argparse.SUPPRESS)  # phase 12's subprocess mode
     args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
+    if args.rate_of:
+        print(json.dumps(rate_of(args.rate_of, args.seed)))
+        return 0
     try:
         from cuda_gmm_mpi_tpu_torch.ops.kernels import _build
     except ImportError as e:
@@ -2276,7 +2605,7 @@ def main() -> int:
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
     try:
-        launches, _, main_io = phase_main_path(data, workdir)
+        launches, main_result, main_io = phase_main_path(data, workdir)
         diag_ref = phase_diag(data)
         phase_small_reference(args.seed)
         em_profile = profile_em(data)
@@ -2373,6 +2702,17 @@ def main() -> int:
     finally:
         shutil.rmtree(estdir, ignore_errors=True)
 
+    print("phase 12: containment and resume on the card")
+    condir = Path(__file__).resolve().parent / "build" / "chip_smoke_contain"
+    shutil.rmtree(condir, ignore_errors=True)
+    condir.mkdir(parents=True)
+    try:
+        containment = phase_containment(data, main_result,
+                                        main_io["em_iters_per_s"], condir,
+                                        args.parent, args.seed)
+    finally:
+        shutil.rmtree(condir, ignore_errors=True)
+
     src = "cuda_gmm_mpi_tpu_torch/csrc/"
     pallas = "cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py:"
     kernels = [
@@ -2466,6 +2806,7 @@ def main() -> int:
         kernels.extend(shard_precision_records(
             prec, pallas, mesh["bf16"][prec], k56_bf16, k56_bf16_times))
     kernels[0]["estimator"] = estimator
+    kernels[0]["containment"] = containment
     print("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} pass" for k in kernels)
         + f"; total {time.perf_counter() - t_start:.1f} s")

@@ -18,11 +18,20 @@ rank in place of torchrun.
 ``--init-from MODEL.summary`` seeds the fit's means from a saved model;
 ``--predict-from MODEL.summary`` fits nothing and writes the memberships of
 infile under a saved model (the num_clusters positional is ignored).
+
+Fault containment and resume (the JAX CLI's exit codes): a numerical fault
+that the recovery ladder cannot cure (or ``--recovery=off``) exits 70 and
+writes no model; unreadable checkpoints, or a torn input file, exit 74; a
+run stopped by SIGTERM/SIGINT or ``--max-runtime`` exits 75 after an
+emergency checkpoint (with ``--checkpoint-dir``), and the same command
+with ``--resume auto`` (the default) continues inside the interrupted fit.
+``--metrics-file`` writes the JSONL event stream.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import os
 import sys
 
@@ -126,6 +135,54 @@ def build_parser() -> argparse.ArgumentParser:
                    "package's, the JAX package's or the reference's own "
                    "output) and write <outfile>.results memberships for "
                    "infile under it; the num_clusters positional is ignored")
+    t = p.add_argument_group("fault containment, checkpoints, telemetry")
+    t.add_argument("--recovery", default="retry", choices=["retry", "off"],
+                   help="what a FATAL health flag (non-finite loglik/"
+                   "params) does: 'retry' rolls back and climbs the "
+                   "escalation ladder (regularize -> centered -> highest "
+                   "precision); 'off' exits 70 at once with a diagnostic "
+                   "bundle. Detection is always on")
+    t.add_argument("--max-recovery-attempts", type=int, default=3,
+                   help="escalation rungs attempted per fault before "
+                   "failing loudly")
+    t.add_argument("--recovery-reseed-empty", action="store_true",
+                   help="at a target-K fit, reseed empty clusters from "
+                   "worst-fit events instead of eliminating them")
+    t.add_argument("--allow-nonfinite", action="store_true",
+                   help="drop NaN/Inf input rows at load (with a warning) "
+                   "instead of rejecting the file; single-process runs only")
+    t.add_argument("--checkpoint-dir", default=None,
+                   help="checkpoint directory of the K-sweep (resume with "
+                   "the same path); the JAX CLI's npz layout")
+    t.add_argument("--checkpoint-keep", type=int, default=2,
+                   help="retained checkpoint steps (newest + fallbacks)")
+    t.add_argument("--checkpoint-retries", type=int, default=3,
+                   help="bounded retries (jittered backoff) of a failed "
+                   "checkpoint write")
+    t.add_argument("--max-runtime", type=float, default=None,
+                   metavar="SECONDS",
+                   help="wall-clock budget: reaching it acts like SIGTERM "
+                   "-- cooperative stop, emergency checkpoint (with "
+                   "--checkpoint-dir), exit 75")
+    t.add_argument("--resume", default="auto", choices=["auto", "never"],
+                   help="'auto' resumes from the newest checkpoint, a "
+                   "preempted run's mid-EM sub-step included; 'never' "
+                   "starts fresh (checkpoints are still written)")
+    t.add_argument("--preempt-poll-iters", type=int, default=25,
+                   help="EM iterations between stop-flag checks inside a K "
+                   "(with --checkpoint-dir)")
+    t.add_argument("--metrics-file", default=None, metavar="FILE.jsonl",
+                   help="run-scoped telemetry stream: the JAX CLI's "
+                   "schema-versioned JSONL records (run_start, em_iter, "
+                   "em_done, merge, health, recovery, run_summary, ...); "
+                   "`python -m cuda_gmm_mpi_tpu.cli report FILE` renders it")
+    t.add_argument("--sweep-log", default=None, metavar="FILE.jsonl",
+                   help="write the per-K sweep trajectory (num_clusters, "
+                   "loglik, score, criterion, em_iters, seconds) as JSON "
+                   "lines (rank 0)")
+    t.add_argument("--no-output", action="store_true",
+                   help="write an empty .summary and no .results "
+                   "(ENABLE_OUTPUT off)")
     d = p.add_argument_group(
         "distributed (the reference's mpirun; run the SAME command on every "
         "rank, or launch with torchrun, which sets RANK and WORLD_SIZE)")
@@ -175,7 +232,16 @@ def main(argv=None) -> int:
             enable_print=args.verbose, seed=args.seed,
             seed_method=args.seed_method, n_init=args.n_init,
             restart_batch_size=args.restart_batch_size,
-            mesh_shape=_parse_mesh(args.mesh))
+            mesh_shape=_parse_mesh(args.mesh),
+            enable_output=not args.no_output, recovery=args.recovery,
+            max_recovery_attempts=args.max_recovery_attempts,
+            recovery_reseed_empty=args.recovery_reseed_empty,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_keep=args.checkpoint_keep,
+            checkpoint_retries=args.checkpoint_retries,
+            max_runtime_s=args.max_runtime, resume=args.resume,
+            preempt_poll_iters=args.preempt_poll_iters,
+            metrics_file=args.metrics_file)
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
@@ -193,6 +259,9 @@ def main(argv=None) -> int:
             ("--restart-batch-size", args.restart_batch_size is not None),
             ("--mesh", args.mesh),
             ("--seed-method", args.seed_method != "even"),
+            ("--sweep-log", args.sweep_log),
+            ("--metrics-file", args.metrics_file),
+            ("--checkpoint-dir", args.checkpoint_dir),
         ]
         for flag, present in fit_only:
             if present:
@@ -226,14 +295,30 @@ def main(argv=None) -> int:
 def _run(args, config, rank: int, world: int) -> int:
     import dataclasses
 
-    from .io import read_summary, stream_results, write_summary
-    from .models import fit_gmm, iter_memberships
+    from . import supervisor
+    from .health import NumericalFaultError
+    from .io import read_summary
     from .models.order_search import default_model
-    from .validation import InvalidInputError
+    from .utils.checkpoint import CheckpointRestoreError
 
     if rank != 0:  # status prints from rank 0 only
         config = dataclasses.replace(config, enable_print=False)
-    data, rc = _read_events(args.infile)
+    if rank == 0:
+        for flag, target in (("--sweep-log", args.sweep_log),
+                             ("--metrics-file", args.metrics_file)):
+            if target:
+                try:
+                    with open(target, "a"):
+                        pass
+                except OSError as e:
+                    print(f"Cannot write {flag}={target!r}: {e}",
+                          file=sys.stderr)
+                    return 1
+    if args.allow_nonfinite and world > 1:
+        print("--allow-nonfinite is a single-process mode", file=sys.stderr)
+        return 1
+    data, rc = _read_events(args.infile, allow_nonfinite=args.allow_nonfinite,
+                            dtype=config.dtype)
     if data is None:
         return rc
     n_events, n_dims = data.shape
@@ -267,33 +352,85 @@ def _run(args, config, rank: int, world: int) -> int:
         if model.mesh is not None:
             print(f"mesh (data, cluster): {model.mesh.shape} over {world} "
                   f"rank(s); collective backend: {model.collective_backend}")
+    # The run supervisor turns SIGTERM/SIGINT and --max-runtime into a
+    # cooperative stop with an emergency checkpoint and exit 75. One process
+    # only: a mesh's ranks would each stop on their own (ROADMAP item 9), so
+    # there fit_gmm refuses --checkpoint-dir and --max-runtime instead.
+    with contextlib.ExitStack() as stack:
+        if world == 1:
+            stack.enter_context(supervisor.use(supervisor.RunSupervisor(
+                max_runtime_s=config.max_runtime_s)))
+        try:
+            return _fit_and_write(args, config, model, data, init_means, rank)
+        except NotImplementedError as e:
+            print(str(e), file=sys.stderr)
+            return 1
+        except NumericalFaultError as e:
+            # Unrecovered (or recovery disabled): never write a poisoned
+            # model.
+            print(f"Numerical fault -- no model written.\n{e}",
+                  file=sys.stderr)
+            return supervisor.EX_SOFTWARE
+        except supervisor.PreemptedError as e:
+            print(f"Preempted -- {e}", file=sys.stderr)
+            return supervisor.EX_TEMPFAIL
+        except CheckpointRestoreError as e:
+            print(f"Checkpoint unreadable -- {e}", file=sys.stderr)
+            return supervisor.EX_IOERR
+
+
+def _fit_and_write(args, config, model, data, init_means, rank) -> int:
+    """The supervised span of a fit run: fit, then write the outputs."""
+    import json
+
+    from .io import stream_results, write_summary
+    from .models import fit_gmm, iter_memberships
+    from .validation import InvalidInputError
+
     try:
         result = fit_gmm(data, args.num_clusters, args.target_num_clusters,
                          config=config, model=model, init_means=init_means)
     except InvalidInputError as e:
         print(str(e), file=sys.stderr)
         return 1
-    if rank != 0:  # rank 0 alone writes .summary and .results
+    if rank != 0:  # rank 0 alone writes the outputs
         return 0
-    write_summary(args.outfile + ".summary", result)
-    stream_results(args.outfile + ".results",
-                   iter_memberships(result, data, config, model))
+    write_summary(args.outfile + ".summary", result,
+                  enable_output=config.enable_output)
+    if args.sweep_log:
+        with open(args.sweep_log, "w") as f:
+            for k, ll, riss, iters, secs in result.sweep_log:
+                f.write(json.dumps({
+                    "num_clusters": int(k), "loglik": float(ll),
+                    "score": float(riss), "criterion": config.criterion,
+                    "em_iters": int(iters), "seconds": float(secs),
+                }) + "\n")
+    if config.enable_output:
+        stream_results(args.outfile + ".results",
+                       iter_memberships(result, data, config, result.model))
     return 0
 
 
-def _read_events(path):
+def _read_events(path, allow_nonfinite: bool = False, dtype=None):
     """(events, 0), or (None, exit code) after the reference's abort
-    message (gaussian.cu:204-205): 74 for an unreadable or torn file, 1 for
-    malformed content."""
+    message (gaussian.cu:204-205): 74 (EX_IOERR) for an unreadable or torn
+    file, 1 for malformed content. ``allow_nonfinite`` drops NaN/Inf rows
+    (in the compute ``dtype``) with a warning."""
+    import numpy as np
+
+    from . import supervisor
     from .io import TruncatedInputError, read_data
 
     try:
-        return read_data(path), 0
+        return read_data(path, screen="quarantine" if allow_nonfinite
+                         else "off",
+                         screen_dtype=np.dtype(dtype) if dtype else None), 0
     except (OSError, ValueError) as e:
         print("Error parsing input file. This could be due to an empty file "
               f"or an inconsistent number of dimensions. Aborting. ({e})",
               file=sys.stderr)
-        return None, 74 if isinstance(e, (OSError, TruncatedInputError)) else 1
+        torn = isinstance(e, (OSError, TruncatedInputError))
+        return None, supervisor.EX_IOERR if torn else 1
 
 
 def _predict_main(args, config) -> int:

@@ -97,6 +97,51 @@ class GMMConfig:
     # (parallel/mesh.py): events sharded over the data axis, clusters over
     # the cluster axis. None = every rank on the data axis.
     mesh_shape: Optional[Tuple[int, int]] = None
+    # Write the model's cluster blocks and the .results (the reference's
+    # compile-time ENABLE_OUTPUT; --no-output turns it off).
+    enable_output: bool = True
+
+    # --- numerical fault containment (health.py) ---
+    # The health counters are always computed. ``recovery`` selects what a
+    # FATAL flag (non-finite loglik/params) does: 'retry' rolls back to the
+    # K's input state and climbs the escalation ladder (sanitize + raise
+    # the variance floor -> quad_mode='centered' -> 'highest' precision),
+    # failing loudly (NumericalFaultError) only when the ladder is
+    # exhausted; 'off' raises at once. A poisoned model is never returned.
+    recovery: str = "retry"
+    # Escalation rungs attempted per fault before giving up (3 exist).
+    max_recovery_attempts: int = 3
+    # Variance-floor multiplier per attempt: attempt i retries with
+    # avgvar * boost**i.
+    recovery_boost: float = 10.0
+    # Reseed empty clusters from worst-fit events at a target-K fit instead
+    # of letting elimination shrink the model below the requested K.
+    recovery_reseed_empty: bool = False
+    # A loglik drop beyond this many epsilons between EM iterations raises
+    # the (non-fatal) loglik_regression flag.
+    health_regression_scale: float = 10.0
+
+    # --- checkpoint/resume and the run supervisor (utils/checkpoint.py,
+    # supervisor.py) ---
+    # Directory of the sweep's checkpoints (<dir>/sweep/<step>.npz, the
+    # JAX package's layout); None = no checkpoints.
+    checkpoint_dir: Optional[str] = None
+    # Retained checkpoint steps (newest + fallbacks). >= 1.
+    checkpoint_keep: int = 2
+    # Bounded retries (jittered exponential backoff) of a checkpoint
+    # write; 0 = the first failure is final.
+    checkpoint_retries: int = 3
+    # Wall-clock budget in seconds: reaching it acts like SIGTERM --
+    # cooperative stop, emergency checkpoint, exit 75. None = no deadline.
+    max_runtime_s: Optional[float] = None
+    # EM iterations between the supervisor's stop-flag checks inside a K
+    # (with a supervisor and checkpoint_dir).
+    preempt_poll_iters: int = 25
+    # 'auto' resumes from the newest checkpoint (an emergency mid-EM
+    # sub-step included); 'never' starts fresh (and still writes).
+    resume: str = "auto"
+    # JSONL path of the run's telemetry stream (telemetry/); None = off.
+    metrics_file: Optional[str] = None
 
     def __post_init__(self):
         if self.min_iters > self.max_iters:
@@ -160,6 +205,28 @@ class GMMConfig:
                     "precompute_features is the torch-ops feature hoist; "
                     "the CUDA kernels build their features on chip -- drop "
                     "one flag")
+        if self.checkpoint_keep < 1:
+            raise ValueError("checkpoint_keep must be >= 1")
+        if self.max_runtime_s is not None and self.max_runtime_s <= 0:
+            raise ValueError("max_runtime_s must be > 0 (or None)")
+        if self.preempt_poll_iters < 1:
+            raise ValueError("preempt_poll_iters must be >= 1")
+        if self.resume not in ("auto", "never"):
+            raise ValueError(
+                f"unknown resume: {self.resume!r} "
+                "(expected 'auto' or 'never')")
+        if self.recovery not in ("retry", "off"):
+            raise ValueError(
+                f"unknown recovery: {self.recovery!r} "
+                "(expected 'retry' or 'off')")
+        if self.max_recovery_attempts < 0:
+            raise ValueError("max_recovery_attempts must be >= 0")
+        if self.checkpoint_retries < 0:
+            raise ValueError("checkpoint_retries must be >= 0")
+        if self.recovery_boost < 1.0:
+            raise ValueError("recovery_boost must be >= 1")
+        if self.health_regression_scale <= 0:
+            raise ValueError("health_regression_scale must be > 0")
         if self.mesh_shape is not None and (
                 len(self.mesh_shape) != 2 or min(self.mesh_shape) < 1):
             raise ValueError(f"mesh_shape must be (data, cluster) with both "

@@ -6,17 +6,27 @@ that property for the port: a small C++ shared library, the repository's
 with ctypes. Callers check ``available()`` and take the NumPy paths
 otherwise (``use_native='auto'``), or raise (``'always'``).
 
-The library is built on first use by ``ensure_built()`` with ``make -C
-native``. This is the port's own copy of the JAX package's bindings.
+The library is built on first use by ``ensure_built()`` with the
+``native/Makefile`` recipe. Processes that start together (a test run's
+workers, the ranks of a mesh) build it under an exclusive ``flock`` on
+``native/.libgmm_io.lock``, into a private copy of ``native/``, and move the
+result onto ``native/libgmm_io.so`` with ``os.replace``: no process ever
+loads a half-written library, and every process of a run sees the same
+answer from ``available()``. This is the port's own copy of the JAX
+package's bindings.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
+import time
 from typing import Optional
 
 import numpy as np
@@ -24,35 +34,94 @@ import numpy as np
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "native")
 _LIB_PATH = os.path.join(_NATIVE_DIR, "libgmm_io.so")
+_LOCK_NAME = ".libgmm_io.lock"
+_SOURCES = ("Makefile", "gmm_io.cpp")
+# Longest wait for another process's build (the lock) before giving up.
+_BUILD_WAIT_S = 300.0
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
 _tried = False
 
 
-def ensure_built(force: bool = False) -> bool:
-    """Build libgmm_io.so via make if missing or stale. Returns True on
-    success (make itself is a no-op when the .so is up to date)."""
-    makefile = os.path.join(_NATIVE_DIR, "Makefile")
-    if os.path.exists(_LIB_PATH) and not force:
-        try:
-            lib_mtime = os.path.getmtime(_LIB_PATH)
-            srcs = [makefile, os.path.join(_NATIVE_DIR, "gmm_io.cpp")]
-            if all(os.path.getmtime(s) <= lib_mtime
-                   for s in srcs if os.path.exists(s)):
-                return True
-        except OSError:
-            return True  # can't stat sources; use the existing library
-    if not os.path.exists(makefile):
+def _up_to_date() -> bool:
+    """The library exists and is no older than its sources."""
+    if not os.path.exists(_LIB_PATH):
         return False
     try:
-        subprocess.run(
-            ["make", "-C", _NATIVE_DIR, "libgmm_io.so"],
-            check=True, capture_output=True, timeout=120,
-        )
+        lib_mtime = os.path.getmtime(_LIB_PATH)
+        return all(os.path.getmtime(p) <= lib_mtime for p in (
+            os.path.join(_NATIVE_DIR, s) for s in _SOURCES)
+            if os.path.exists(p))
+    except OSError:
+        return True  # can't stat sources; use the existing library
+
+
+def _flock(fd: int, deadline: float) -> bool:
+    """Take the exclusive lock on ``fd`` by ``deadline``; False on timeout."""
+    while True:
+        try:
+            fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            return True
+        except BlockingIOError:
+            if time.monotonic() >= deadline:
+                return False
+            time.sleep(0.05)
+
+
+def ensure_built(force: bool = False) -> bool:
+    """Build libgmm_io.so if it is missing or stale (or ``force``).
+    Returns True when an up-to-date library is in place.
+
+    The build holds ``native/.libgmm_io.lock`` and runs ``make`` in a
+    private copy of the sources next to them, then ``os.replace``s the
+    result onto the library path, so a concurrent loader sees either no
+    library or a whole one. A process that finds the lock held waits for
+    it (at most ``_BUILD_WAIT_S``) and then finds the library built."""
+    if not force and _up_to_date():
+        return True
+    if not os.path.exists(os.path.join(_NATIVE_DIR, "Makefile")):
+        return False
+    try:
+        fd = os.open(os.path.join(_NATIVE_DIR, _LOCK_NAME),
+                     os.O_RDWR | os.O_CREAT, 0o644)
+    except OSError:
+        return False
+    try:
+        if not _flock(fd, time.monotonic() + _BUILD_WAIT_S):
+            return False
+        if not force and _up_to_date():
+            return True  # built by the process that held the lock
+        tmp = tempfile.mkdtemp(prefix=".build-", dir=_NATIVE_DIR)
+        try:
+            for name in _SOURCES:
+                shutil.copy2(os.path.join(_NATIVE_DIR, name), tmp)
+            subprocess.run(["make", "-C", tmp, "libgmm_io.so"], check=True,
+                           capture_output=True, timeout=120)
+            os.replace(os.path.join(tmp, "libgmm_io.so"), _LIB_PATH)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        return True
     except Exception:
         return False
-    return os.path.exists(_LIB_PATH)
+    finally:
+        os.close(fd)  # releases the lock
+
+
+def _open_library() -> Optional[ctypes.CDLL]:
+    """Build if needed and dlopen; None on failure. A failed build or
+    dlopen is tried once more, rebuilding under the lock: the first try may
+    have met a library that the JAX package's copy of these bindings was
+    writing in place (it builds without the lock)."""
+    for attempt in range(2):
+        if attempt:
+            time.sleep(0.5)
+        if ensure_built(force=attempt > 0):
+            try:
+                return ctypes.CDLL(_LIB_PATH)
+            except OSError:
+                pass
+    return None
 
 
 def _load() -> Optional[ctypes.CDLL]:
@@ -60,12 +129,9 @@ def _load() -> Optional[ctypes.CDLL]:
     with _lock:
         if _lib is not None or _tried:
             return _lib
+        lib = _open_library()
         _tried = True
-        if not ensure_built():
-            return None
-        try:
-            lib = ctypes.CDLL(_LIB_PATH)
-        except OSError:
+        if lib is None:
             return None
         lib.gmm_read_data.restype = ctypes.c_int
         lib.gmm_read_data.argtypes = [

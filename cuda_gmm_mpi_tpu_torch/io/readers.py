@@ -25,22 +25,66 @@ class TruncatedInputError(ValueError):
     declared size (a partial copy, a crashed writer)."""
 
 
-def read_data(path: str, use_native: str = "auto") -> np.ndarray:
+def read_data(path: str, use_native: str = "auto", screen: str = "off",
+              screen_dtype=None) -> np.ndarray:
     """Read every event of ``path`` as a float32 [num_events, D] array.
 
     A BIN file the native reader rejects is re-read by the Python reader,
     so a torn header or payload surfaces as :class:`TruncatedInputError`
-    (as in the JAX package's reader)."""
+    (as in the JAX package's reader). ``screen`` ('off', 'reject' or
+    'quarantine') runs :func:`screen_nonfinite` on the rows."""
     from .native import select
 
     native = select(use_native)
+    data = None
     if native is not None:
         try:
-            return native.read_data(path)
+            data = native.read_data(path)
         except ValueError:
             if not path.endswith("bin"):
                 raise
-    return read_bin(path) if path.endswith("bin") else read_csv(path)
+    if data is None:
+        data = read_bin(path) if path.endswith("bin") else read_csv(path)
+    if screen != "off":
+        data, _ = screen_nonfinite(data, path, mode=screen,
+                                   dtype=screen_dtype)
+    return data
+
+
+def screen_nonfinite(data: np.ndarray, path: str, *, mode: str = "reject",
+                     dtype=None):
+    """Input-integrity screen (the JAX package's, io/readers.py): reject or
+    quarantine NaN/Inf event rows. Returns ``(data, n_dropped)``.
+    ``mode='reject'`` raises ``InvalidInputError`` naming the first
+    offending rows; ``'quarantine'`` drops them with a warning. ``dtype``
+    also treats magnitudes that overflow the compute dtype as non-finite.
+    Row numbers are 0-based data rows (after a CSV header)."""
+    if mode not in ("reject", "quarantine"):
+        raise ValueError(f"unknown screen mode: {mode!r}")
+    finite = np.isfinite(data)
+    if dtype is not None and np.dtype(dtype).itemsize < data.dtype.itemsize:
+        finite &= np.abs(data) <= np.finfo(dtype).max
+    row_ok = finite.all(axis=1)
+    bad = np.flatnonzero(~row_ok)
+    if bad.size == 0:
+        return data, 0
+    shown = ", ".join(str(int(b)) for b in bad[:5])
+    more = ", ..." if bad.size > 5 else ""
+    if mode == "reject":
+        from ..validation import InvalidInputError
+
+        raise InvalidInputError(
+            f"{path}: {bad.size} non-finite event row(s) at ingest "
+            f"(data rows {shown}{more}); NaN/Inf events poison every "
+            "downstream statistic -- clean the file, or quarantine with "
+            "--allow-nonfinite")
+    from ..utils.logging_ import get_logger
+
+    get_logger().warning(
+        "%s: quarantined %d non-finite event row(s) at ingest (data rows "
+        "%s%s) -- they are EXCLUDED from the fit", path, bad.size, shown,
+        more)
+    return np.ascontiguousarray(data[row_ok]), int(bad.size)
 
 
 def data_shape(path: str, use_native: str = "auto"):

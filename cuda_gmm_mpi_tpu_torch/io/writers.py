@@ -38,16 +38,19 @@ def write_cluster(f: IO[str], pi: float, n: float, means: np.ndarray,
         f.write("".join(f"{v:.3f} " for v in row) + "\n")
 
 
-def write_summary(path: str, result) -> None:
+def write_summary(path: str, result, enable_output: bool = True) -> None:
     """``<outfile>.summary`` (gaussian.cu:1014-1040): one block per cluster
     of the best model. ``result.state`` holds host tensors (``GMMResult``
-    keeps it on the CPU).
+    keeps it on the CPU). The file is created in any case, as the
+    reference does; the blocks are written when ``enable_output``.
     """
     means = result.means
     state = result.state
     pi, n, R = (np.asarray(state.pi), np.asarray(state.N),
                 np.asarray(state.R))
     with open(path, "w") as f:
+        if not enable_output:
+            return
         for c in range(result.ideal_num_clusters):
             f.write(f"Cluster #{c}\n")
             write_cluster(f, float(pi[c]), float(n[c]), means[c], R[c])

@@ -13,23 +13,42 @@ reads the loglik once per iteration, as the reference does
 with ``|change| > epsilon`` spelled ``not (|change| <= epsilon)``, so a
 non-finite change reads as not converged.
 
+**Health** (health.py): every iteration computes the counter lanes on the
+device -- non-finite loglik/params, a loglik regression beyond
+``health_regression_scale * epsilon``, empty clusters, covariance dynamic
+range, the E-step's sanitized rows -- and reads them to the host in the
+same transfer as the loglik, so the loop still makes one device->host read
+per iteration. A fatal lane stops the loop (the JAX package's
+``~fatal`` in its loop condition); the totals land on the model's
+``last_health`` and the loglik trajectory on ``last_lls``.
+
+**Supervision**: with ``should_stop`` the loop asks the run supervisor
+every ``preempt_poll_iters`` iterations, at an armed ``preempt``
+iteration and where it ends (the JAX package's segment boundaries, which
+here are only checks between iterations), and a resumed run restarts at a
+checkpointed iteration with its loglik trajectory.
+
 ``em_while_loop_batched`` runs the same loop for a batch of restarts (a
-state with a leading restart axis R) with per-lane bounds and masked
-freeze-out: each lane iterates exactly as its own ``em_while_loop`` would.
+state with a leading restart axis R) with per-lane bounds, masked
+freeze-out and per-lane health rows ([R, NUM_FLAGS]): each lane iterates
+exactly as its own ``em_while_loop`` would.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from .. import health
 from ..config import GMMConfig
 from ..ops.estep import features, posteriors
 from ..ops.mstep import SuffStats, accumulate_stats, apply_mstep, zeros_stats
 from ..state import lane, stack_states, where_lanes
+from ..testing import faults
 
 
 def resolve_device(config: GMMConfig) -> torch.device:
@@ -154,6 +173,11 @@ class GMMModel:
                  mstep_fn: Optional[Callable] = None):
         self.config = config
         self.device = setup_device(config)
+        # The last EM run's health counters (int64 [NUM_FLAGS], or
+        # [R, NUM_FLAGS] after run_em_batched) and loglik trajectory.
+        self.last_health = None
+        self.last_lls = None
+        self._armed_faults = {}
         if stats_fn is None and mstep_fn is None:
             from ..ops.kernels import (
                 make_batched_stats_fn, make_mstep_fn, make_stats_fn,
@@ -198,37 +222,101 @@ class GMMModel:
         return torch.as_tensor(np.asarray(array, self.config.dtype),
                                device=self.device)
 
+    def armed_fault(self, state, data_chunks, *, sweep: bool,
+                    batched: bool = False):
+        """The ``nan_loglik`` plan (testing.faults) armed on the EM
+        "executable" this call runs, or None.
+
+        The JAX package consumes the plan when it traces an EM executable
+        and compiles it in: one executable per model, call variant (the
+        sweep's donating call, ``sweep=True``, or any other call: a
+        recovery rung, a library call) and input shapes. The port keeps
+        that table per model and arms an entry the first time it runs it,
+        so the fault fires on the same runs: every rerun of an armed entry
+        fires again, and a rung-rebuilt model (a new table) runs clean. A
+        plan with ``restart`` set arms only the batched loop's entries."""
+        key = (sweep, batched, tuple(state.means.shape[-2:]),
+               tuple(data_chunks.shape), data_chunks.dtype)
+        if key not in self._armed_faults:
+            plan = faults.peek("nan_loglik")
+            if plan is not None and "restart" in plan and not batched:
+                plan = None
+            else:
+                plan = faults.take("nan_loglik")
+            self._armed_faults[key] = plan
+        return self._armed_faults[key]
+
     def run_em(self, state, data_chunks, wts_chunks, epsilon: float,
                min_iters: Optional[int] = None,
                max_iters: Optional[int] = None,
-               n_events: Optional[int] = None):
-        """Full EM at the current active K. Returns (state, loglik, iters).
+               n_events: Optional[int] = None, *, sweep: bool = False):
+        """Full EM at the current active K. Returns (state, loglik, iters);
+        the health counters land on ``last_health`` and the loglik
+        trajectory (the initial E-step's first) on ``last_lls``.
 
         ``n_events`` (the real events, in front of the chunk grid's
-        zero-weight padding) lets K1 skip the padding rows."""
+        zero-weight padding) lets K1 skip the padding rows. ``sweep``
+        marks the order search's per-K call (``armed_fault``)."""
+        state, ll, iters, _, _, _ = self.run_em_resumable(
+            state, data_chunks, wts_chunks, epsilon, min_iters, max_iters,
+            n_events=n_events, sweep=sweep)
+        return state, ll, iters
+
+    def run_em_resumable(self, state, data_chunks, wts_chunks, epsilon,
+                         min_iters: Optional[int] = None,
+                         max_iters: Optional[int] = None,
+                         n_events: Optional[int] = None, *,
+                         sweep: bool = False, poll_iters: int = 25,
+                         should_stop: Optional[Callable[[int], bool]] = None,
+                         resume: Optional[dict] = None):
+        """:meth:`run_em` under a run supervisor: ``should_stop(done)`` is
+        asked every ``poll_iters`` iterations, at an armed ``preempt``
+        iteration and where the loop ends; ``resume={"em_iter": i,
+        "em_lls": [...]}`` restarts at iteration ``i`` from a checkpointed
+        mid-EM state. Returns ``(state, loglik, iters, lls, stopped,
+        extra)``: ``stopped`` when ``should_stop`` tripped (the state is
+        the one to checkpoint), ``extra`` the resume payload then."""
         cfg = self.config
         stats_fn = self.stats_fn
         if n_events is not None and self.estep_backend == "cuda":
             stats_fn = functools.partial(stats_fn, n_events=n_events)
-        return em_while_loop(
+        inj = self.armed_fault(state, data_chunks, sweep=sweep)
+        run = _em_loop(
             state, data_chunks, wts_chunks, epsilon,
             cfg.min_iters if min_iters is None else min_iters,
             cfg.max_iters if max_iters is None else max_iters,
             stats_fn=stats_fn, mstep_fn=self.mstep_fn,
             precompute_features=cfg.precompute_features,
-            covariance_type=cfg.covariance_type, **self.numerics)
+            covariance_type=cfg.covariance_type,
+            dynamic_range=cfg.covariance_dynamic_range,
+            regression_scale=cfg.health_regression_scale,
+            nan_iter=None if inj is None else int(inj["iter"]),
+            should_stop=should_stop, poll_iters=poll_iters,
+            resume=resume, **self.numerics)
+        self.last_health, self.last_lls = run.health, run.lls
+        return (run.state, run.loglik, run.iters, run.lls, run.stopped,
+                run.extra)
 
     def run_em_batched(self, states, data_chunks, wts_chunks, epsilon: float,
                        min_iters=None, max_iters=None,
-                       n_events: Optional[int] = None):
+                       n_events: Optional[int] = None, *, sweep: bool = False,
+                       poll_iters: int = 25,
+                       should_stop: Optional[Callable[[int], bool]] = None,
+                       freeze=None, resume: Optional[dict] = None):
         """Full EM for a batch of restarts: ``states`` has a leading restart
         axis R on every leaf. Returns (states, loglik [R], iters [R]), the
-        last two as numpy arrays.
+        last two as numpy arrays; per-lane health rows [R, NUM_FLAGS] land
+        on ``last_health`` and the lanes' loglik trajectories on
+        ``last_lls``.
 
         ``min_iters``/``max_iters`` take scalars or [R] vectors; a lane
-        with ``max_iters=0`` is frozen: it runs no E-step, its state passes
-        through untouched and its loglik is NaN. ``n_events`` as in
-        :meth:`run_em`.
+        with ``max_iters=0`` (or set in ``freeze``, [R] bool) is frozen: it
+        runs no E-step, its state passes through untouched and its loglik
+        is NaN. ``n_events`` and ``sweep`` as in :meth:`run_em`;
+        ``should_stop``/``poll_iters``/``resume`` as in
+        :meth:`run_em_resumable` (the resume payload carries every lane's
+        trajectory, ``em_lens``, ``em_frozen`` and ``em_fatal``), with
+        ``self.last_stop`` = (stopped, extra) after the call.
         """
         lo, hi = resolve_iters_batched(self.config, states.N.shape[0],
                                        min_iters, max_iters)
@@ -246,9 +334,21 @@ class GMMModel:
                 functools.partial(accumulate_stats, feats_chunks=feats,
                                   **self.numerics),
                 diag_only=cfg.diag_only)
-        return em_while_loop_batched(
+        inj = self.armed_fault(states, data_chunks, sweep=sweep,
+                               batched=True)
+        run = em_while_loop_batched(
             states, data_chunks, wts_chunks, epsilon, lo, hi,
-            batched_stats_fn=stats_fn, mstep_fn=self.batched_mstep_fn)
+            batched_stats_fn=stats_fn, mstep_fn=self.batched_mstep_fn,
+            dynamic_range=cfg.covariance_dynamic_range,
+            regression_scale=cfg.health_regression_scale,
+            nan_iter=None if inj is None else int(inj["iter"]),
+            nan_restart=(None if inj is None or "restart" not in inj
+                         else int(inj["restart"])),
+            should_stop=should_stop, poll_iters=poll_iters, freeze=freeze,
+            resume=resume)
+        self.last_health, self.last_lls = run.health, run.lls
+        self.last_stop = (run.stopped, run.extra)
+        return run.state, run.loglik, run.iters
 
     @property
     def inference_block(self) -> int:
@@ -291,17 +391,65 @@ def hoisted_features(data_chunks: torch.Tensor, *, precompute_features: bool,
     return torch.stack([features(c, quad_mode) for c in data_chunks])
 
 
+@dataclasses.dataclass
+class EMRun:
+    """One EM run: the final state, its loglik and iteration count (numpy
+    [R] arrays for a batch), the health counters (int64 [NUM_FLAGS] or
+    [R, NUM_FLAGS]), the loglik trajectory (a list, or one list per lane:
+    the initial E-step's loglik, then one per iteration), whether the
+    supervisor stopped it, and the resume payload of a stopped run."""
+
+    state: object
+    loglik: object
+    iters: object
+    health: np.ndarray
+    lls: list
+    stopped: bool = False
+    extra: dict = dataclasses.field(default_factory=dict)
+
+
+def _read(*parts) -> list:
+    """The device->host read of one EM iteration: scalars and counter
+    vectors concatenated into one tensor, fetched in one transfer."""
+    return torch.cat([p.reshape(-1).to(parts[0].dtype)
+                      for p in parts]).tolist()
+
+
+def _preempt_iter() -> Optional[int]:
+    """The EM iteration an armed ``preempt`` plan stops at (the supervisor
+    consumes it at that poll), or None."""
+    inj = faults.peek("preempt")
+    if inj is not None and "iter" in inj and int(inj.get("block", -1)) == -1:
+        return int(inj["iter"])
+    return None
+
+
 def em_while_loop(state, data_chunks, wts_chunks, epsilon: float,
-                  min_iters: int, max_iters: int, *, diag_only: bool = False,
-                  quad_mode: str = "expanded",
-                  matmul_precision: str = "highest",
-                  precompute_features: bool = False,
-                  stats_fn: Optional[Callable] = None,
-                  mstep_fn: Optional[Callable] = None,
-                  reduce_stats: Optional[Callable] = None,
-                  cluster_group=None,
-                  covariance_type: Optional[str] = None):
-    """The per-K EM algorithm as a host loop. Returns (state, loglik, iters).
+                  min_iters: int, max_iters: int, **kw):
+    """The per-K EM algorithm as a host loop. Returns (state, loglik,
+    iters); :func:`_em_loop` takes the keyword arguments and returns the
+    whole :class:`EMRun` (health counters and trajectory too)."""
+    run = _em_loop(state, data_chunks, wts_chunks, epsilon, min_iters,
+                   max_iters, **kw)
+    return run.state, run.loglik, run.iters
+
+
+def _em_loop(state, data_chunks, wts_chunks, epsilon: float,
+             min_iters: int, max_iters: int, *, diag_only: bool = False,
+             quad_mode: str = "expanded",
+             matmul_precision: str = "highest",
+             precompute_features: bool = False,
+             stats_fn: Optional[Callable] = None,
+             mstep_fn: Optional[Callable] = None,
+             reduce_stats: Optional[Callable] = None,
+             cluster_group=None,
+             covariance_type: Optional[str] = None,
+             dynamic_range: float = 1e3, regression_scale: float = 10.0,
+             nan_iter: Optional[int] = None,
+             should_stop: Optional[Callable[[int], bool]] = None,
+             poll_iters: int = 25, resume: Optional[dict] = None) -> EMRun:
+    """The per-K EM loop with its health counters (see the module
+    docstring).
 
     ``stats_fn(state, data_chunks, wts_chunks) -> SuffStats`` replaces the
     torch-ops statistics pass (K1 rides this hook); ``mstep_fn(state,
@@ -309,15 +457,21 @@ def em_while_loop(state, data_chunks, wts_chunks, epsilon: float,
     ``reduce_stats(stats) -> SuffStats`` is applied to every E-step's
     statistics before the loglik is read (the data-axis all_reduce of a
     mesh, parallel/sharded_em.py); ``cluster_group`` is the process group
-    of a sharded cluster axis, handed to the torch-ops E- and M-step.
-    ``quad_mode`` and ``matmul_precision`` are the torch-ops E-step's
-    switches; ``precompute_features`` hoists its [C, B, F] features out of
-    the loop (built once here, when no ``stats_fn`` is bound, for full
-    covariance in 'expanded'/'packed' mode, as the JAX package's loop
-    does). ``covariance_type`` is the torch-ops M-step's family (None:
-    'diag' or 'full' from ``diag_only``). The loglik and the change are
-    computed in the data's dtype, as on the device in the reference, and
-    read to the host once per iteration.
+    of a sharded cluster axis, handed to the torch-ops E- and M-step and
+    to the health counts. ``quad_mode`` and ``matmul_precision`` are the
+    torch-ops E-step's switches; ``precompute_features`` hoists its
+    [C, B, F] features out of the loop (built once here, when no
+    ``stats_fn`` is bound, for full covariance in 'expanded'/'packed'
+    mode, as the JAX package's loop does). ``covariance_type`` is the
+    torch-ops M-step's family (None: 'diag' or 'full' from
+    ``diag_only``). The loglik and the change are computed in the data's
+    dtype, as on the device in the reference, and read to the host with
+    the counters once per iteration (and once after the initial E-step).
+
+    ``dynamic_range``/``regression_scale`` parametrize the counters;
+    ``nan_iter`` is an armed ``nan_loglik`` fault (the loglik of that
+    iteration becomes NaN); ``should_stop``/``poll_iters``/``resume`` as
+    in :meth:`GMMModel.run_em_resumable`.
     """
     feats = None
     if stats_fn is None:
@@ -343,59 +497,190 @@ def em_while_loop(state, data_chunks, wts_chunks, epsilon: float,
                            cluster_group=cluster_group,
                            covariance_type=covariance_type)
 
-    eps = float(torch.tensor(epsilon, dtype=data_chunks.dtype))
+    count = functools.partial(health.iteration_counts,
+                              dynamic_range=dynamic_range,
+                              cluster_group=cluster_group)
+    eps_t = torch.tensor(epsilon, dtype=data_chunks.dtype)
+    eps = float(eps_t)
+    reg_tol = (regression_scale * eps_t).to(data_chunks.device)
     stats = estep(state)  # initial E-step (gaussian.cu:487-516)
     ll = stats.loglik
+    vals = _read(ll, count(state, stats, ll))
+    totals = np.rint(vals[1:]).astype(np.int64)
+    lls = [vals[0]]
     change = 2.0 * eps + 1.0  # :525
     iters = 0
-    while iters < min_iters or (not abs(change) <= eps and iters < max_iters):
+    if resume:
+        iters = int(resume.get("em_iter", 0))
+        lls = [float(x) for x in np.asarray(resume.get("em_lls", ()),
+                                            np.float64).reshape(-1)] or lls
+        if len(lls) >= 2:
+            change = float(torch.tensor(lls[-1], dtype=data_chunks.dtype)
+                           - torch.tensor(lls[-2], dtype=data_chunks.dtype))
+
+    def more() -> bool:
+        return iters < min_iters or (not abs(change) <= eps
+                                     and iters < max_iters)
+
+    fatal = bool(health.fatal_rows(totals))
+    stopped = False
+    preempt = _preempt_iter() if should_stop is not None else None
+    seg0 = iters
+    if should_stop is not None and not fatal and not more() and not resume:
+        stopped = should_stop(iters)
+    while not (fatal or stopped) and more():
         state = mstep(state, stats)  # :541-701
         stats = estep(state)  # :713-741
-        change = float(stats.loglik - ll)  # :748
-        ll = stats.loglik
+        ll_new = stats.loglik
+        if nan_iter is not None and iters + 1 == nan_iter:
+            ll_new = torch.full_like(ll_new, torch.nan)
+        vals = _read(ll_new, ll_new - ll,  # :748
+                     count(state, stats, ll_new, ll, reg_tol))
+        counts = np.rint(vals[2:]).astype(np.int64)
+        ll, change = ll_new, vals[1]
+        lls.append(vals[0])
+        totals += counts
         iters += 1
-    return state, float(ll), iters
+        fatal = bool(health.fatal_rows(counts))
+        if should_stop is not None and not fatal and (
+                not more() or iters == preempt
+                or iters - seg0 >= poll_iters):
+            seg0 = iters
+            stopped = should_stop(iters)
+    extra = {"em_lls": np.asarray(lls, np.float64)} if stopped else {}
+    return EMRun(state, lls[-1], iters, totals, lls, stopped, extra)
 
 
 def em_while_loop_batched(states, data_chunks, wts_chunks, epsilon: float,
                           min_iters_r, max_iters_r, *,
-                          batched_stats_fn: Callable, mstep_fn: Callable):
-    """EM for a batch of restarts as one host loop over the whole batch.
-
-    The port of the JAX package's ``em_while_loop_batched``
-    (models/gmm.py:1006-1144): each iteration runs the M-step on every
-    lane (one K4 launch on the kernel path), then the E-step with the
-    lanes still live as ``lane_mask`` (one K3 launch), and freezes every
-    other lane's carry (state, statistics, loglik, change, iterations)
-    with a per-lane ``where``. A lane is live while
-    ``iters < lo | (~(|change| <= eps) & iters < hi)``, the per-lane
-    spelling of :func:`em_while_loop`'s test, so each lane runs the
-    iterations its own loop would. The [R] changes are read to the host
-    once per iteration. A lane whose ``max_iters`` is 0 never runs: the
-    initial E-step masks it too, and its loglik is NaN. Returns (states,
-    loglik [R], iters [R]), the last two as numpy arrays.
+                          batched_stats_fn: Callable, mstep_fn: Callable,
+                          dynamic_range: float = 1e3,
+                          regression_scale: float = 10.0,
+                          nan_iter: Optional[int] = None,
+                          nan_restart: Optional[int] = None,
+                          should_stop: Optional[Callable[[int], bool]] = None,
+                          poll_iters: int = 25, freeze=None,
+                          resume: Optional[dict] = None) -> EMRun:
+    """EM for a batch of restarts as one host loop over the whole batch,
+    returning the :class:`EMRun` (states, loglik [R] and iters [R] as
+    numpy arrays, [R, NUM_FLAGS] health rows): the port of the JAX
+    package's ``em_while_loop_batched`` (models/gmm.py:1006-1144). Each
+    iteration runs the M-step on every lane (one K4 launch on the kernel
+    path), then the E-step with the lanes still live as ``lane_mask`` (one
+    K3 launch), and freezes every other lane's carry (state, statistics, loglik,
+    change, iterations, health) with a per-lane ``where``. A lane is live
+    while it is not fatal and ``iters < lo | (~(|change| <= eps) & iters <
+    hi)``, the per-lane spelling of :func:`_em_loop`'s test, so each lane
+    runs the iterations its own loop would. The [R] loglik and change and
+    the [R, NUM_FLAGS] counters are read to the host once per iteration.
+    A lane whose ``max_iters`` is 0, or set in ``freeze``, never runs: the
+    initial E-step masks it too, its loglik is NaN and its counters stay
+    0. ``nan_iter``/``nan_restart`` is an armed ``nan_loglik`` fault (on
+    lane ``nan_restart`` only, when set); ``should_stop``, ``poll_iters``
+    and ``resume`` as in :meth:`GMMModel.run_em_batched`.
     """
     lo = np.asarray(min_iters_r, np.int64)
     hi = np.asarray(max_iters_r, np.int64)
-    eps = float(torch.tensor(epsilon, dtype=data_chunks.dtype))
-    runs = torch.as_tensor(hi > 0, device=data_chunks.device)
+    R = lo.shape[0]
+    dev = data_chunks.device
+    dt = data_chunks.dtype
+    eps_t = torch.tensor(epsilon, dtype=dt)
+    eps = float(eps_t)
+    reg_tol = (regression_scale * eps_t).to(dev)
+    frozen = (np.zeros((R,), bool) if freeze is None
+              else np.asarray(freeze, bool).copy())
+    fatal = np.zeros((R,), bool)
+    done = 0
+    iters = np.zeros((R,), np.int64)
+    change = np.full((R,), 2.0 * eps + 1.0)  # gaussian.cu:525
+    lls = [[] for _ in range(R)]
+    if resume:
+        done = int(resume.get("em_iter", 0))
+        rows = np.asarray(resume.get("em_lls", np.zeros((R, 0))),
+                          np.float64).reshape(R, -1)
+        lens = np.asarray(resume.get("em_lens", [rows.shape[1]] * R),
+                          np.int64)
+        lls = [[float(x) for x in rows[r][:int(lens[r])]] for r in range(R)]
+        frozen |= np.asarray(resume.get("em_frozen", frozen), bool)
+        fatal |= np.asarray(resume.get("em_fatal", fatal), bool)
+        for r in range(R):
+            iters[r] = max(len(lls[r]) - 1, 0)
+            if len(lls[r]) >= 2:
+                change[r] = float(torch.tensor(lls[r][-1], dtype=dt)
+                                  - torch.tensor(lls[r][-2], dtype=dt))
+    frozen |= fatal
+    runs_np = (hi > 0) & ~frozen
+    runs = torch.as_tensor(runs_np, device=dev)
     stats = batched_stats_fn(states, data_chunks, wts_chunks,
                              lane_mask=runs)  # gaussian.cu:487-516
     ll = torch.where(runs, stats.loglik, torch.nan)
-    change = np.full(lo.shape, 2.0 * eps + 1.0)  # gaussian.cu:525
-    iters = np.zeros(lo.shape, np.int64)
-    while True:
-        live = (iters < lo) | (~(np.abs(change) <= eps) & (iters < hi))
+    c0 = health.iteration_counts(states, stats, ll,
+                                 dynamic_range=dynamic_range)
+    vals = np.asarray(_read(ll, torch.where(runs[:, None], c0, 0.0)))
+    totals = np.rint(vals[R:].reshape(R, health.NUM_FLAGS)).astype(np.int64)
+    for r in np.flatnonzero(runs_np):
+        if not lls[r]:
+            lls[r].append(float(vals[r]))
+    fatal |= health.fatal_rows(totals) & runs_np
+    rid = torch.arange(R, device=dev)
+
+    def live_lanes():
+        return ~fatal & ~frozen & (
+            (iters < lo) | (~(np.abs(change) <= eps) & (iters < hi)))
+
+    stopped = False
+    preempt = _preempt_iter() if should_stop is not None else None
+    seg0 = done
+    if (should_stop is not None and not live_lanes().any() and not resume
+            and not fatal.any()):
+        stopped = should_stop(done)
+    while not stopped:
+        live = live_lanes()
         if not live.any():
             break
-        live_t = torch.as_tensor(live, device=ll.device)
+        live_t = torch.as_tensor(live, device=dev)
         new_states = mstep_fn(states, stats)  # :541-701
         new_stats = batched_stats_fn(new_states, data_chunks, wts_chunks,
                                      lane_mask=live_t)  # :713-741
-        step = (new_stats.loglik - ll).cpu().numpy()  # :748
+        ll_new = new_stats.loglik
+        if nan_iter is not None:
+            hit = torch.as_tensor(iters + 1 == nan_iter, device=dev)
+            if nan_restart is not None:
+                hit = hit & (rid == nan_restart)
+            ll_new = torch.where(hit, torch.nan, ll_new)
+        counts = health.iteration_counts(new_states, new_stats, ll_new, ll,
+                                         reg_tol,
+                                         dynamic_range=dynamic_range)
+        vals = np.asarray(_read(ll_new, ll_new - ll, counts))  # :748
+        counts = np.rint(vals[2 * R:].reshape(R, health.NUM_FLAGS)).astype(
+            np.int64)
         states = where_lanes(live_t, new_states, states)
         stats = where_lanes(live_t, new_stats, stats)
-        ll = torch.where(live_t, new_stats.loglik, ll)
-        change = np.where(live, step.astype(np.float64), change)
+        ll = torch.where(live_t, ll_new, ll)
+        change = np.where(live, vals[R:2 * R], change)
         iters = iters + live
-    return states, ll.cpu().numpy().astype(np.float64), iters
+        totals[live] += counts[live]
+        for r in np.flatnonzero(live):
+            lls[r].append(float(vals[r]))
+        fatal |= live & health.fatal_rows(counts)
+        done += 1
+        if should_stop is not None and not (live & fatal).all() and (
+                not live_lanes().any() or done == preempt
+                or done - seg0 >= poll_iters):
+            seg0 = done
+            stopped = should_stop(done)
+    extra = {}
+    if stopped:
+        L = max((len(l) for l in lls), default=0)
+        em_lls = np.full((R, max(L, 1)), np.nan, np.float64)
+        for r in range(R):
+            em_lls[r, :len(lls[r])] = lls[r]
+        extra = {
+            "em_iter": np.int64(done),
+            "em_lls": em_lls,
+            "em_lens": np.asarray([len(l) for l in lls], np.int64),
+            "em_frozen": (frozen | ~live_lanes()).astype(np.int8),
+            "em_fatal": fatal.astype(np.int8),
+        }
+    ll_out = np.asarray([l[-1] if l else np.nan for l in lls], np.float64)
+    return EMRun(states, ll_out, iters, totals, lls, stopped, extra)

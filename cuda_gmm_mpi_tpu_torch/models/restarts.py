@@ -17,15 +17,26 @@ shares every launch:
 - order reduction: ``eliminate_and_reduce_batched`` (one host read per
   lane per sweep step), merged lanes selected with ``where_lanes``.
 
+- health: per-lane counter rows ([R, NUM_FLAGS]). A lane that goes fatal
+  is DROPPED from the batch and its siblings keep their results (they are
+  never rolled back for it); only when every live lane of a step is fatal
+  does the batch roll back and climb the recovery ladder
+  (``_recover_batched``), the JAX package's containment contract;
+- checkpoints: with ``checkpoint_dir`` each batch checkpoints under
+  ``<dir>/batch<b0>`` after every sweep step, and under a run supervisor a
+  stop mid-EM writes every lane's trajectory into one emergency sub-step;
+  ``resume='auto'`` restores it;
+- telemetry: one ``run_start`` and one ``run_summary`` per init, each
+  init-tagged, the per-lane ``em_iter``/``em_done``/``merge``/``health``/
+  ``recovery`` records, and one ``restart_select`` naming the winner and
+  the dropped inits.
+
 The batched sweep is FIXED-WIDTH (no pow2 rebucketing): lanes reach
 different active counts at the same step, and one batched state serves
 them all. At the main path's K = 100 -> 96 the sequential path keeps
 width 100 as well; at small K it rebuckets, so the two agree to rounding
 there, not to the bit. ``restart_batch_size=1`` keeps the sequential
 path, which picks the same winner at the same seeds.
-
-Not ported yet: health counters and drop-one containment, the recovery
-ladder, checkpoint/resume and the supervisor, and telemetry events.
 """
 
 from __future__ import annotations
@@ -39,10 +50,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import health, supervisor, telemetry
 from ..ops.formulas import convergence_epsilon, model_score
 from ..ops.merge import eliminate_and_reduce_batched
 from ..ops.seeding import seed_states_batched
-from ..state import clone_state, compact, lane, where_lanes
+from ..state import (
+    GMMState, clone_state, compact, lane, stack_states, where_lanes,
+)
+from ..testing import faults
+from ..utils.logging_ import get_logger
 
 
 def _host_memory_bytes() -> Optional[int]:
@@ -113,34 +129,164 @@ def resolve_restart_batch_size(config, data, num_clusters: int,
     return max(1, min(int(requested), config.n_init))
 
 
+def _json_scores(scores) -> list:
+    """JSON-safe score list (non-finite -> None) for restart_select."""
+    return [float(x) if x is not None and math.isfinite(float(x)) else None
+            for x in scores]
+
+
+def _recover_batched(model, config, rollback, chunks, wts, epsilon, k_r,
+                     live, *, n_events, rec, log, faulty_counts,
+                     batch_indices):
+    """Climb the escalation ladder for a WHOLE-batch fatal EM step (the
+    JAX package's ``_recover_batched``): every live lane's rollback state
+    is repaired and the batch retries on the rung's model. The first rung
+    with ANY clean live lane wins; still-fatal lanes go back for the drop
+    path. Returns ``(model, states, ll, iters, counts, lls, clean_live)``;
+    raises :class:`health.NumericalFaultError` when recovery is off or the
+    ladder is exhausted."""
+    R = int(live.shape[0])
+    total = np.asarray(faulty_counts, np.int64)[live].sum(axis=0)
+    k_top = int(np.max(np.asarray(k_r)[live]))
+    if config.recovery != "retry":
+        raise health.NumericalFaultError(
+            f"numerical fault in every live restart of the batch at "
+            f"K={k_top} (flags={health.flag_names(health.pack_word(total))})"
+            f" and recovery is {config.recovery!r}",
+            health.fault_bundle(total, k=k_top, where="batched_restarts",
+                                config=config))
+    ladder = health.escalation_ladder(config)
+    attempts = []
+    for attempt, rung in enumerate(ladder, start=1):
+        m2, cfg2 = health.rung_model(model, config, rung)
+        boost = float(config.recovery_boost) ** attempt
+        states2 = stack_states([
+            health.repair_state(lane(rollback, r), diag_only=cfg2.diag_only,
+                                boost=boost) if live[r] else lane(rollback, r)
+            for r in range(R)])
+        lo_r = np.where(live, min(config.min_iters, config.max_iters), 0)
+        hi_r = np.where(live, config.max_iters, 0)
+        states2, ll_np, iters_np = m2.run_em_batched(
+            states2, chunks, wts, epsilon, min_iters=lo_r, max_iters=hi_r,
+            n_events=n_events)
+        counts = m2.last_health
+        clean = ~health.fatal_rows(counts)
+        clean_live = live & clean
+        record = {"attempt": attempt, "action": rung["action"],
+                  "boost": boost, "clean": int(clean_live.sum()),
+                  "live": int(live.sum())}
+        attempts.append(record)
+        log.warning("batched recovery attempt %d (%s): %d/%d restarts clean "
+                    "[estep backend %s: %s]", attempt, rung["action"],
+                    record["clean"], record["live"], m2.estep_backend,
+                    m2.estep_backend_reason)
+        if rec.active:
+            for r in np.flatnonzero(live):
+                word_r = health.pack_word(counts[r])
+                rec.set_context(init=int(batch_indices[r]))
+                rec.emit("recovery", k=int(k_r[r]), attempt=attempt,
+                         action=rung["action"],
+                         outcome="recovered" if clean[r] else "fatal",
+                         flags=int(word_r),
+                         flag_names=health.flag_names(word_r))
+                rec.metrics.count("recovery_attempts")
+            rec.set_context(init=None)
+            if clean_live.any():
+                rec.metrics.count("recoveries")
+        if clean_live.any():
+            return (m2, states2, ll_np, iters_np, counts, m2.last_lls,
+                    clean_live)
+    raise health.NumericalFaultError(
+        f"numerical fault in every restart of the batch at K={k_top} not "
+        f"recovered after {len(ladder)} escalation attempt(s)",
+        health.fault_bundle(total, k=k_top, where="batched_restarts",
+                            attempts=attempts, config=config))
+
+
 def fit_restarts_batched(prepared, num_clusters: int,
                          target_num_clusters: int, config, model,
                          verbose: bool, batch_size: int, init_means=None):
     """``n_init`` restarts in batches of ``batch_size``, one batched sweep
     each, on ``prepared`` (``order_search._prepare_data``'s result), init 0
-    seeded from ``init_means`` when given;
-    returns the GMMResult of the winner, the same init the sequential path
-    picks at the same seeds (``init_index``). Its ``timings`` sum the
-    host-clock seconds of the batches' seeding, EM and merge scans."""
-    from .order_search import GMMResult
+    seeded from ``init_means`` when given; returns the GMMResult of the
+    winner, the same init the sequential path picks at the same seeds
+    (``init_index``). Its ``timings`` sum the host-clock seconds of the
+    batches' seeding, EM and merge scans; its ``health`` the batches'
+    counters, recoveries and dropped restarts."""
+    from .order_search import (
+        GMMResult, _emit_run_start, _emit_run_summary, _phase_profile,
+    )
 
+    log = get_logger(config)
+    rec = telemetry.current()
     stop_number = target_num_clusters if target_num_clusters > 0 else 1
     data, chunks, wts, n_events, n_dims, shift, var_mean = prepared
     epsilon = convergence_epsilon(n_events, n_dims, config.epsilon_scale)
     if verbose:
         print(f"epsilon = {epsilon}")  # gaussian.cu:462
+    if rec.active:
+        rec.set_context(path="in-memory", mesh=None)
     winner = None
     timings = dict.fromkeys(("seed", "em", "merge"), 0.0)
+    all_scores = [None] * config.n_init
+    dropped_inits = []
+    health_totals = np.zeros((health.NUM_FLAGS,), np.int64)
+    n_recoveries = n_drops = io_retries = 0
     for b0 in range(0, config.n_init, batch_size):
         idxs = list(range(b0, min(b0 + batch_size, config.n_init)))
+        if rec.active:
+            # One run_start (and below one run_summary) PER INIT, each
+            # init-tagged, as the sequential path writes them.
+            for g in idxs:
+                rec.set_context(init=g)
+                if g:
+                    rec.metrics.count("restarts")
+                _emit_run_start(rec, model, config, n_events, n_dims,
+                                num_clusters, target_num_clusters, epsilon,
+                                restart_batch_size=int(batch_size))
+            rec.set_context(init=None)
+        ckpt = None
+        if config.checkpoint_dir:
+            from ..utils.checkpoint import SweepCheckpointer
+
+            ckpt = SweepCheckpointer(
+                os.path.join(config.checkpoint_dir, f"batch{b0}"),
+                keep=config.checkpoint_keep,
+                retries=config.checkpoint_retries)
         out = _run_batch(model, config, data, num_clusters, stop_number,
                          target_num_clusters, chunks, wts, n_events, n_dims,
                          shift, var_mean, epsilon, idxs, verbose,
-                         init_means)
+                         init_means, rec, log, ckpt)
+        model = out["model"]  # sticky escalation spans batches
         for part, secs in out["timings"].items():
             timings[part] += secs
-        if verbose:
-            for j, g in enumerate(idxs):
+        health_totals += out["health_lane"].sum(axis=0)
+        n_recoveries += out["recoveries"]
+        n_drops += int(out["dropped"].sum())
+        if ckpt is not None:
+            io_retries += ckpt.io_retries
+        for j, g in enumerate(idxs):
+            all_scores[g] = float(out["min_riss"][j])
+            if out["dropped"][j]:
+                dropped_inits.append(int(g))
+            if rec.active:
+                rec.set_context(init=g)
+                logs = out["sweep_logs"][j]
+                _emit_run_summary(
+                    rec, model, config, logs, int(out["n_active"][j]),
+                    float(out["min_riss"][j]), float(out["best_ll"][j]),
+                    [row[4] for row in logs],
+                    buckets=dict(mode="off", em_widths=[out["width"]],
+                                 em_compiles=1, rebuckets=0),
+                    health_section=health.health_summary(
+                        out["health_lane"][j],
+                        recoveries=out["recoveries"],
+                        restart_drops=int(out["dropped"][j])),
+                    phase_profile=_phase_profile(
+                        em_s=float(sum(row[4] for row in logs)),
+                        em_n=len(logs)))
+                rec.set_context(init=None)
+            if verbose:
                 print(f"init {g}: {config.criterion}="
                       f"{out['min_riss'][j]:.6e} K={out['n_active'][j]}")
         # The sequential first-best rule across batches: within a batch
@@ -150,6 +296,11 @@ def fit_restarts_batched(prepared, num_clusters: int,
         if (winner is None or math.isnan(winner["min_riss"])
                 or w["min_riss"] < winner["min_riss"]):
             winner = w
+    if rec.active:
+        rec.emit("restart_select", winner=int(winner["init"]),
+                 scores=_json_scores(all_scores),
+                 criterion=config.criterion, mode="batched",
+                 batch_size=int(batch_size), dropped=dropped_inits)
     if verbose:
         print(f"best of {config.n_init} inits: "
               f"{config.criterion}={winner['min_riss']:.6e} "
@@ -161,22 +312,48 @@ def fit_restarts_batched(prepared, num_clusters: int,
         num_events=n_events, num_dimensions=n_dims,
         data_shift=np.asarray(shift), sweep_log=winner["sweep_log"],
         merges=winner["merges"], model=model, init_index=winner["init"],
-        timings=timings)
+        timings=timings,
+        health=health.health_summary(health_totals, recoveries=n_recoveries,
+                                     io_retries=io_retries,
+                                     restart_drops=n_drops))
+
+
+def _pad_sweep_logs(sweep_logs) -> np.ndarray:
+    """[R, S, 5] NaN-padded per-restart sweep rows (checkpoint payload)."""
+    R = len(sweep_logs)
+    S = max((len(l) for l in sweep_logs), default=0)
+    out = np.full((R, max(S, 1), 5), np.nan, np.float64)
+    for r, rows in enumerate(sweep_logs):
+        for i, row in enumerate(rows):
+            out[r, i, :] = np.asarray(row, np.float64)
+    return out
+
+
+def _batched_host(states) -> GMMState:
+    """A restart-batched state on the CPU (checkpoint payloads)."""
+    if states.N.device.type == "cuda":
+        torch.cuda.synchronize(states.N.device)
+    return states.to("cpu")
 
 
 def _run_batch(model, config, data, num_clusters, stop_number,
                target_num_clusters, chunks, wts, n_events, n_dims, shift,
                var_mean, epsilon, batch_indices, verbose,
-               init_means=None) -> dict:
+               init_means, rec, log, ckpt) -> dict:
     """One batch of restarts through the whole fixed-width sweep.
 
     A ragged tail batch runs at its own width: PyTorch compiles nothing per
     batch shape, so padding it to the full batch would only add work. A
-    lane whose sweep has ended is frozen: EM skips it (``max_iters`` 0)
-    and so does the merge scan.
+    lane whose sweep has ended -- or that was dropped for a fatal fault --
+    is frozen: EM skips it (``max_iters`` 0) and so does the merge scan.
     """
-    from .order_search import _seed_rows
+    from .order_search import (
+        _COV_CODE, _CRITERION_CODE, _emit_em_iters, _emit_health,
+        _emit_score_health, _resume_mismatch, _seed_rows,
+        _shutdown_and_raise,
+    )
 
+    sup = supervisor.current()
     R = len(batch_indices)
     dtype = np.dtype(config.dtype)
     dev = model.device
@@ -192,47 +369,221 @@ def _run_batch(model, config, data, num_clusters, stop_number,
         rows, n_events, var_mean, num_clusters,
         covariance_dynamic_range=config.covariance_dynamic_range,
         dtype=dtype, device=dev)
+    pois = faults.take("singular_cov")
+    if pois is not None:
+        # Lane 0 of the batch, as the sequential path poisons its first fit.
+        c = int(pois.get("cluster", 0))
+        R_, Rinv = states.R.clone(), states.Rinv.clone()
+        R_[0, c] = 0.0
+        Rinv[0, c] = float("inf")
+        states = states.replace(R=R_, Rinv=Rinv)
+    width = int(states.N.shape[-1])
     timings = {"seed": time.perf_counter() - t0, "em": 0.0, "merge": 0.0}
 
     k_r = np.full((R,), num_clusters, np.int64)
     alive = np.ones((R,), bool)
+    dropped = np.zeros((R,), bool)
     min_riss_r = np.full((R,), np.inf)
     ideal_k_r = np.full((R,), num_clusters, np.int64)
     best_ll_r = np.full((R,), -np.inf)
     sweep_logs = [[] for _ in range(R)]
     merges = [[] for _ in range(R)]
     best_states = clone_state(states)
+    health_lane = np.zeros((R, health.NUM_FLAGS), np.int64)
+    n_recoveries = 0
+    recovery_on = config.recovery == "retry"
+    supervised = sup.active and ckpt is not None
+
+    step = 0
+    resume_em = None
+    resume_sub_step = None
+    if ckpt is not None and config.resume != "never":
+        def usable(tree):
+            return tree is not None and not (
+                "batched" not in tree
+                or int(np.asarray(tree["num_clusters"])) != num_clusters
+                or int(tree["state"].N.shape[0]) != R
+                or _resume_mismatch(tree, config, log))
+
+        restored = ckpt.restore_substep()
+        if not usable(restored):
+            restored = ckpt.restore()
+            if not usable(restored):
+                restored = None
+        if restored is not None:
+            states = restored["state"].to(dev)
+            best_states = restored["best_state"].to(dev)
+            k_r = np.asarray(restored["k"], np.int64).copy()
+            alive = np.asarray(restored["alive"], bool).copy()
+            dropped = np.asarray(restored["dropped"], bool).copy()
+            min_riss_r = np.asarray(restored["min_rissanen"],
+                                    np.float64).copy()
+            ideal_k_r = np.asarray(restored["ideal_k"], np.int64).copy()
+            best_ll_r = np.asarray(restored["best_ll"], np.float64).copy()
+            lens = np.asarray(restored["sweep_len"], np.int64)
+            rows_log = np.asarray(restored["sweep_log"], np.float64)
+            sweep_logs = [[tuple(row) for row in rows_log[r][:int(lens[r])]]
+                          for r in range(R)]
+            if "em_iter" in restored:
+                step = resume_sub_step = int(np.asarray(restored["step"]))
+                resume_em = {key: np.asarray(restored[key]) for key in (
+                    "em_iter", "em_lls", "em_lens", "em_frozen", "em_fatal")}
+                log.info("resuming INSIDE the interrupted batched fit: EM "
+                         "iteration %d (sub-step %d)",
+                         int(resume_em["em_iter"]), step)
+            else:
+                step = int(np.asarray(restored["step"])) + 1
+                log.info("resumed batched restart sweep from checkpoint: "
+                         "step %d", step)
+            if rec.active:
+                rec.metrics.count("resumes")
+
+    def host_payload():
+        return {
+            "state": _batched_host(states),
+            "best_state": _batched_host(best_states),
+            "min_rissanen": np.asarray(min_riss_r, np.float64),
+            "ideal_k": np.asarray(ideal_k_r, np.int64),
+            "best_ll": np.asarray(best_ll_r, np.float64),
+            "k": np.asarray(k_r, np.int64),
+            "alive": alive.astype(np.int64),
+            "dropped": dropped.astype(np.int64),
+            "num_clusters": int(num_clusters),
+            "criterion_code": _CRITERION_CODE[config.criterion],
+            "cov_code": _COV_CODE[config.covariance_type],
+            "batched": 1,
+            "batch_indices": np.asarray(batch_indices, np.int64),
+            "sweep_log": _pad_sweep_logs(sweep_logs),
+            "sweep_len": np.asarray([len(l) for l in sweep_logs], np.int64),
+        }
+
     while alive.any():
+        k_top = int(k_r[alive].max())
+        if sup.active and sup.poll(where="sweep", k=k_top):
+            _shutdown_and_raise(sup, rec, log, ckpt,
+                                step=step - 1 if step else None, k=k_top,
+                                checkpointed=ckpt is not None and step > 0)
         t0 = time.perf_counter()
         live = alive.copy()
         lo_r = np.where(live, min(config.min_iters, config.max_iters), 0)
         hi_r = np.where(live, config.max_iters, 0)
-        states, ll_np, iters_np = model.run_em_batched(
-            states, chunks, wts, epsilon, min_iters=lo_r, max_iters=hi_r,
-            n_events=n_events)
+        rollback = clone_state(states) if recovery_on else None
+        if supervised or resume_em is not None:
+            states, ll_np, iters_np = model.run_em_batched(
+                states, chunks, wts, epsilon, min_iters=lo_r,
+                max_iters=hi_r, n_events=n_events, sweep=True,
+                poll_iters=config.preempt_poll_iters,
+                should_stop=((lambda done, _k=k_top: sup.poll(
+                    where="em", k=_k, em_iter=done))
+                    if sup.active else None),
+                freeze=~live, resume=resume_em)
+            resume_em = None
+            stopped, extra = model.last_stop
+            if stopped:
+                payload = host_payload()
+                payload.update(extra)
+                _shutdown_and_raise(
+                    sup, rec, log, ckpt, step=step, k=k_top,
+                    em_iter=int(extra.get("em_iter", 0)), payload=payload)
+            if resume_sub_step is not None and ckpt is not None:
+                ckpt.discard_substeps(resume_sub_step)
+                resume_sub_step = None
+        else:
+            states, ll_np, iters_np = model.run_em_batched(
+                states, chunks, wts, epsilon, min_iters=lo_r,
+                max_iters=hi_r, n_events=n_events, sweep=True)
+        counts = model.last_health
+        lls = model.last_lls
         dt = time.perf_counter() - t0  # EM only, as in fit_gmm's sweep_log
         timings["em"] += dt
+
+        # --- per-restart fault containment
+        fatal_r = health.fatal_rows(counts) & live
+        if fatal_r.any():
+            for r in np.flatnonzero(fatal_r):
+                health_lane[r] += counts[r]
+                if rec.active:
+                    rec.set_context(init=int(batch_indices[r]))
+                    _emit_health(rec, k_r[r], counts[r])
+                    rec.set_context(init=None)
+            if not (live & ~fatal_r).any():
+                # EVERY live restart fatal: only now does the ladder run
+                # (rolling the whole batch back).
+                (model, states, ll_np, iters_np, counts, lls,
+                 clean_live) = _recover_batched(
+                    model, config, rollback, chunks, wts, epsilon, k_r,
+                    live, n_events=n_events, rec=rec, log=log,
+                    faulty_counts=counts, batch_indices=batch_indices)
+                n_recoveries += 1
+                still_fatal = live & ~clean_live
+                live = clean_live
+                alive &= ~still_fatal
+                dropped |= still_fatal
+                dt = time.perf_counter() - t0
+            else:
+                # Drop-one-keep-survivors: the poisoned lanes leave the
+                # batch; their siblings' results of this step stand.
+                for r in np.flatnonzero(fatal_r):
+                    log.warning(
+                        "restart %d hit a fatal numerical fault at K=%d; "
+                        "dropped from the batch (survivors continue)",
+                        int(batch_indices[r]), int(k_r[r]))
+                    if rec.active:
+                        word = health.pack_word(counts[r])
+                        rec.set_context(init=int(batch_indices[r]))
+                        rec.emit("recovery", k=int(k_r[r]), attempt=1,
+                                 action="drop_restart", outcome="dropped",
+                                 flags=int(word),
+                                 flag_names=health.flag_names(word))
+                        rec.metrics.count("restart_drops")
+                        rec.set_context(init=None)
+                alive &= ~fatal_r
+                dropped |= fatal_r
+                live &= ~fatal_r
+        del rollback
 
         # --- scoring + best-model save per live lane
         improved = np.zeros((R,), bool)
         for r in np.flatnonzero(live):
+            g = int(batch_indices[r])
+            health_lane[r] += counts[r]
             ll_f = float(ll_np[r])
             k = int(k_r[r])
             riss = model_score(ll_f, k, n_events, n_dims,
                                criterion=config.criterion,
                                covariance_type=config.covariance_type)
+            score_ok = math.isfinite(riss)
+            if not score_ok:
+                health_lane[r, health.NONFINITE_SCORE] += 1
+                log.warning("non-finite %s score at K=%d (init %d); "
+                            "excluded from best-model selection",
+                            config.criterion, k, g)
             sweep_logs[r].append((k, ll_f, riss, int(iters_np[r]), dt))
+            if rec.active:
+                rec.set_context(init=g)
+                _emit_health(rec, k, counts[r])
+                if not score_ok:
+                    _emit_score_health(rec, k)
+                rec.metrics.count("em_iters", int(iters_np[r]))
+                rec.metrics.series("active_k", k)
+                _emit_em_iters(rec, k, lls[r], int(iters_np[r]), dt, epsilon)
+                rec.emit("em_done", k=k, loglik=ll_f, score=float(riss),
+                         criterion=config.criterion,
+                         iters=int(iters_np[r]), seconds=round(dt, 6))
+                rec.set_context(init=None)
             if verbose:
-                print(f"init {batch_indices[r]} K={k}: loglik={ll_f:.6e} "
+                print(f"init {g} K={k}: loglik={ll_f:.6e} "
                       f"{config.criterion}={riss:.6e} "
                       f"iters={int(iters_np[r])} ({dt:.2f}s)")
             # gaussian.cu:839 per lane; a NaN score never takes the slot.
-            if math.isfinite(riss) and (
+            if score_ok and (
                     k == num_clusters
                     or (riss < min_riss_r[r] and target_num_clusters == 0)
                     or k == target_num_clusters):
                 improved[r] = True
                 min_riss_r[r], ideal_k_r[r], best_ll_r[r] = riss, k, ll_f
+        if rec.active:
+            rec.heartbeat("sweep", k=k_top)
         if improved.any():
             best_states = where_lanes(torch.as_tensor(improved, device=dev),
                                       states, best_states)
@@ -258,6 +609,13 @@ def _run_batch(model, config, data, num_clusters, stop_number,
                       file=sys.stderr)
                 alive[r] = False
                 continue
+            if rec.active:
+                rec.set_context(init=int(batch_indices[r]))
+                rec.emit("merge", k_active=k_new, next_k=k_new - 1,
+                         min_distance=float(min_d[r]),
+                         pair=[int(pairs[r][0]), int(pairs[r][1])])
+                rec.metrics.count("merges")
+                rec.set_context(init=None)
             merge_mask[r] = True
             merges[r].append((k_new, pairs[r], float(min_d[r])))
             k_r[r] = k_new - 1
@@ -267,6 +625,11 @@ def _run_batch(model, config, data, num_clusters, stop_number,
             states = where_lanes(torch.as_tensor(merge_mask, device=dev),
                                  next_states, states)
         timings["merge"] += time.perf_counter() - t0
+        if ckpt is not None and alive.any():
+            if rec.active:
+                rec.metrics.count("checkpoint_saves")
+            ckpt.save(step, host_payload())
+        step += 1
 
     # --- batch winner: the sequential first-best rule, in lane order
     widx = 0
@@ -277,9 +640,16 @@ def _run_batch(model, config, data, num_clusters, stop_number,
     n_active = ideal_k_r.copy()
     n_active[widx] = n_active_w
     return {
+        "model": model,
         "timings": timings,
         "min_riss": min_riss_r,
+        "best_ll": best_ll_r,
         "n_active": n_active,
+        "dropped": dropped,
+        "sweep_logs": sweep_logs,
+        "health_lane": health_lane,
+        "recoveries": n_recoveries,
+        "width": width,
         "winner": {
             "init": int(batch_indices[widx]),
             "min_riss": float(min_riss_r[widx]),

@@ -150,29 +150,49 @@ def log_densities(state, x: torch.Tensor, *, diag_only: bool = False,
 
 def posteriors(state, x: torch.Tensor, *, diag_only: bool = False,
                quad_mode: str = "expanded", matmul_precision: str = "highest",
-               xouter: torch.Tensor | None = None, cluster_group=None):
+               xouter: torch.Tensor | None = None, cluster_group=None,
+               with_sanitized: bool = False):
     """(w [B, K], logZ [B]): normalized responsibilities and per-event
     evidence, estep2's max-shifted log-sum-exp (gaussian_kernel.cu:481-502).
 
     A row whose max is non-finite (every cluster inactive, or poisoned
     densities) is sanitized to a zero shift instead of producing inf-inf.
+    ``with_sanitized`` also returns the number of such rows (a 0-d tensor
+    in ``x``'s dtype, third element): the health lane
+    ``SANITIZED_LANES`` (health.py).
 
     With ``cluster_group`` (the process group of a sharded cluster axis)
     the log-sum-exp is a two-stage collective: an all_reduce MAX of the
     per-shard maxima, then an all_reduce SUM of the shifted exponential
     sums. ``w`` then covers this rank's clusters only and ``logZ`` is the
     same on every rank of the group. The max is sanitized after the MAX,
-    so a shard whose clusters are all inactive is legitimate.
+    so a shard whose clusters are all inactive is legitimate. A collective
+    MAX may drop a NaN, so the sanitized count also looks at the local
+    maxima: a NaN or +inf there (a local -inf is an all-inactive shard) is
+    summed over the group, and every rank counts the single-device run's
+    rows (the JAX package's ``posteriors``, ops/estep.py).
     """
     logp = log_densities(state, x, diag_only=diag_only, quad_mode=quad_mode,
                          matmul_precision=matmul_precision, xouter=xouter)
-    m = logp.max(dim=1, keepdim=True).values
+    m_local = logp.max(dim=1, keepdim=True).values
+    m = m_local
     if cluster_group is not None:
+        m = m_local.clone()
         dist.all_reduce(m, op=dist.ReduceOp.MAX, group=cluster_group)
-    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    bad = ~torch.isfinite(m)
+    if with_sanitized and cluster_group is not None:
+        poison = (torch.isnan(m_local) | (m_local == torch.inf)).to(
+            torch.int32)
+        dist.all_reduce(poison, op=dist.ReduceOp.SUM, group=cluster_group)
+        bad_rows = bad | (poison > 0)
+    else:
+        bad_rows = bad
+    m = torch.where(bad, torch.zeros_like(m), m)
     expd = torch.exp(logp - m)
     denom = expd.sum(dim=1, keepdim=True)
     if cluster_group is not None:
         dist.all_reduce(denom, op=dist.ReduceOp.SUM, group=cluster_group)
     logZ = (m + torch.log(denom))[:, 0]
+    if with_sanitized:
+        return expd / denom, logZ, bad_rows.sum().to(x.dtype)
     return expd / denom, logZ

@@ -41,16 +41,29 @@ class SuffStats:
     Nk:     [K]     soft counts
     M1:     [K, D]  weighted event sums
     M2:     [K, D, D] weighted outer-product sums ([K, D] under diag_only)
+    sanitized: the E-step rows whose log-sum-exp max was non-finite and
+            was sanitized (health.SANITIZED_LANES), shaped and typed like
+            ``loglik`` so it rides every sum and all_reduce of the
+            statistics. Left out, it is a structural zero: the kernel
+            routes (K1, K3, K5/K6) return that, as the TPU kernels do
+            (fused_stats.py:413-416, 636-637, 813-814 of the JAX package).
     """
 
     loglik: torch.Tensor
     Nk: torch.Tensor
     M1: torch.Tensor
     M2: torch.Tensor
+    sanitized: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.sanitized is None:
+            object.__setattr__(self, "sanitized",
+                               torch.zeros_like(self.loglik))
 
     def __add__(self, other: "SuffStats") -> "SuffStats":
         return SuffStats(self.loglik + other.loglik, self.Nk + other.Nk,
-                         self.M1 + other.M1, self.M2 + other.M2)
+                         self.M1 + other.M1, self.M2 + other.M2,
+                         self.sanitized + other.sanitized)
 
 
 def zeros_stats(K: int, D: int, dtype, device, diag_only: bool = False):
@@ -75,9 +88,10 @@ def chunk_stats(state, x: torch.Tensor, wts: Optional[torch.Tensor] = None,
     prec = matmul_precision
     if xouter is None and not diag_only and quad_mode != "centered":
         xouter = features(x, quad_mode)
-    w, logZ = posteriors(state, x, diag_only=diag_only, quad_mode=quad_mode,
-                         matmul_precision=prec, xouter=xouter,
-                         cluster_group=cluster_group)
+    w, logZ, sanitized = posteriors(
+        state, x, diag_only=diag_only, quad_mode=quad_mode,
+        matmul_precision=prec, xouter=xouter, cluster_group=cluster_group,
+        with_sanitized=True)
     if wts is not None:
         w = w * wts[:, None]
         logZ = logZ * wts
@@ -91,7 +105,8 @@ def chunk_stats(state, x: torch.Tensor, wts: Optional[torch.Tensor] = None,
         if xouter is None:
             xouter = expand_features(x)
         M2 = kdot(w.T, xouter, prec).reshape(K, D, D)
-    return SuffStats(loglik=logZ.sum(), Nk=w.sum(dim=0), M1=M1, M2=M2)
+    return SuffStats(loglik=logZ.sum(), Nk=w.sum(dim=0), M1=M1, M2=M2,
+                     sanitized=sanitized)
 
 
 def accumulate_stats(state, data_chunks: torch.Tensor,

@@ -36,7 +36,7 @@ import torch
 import torch.distributed as dist
 
 from ..config import GMMConfig
-from ..models.gmm import _memberships, em_while_loop, setup_device
+from ..models.gmm import GMMModel, _em_loop, _memberships, setup_device
 from ..ops.estep import posteriors
 from ..ops.mstep import SuffStats
 from ..state import compact_to
@@ -116,6 +116,11 @@ class ShardedGMMModel:
         self.bucket_multiple = self.cluster_size
         self._reduce = make_psum_reduce(self.mesh.data_group)
         self._k_cols = None  # the unpadded K of the last prepared state
+        self.last_health = None
+        self.last_lls = None
+        self._armed_faults = {}
+
+    armed_fault = GMMModel.armed_fault
 
     @property
     def data_size(self) -> int:
@@ -155,16 +160,32 @@ class ShardedGMMModel:
     def run_em(self, state, data_chunks, wts_chunks, epsilon: float,
                min_iters: Optional[int] = None,
                max_iters: Optional[int] = None,
-               n_events: Optional[int] = None):
+               n_events: Optional[int] = None, *, sweep: bool = False):
         """EM on this rank's shard; returns (state, loglik, iters) with the
         loglik of all events. ``n_events`` is the real events of the whole
-        grid; the kernels get this rank's share of them."""
+        grid; the kernels get this rank's share of them. The health
+        counters (``last_health``) are the whole mesh's: the statistics'
+        lanes come summed over the data axis, the state's over the cluster
+        group."""
+        state, ll, iters, _, _, _ = self.run_em_resumable(
+            state, data_chunks, wts_chunks, epsilon, min_iters, max_iters,
+            n_events=n_events, sweep=sweep)
+        return state, ll, iters
+
+    def run_em_resumable(self, state, data_chunks, wts_chunks, epsilon,
+                         min_iters: Optional[int] = None,
+                         max_iters: Optional[int] = None,
+                         n_events: Optional[int] = None, *,
+                         sweep: bool = False, poll_iters: int = 25,
+                         should_stop=None, resume: Optional[dict] = None):
+        """:meth:`GMMModel.run_em_resumable` on this rank's shard."""
         cfg = self.config
         stats_fn = self.stats_fn
         if n_events is not None and self.estep_backend == "cuda":
             stats_fn = functools.partial(
                 stats_fn, n_events=self.local_events(n_events, data_chunks))
-        return em_while_loop(
+        inj = self.armed_fault(state, data_chunks, sweep=sweep)
+        run = _em_loop(
             state, data_chunks, wts_chunks, epsilon,
             cfg.min_iters if min_iters is None else min_iters,
             cfg.max_iters if max_iters is None else max_iters,
@@ -173,7 +194,14 @@ class ShardedGMMModel:
             precompute_features=cfg.precompute_features, stats_fn=stats_fn,
             mstep_fn=self.mstep_fn, reduce_stats=self._reduce,
             cluster_group=self.mesh.cluster_group,
-            covariance_type=cfg.covariance_type)
+            covariance_type=cfg.covariance_type,
+            dynamic_range=cfg.covariance_dynamic_range,
+            regression_scale=cfg.health_regression_scale,
+            nan_iter=None if inj is None else int(inj["iter"]),
+            should_stop=should_stop, poll_iters=poll_iters, resume=resume)
+        self.last_health, self.last_lls = run.health, run.lls
+        return (run.state, run.loglik, run.iters, run.lls, run.stopped,
+                run.extra)
 
     def gather_state(self, state):
         """The full state of this rank's mesh row, with the cluster padding

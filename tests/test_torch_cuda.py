@@ -887,3 +887,94 @@ def test_tensor_core_fp32_sum_rounding(dev, tmp_path):
               torch.cuda.current_stream(dev).cuda_stream) == 0
     got = d[:len(PROBED), 0].double().cpu().tolist()
     assert got == [expected for _, _, expected in PROBED]
+
+
+# ------------------------------------------------- containment and resume
+
+def _blobs_f32(seed=11):
+    rng = np.random.default_rng(seed)
+    c = rng.normal(scale=10, size=(4, 5))
+    return np.concatenate([rng.normal(c[i], 1, (500, 5))
+                           for i in range(4)]).astype(np.float32)
+
+
+@pytest.mark.parametrize("times", [1, 2], ids=["regularize", "centered"])
+def test_nan_loglik_recovery_on_the_kernel_path(dev, times):
+    """An injected NaN loglik at iteration 3 of the first K: the kernel
+    path recovers as the torch-ops path does (the same rungs, K and merge
+    pairs); with times=2 the fit escalates to 'centered', which leaves K1
+    for torch ops and says why."""
+    from cuda_gmm_mpi_tpu_torch.testing import faults
+
+    kw = dict(min_iters=10, max_iters=10)
+    spec = {"nan_loglik": {"iter": 3, "times": times}}
+    out = {}
+    for backend in ("auto", "torch"):
+        with faults.use(spec):
+            out[backend] = fit_gmm(_blobs_f32(), 8, 4, config=GMMConfig(
+                estep_backend=backend, **kw))
+    res, ref = out["auto"], out["torch"]
+    assert res.health["recoveries"] == ref.health["recoveries"] >= 1
+    assert res.health["flags"] == ref.health["flags"]
+    assert res.ideal_num_clusters == ref.ideal_num_clusters
+    assert [m[1] for m in res.merges] == [m[1] for m in ref.merges]
+    np.testing.assert_allclose(res.final_loglik, ref.final_loglik, rtol=1e-4)
+    if times == 1:
+        assert res.model.estep_backend == "cuda"
+    else:
+        assert res.model.config.quad_mode == "centered"
+        assert res.model.estep_backend == "torch"
+        assert "centered" in res.model.estep_backend_reason
+
+
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_nan_mean_makes_k1_and_k3_loglik_nonfinite(dev, diag):
+    """K1/K3 take row maxima with fmaxf, which drops a NaN: the NaN must
+    still reach the loglik through the shifted sum, so that
+    nonfinite_loglik trips as on the plain version."""
+    from cuda_gmm_mpi_tpu_torch import health
+
+    rng = np.random.default_rng(5)
+    n, d, k = 4099, 6, 70
+    x = torch.as_tensor(rng.normal(scale=2.0, size=(2, n, d)),
+                        dtype=torch.float32, device=dev)
+    wt = torch.ones((2, n), dtype=torch.float32, device=dev)
+    clean = _state(rng, k, d, diag)
+    bad = {f: v.copy() for f, v in clean.items()}
+    bad["means"][9] = np.nan
+    state = state_from_numpy(bad, device=dev)
+    k1 = fs.fused_stats_cuda(state, x, wt, diag_only=diag)
+    plain = accumulate_stats(state, x, wt, diag_only=diag)
+    for stats in (k1, plain):
+        assert not torch.isfinite(stats.loglik)
+        counts = health.iteration_counts(state, stats, stats.loglik)
+        assert counts[health.NONFINITE_LOGLIK] == 1
+    states = stack_states([state_from_numpy(s, device=dev)
+                           for s in (clean, bad, clean)])
+    k3 = fs.fused_stats_cuda_batched(states, x, wt, diag_only=diag)
+    assert torch.isfinite(k3.loglik[[0, 2]]).all()
+    assert not torch.isfinite(k3.loglik[1])
+
+
+def test_preempt_in_the_second_k_resumes_exactly(dev, tmp_path):
+    """A preempt that lands in the sweep's second K, then resume: the same
+    final loglik, K and merge pairs as the uninterrupted fit (K1 repeats
+    bit for bit, so resume is exact)."""
+    from cuda_gmm_mpi_tpu_torch import supervisor
+    from cuda_gmm_mpi_tpu_torch.testing import faults
+
+    x = _blobs_f32()
+    kw = dict(min_iters=10, max_iters=10, checkpoint_dir=str(tmp_path / "ck"),
+              preempt_poll_iters=2)
+    whole = fit_gmm(x, 8, 4, config=GMMConfig(min_iters=10, max_iters=10))
+    for _ in range(2):  # K = 8 at iteration 4, then K = 7 at iteration 4
+        with faults.use({"preempt": {"iter": 4}}), supervisor.use(
+                supervisor.RunSupervisor(install_signals=False)):
+            with pytest.raises(supervisor.PreemptedError):
+                fit_gmm(x, 8, 4, config=GMMConfig(**kw))
+    assert (tmp_path / "ck" / "sweep" / "1.iter4.npz").exists()
+    with supervisor.use(supervisor.RunSupervisor(install_signals=False)):
+        res = fit_gmm(x, 8, 4, config=GMMConfig(**kw))
+    assert res.final_loglik == whole.final_loglik
+    assert res.ideal_num_clusters == whole.ideal_num_clusters
+    assert [m[1] for m in res.merges] == [m[1] for m in whole.merges[1:]]

@@ -18,6 +18,7 @@ from cuda_gmm_mpi_tpu.models.gmm import GMMModel as JModel
 from cuda_gmm_mpi_tpu.models.gmm import chunk_events as j_chunk_events
 from cuda_gmm_mpi_tpu.ops.pallas.fused_stats import fused_stats_pallas
 from cuda_gmm_mpi_tpu.ops.seeding import seed_clusters_host
+from cuda_gmm_mpi_tpu_torch import health
 from cuda_gmm_mpi_tpu_torch.config import GMMConfig
 from cuda_gmm_mpi_tpu_torch.interop import state_from_numpy, state_to_numpy
 from cuda_gmm_mpi_tpu_torch.models.gmm import GMMModel, chunk_events
@@ -113,8 +114,10 @@ def test_fit_and_memberships_match_jax_float64(rng):
 
 
 def test_stop_predicate_runs_on_through_nan(rng):
-    """~(|change| <= eps): a NaN change reads as not converged, so the loop
-    runs to max_iters instead of 'converging' on poison."""
+    """~(|change| <= eps): a NaN change never reads as converged. Since the
+    health counters (health.py) the fatal nonfinite_loglik lane stops the
+    loop at the iteration the NaN appears, as the JAX package's loop does,
+    instead of iterating the poison to max_iters; the counters name it."""
     data, chunks, wts, jstate = _setup(rng, np.float64, False)
     calls = []
 
@@ -132,4 +135,6 @@ def test_stop_predicate_runs_on_through_nan(rng):
     _, ll, iters = model.run_em(state_from_numpy(jstate),
                                 torch.as_tensor(chunks), torch.as_tensor(wts),
                                 convergence_epsilon(*data.shape))
-    assert iters == 5 and np.isnan(ll)
+    assert iters == 1 and np.isnan(ll)
+    assert model.last_health[health.NONFINITE_LOGLIK] == 1
+    assert health.word_is_fatal(health.pack_word(model.last_health))

@@ -191,3 +191,39 @@ def test_cli_new_flags_errors(blob_csv, tmp_path, capsys):  # noqa: F811
     assert torch_main(_args(blob_csv, out, ["--precompute-features",
                                             "--covariance-type=diag"])) == 1
     capsys.readouterr()
+
+
+_RACE_SCRIPT = """
+import importlib.util, sys
+spec = importlib.util.spec_from_file_location("gmm_native", sys.argv[1])
+native = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(native)
+native._NATIVE_DIR = sys.argv[2]
+native._LIB_PATH = sys.argv[2] + "/libgmm_io.so"
+print(native.available())
+"""
+
+
+@pytest.mark.parametrize("rep", range(5))
+def test_concurrent_first_builds_all_load(tmp_path, rep):
+    """Six processes start together on a copy of native/ without the
+    library: each builds under the lock or waits for the one that does, and
+    every one of them loads it (a loader that met a half-written library, or
+    latched a failed build, would report False)."""
+    import shutil
+    import subprocess
+    import sys
+
+    nat = tmp_path / "native"
+    nat.mkdir()
+    for name in ("Makefile", "gmm_io.cpp"):
+        shutil.copy(str(native._NATIVE_DIR) + "/" + name, nat)
+    script = tmp_path / "race.py"
+    script.write_text(_RACE_SCRIPT)
+    procs = [subprocess.Popen([sys.executable, str(script), native.__file__,
+                               str(nat)], stdout=subprocess.PIPE, text=True)
+             for _ in range(6)]
+    outs = [p.communicate(timeout=240)[0].strip() for p in procs]
+    assert outs == ["True"] * 6
+    assert sorted(p.name for p in nat.iterdir()) == [
+        ".libgmm_io.lock", "Makefile", "gmm_io.cpp", "libgmm_io.so"]

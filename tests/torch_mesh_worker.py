@@ -55,8 +55,8 @@ def run_em_case(data, state_np, iters, mesh_shape, chunk, dtype="float64",
     """``ShardedGMMModel.run_em`` on this rank's shard. ``stats='sharded'``
     passes ``fused_stats_cuda_sharded`` (K5 + collectives + K6; their plain
     versions on the CPU) at ``precision`` as an explicit stats_fn. Returns
-    this rank's mesh position, local state (numpy), loglik and
-    iterations."""
+    this rank's mesh position, local state (numpy), loglik, iterations and
+    health counters."""
     from cuda_gmm_mpi_tpu_torch import GMMConfig
     from cuda_gmm_mpi_tpu_torch.interop import state_from_numpy
     from cuda_gmm_mpi_tpu_torch.models.gmm import chunk_events
@@ -85,7 +85,7 @@ def run_em_case(data, state_np, iters, mesh_shape, chunk, dtype="float64",
                              n_events=data.shape[0])
     return dict(data_index=mesh.data_index, cluster_index=mesh.cluster_index,
                 state=_numpy_state(s), loglik=ll, iters=it,
-                backend=model.estep_backend,
+                health=model.last_health, backend=model.estep_backend,
                 collective=model.collective_backend,
                 launches=[c.launches - b for c, b in zip(counters, before)])
 
