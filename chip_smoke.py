@@ -179,6 +179,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    same dropped restart and winner as the torch-ops batched path; (f) the
    event stream of (a) validated by the port's schema, its event counts.
 
+13. the captured EM loop and the fused sweep (PR 11). The main path (and
+   so phases 4, 10, 11 and 12) runs each EM iteration as one CUDA-graph
+   replay (models/em_program.py). (a) phase 4's fit in turns eager
+   (``GMMModel(_eager_em=True)``, the host loop), captured, captured,
+   eager: K, merge pairs, sweep log, final loglik and best state ``==``
+   (and ``==`` phase 4's), EM iterations/s of each, the capture seconds per
+   width and the graph pool's bytes; phase 4's profiler window over 5
+   captured iterations (idle share, K1 -> K1 gap); the captured
+   iteration's host time with and without the one status read per replay.
+   (b) the fused sweep on
+   the same fit ``==`` the host sweep at ``sweep_k_buckets='off'`` (K,
+   sweep log, final loglik, best state), its wall beside 'off' and 'pow2'
+   (turns off, fused, pow2, pow2, fused, off); with ``checkpoint_dir`` the
+   per-K emission's save; a stop requested during K = 99 lands at that K's
+   emission (exit 75 in the CLI), and the resumed fit ``==`` the
+   uninterrupted fused fit. (c) ``nan_loglik`` at iteration 3 of K = 100
+   in the fused sweep under 'retry': the ``health``/``recovery``
+   (``host_fallback``) records, and the host-driven fallback ``==`` phase
+   4's fit (the fused program consumed the plan). (d) K1/K2's counters of
+   (a) equal the iterations (and the initial E-steps).
+
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Whatever happens, it leaves no
@@ -825,11 +846,13 @@ def phase_k2(state, stats_out, diag, label, seed):
     return rec
 
 
-def fit(data, k0, target, iters, **cfg):
+def fit(data, k0, target, iters, eager=False, **cfg):
+    """One ``fit_gmm`` on a fresh model; ``eager`` runs the host EM loop
+    (``GMMModel(_eager_em=True)``) in place of the captured one."""
     from cuda_gmm_mpi_tpu_torch import GMMConfig, GMMModel, fit_gmm
 
     config = GMMConfig(min_iters=iters, max_iters=iters, **cfg)
-    model = GMMModel(config)
+    model = GMMModel(config, **({"_eager_em": True} if eager else {}))
     t0 = time.perf_counter()
     result = fit_gmm(data, k0, target, config=config, model=model)
     return result, model, config, time.perf_counter() - t0
@@ -1037,9 +1060,14 @@ def profile_em(data, iters: int = 5) -> dict:
                             n_events=len(data))
     run()
     torch.cuda.synchronize()
+    # The profiler keeps only device activities inside its window, on its
+    # own clock; the host sleeps keep the first K1 and the last reduction
+    # well inside it (they add no device activity).
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
         run()
         torch.cuda.synchronize()
+        time.sleep(0.02)
     dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
                  key=lambda e: e.time_range.start)
     starts = [e.time_range.start for e in dev if "fused_stats_kernel" in e.name]
@@ -1065,7 +1093,8 @@ def profile_em(data, iters: int = 5) -> dict:
            "k1_gap_ms": float(np.mean(gaps)) / 1e3,
            "k1_ms": float(np.mean([e - s for s, e in zip(starts, ends)])) / 1e3,
            "top_kernels_ms": {n: t / 1e3 for n, t in top}}
-    print(f"  profiler window (device): {iters} EM iterations from the "
+    print(f"  profiler window (device, captured loop): {iters} EM "
+          f"iterations from the "
           f"initial E-step's K1 to the last K1, {rec['window_ms']:.3f} ms; "
           f"device busy {100 * rec['device_busy_share']:.1f}%, idle "
           f"{100 * rec['device_idle_share']:.1f}%; K1 (kernel + reduction) "
@@ -2257,7 +2286,7 @@ def timed_checkpoints():
     made inside the block: {"save": [s, ...], "save_substep": [...], ...}."""
     from cuda_gmm_mpi_tpu_torch.utils.checkpoint import SweepCheckpointer
 
-    times = {"save": [], "save_substep": [], "restore": [],
+    times = {"save": [], "save_substep": [], "save_local": [], "restore": [],
              "restore_substep": []}
     originals = {name: getattr(SweepCheckpointer, name) for name in times}
 
@@ -2536,6 +2565,190 @@ def phase_containment(data, main_result, main_rate, workdir: Path,
     return rec
 
 
+# ------------------------------------------------- phase 13: capture
+
+def _equal_states(a, b) -> bool:
+    import torch
+
+    return all(torch.equal(getattr(a, f), getattr(b, f))
+               for f in ("N", "pi", "constant", "avgvar", "means", "R",
+                         "Rinv", "active"))
+
+
+def _equal_fits(a, b, pairs: bool = True) -> bool:
+    """K, sweep log (K, loglik, score, iterations), final loglik, the best
+    state and (``pairs``) the merge pairs, all exactly equal."""
+    return (a.ideal_num_clusters == b.ideal_num_clusters
+            and (not pairs
+                 or [m[1] for m in a.merges] == [m[1] for m in b.merges])
+            and [r[:4] for r in a.sweep_log] == [r[:4] for r in b.sweep_log]
+            and a.final_loglik == b.final_loglik
+            and _equal_states(a.state, b.state))
+
+
+def _rate(result) -> float:
+    return (sum(r[3] for r in result.sweep_log)
+            / sum(r[4] for r in result.sweep_log))
+
+
+def replay_read_cost(data, n: int = 50) -> dict:
+    """Milliseconds per EM iteration of the captured loop at full width
+    (phase 2's state, an iteration bound it never reaches), replayed ``n``
+    times without a read and ``n`` times reading its status scalar after
+    each replay, in turns (no read, read, read, no read); and the bytes of
+    the graph pool of that width."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, GMMModel
+    from cuda_gmm_mpi_tpu_torch.ops.formulas import convergence_epsilon
+
+    state, chunks, wts, _ = stats_inputs(data, K0, False)
+    model = GMMModel(GMMConfig(min_iters=ITERS, max_iters=ITERS))
+    prog = model.em_program(state, chunks, wts, len(data), ITERS + 1)
+    prog.ctrl.set(convergence_epsilon(*data.shape), 10 * n, 10 * n, None,
+                  10.0, None)
+    prog.start(state)
+    out = {"no_read": [], "read": []}
+    for turn in ("no_read", "read", "read", "no_read"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            prog.advance(1)
+            if turn == "read":
+                prog.status()
+        torch.cuda.synchronize()
+        out[turn].append(1e3 * (time.perf_counter() - t0) / n)
+    pool = model.graph_pool_bytes()
+    print(f"  (a) captured iteration, host clock over {n} replays: "
+          f"{out['no_read']} ms without a read, {out['read']} ms reading the "
+          f"status scalar after each; the graph pool of this width "
+          f"{pool} bytes")
+    return out, pool
+
+
+def phase_capture(data, main_result, workdir: Path) -> dict:
+    """Phase 13 (see the module docstring)."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import supervisor
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.telemetry import read_stream
+    from cuda_gmm_mpi_tpu_torch.testing import faults
+    from cuda_gmm_mpi_tpu_torch.utils.checkpoint import SweepCheckpointer
+
+    rec = {}
+    # --- (a) the captured loop against the eager one, in turns
+    fits, rates, launches = {}, {"eager": [], "captured": []}, []
+    for turn in ("eager", "captured", "captured", "eager"):
+        fs.fused_stats.launches = fs.mstep.launches = 0
+        res, model, _, wall = fit(data, K0, K_TARGET, ITERS,
+                                  eager=turn == "eager")
+        iters = sum(r[3] for r in res.sweep_log)
+        launches.append((turn, fs.fused_stats.launches, fs.mstep.launches,
+                         iters, len(res.sweep_log)))
+        rates[turn].append(_rate(res))
+        fits.setdefault(turn, res)
+        if turn == "captured" and "capture_s" not in rec:
+            rec["capture_s"] = model.capture_log  # [(width, seconds)]
+        check(model.captures is (turn == "captured"), f"(a) {turn} route")
+        del model
+    check(_equal_fits(fits["eager"], fits["captured"])
+          and _equal_fits(fits["captured"], main_result),
+          "(a) the captured fit differs from the eager one (or phase 4's)")
+    rec["em_iters_per_s"] = rates
+    print(f"  (a) main path EM iters/s, eager {rates['eager']}, captured "
+          f"{rates['captured']} (turns eager, captured, captured, eager): "
+          f"K, merge pairs, sweep log, final loglik and best state =="
+          f"; capture (warm-up + 2 graphs), (width, s): "
+          f"{rec['capture_s']}")
+    rec["profile_captured"] = profile_em(data)
+    rec["replay_ms"], rec["pool_bytes"] = replay_read_cost(data)
+
+    # --- (b) the fused sweep on the same fit
+    walls = {"off": [], "fused": [], "pow2": []}
+    for turn in ("off", "fused", "pow2", "pow2", "fused", "off"):
+        cfg = ({"fused_sweep": True} if turn == "fused"
+               else {"sweep_k_buckets": turn})
+        res, model, _, wall = fit(data, K0, K_TARGET, ITERS, **cfg)
+        walls[turn].append(wall)
+        fits.setdefault(turn, res)
+        del model
+    off, fused = fits["off"], fits["fused"]
+    # The fused sweep reports no merge pairs (its reductions stay on the
+    # device), as in the JAX package.
+    check(_equal_fits(fused, off, pairs=False),
+          "(b) the fused sweep differs from the host sweep at 'off'")
+    rec["walls_s"] = walls
+    print(f"  (b) fused sweep == host sweep at 'off' (K, sweep log, final "
+          f"loglik, best state); fit walls s: fused {walls['fused']}, "
+          f"'off' {walls['off']}, 'pow2' {walls['pow2']}")
+    ckdir = workdir / "fused_ck"
+    with timed_checkpoints() as ck_times:
+        res, _, _, wall = fit(data, K0, K_TARGET, ITERS, fused_sweep=True,
+                              checkpoint_dir=str(ckdir / "whole"))
+    check([r[:4] for r in res.sweep_log]
+          == [r[:4] for r in fused.sweep_log], "(b) checkpointed fused fit")
+    rec["emit_save_ms"] = [1e3 * t for t in ck_times["save_local"]]
+    rec["fused_checkpointed_wall_s"] = wall
+    print(f"  (b) with checkpoint_dir: fit {wall:.3f} s, per-K emission "
+          f"(npz save) {rec['emit_save_ms']} ms")
+    # A stop requested during K = 99 lands at its emission, after its
+    # checkpoint (the fused sweep's only intervention point).
+    orig = SweepCheckpointer.save_local
+
+    def save_then_stop(self, step, payload):
+        orig(self, step, payload)
+        if step == 1:
+            supervisor.current().request_stop("preempt_injected")
+
+    SweepCheckpointer.save_local = save_then_stop
+    try:
+        with supervisor.use(supervisor.RunSupervisor(install_signals=False)):
+            try:
+                fit(data, K0, K_TARGET, ITERS, fused_sweep=True,
+                    checkpoint_dir=str(ckdir / "stop"))
+                check(False, "(b) the requested stop did not stop the sweep")
+            except supervisor.PreemptedError as e:
+                stop = (e.step, e.checkpointed)
+    finally:
+        SweepCheckpointer.save_local = orig
+    check(stop == (1, True), f"(b) stopped at {stop}")
+    with supervisor.use(supervisor.RunSupervisor(install_signals=False)):
+        res, _, _, _ = fit(data, K0, K_TARGET, ITERS, fused_sweep=True,
+                           checkpoint_dir=str(ckdir / "stop"))
+    check(_equal_fits(res, fused, pairs=False),
+          "(b) the resumed fused fit differs from the uninterrupted one")
+    print(f"  (b) stop requested in K = 99: exit at its emission (step, "
+          f"checkpointed) {stop}; resumed == the uninterrupted fused fit")
+
+    # --- (c) nan_loglik at iteration 3 of K = 100 in the fused sweep
+    path = workdir / "c.jsonl"
+    with faults.use({"nan_loglik": {"iter": 3}}):
+        res, model, _, _ = fit(data, K0, K_TARGET, ITERS, fused_sweep=True,
+                               metrics_file=str(path))
+    acts = [(r.get("where"), r.get("action"), r["k"])
+            for r in read_stream(str(path))
+            if r["event"] in ("health", "recovery")]
+    check(acts[:2] == [("fused_sweep", None, K0), (None, "host_fallback", K0)],
+          f"(c) records {acts}")
+    # The fused program consumed the plan, so the fallback runs clean.
+    check(_equal_fits(res, main_result),
+          "(c) the host fallback differs from phase 4's fit")
+    rec["c"] = {"records": acts, "k": res.ideal_num_clusters}
+    print(f"  (c) fused sweep, nan_loglik at iteration 3 of K = {K0}: "
+          f"records {acts[:2]}; the host-driven fallback == phase 4's fit "
+          f"(K {res.ideal_num_clusters}, pairs {[m[1] for m in res.merges]})")
+
+    # --- (d) the counters of (a)
+    for turn, k1, k2, iters, n_k in launches:
+        check(k2 == iters and k1 == iters + n_k,
+              f"(d) {turn}: K1 {k1}, K2 {k2} for {iters} iterations, {n_k} Ks")
+    rec["launches"] = launches
+    print(f"  (d) launches (turn, K1, K2, iterations, Ks): {launches}")
+    torch.cuda.synchronize()
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2713,6 +2926,15 @@ def main() -> int:
     finally:
         shutil.rmtree(condir, ignore_errors=True)
 
+    print("phase 13: the captured EM loop and the fused sweep")
+    capdir = Path(__file__).resolve().parent / "build" / "chip_smoke_capture"
+    shutil.rmtree(capdir, ignore_errors=True)
+    capdir.mkdir(parents=True)
+    try:
+        capture = phase_capture(data, main_result, capdir)
+    finally:
+        shutil.rmtree(capdir, ignore_errors=True)
+
     src = "cuda_gmm_mpi_tpu_torch/csrc/"
     pallas = "cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py:"
     kernels = [
@@ -2807,6 +3029,7 @@ def main() -> int:
             prec, pallas, mesh["bf16"][prec], k56_bf16, k56_bf16_times))
     kernels[0]["estimator"] = estimator
     kernels[0]["containment"] = containment
+    kernels[0]["capture"] = capture
     print("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} pass" for k in kernels)
         + f"; total {time.perf_counter() - t_start:.1f} s")

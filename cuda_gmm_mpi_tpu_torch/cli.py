@@ -126,6 +126,22 @@ def build_parser() -> argparse.ArgumentParser:
                    "rank on the event axis")
     p.add_argument("--verbose", "-v", action="store_true",
                    help="status prints (ENABLE_PRINT, gaussian.h:35)")
+    p.add_argument("--debug", action="store_true",
+                   help="debug prints (ENABLE_DEBUG, gaussian.h:31)")
+    p.add_argument("--fused-sweep", action="store_true",
+                   help="run the whole model-order sweep as one device "
+                   "program (fastest; composes with --checkpoint-dir and "
+                   "--metrics-file via per-K emission -- per-K seconds are "
+                   "whole-K spans)")
+    p.add_argument("--sweep-k-buckets", default="pow2",
+                   choices=["pow2", "off"],
+                   help="cluster-width bucketing for the host-driven sweep: "
+                   "'pow2' (default) recompacts the state to power-of-two "
+                   "padded widths as K drops (~2x sweep-level FLOPs for "
+                   "<= ceil(log2 K0)+1 compiled EM widths); 'off' keeps one "
+                   "fixed width. The fused sweep is fixed-width by design")
+    p.add_argument("--no-validate-input", action="store_true",
+                   help="skip the NaN/Inf input-row check at load")
     p.add_argument("--init-from", default=None, metavar="MODEL.summary",
                    help="warm-start: initial means from a saved .summary "
                    "model (its K must equal num_clusters); covariances/"
@@ -229,7 +245,11 @@ def main(argv=None) -> int:
             center_data=not args.no_center,
             precompute_features=args.precompute_features,
             estep_backend=args.estep_backend, device=args.device,
-            enable_print=args.verbose, seed=args.seed,
+            enable_debug=args.debug,
+            enable_print=args.verbose or args.debug, seed=args.seed,
+            fused_sweep=args.fused_sweep,
+            sweep_k_buckets=args.sweep_k_buckets,
+            validate_input=not args.no_validate_input,
             seed_method=args.seed_method, n_init=args.n_init,
             restart_batch_size=args.restart_batch_size,
             mesh_shape=_parse_mesh(args.mesh),
@@ -262,6 +282,8 @@ def main(argv=None) -> int:
             ("--sweep-log", args.sweep_log),
             ("--metrics-file", args.metrics_file),
             ("--checkpoint-dir", args.checkpoint_dir),
+            ("--fused-sweep", args.fused_sweep),
+            ("--sweep-k-buckets", args.sweep_k_buckets != "pow2"),
         ]
         for flag, present in fit_only:
             if present:
@@ -454,11 +476,12 @@ def _predict_main(args, config) -> int:
     data, rc = _read_events(args.infile)
     if data is None:
         return rc
-    try:
-        validate_finite(data, dtype=np.dtype(config.dtype))
-    except InvalidInputError as e:
-        print(str(e), file=sys.stderr)
-        return 1
+    if config.validate_input:
+        try:
+            validate_finite(data, dtype=np.dtype(config.dtype))
+        except InvalidInputError as e:
+            print(str(e), file=sys.stderr)
+            return 1
     d_model = gm.result_.num_dimensions
     if data.shape[1] != d_model:
         print(f"Model has {d_model} dimensions but {args.infile!r} has "

@@ -10,6 +10,7 @@ rather than ignored. Provenance of the reference's compile-time defines:
 - ``diag_only``                <- DIAG_ONLY               (gaussian.h:23)
 - ``min_iters``/``max_iters``  <- MIN_ITERS/MAX_ITERS     (gaussian.h:26-27)
 - ``enable_print``             <- ENABLE_PRINT            (gaussian.h:35)
+- ``enable_debug``             <- ENABLE_DEBUG            (gaussian.h:31)
 - ``device``                   <- DEVICE                  (gaussian.h:19), a
   torch device name ('cuda' or 'cpu').
 """
@@ -76,7 +77,26 @@ class GMMConfig:
     # Torch device every entry point runs on. There is no silent fallback:
     # 'cuda' without a GPU raises.
     device: str = "cuda"
+    # Debug prints (ENABLE_DEBUG, gaussian.h:31): the logger at DEBUG and a
+    # JSON ``em_done`` line per K on stderr.
+    enable_debug: bool = False
     enable_print: bool = False
+    # Run the whole model-order sweep as one device program
+    # (models/fused_sweep.py): on one CUDA device each K's EM and its order
+    # reduction are CUDA-graph replays, with one scalar read per iteration
+    # past min_iters and one per K. Fixed-width by design (it ignores
+    # ``sweep_k_buckets``). Composes with ``checkpoint_dir`` and the
+    # recorder through a per-K emission; a model without it (a mesh) runs
+    # the host-driven sweep with a warning.
+    fused_sweep: bool = False
+    # Cluster-width bucketing of the host-driven sweep: 'pow2' shrinks the
+    # padded width to the active count's power of two as merges cross a
+    # boundary (at most ceil(log2 K0) + 1 widths, one EM program each);
+    # 'off' keeps the starting width.
+    sweep_k_buckets: str = "pow2"
+    # Reject NaN/Inf event rows before any arithmetic (the reference's
+    # reader admits them silently); False skips the check.
+    validate_input: bool = True
     # RNG seed of the randomized paths (k-means++ seeding); the reference
     # itself is deterministic.
     seed: int = 0
@@ -190,6 +210,10 @@ class GMMConfig:
         if self.restart_batch_size is not None and self.restart_batch_size < 1:
             raise ValueError("restart_batch_size must be >= 1 (or None for "
                              "the memory-sized default)")
+        if self.sweep_k_buckets not in ("pow2", "off"):
+            raise ValueError(
+                f"unknown sweep_k_buckets: {self.sweep_k_buckets!r} "
+                "(expected 'pow2' or 'off')")
         if self.precompute_features:
             if self.diag_only:
                 raise ValueError(

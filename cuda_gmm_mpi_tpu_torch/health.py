@@ -151,6 +151,22 @@ def fatal_rows(counts: np.ndarray) -> np.ndarray:
     return (c[..., NONFINITE_LOGLIK] > 0) | (c[..., NONFINITE_PARAMS] > 0)
 
 
+def fatal(counts: torch.Tensor) -> torch.Tensor:
+    """Device-side :func:`fatal_rows`: a bool tensor, no host read (the
+    JAX package's trace-safe ``fatal``)."""
+    return ((counts[..., NONFINITE_LOGLIK] > 0)
+            | (counts[..., NONFINITE_PARAMS] > 0))
+
+
+def pack_word_traced(counts: torch.Tensor) -> torch.Tensor:
+    """Device-side :func:`pack_word`: the int64 flag word of a counter
+    vector, no host read (the fused sweep stores one per K in its log)."""
+    bits = torch.bitwise_left_shift(
+        torch.ones(NUM_FLAGS, dtype=torch.int64, device=counts.device),
+        torch.arange(NUM_FLAGS, device=counts.device))
+    return ((counts[..., :NUM_FLAGS] > 0).to(torch.int64) * bits).sum(dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Host-side word packing / description.
 # ---------------------------------------------------------------------------

@@ -17,7 +17,9 @@ caller's means (sklearn's ``means_init``).
 The sweep rebuckets the padded cluster width to the active count's power of
 two whenever a merge crosses a bucket boundary (``state.compact_to``), as
 the JAX package's default ``sweep_k_buckets='pow2'`` does: EM at k active
-clusters pays products at width ~k instead of the starting K.
+clusters pays products at width ~k instead of the starting K. Each width's
+EM is one program (``GMMModel.em_program``: a CUDA-graph capture on the
+card), at most ceil(log2 K0) + 1 of them.
 
 With ``n_init > 1`` the fit runs independent restarts and keeps the best
 score (``_fit_with_restarts``): in batches through ``models/restarts.py``
@@ -46,7 +48,15 @@ emergency mid-EM sub-step and raises ``PreemptedError``. With
 ``metrics_file`` the fit writes the JAX package's JSONL event stream
 (telemetry/). On a mesh of more than one rank, checkpoints and the
 supervisor are not ported yet (ROADMAP item 9) and raise
-``NotImplementedError``. The fused sweep and streaming are not ported.
+``NotImplementedError``. Streaming is not ported.
+
+``sweep_k_buckets='off'`` keeps the starting width for every K. With
+``fused_sweep`` the whole sweep runs on the device (models/fused_sweep.py,
+``_run_fused_sweep``): fixed-width, the per-K checkpoints and the
+recorder's per-K seconds through its per-K emission, where a requested
+stop also lands; a fatal word falls back to the host-driven sweep and its
+recovery ladder under ``recovery='retry'``. A model without it (a mesh)
+runs the host-driven sweep with the JAX package's warning.
 """
 
 from __future__ import annotations
@@ -73,7 +83,7 @@ from ..ops.seeding import (
 from ..parallel.mesh import shard_chunks
 from ..state import GMMState, bucket_width, clone_state, compact, compact_to
 from ..testing import faults
-from ..utils.logging_ import get_logger
+from ..utils.logging_ import get_logger, metrics_line
 from ..validation import InvalidInputError, validate_finite
 from .gmm import GMMModel, chunk_events
 
@@ -160,7 +170,8 @@ def _emit_run_start(rec, model, config, n_events, n_dims, num_clusters,
         device_count=int(world), local_device_count=1,
         dtype=config.dtype, chunk_size=int(config.chunk_size),
         covariance_type=config.covariance_type, criterion=config.criterion,
-        fused_sweep=False, stream_events=False, n_init=int(config.n_init),
+        fused_sweep=bool(config.fused_sweep), stream_events=False,
+        n_init=int(config.n_init),
         em_backend=model.estep_backend,
         em_backend_reason=model.estep_backend_reason,
         memory_stats=telemetry.memory_stats(dev), **extra)
@@ -428,7 +439,8 @@ def _prepare_data(data: np.ndarray, config: GMMConfig, model: GMMModel,
     dtype = np.dtype(config.dtype)
     # Before any arithmetic touches the data: reject rows non-finite now or
     # after the cast to the compute dtype.
-    validate_finite(data, dtype=dtype)
+    if config.validate_input:
+        validate_finite(data, dtype=dtype)
     mean64, var64 = _moments(data, config.chunk_size)
     # Global centering keeps the expanded quadratic form well-conditioned
     # (shift-equivariant: EM on x-c equals EM on x, means shifted by c).
@@ -530,8 +542,19 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
             # application's SIGTERM is the CLI's business.
             stack.enter_context(supervisor.use(supervisor.RunSupervisor(
                 max_runtime_s=config.max_runtime_s, install_signals=False)))
-        return _fit_gmm(data, num_clusters, target_num_clusters, config,
-                        model, verbose, init_means, sample_weight, _prepared)
+        result = None
+        try:
+            result = _fit_gmm(data, num_clusters, target_num_clusters,
+                              config, model, verbose, init_means,
+                              sample_weight, _prepared)
+            return result
+        finally:
+            # The EM programs read this fit's events in place: free them
+            # (and their graphs' memory) with the fit, not with the model.
+            built = getattr(result, "model", None)
+            for m in (model, None if built is model else built):
+                if hasattr(m, "release_programs"):
+                    m.release_programs()
 
 
 def _check_supervision(config) -> None:
@@ -596,6 +619,44 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
                                  retries=config.checkpoint_retries)
     sup = supervisor.current()
 
+    # The counters of a fused sweep that stopped on a fatal word (the
+    # host-driven rerun below folds them into its summary).
+    fused_fatal_counts = None
+    if config.fused_sweep:
+        # Checkpoints and the recorder's per-K seconds ride the per-K
+        # emission; a model without the fused sweep runs the host-driven
+        # sweep (the JAX package's blockers).
+        want_emit = ckpt is not None or rec.active
+        blockers = []
+        maker = getattr(model, "make_fused_sweep", None)
+        if maker is None:
+            blockers.append("model without fused-sweep support")
+        elif want_emit and not getattr(model, "supports_fused_emit", False):
+            blockers.append("per-K checkpoint emission on this model"
+                            if ckpt is not None else
+                            "per-K profile emission on this model")
+        if blockers:
+            log.warning(
+                "fused_sweep disabled (%s requested); using the host-driven "
+                "sweep", ", ".join(blockers))
+        else:
+            fused = maker(with_emit=want_emit, emit_light=ckpt is None,
+                          start_k=num_clusters, stop_number=stop_number,
+                          target_k=target_num_clusters, num_events=n_events,
+                          num_dimensions=n_dims)
+            fused_result = _run_fused_sweep(
+                fused, config, state, chunks, wts, epsilon, num_clusters,
+                n_events, n_dims, shift, verbose, model, ckpt=ckpt, log=log,
+                want_emit=want_emit)
+            if isinstance(fused_result, GMMResult):
+                return fused_result
+            # A counter vector: the fused sweep stopped on a fatal word
+            # (recovery='retry'); the host-driven sweep's ladder takes over.
+            fused_fatal_counts = np.asarray(fused_result, np.int64)
+            log.warning(
+                "fused sweep aborted on a fatal numerical fault; "
+                "re-running via the host-driven sweep's recovery ladder")
+
     sweep_log, merges = [], []
     min_rissanen = math.inf
     ideal_k, best_state, best_ll = num_clusters, state, -math.inf
@@ -615,6 +676,10 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
             restored = None
         if restored is None:
             restored = ckpt.restore()
+            if restored is not None and "fused_log" in restored:
+                log.warning("found a fused-sweep checkpoint; the host-driven "
+                            "sweep cannot resume it -- starting fresh")
+                restored = None
             if restored is not None and (
                     _resume_mismatch(restored, config, log)
                     or int(restored["num_clusters"]) != num_clusters):
@@ -661,6 +726,10 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
     recovery_on = config.recovery == "retry"
     health_totals = np.zeros((health.NUM_FLAGS,), np.int64)
     n_recoveries = 0
+    if fused_fatal_counts is not None:
+        # The aborted fused sweep's fault and its host_fallback action.
+        health_totals += fused_fatal_counts
+        n_recoveries += 1
     # With a supervisor AND checkpoints the EM loop polls the stop flag
     # (and can write an emergency mid-EM sub-step).
     supervised = sup.active and ckpt is not None
@@ -741,6 +810,10 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
         if verbose:
             print(f"K={k}: loglik={ll:.6e} {config.criterion}={riss:.6e} "
                   f"iters={iters} ({dt:.2f}s)")
+        if config.enable_debug:
+            metrics_line("em_done", k=int(k), loglik=float(ll),
+                         score=float(riss), criterion=config.criterion,
+                         iters=int(iters), seconds=round(dt, 4))
         if rec.active:
             rec.metrics.count("em_iters", int(iters))
             rec.metrics.gauge("active_k", int(k))
@@ -785,7 +858,8 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
         state = next_state
         k -= 1
         cur_w = state.num_clusters_padded
-        width = bucket_width(k, cur_w, multiple=model.bucket_multiple)
+        width = (bucket_width(k, cur_w, multiple=model.bucket_multiple)
+                 if config.sweep_k_buckets == "pow2" else cur_w)
         t1 = time.perf_counter()
         if sharded:
             state = model.rebucket_state(state, width)
@@ -818,8 +892,8 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
     _emit_run_summary(
         rec, model, config, sweep_log, n_active, float(min_rissanen),
         float(best_ll), em_walls,
-        buckets=dict(mode="pow2", em_widths=sorted(set(em_widths),
-                                                   reverse=True),
+        buckets=dict(mode=config.sweep_k_buckets,
+                     em_widths=sorted(set(em_widths), reverse=True),
                      em_compiles=len(set(em_widths)),
                      rebuckets=n_rebuckets),
         health_section=health_section,
@@ -833,6 +907,177 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
         epsilon=epsilon, num_events=n_events, num_dimensions=n_dims,
         data_shift=np.asarray(shift), sweep_log=sweep_log, merges=merges,
         model=model, health=health_section)
+
+
+def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
+                     num_clusters, n_events, n_dims, shift, verbose, model,
+                     ckpt=None, log=None, want_emit=False):
+    """The fused sweep (models/fused_sweep.py) under the sweep's
+    checkpoints, supervisor and recorder: the JAX package's
+    ``_run_fused_sweep``. Returns the ``GMMResult``, or the sweep's health
+    counters when it stopped on a fatal word under ``recovery='retry'``
+    (the caller reruns the host-driven sweep).
+
+    With ``ckpt`` a fused-sweep checkpoint (one that carries ``fused_log``;
+    4-column logs are padded to 5) resumes mid-sweep, and every completed
+    K is saved as ``<step>.npz`` from the per-K emission; a stop requested
+    of the run supervisor takes effect there, after that K's checkpoint
+    (exit 75 in the CLI). With emission on (``want_emit``: checkpoints or
+    an active recorder) each K's seconds are real (emission arrivals);
+    without, they are the sweep's wall over its Ks. The sweep log is
+    rebuilt from the device log; the stream carries ``em_done`` per K and
+    no ``em_iter`` records (the EM iterations never reach the host)."""
+    rec = telemetry.current()
+    resume = None
+    if ckpt is not None and config.resume != "never":
+        restored = ckpt.restore()
+        if restored is not None and _resume_mismatch(restored, config, log):
+            restored = None
+        if (restored is not None
+                and int(restored.get("num_clusters", -1)) == num_clusters):
+            if "fused_log" not in restored:
+                log.warning("found a host-sweep checkpoint; the fused sweep "
+                            "cannot resume it -- starting fresh")
+            else:
+                state = _place_state(restored["state"], model)
+                fused_log = np.asarray(restored["fused_log"])
+                if fused_log.shape[1] == 4:
+                    # A log without the per-K health word: restored Ks read
+                    # as clean.
+                    fused_log = np.concatenate(
+                        [fused_log, np.zeros((fused_log.shape[0], 1),
+                                             fused_log.dtype)], axis=1)
+                resume = dict(best_state=restored["best_state"],
+                              k=int(restored["k"]),
+                              step=int(restored["step"]) + 1,
+                              best_ll=float(restored["best_ll"]),
+                              best_riss=float(restored["best_riss"]),
+                              log=fused_log)
+                log.info("resumed fused sweep from checkpoint: next K=%d "
+                         "(step %d)", resume["k"], resume["step"])
+                if rec.active:
+                    rec.metrics.count("resumes")
+                if verbose:
+                    print(f"resumed fused sweep at K={resume['k']}")
+
+    emit_times = {}
+    sup = supervisor.current()
+
+    def emit(payload):
+        step = int(payload["step"])
+        emit_times[step] = time.perf_counter()
+        if ckpt is None or payload["done"]:
+            return  # a finished sweep returns its result right after
+        if rec.active:
+            rec.metrics.count("checkpoint_saves")
+        ckpt.save_local(step, {
+            "state": payload["state"],
+            "best_state": payload["best_state"],
+            "k": int(payload["next_k"]),
+            "best_ll": float(payload["best_ll"]),
+            "best_riss": float(payload["best_riss"]),
+            "fused_log": np.asarray(payload["log"]),
+            "num_clusters": int(num_clusters),
+            "criterion_code": _CRITERION_CODE[config.criterion],
+            "cov_code": _COV_CODE[config.covariance_type],
+            "data_shift": np.asarray(shift, np.float64),
+        })
+        if sup.active and sup.stop_requested:
+            # The fused sweep's only intervention point: this K is durable.
+            sup._emit_preempt(where="fused_emit")
+            raise supervisor.PreemptedError(
+                "fused sweep stopped at per-K emission",
+                reason=sup.stop_reason or "unknown", step=step,
+                checkpointed=True)
+
+    t0 = time.perf_counter()
+    try:
+        out = fused(state, chunks, wts, epsilon, config.min_iters,
+                    config.max_iters, resume,
+                    emit_cb=emit if want_emit else None)
+    except supervisor.PreemptedError:
+        if rec.active:
+            rec.emit("shutdown", reason=sup.stop_reason or "unknown",
+                     checkpointed=bool(ckpt is not None and emit_times))
+        sup.raise_stop(step=max(emit_times) if emit_times else None,
+                       checkpointed=bool(ckpt is not None and emit_times))
+        raise
+    best_state, best_ll, best_riss, log_t, steps, counts = out
+    best_state = best_state.to("cpu")
+    rows = log_t.cpu().numpy()
+    steps = int(steps)
+    best_ll, best_riss = float(best_ll), float(best_riss)
+    health_counts = counts.cpu().numpy().astype(np.int64)
+    wall = time.perf_counter() - t0
+
+    word = health.pack_word(health_counts)
+    if health.word_is_fatal(word):
+        k_fatal = int(rows[steps - 1][0]) if steps else int(num_clusters)
+        if rec.active:
+            rec.emit("health", k=k_fatal, where="fused_sweep",
+                     flags=int(word), flag_names=health.flag_names(word),
+                     counters=health.counts_dict(health_counts))
+            rec.metrics.count("health_events")
+        if config.recovery != "retry":
+            raise health.NumericalFaultError(
+                f"numerical fault in the fused sweep at K={k_fatal} "
+                f"(flags={health.flag_names(word)}) and recovery is "
+                f"{config.recovery!r}",
+                health.fault_bundle(health_counts, k=k_fatal,
+                                    where="fused_sweep", config=config))
+        if rec.active:
+            rec.emit("recovery", k=k_fatal, attempt=1,
+                     action="host_fallback", outcome="rerun",
+                     flags=int(word), flag_names=health.flag_names(word))
+            rec.metrics.count("recovery_attempts")
+        log.warning("fused sweep hit %s at K=%d", health.flag_names(word),
+                    k_fatal)
+        return health_counts
+    per_k = wall / max(steps, 1)
+    # Each emitted step's seconds: from the previous arrival (the first
+    # from the sweep's start); restored steps keep the amortized per_k.
+    step_secs, prev = {}, t0
+    for st in sorted(emit_times):
+        step_secs[st] = emit_times[st] - prev
+        prev = emit_times[st]
+    sweep_log = [(int(r[0]), float(r[1]), float(r[2]), int(r[3]),
+                  step_secs.get(i, per_k))
+                 for i, r in enumerate(rows[:steps])]
+    if verbose:
+        for k_, ll_, riss_, it_, _ in sweep_log:
+            print(f"K={k_}: loglik={ll_:.6e} {config.criterion}={riss_:.6e} "
+                  f"iters={it_} (fused)")
+    compact_state, n_active = compact(best_state)
+    if verbose:
+        print(f"Final rissanen score was: {best_riss}, "
+              f"with {n_active} clusters.")  # gaussian.cu:962
+    health_section = health.health_summary(
+        health_counts, io_retries=ckpt.io_retries if ckpt is not None else 0)
+    if rec.active:
+        for (k_, ll_, riss_, it_, secs_), r in zip(sweep_log, rows[:steps]):
+            rec.metrics.count("em_iters", int(it_))
+            rec.metrics.series("active_k", int(k_))
+            rec.emit("em_done", k=int(k_), loglik=float(ll_),
+                     score=float(riss_), criterion=config.criterion,
+                     iters=int(it_), seconds=round(float(secs_), 6))
+            word_k = int(r[4])
+            if word_k:
+                rec.emit("health", k=int(k_), where="em", flags=word_k,
+                         flag_names=health.flag_names(word_k))
+                rec.metrics.count("health_events")
+        secs = [v for _, v in sorted(step_secs.items())]
+        _emit_run_summary(
+            rec, model, config, sweep_log, n_active, best_riss, best_ll,
+            secs, health_section=health_section,
+            phase_profile=_phase_profile(
+                em_s=float(sum(secs)),
+                em_n=int(sum(r[3] for r in sweep_log))))
+    return GMMResult(
+        state=compact_state, ideal_num_clusters=n_active,
+        min_rissanen=best_riss, final_loglik=best_ll, epsilon=epsilon,
+        num_events=n_events, num_dimensions=n_dims,
+        data_shift=np.asarray(shift), sweep_log=sweep_log, model=model,
+        health=health_section)
 
 
 def _fit_with_restarts(data, num_clusters: int, target_num_clusters: int,

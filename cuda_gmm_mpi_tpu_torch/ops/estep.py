@@ -77,29 +77,31 @@ def pack_features(x: torch.Tensor) -> torch.Tensor:
 
 
 @functools.lru_cache(maxsize=None)
-def _tri(D: int):
-    """(iu0, iu1, fullmap): the upper triangle's row/column indices and a
-    [D*D] map from full position (i, j) to its packed index."""
+def _tri(D: int, device: torch.device):
+    """(iu0, iu1, fullmap) on ``device``: the upper triangle's row/column
+    indices and a [D*D] map from full position (i, j) to its packed index.
+    Cached per device, so an EM iteration copies nothing from the host (a
+    CUDA graph cannot capture such a copy)."""
     iu0, iu1 = torch.triu_indices(D, D)
     fullmap = torch.zeros((D, D), dtype=torch.long)
     fullmap[iu0, iu1] = torch.arange(iu0.numel())
     fullmap = torch.maximum(fullmap, fullmap.T).reshape(-1)
-    return iu0, iu1, fullmap
+    return iu0.to(device), iu1.to(device), fullmap.to(device)
 
 
 def pack_sym_weighted(A: torch.Tensor) -> torch.Tensor:
     """[K, D, D] symmetric -> [K, D(D+1)/2], off-diagonal entries doubled,
     so packed features . packed A is the full quadratic form."""
-    iu0, iu1, _ = _tri(A.shape[-1])
-    coef = torch.where(iu0 == iu1, 1.0, 2.0).to(A.dtype).to(A.device)
+    iu0, iu1, _ = _tri(A.shape[-1], A.device)
+    coef = torch.where(iu0 == iu1, 1.0, 2.0).to(A.dtype)
     return A[:, iu0, iu1] * coef
 
 
 def unpack_sym(P: torch.Tensor, D: int) -> torch.Tensor:
     """[K, D(D+1)/2] packed upper triangle -> [K, D, D] symmetric (one
     gather: both mirrored entries come from the same packed value)."""
-    _, _, fullmap = _tri(D)
-    return P[:, fullmap.to(P.device)].reshape(P.shape[0], D, D)
+    _, _, fullmap = _tri(D, P.device)
+    return P[:, fullmap].reshape(P.shape[0], D, D)
 
 
 def features(x: torch.Tensor, quad_mode: str = "expanded") -> torch.Tensor:

@@ -7,6 +7,12 @@ elimination + exhaustive O(K^2) pair scan in main (``:865-907``). The pair
 scan is a batched device computation (blocks of rows of merged covariances,
 batched Cholesky log-dets) and compaction is a mask update.
 
+Two forms of the order reduction: :func:`eliminate_and_reduce` reads the
+pair, the distance and the active count to the host (the host-driven sweep
+prints and logs them), and :func:`eliminate_and_reduce_device` returns them
+as tensors and never reads the device (the fused sweep, and a CUDA graph
+that captures it). Both give the same state bit for bit.
+
 Merge formulas (add_clusters, gaussian.cu:1213-1252), for clusters i, j:
   wt1   = N_i / (N_i + N_j)
   mu_m  = wt1*mu_i + wt2*mu_j
@@ -22,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..state import lane, stack_states
+from ..state import GMMState, lane, stack_states
 from .constants import LOG_2PI, chol_inverse_logdet, chol_logdet
 
 
@@ -85,6 +91,40 @@ def argmin_pair(dist: torch.Tensor):
     return idx // K, idx % K
 
 
+def _merged_cluster(state, i, j, diag_only: bool):
+    """The merge of clusters i and j (ints or 0-d index tensors), the
+    reference's add_clusters (gaussian.cu:1213-1252): (N_m, pi_m, const_m,
+    mu_m, R_m, Rinv_m), a non-PD merged covariance reset to the identity
+    (its log-determinant then 0)."""
+    D = state.means.shape[1]
+    at = _at if isinstance(i, torch.Tensor) else lambda t, n: t[n]
+    N_i, N_j = at(state.N, i), at(state.N, j)
+    denom = torch.clamp(N_i + N_j, min=1e-30)
+    wt1 = N_i / denom
+    wt2 = 1.0 - wt1
+    mu_i, mu_j = at(state.means, i), at(state.means, j)
+    mu_m = wt1 * mu_i + wt2 * mu_j
+    d1 = mu_m - mu_i
+    d2 = mu_m - mu_j
+    R_m = (wt1 * (at(state.R, i) + d1[:, None] * d1[None, :])
+           + wt2 * (at(state.R, j) + d2[:, None] * d2[None, :]))
+    Rinv_m, log_det, ok = chol_inverse_logdet(R_m[None], diag_only=diag_only)
+    eye = torch.eye(D, dtype=state.R.dtype, device=state.R.device)
+    ok = ok[0]
+    R_m = torch.where(ok, R_m, eye)
+    Rinv_m = torch.where(ok, Rinv_m[0], eye)
+    const_m = (-D * 0.5) * LOG_2PI - 0.5 * torch.where(
+        ok, log_det[0], torch.zeros_like(log_det[0]))
+    return (N_i + N_j, at(state.pi, i) + at(state.pi, j), const_m, mu_m, R_m,
+            Rinv_m)
+
+
+def _at(t: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """``t[i]`` for a 0-d index tensor, without reading it to the host
+    (indexing with a tensor scalar would)."""
+    return t.index_select(0, i.reshape(1))[0]
+
+
 def merge_pair(state, i: int, j: int, diag_only: bool = False):
     """Merge cluster j into slot i and deactivate j.
 
@@ -93,28 +133,13 @@ def merge_pair(state, i: int, j: int, diag_only: bool = False):
     the compacted relative order. Rinv and the constant of the merged
     cluster are recomputed here (the next K's initial E-step consumes them).
     """
-    K, D = state.means.shape
-    N_i, N_j = state.N[i], state.N[j]
-    denom = torch.clamp(N_i + N_j, min=1e-30)
-    wt1 = N_i / denom
-    wt2 = 1.0 - wt1
-    mu_m = wt1 * state.means[i] + wt2 * state.means[j]
-    d1 = mu_m - state.means[i]
-    d2 = mu_m - state.means[j]
-    R_m = (wt1 * (state.R[i] + d1[:, None] * d1[None, :])
-           + wt2 * (state.R[j] + d2[:, None] * d2[None, :]))
-    Rinv_m, log_det, ok = chol_inverse_logdet(R_m[None], diag_only=diag_only)
-    eye = torch.eye(D, dtype=state.R.dtype, device=state.R.device)
-    ok = bool(ok[0])
-    R_m = R_m if ok else eye
-    Rinv_m = Rinv_m[0] if ok else eye
-    const_m = (-D * 0.5) * LOG_2PI - 0.5 * (log_det[0] if ok else 0.0)
-
+    N_m, pi_m, const_m, mu_m, R_m, Rinv_m = _merged_cluster(state, i, j,
+                                                             diag_only)
     N, pi, constant = state.N.clone(), state.pi.clone(), state.constant.clone()
     means, R, Rinv = state.means.clone(), state.R.clone(), state.Rinv.clone()
     active = state.active.clone()
-    N[i], N[j] = N_i + N_j, 0.0
-    pi[i] = state.pi[i] + state.pi[j]
+    N[i], N[j] = N_m, 0.0
+    pi[i] = pi_m
     constant[i] = const_m
     means[i], R[i], Rinv[i] = mu_m, R_m, Rinv_m
     active[j] = False
@@ -152,6 +177,40 @@ def eliminate_and_reduce(state, diag_only: bool = False):
     rank = torch.cumsum(state.active.to(torch.int64), 0) - 1
     pair = (int(rank[i]), int(rank[j]))
     return new_state, k_active, min_d, pair
+
+
+def eliminate_and_reduce_device(state, diag_only: bool = False):
+    """:func:`eliminate_and_reduce` without a host read: returns
+    ``(new_state, k_active, min_d, pair)`` as tensors (int64 0-d, the
+    distance 0-d, int64 [2]). The closest pair's slots are 0-d index
+    tensors, the merge is written with ``torch.where`` over the slot axis,
+    and where no valid pair exists (``min_d`` is +inf) the eliminated state
+    comes back unchanged, as from the host form."""
+    state = eliminate_empty(state)
+    K = state.num_clusters_padded
+    k_active = state.active.sum()
+    dist = pairwise_merge_distances(state, diag_only=diag_only).flatten()
+    idx = torch.argmin(dist)  # first occurrence on ties
+    i, j = idx // K, idx % K
+    min_d = _at(dist, idx)
+    N_m, pi_m, const_m, mu_m, R_m, Rinv_m = _merged_cluster(
+        state, i, j, diag_only)
+    slot = torch.arange(K, device=state.N.device)
+    at_i = (slot == i) & (min_d != torch.inf)
+    at_j = (slot == j) & (min_d != torch.inf)
+    new = GMMState(
+        N=torch.where(at_j, torch.zeros_like(state.N),
+                      torch.where(at_i, N_m, state.N)),
+        pi=torch.where(at_i, pi_m, state.pi),
+        constant=torch.where(at_i, const_m.to(state.constant.dtype),
+                             state.constant),
+        avgvar=state.avgvar,
+        means=torch.where(at_i[:, None], mu_m, state.means),
+        R=torch.where(at_i[:, None, None], R_m, state.R),
+        Rinv=torch.where(at_i[:, None, None], Rinv_m, state.Rinv),
+        active=state.active & ~at_j)
+    rank = torch.cumsum(state.active.to(torch.int64), 0) - 1
+    return new, k_active, min_d, torch.stack([_at(rank, i), _at(rank, j)])
 
 
 def eliminate_and_reduce_batched(states, live=None, diag_only: bool = False):

@@ -2,7 +2,8 @@
 
 The port of the JAX package's ``parallel/sharded_em.py``. JAX runs the mesh
 as one SPMD program over devices; here each rank is a process running the
-same host loop (``em_while_loop``) on its own shard:
+same device-controlled EM loop (``em_program_run``, eagerly: the
+collectives go through the host) on its own shard:
 
   - events sharded over the ``data`` axis: each rank computes the fused
     statistics of its own block of chunks, and one all_reduce SUM over the
@@ -36,7 +37,9 @@ import torch
 import torch.distributed as dist
 
 from ..config import GMMConfig
-from ..models.gmm import GMMModel, _em_loop, _memberships, setup_device
+from ..models.gmm import (
+    GMMModel, _memberships, em_program_run, setup_device,
+)
 from ..ops.estep import posteriors
 from ..ops.mstep import SuffStats
 from ..state import compact_to
@@ -185,20 +188,23 @@ class ShardedGMMModel:
             stats_fn = functools.partial(
                 stats_fn, n_events=self.local_events(n_events, data_chunks))
         inj = self.armed_fault(state, data_chunks, sweep=sweep)
-        run = _em_loop(
-            state, data_chunks, wts_chunks, epsilon,
-            cfg.min_iters if min_iters is None else min_iters,
-            cfg.max_iters if max_iters is None else max_iters,
+        lo = cfg.min_iters if min_iters is None else min_iters
+        hi = cfg.max_iters if max_iters is None else max_iters
+        # The device-controlled loop, run eagerly: its collectives (the
+        # statistics' all_reduce, the counts over the cluster group) go
+        # through the host every iteration, as each rank steps in lockstep.
+        run = em_program_run(
+            state, data_chunks, wts_chunks, epsilon, lo, hi,
+            nan_iter=None if inj is None else int(inj["iter"]),
+            regression_scale=cfg.health_regression_scale,
+            should_stop=should_stop, poll_iters=poll_iters, resume=resume,
             diag_only=cfg.diag_only, quad_mode=cfg.quad_mode,
             matmul_precision=cfg.matmul_precision,
             precompute_features=cfg.precompute_features, stats_fn=stats_fn,
             mstep_fn=self.mstep_fn, reduce_stats=self._reduce,
             cluster_group=self.mesh.cluster_group,
             covariance_type=cfg.covariance_type,
-            dynamic_range=cfg.covariance_dynamic_range,
-            regression_scale=cfg.health_regression_scale,
-            nan_iter=None if inj is None else int(inj["iter"]),
-            should_stop=should_stop, poll_iters=poll_iters, resume=resume)
+            dynamic_range=cfg.covariance_dynamic_range)
         self.last_health, self.last_lls = run.health, run.lls
         return (run.state, run.loglik, run.iters, run.lls, run.stopped,
                 run.extra)

@@ -16,6 +16,10 @@ the supervisor turns it into a clean, resumable exit:
   the mid-EM state and its loglik trajectory -- then raise
   :class:`PreemptedError`, which the CLI maps to exit 75 (``EX_TEMPFAIL``).
   ``--resume auto`` restores the sub-step and restarts inside the fit.
+- The fused sweep (``--fused-sweep``) has no mid-K poll, as in the JAX
+  package: a stop requested during it takes effect at the next per-K
+  emission (``where="fused_emit"``), after that K's checkpoint, and exits
+  75 too; an armed ``preempt`` plan (an EM iteration) never fires there.
 
 Activation mirrors telemetry's ambient pattern: ``with
 supervisor.use(RunSupervisor(...)):`` and the instrumented layers find it

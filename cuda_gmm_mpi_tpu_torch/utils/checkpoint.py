@@ -5,7 +5,8 @@ completed K saves the sweep position, so a killed run resumes at the next K
 instead of restarting the search; a preempted run also saves its mid-EM
 state as an intra-K sub-step and resumes inside the interrupted fit.
 
-Layout (the JAX package's): ``<dir>/sweep/<step>.npz`` full steps and
+Layout (the JAX package's): ``<dir>/sweep/<step>.npz`` full steps (the
+fused sweep's carry ``fused_log`` and ``best_riss``; ``save_local``) and
 ``<dir>/sweep/<step>.iter<i>.npz`` sub-steps, where step counts completed
 EM runs. Every file is a flat ``np.savez`` of :func:`flatten_tree`'s keys
 (``state.N``, ``best_state.R``, ..., the sweep scalars and the world stamp
@@ -274,16 +275,25 @@ class SweepCheckpointer:
         except OSError:
             pass
 
-    def save(self, step: int, payload: Dict[str, Any]) -> None:
+    def save(self, step: int, payload: Dict[str, Any],
+             op: str = "save") -> None:
         """Save step ``step``: ``payload`` holds ``state``/``best_state``
         (GMMState on the CPU) and plain scalars/arrays. Write failures
-        retry with jittered backoff (``retries``)."""
+        retry with jittered backoff (``retries``); ``op`` names the write
+        in the ``io_retry`` records."""
         flat = flatten_tree(dict(payload, **self._world_meta()))
         target = os.path.join(self._dir, f"{step}.npz")
         if self._write_with_retries(
-                "save", step, lambda: write_npz_atomic(self._dir, target,
-                                                       flat)):
+                op, step, lambda: write_npz_atomic(self._dir, target, flat)):
             self._prune(step)
+
+    def save_local(self, step: int, payload: Dict[str, Any]) -> None:
+        """The fused sweep's per-K save (its emission, after each K): the
+        JAX package's callback-safe ``<step>.npz`` path, in its layout
+        (``fused_log``, ``best_riss``, ...), so either package resumes the
+        other's fused checkpoints. One process writes it, as every save
+        here."""
+        self.save(step, payload, op="save_local")
 
     def save_substep(self, step: int, em_iter: int,
                      payload: Dict[str, Any]) -> bool:

@@ -1,6 +1,7 @@
 """The port's logger: warnings (recovery attempts, checkpoint retries,
-preemption) to stderr, INFO with ``enable_print``, as the JAX package's
-``utils/logging_.get_logger`` does."""
+preemption) to stderr, INFO with ``enable_print``, DEBUG with
+``enable_debug``, as the JAX package's ``utils/logging_.get_logger``
+does; and ``metrics_line``, its one-line JSON records on stderr."""
 
 from __future__ import annotations
 
@@ -19,6 +20,24 @@ def get_logger(config=None) -> logging.Logger:
         logger.addHandler(h)
         logger.propagate = False
     if config is not None:
-        logger.setLevel(logging.INFO if getattr(config, "enable_print", False)
-                        else logging.WARNING)
+        if getattr(config, "enable_debug", False):
+            logger.setLevel(logging.DEBUG)
+        elif getattr(config, "enable_print", False):
+            logger.setLevel(logging.INFO)
+        else:
+            logger.setLevel(logging.WARNING)
     return logger
+
+
+def metrics_line(event: str, stream=None, **fields) -> dict:
+    """One JSON record ``{"event", "ts", **fields}`` on stderr (the JAX
+    package's legacy ``--debug`` surface); returns the record."""
+    import json
+    import time
+
+    rec = {"event": event, "ts": round(time.time(), 3)}
+    rec.update(fields)
+    out = stream or sys.stderr
+    out.write(json.dumps(rec) + "\n")
+    out.flush()
+    return rec

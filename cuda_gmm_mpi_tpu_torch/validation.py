@@ -40,5 +40,6 @@ def validate_finite(local: np.ndarray, start: int = 0, dtype=None) -> None:
             f"input contains {n_bad} non-finite event row(s) "
             f"(first at global row {first_bad}); NaN/Inf events silently "
             "poison every statistic the reference computes -- clean the "
-            "data first"
+            "data or pass validate_input=False/--no-validate-input to "
+            "proceed anyway"
         )

@@ -76,17 +76,39 @@ def test_cli_outputs_byte_identical_to_jax(blob_csv, tmp_path, capsys, extra):
     assert torch_pairs == jax_pairs
 
 
-@pytest.mark.parametrize("argv,code", [
-    (["8", "missing.csv", "out"], 2),
-    (["0", "{csv}", "out"], 1),
-    (["513", "{csv}", "out"], 1),
-    (["4", "{csv}", "out", "5"], 4),
-], ids=["missing-infile", "k-zero", "k-too-big", "target-gt-k"])
-def test_cli_exit_codes_match_jax(blob_csv, tmp_path, capsys, argv, code):
-    argv = [a.replace("{csv}", blob_csv) for a in argv]
+@pytest.fixture(scope="module")
+def nan_csv(blob_csv, tmp_path_factory):
+    """The 4-blob CSV with a NaN in its tenth event row."""
+    lines = open(blob_csv).read().splitlines()
+    lines[10] = "nan," + lines[10].split(",", 1)[1]
+    p = tmp_path_factory.mktemp("nan") / "nan.csv"
+    p.write_text("\n".join(lines))
+    return str(p)
+
+
+@pytest.mark.parametrize("argv,code,message", [
+    (["8", "missing.csv", "out"], 2, None),
+    (["0", "{csv}", "out"], 1, None),
+    (["513", "{csv}", "out"], 1, None),
+    (["4", "{csv}", "out", "5"], 4, None),
+    (["8", "{nan_csv}", "out", "4"], 1,
+     "input contains 1 non-finite event row(s) (first at global row 9); "
+     "NaN/Inf events silently poison every statistic the reference "
+     "computes -- clean the data or pass validate_input=False/"
+     "--no-validate-input to proceed anyway\n"),
+], ids=["missing-infile", "k-zero", "k-too-big", "target-gt-k", "nan-row"])
+def test_cli_exit_codes_match_jax(blob_csv, nan_csv, tmp_path, capsys, argv,
+                                  code, message):
+    argv = [a.replace("{csv}", blob_csv).replace("{nan_csv}", nan_csv)
+            for a in argv]
     argv[2] = str(tmp_path / argv[2])
+    capsys.readouterr()
     assert torch_main(argv + ["--device=cpu"]) == code
+    ours = capsys.readouterr().err
     assert jax_main(argv + ["--device=cpu"]) == code
+    theirs = capsys.readouterr().err
+    if message is not None:
+        assert ours == theirs == message
 
 
 @pytest.fixture(scope="module")
@@ -103,12 +125,18 @@ def model4(blob_csv, tmp_path_factory):
     ["8", None, "--criterion=bic"],  # the search down to 1, scored by BIC
     ["4", "4", "--init-from={model}"],
     ["1", None, "--predict-from={model}"],
-], ids=["spherical", "tied", "bic", "init-from", "predict-from"])
+    ["8", "4", "--fused-sweep"],
+    ["8", "4", "--sweep-k-buckets", "off"],
+    ["8", "4", "--no-validate-input"],
+    ["8", "4", "--debug"],
+], ids=["spherical", "tied", "bic", "init-from", "predict-from", "fused-sweep",
+        "sweep-k-buckets-off", "no-validate-input", "debug"])
 def test_cli_new_flags_byte_identical_to_jax(blob_csv, model4, tmp_path,
                                              flags):
-    """The estimator surface's flags at float64: the port's .summary and
-    .results byte for byte the JAX CLI's (--predict-from fits nothing: its
-    .summary echoes the model it loaded)."""
+    """The estimator surface's flags and the sweep's (--fused-sweep,
+    --sweep-k-buckets, --no-validate-input, --debug) at float64: the port's .summary
+    and .results byte for byte the JAX CLI's (--predict-from fits nothing:
+    its .summary echoes the model it loaded)."""
     k, target, *extra = flags
     extra = [f.replace("{model}", model4) for f in extra]
     argv = lambda out: ([k, blob_csv, str(tmp_path / out)]
@@ -128,8 +156,11 @@ def test_cli_new_flags_byte_identical_to_jax(blob_csv, model4, tmp_path,
     (["--predict-from={csv}"], 1, "Cannot load model"),
     (["--predict-from={model}", "--n-init=2"], 1, "no effect"),
     (["--predict-from={model}", "--process-id=0"], 1, "single-process"),
+    (["--predict-from={model}", "--fused-sweep"], 1, "no effect"),
+    (["--predict-from={model}", "--sweep-k-buckets=off"], 1, "no effect"),
 ], ids=["init-from-k", "init-from-bad", "predict-from-bad",
-        "predict-from-fit-flag", "predict-from-distributed"])
+        "predict-from-fit-flag", "predict-from-distributed",
+        "predict-from-fused-sweep", "predict-from-sweep-k-buckets"])
 def test_cli_model_file_errors_match_jax(blob_csv, model4, tmp_path, capsys,
                                          flags, code, message):
     extra = [f.replace("{model}", model4).replace("{csv}", blob_csv)
@@ -151,3 +182,46 @@ def test_cli_predict_from_never_clobbers_its_model(blob_csv, model4,
     assert "skipping the .summary echo" in capsys.readouterr().err
     assert model.read_bytes() == before
     assert (tmp_path / "m.results").exists()
+
+
+@pytest.fixture(scope="module")
+def collapsed_csv(blob_csv, tmp_path_factory):
+    """The 4-blob CSV cut to its first 300 rows, then each of its first 5
+    rows repeated 40 times: clusters collapse onto the repeated points."""
+    lines = open(blob_csv).read().splitlines()
+    rows = lines[1:301]
+    p = tmp_path_factory.mktemp("dup") / "dup.csv"
+    p.write_text("\n".join([lines[0]] + rows
+                           + [r for r in rows[:5] for _ in range(40)]))
+    return str(p)
+
+
+def test_cli_collapsed_clusters_match_jax(collapsed_csv, tmp_path):
+    """Collapsed clusters at float64: .results byte for byte the JAX CLI's;
+    .summary too, except the sign of a printed zero (a covariance entry of
+    a collapsed cluster is a few ulps either side of 0), with R held
+    numerically."""
+    from cuda_gmm_mpi_tpu.config import GMMConfig as JConfig
+    from cuda_gmm_mpi_tpu.models import fit_gmm as j_fit
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm
+    from cuda_gmm_mpi_tpu_torch.io import read_data
+
+    argv = lambda out: ["12", collapsed_csv, str(tmp_path / out),
+                        "--device=cpu", "--dtype=float64", "--min-iters=5",
+                        "--max-iters=40"]
+    assert jax_main(argv("j")) == 0
+    assert torch_main(argv("t")) == 0
+    assert_same_writer()
+    assert ((tmp_path / "t.results").read_bytes()
+            == (tmp_path / "j.results").read_bytes())
+    unsigned = lambda p: p.read_text().replace("-0.000 ", "0.000 ")
+    assert unsigned(tmp_path / "t.summary") == unsigned(tmp_path / "j.summary")
+    # R itself, from the same fits through the libraries: entries of order
+    # 1 agree to a few ulps (the zero-sign flips are ~1e-15 apart).
+    data = read_data(collapsed_csv)
+    kw = dict(dtype="float64", min_iters=5, max_iters=40)
+    ours = fit_gmm(data, 12, config=GMMConfig(device="cpu", **kw))
+    theirs = j_fit(data, 12, config=JConfig(**kw))
+    assert ours.ideal_num_clusters == theirs.ideal_num_clusters
+    np.testing.assert_allclose(ours.covariances, theirs.covariances,
+                               rtol=1e-9, atol=1e-12)

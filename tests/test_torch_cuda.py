@@ -33,6 +33,10 @@ gloo worlds on the one GPU against single-device EM (float32, loglik rtol
 statistics, the torch-ops M-step) against the same fits on torch ops.
 """
 
+import dataclasses
+import gc
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -578,12 +582,21 @@ def test_mstep_hook_is_one_kernel_launch(dev, diag, batched):
     hook = make_mstep_fn(GMMConfig(diag_only=diag), batched=batched)
     hook(state, stats)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        new = hook(state, stats)
-        torch.cuda.synchronize()
-    device = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    assert len(device) == 1 and "mstep_kernel" in device[0], device
+    # The profiler keeps only device activities inside its session's
+    # window, on its own clock: a kernel launched microseconds after the
+    # session starts can land before the window there and be dropped (the
+    # cause of this test's rare empty event list). The host sleeps put the
+    # one kernel well inside the window; they add no device activity.
+    for _ in range(10):  # ten sessions, each one launch
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.02)
+            new = hook(state, stats)
+            torch.cuda.synchronize()
+            time.sleep(0.02)
+        device = [e.name for e in prof.events()
+                  if e.device_type == DeviceType.CUDA]
+        assert len(device) == 1 and "mstep_kernel" in device[0], device
     assert new.Rinv.shape == state.R.shape
 
 
@@ -978,3 +991,121 @@ def test_preempt_in_the_second_k_resumes_exactly(dev, tmp_path):
     assert res.final_loglik == whole.final_loglik
     assert res.ideal_num_clusters == whole.ideal_num_clusters
     assert [m[1] for m in res.merges] == [m[1] for m in whole.merges[1:]]
+
+
+# ------------------------------------------------ the captured EM program
+
+def _em_case(dev, diag, backend, seed=21):
+    data = _blobs_f32(seed)
+    chunks, wts = chunk_events(data, 1024)
+    return (data, torch.as_tensor(chunks, device=dev),
+            torch.as_tensor(wts, device=dev),
+            GMMConfig(diag_only=diag, estep_backend=backend, min_iters=3,
+                      max_iters=30))
+
+
+@pytest.mark.parametrize("backend", ["cuda", "torch"], ids=["K1K2", "torch"])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_captured_em_equals_eager_em(dev, diag, backend):
+    """The EM loop captured as CUDA graphs runs what the eager host loop
+    runs: state, trajectory, iterations and counters equal (bit for bit),
+    on the kernel route and on torch ops."""
+    from cuda_gmm_mpi_tpu_torch.ops.formulas import convergence_epsilon
+
+    data, chunks, wts, cfg = _em_case(dev, diag, backend)
+    state = state_from_numpy(_state(np.random.default_rng(3), 8,
+                                    data.shape[1], diag, inactive=(5,)),
+                             device=dev)
+    eps = convergence_epsilon(*data.shape)
+    out = {}
+    for eager in (True, False):
+        model = GMMModel(cfg, _eager_em=eager)
+        assert model.estep_backend == backend
+        out[eager] = model.run_em_resumable(state, chunks, wts, eps,
+                                            n_events=len(data))
+        out[eager] += (model.last_health,)
+        assert model.captures is not eager
+    (s0, ll0, it0, lls0, _, _, h0), (s1, ll1, it1, lls1, _, _, h1) = (
+        out[True], out[False])
+    for f in ("N", "pi", "constant", "means", "R", "Rinv", "active"):
+        assert torch.equal(getattr(s0, f), getattr(s1, f)), f
+    assert (ll0, it0, lls0) == (ll1, it1, lls1)
+    assert it1 >= 3
+    np.testing.assert_array_equal(h0, h1)
+
+
+def test_captured_em_counts_replays_and_captures_once_per_width(dev):
+    """K1/K2's counters advance by the launches each replay holds (the
+    warm-up and the capture itself count nothing); a width is captured
+    once and reused by every K at that width."""
+    from cuda_gmm_mpi_tpu_torch.models.em_program import pool_bytes
+
+    data, chunks, wts, cfg = _em_case(dev, False, "cuda")
+    model = GMMModel(cfg)
+    # The pool the fit's graphs share, and its size when the fit lets go.
+    pools, held = [], []
+    new_pool, release = model.graph_pool, model.release_programs
+    model.graph_pool = lambda: pools.append(new_pool()) or pools[-1]
+    model.release_programs = lambda: held.append(
+        model.graph_pool_bytes()) or release()
+    k1, k2 = fs.fused_stats.launches, fs.mstep.launches
+    res = fit_gmm(data, 8, 3, config=dataclasses.replace(cfg, min_iters=5,
+                                                         max_iters=5),
+                  model=model)
+    iters = sum(r[3] for r in res.sweep_log)
+    assert fs.mstep.launches - k2 == iters
+    assert fs.fused_stats.launches - k1 == iters + len(res.sweep_log)
+    widths = [w for w, _ in model.capture_log]
+    assert widths[0] == 8 and set(widths) <= {8, 4}  # pow2: 8 for K 8..5
+    assert len(widths) == len(set(widths))
+    # Freed with the fit: once the allocator returns its cached blocks, no
+    # segment of the graphs' pool is left.
+    (pool,) = set(pools)
+    gc.collect()
+    torch.cuda.empty_cache()
+    assert pool_bytes(pool) == 0
+    assert held and held[-1] > 0
+
+
+def test_em_while_loop_is_captured_on_the_card(dev, monkeypatch):
+    """The public ``em_while_loop`` runs the captured EM program on a CUDA
+    device, and fits what the eager host loop fits, bit for bit."""
+    from cuda_gmm_mpi_tpu_torch.models.em_program import EMProgram
+    from cuda_gmm_mpi_tpu_torch.models.gmm import em_while_loop
+    from cuda_gmm_mpi_tpu_torch.ops.formulas import convergence_epsilon
+
+    data, chunks, wts, _ = _em_case(dev, False, "torch")
+    state = state_from_numpy(_state(np.random.default_rng(3), 8,
+                                    data.shape[1], False), device=dev)
+    eps = convergence_epsilon(*data.shape)
+    programs = []
+    init = EMProgram.__init__
+
+    def spy(self, *a, **k):
+        init(self, *a, **k)
+        programs.append(self)
+
+    monkeypatch.setattr(EMProgram, "__init__", spy)
+    s1, ll1, it1 = em_while_loop(state, chunks, wts, eps, 3, 30)
+    monkeypatch.undo()
+    s0, ll0, it0 = em_while_loop(state, chunks, wts, eps, 3, 30,
+                                 _eager_em=True)
+    assert [p.captured for p in programs] == [True]
+    for f in ("N", "pi", "constant", "means", "R", "Rinv", "active"):
+        assert torch.equal(getattr(s0, f), getattr(s1, f)), f
+    assert (ll0, it0) == (ll1, it1) and it1 >= 3
+
+
+def test_fused_sweep_equals_host_sweep_off_on_the_card(dev):
+    """The fused sweep's two graphs (EM, then the per-K step with the order
+    reduction on the device) fit what the host-driven sweep at
+    ``sweep_k_buckets='off'`` fits, bit for bit."""
+    data, _, _, cfg = _em_case(dev, False, "cuda")
+    host = fit_gmm(data, 8, 3, config=dataclasses.replace(
+        cfg, sweep_k_buckets="off"))
+    fused = fit_gmm(data, 8, 3, config=dataclasses.replace(
+        cfg, fused_sweep=True))
+    assert [r[:4] for r in fused.sweep_log] == [r[:4] for r in host.sweep_log]
+    assert fused.final_loglik == host.final_loglik
+    for f in ("N", "pi", "constant", "means", "R", "Rinv", "active"):
+        assert torch.equal(getattr(fused.state, f), getattr(host.state, f)), f

@@ -41,6 +41,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {"sharded_em.py", "mesh.py", "distributed.py"} <= {
         p.name for p in files if p.parent.name == "parallel"}
     assert (REPO / "cuda_gmm_mpi_tpu_torch" / "estimator.py") in files
+    models = REPO / "cuda_gmm_mpi_tpu_torch" / "models"
+    assert {models / "fused_sweep.py", models / "em_program.py"} <= set(files)
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
