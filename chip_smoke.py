@@ -200,6 +200,27 @@ Phases (any failure exits non-zero, and no result line is printed):
    4's fit (the fused program consumed the plan). (d) K1/K2's counters of
    (a) equal the iterations (and the initial E-steps).
 
+14. the fit's observability at the main path's shape (K 100 -> 96, 20
+   iterations). (a) The fit with ``metrics_file``, ``metrics_port=0``
+   (the live plane), ``profile`` and the envelope, while a thread scrapes
+   /metrics at ~10 Hz: the result ``==`` phase 4's (K, merge pairs, sweep
+   log, final loglik, best state); the stream valid under the port's
+   schema; its span tree fit > sweep > one em_k per K; one ``em_program``
+   compile event per captured width, as the model's own capture log; the
+   ``em_k`` and ``sweep`` watermarks not null and below the card's memory;
+   no scrape error, the scrapes seeing ``gmm_em_iters_total`` rise and
+   ``gmm_hbm_peak_bytes``; the envelope over 1,000,000 events with the
+   occupancy summing to them; K1/K2 launches counted from zero. (b) Bare
+   and observed fits in turns (bare, observed, observed, bare), EM
+   iterations/s of each, and the envelope pass on its own, twice. (c) The
+   bare fit under ``utils.profiling.trace`` (``--trace-dir``): the Chrome
+   trace's K1 kernel events beside the launch counter plus the two
+   uncounted warm-up launches of each captured width (a trace with no
+   kernel event fails; a count that differs is printed, not hidden). (d) The
+   port's CLI on (a)'s stream: ``report --validate``, ``diff`` against
+   itself, ``runs`` and ``timeline --validate`` (exit 0 each), and
+   ``report`` in a fresh process, which imports no jax.
+
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Whatever happens, it leaves no
@@ -2749,6 +2770,245 @@ def phase_capture(data, main_result, workdir: Path) -> dict:
     return rec
 
 
+
+def _scrape_loop(stop, scrapes: list, errors: list, hz: float = 10.0):
+    """Scrape the live exporter's /metrics about ``hz`` times a second
+    until ``stop`` is set. A failed scrape is an error unless the exporter
+    stopped meanwhile (the fit ended between the lookup and the request)."""
+    import urllib.request
+
+    from cuda_gmm_mpi_tpu_torch.telemetry import exporter
+
+    while not stop.is_set():
+        exp = exporter.current_exporter()
+        if exp is not None and exp.port:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{exp.port}/metrics",
+                        timeout=10) as r:
+                    scrapes.append((time.perf_counter(), r.status,
+                                    r.headers["Content-Type"],
+                                    r.read().decode()))
+            except Exception as e:  # noqa: BLE001 -- judged below
+                if exporter.current_exporter() is exp:
+                    errors.append(repr(e))
+        stop.wait(1.0 / hz)
+
+
+def _gauge(body: str, name: str):
+    import re
+
+    m = re.search(rf"^{name} (\S+)$", body, re.M)
+    return None if m is None else float(m.group(1))
+
+
+def phase_observability(data, main_result, workdir: Path) -> dict:
+    """Phase 14 (see the module docstring)."""
+    import contextlib
+    import io
+    import threading
+
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.cli import main as cli_main
+    from cuda_gmm_mpi_tpu_torch.models.gmm import chunk_events
+    from cuda_gmm_mpi_tpu_torch.models.order_search import compute_envelope
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.telemetry import (
+        build_span_tree, exporter, read_stream, validate_stream,
+    )
+    from cuda_gmm_mpi_tpu_torch.utils.profiling import trace
+
+    t_phase = time.perf_counter()
+    rec = {}
+    total_mem = torch.cuda.get_device_properties(0).total_memory
+    # --- (a) the observed fit, scraped at ~10 Hz
+    path = workdir / "observed.jsonl"
+    scrapes, errors = [], []
+    stop = threading.Event()
+    scraper = threading.Thread(target=_scrape_loop,
+                               args=(stop, scrapes, errors), daemon=True)
+    fs.fused_stats.launches = fs.mstep.launches = 0
+    scraper.start()
+    try:
+        res, model, _, wall = fit(data, K0, K_TARGET, ITERS,
+                                  metrics_file=str(path), metrics_port=0,
+                                  profile=True)
+    finally:
+        stop.set()
+        scraper.join()
+    launches = {"K1": fs.fused_stats.launches, "K2": fs.mstep.launches}
+    iters = sum(r[3] for r in res.sweep_log)
+    check(launches == {"K1": iters + len(res.sweep_log), "K2": iters},
+          f"(a) launches {launches} for {iters} iterations")
+    check(exporter.current_exporter() is None, "(a) the exporter outlived "
+          "the fit")
+    check(_equal_fits(res, main_result),
+          "(a) the observed fit differs from phase 4's (K, merge pairs, "
+          "sweep log, final loglik, best state)")
+    records = read_stream(str(path))
+    problems = validate_stream(records)
+    check(not problems, f"(a) stream: {problems[:3]}")
+    roots = build_span_tree(records)
+    check([r["span"]["name"] for r in roots] == ["fit"], "(a) span roots")
+    sweeps = roots[0]["children"]
+    check([c["span"]["name"] for c in sweeps] == ["sweep"], "(a) fit > sweep")
+    em_ks = [(c["span"]["name"], c["span"].get("k"))
+             for c in sweeps[0]["children"]]
+    check(em_ks == [("em_k", r[0]) for r in res.sweep_log],
+          f"(a) sweep > one em_k per K: {em_ks}")
+    compiles = [r for r in records if r["event"] == "compile"]
+    em_compiles = [r for r in compiles if r["site"] == "em_program"]
+    check([(r["width"]) for r in em_compiles]
+          == [w for w, _ in model.capture_log] and em_compiles,
+          f"(a) em_program compile events {len(em_compiles)} against "
+          f"{len(model.capture_log)} captures")
+    summary = [r for r in records if r["event"] == "run_summary"][-1]
+    prof = summary["profile"]
+    marks = prof.get("watermarks", {})
+    for name in ("em_k", "sweep"):
+        peak = marks.get(name, {}).get("peak_bytes", 0)
+        check(0 < peak < total_mem, f"(a) watermark {name}: {marks}")
+    check(0 < prof.get("hbm_peak_bytes", 0) < total_mem,
+          "(a) hbm_peak_bytes")
+    check(not errors, f"(a) scrape errors: {errors[:3]}")
+    iters_seen = [_gauge(b, "gmm_em_iters_total") for _, _, _, b in scrapes]
+    iters_seen = [v for v in iters_seen if v is not None]
+    hbm_seen = [_gauge(b, "gmm_hbm_peak_bytes") for _, _, _, b in scrapes]
+    hbm_seen = [v for v in hbm_seen if v is not None]
+    check(all(st == 200 and ct == exporter.CONTENT_TYPE
+              and b.endswith("# EOF\n") for _, st, ct, b in scrapes),
+          "(a) a scrape's status, type or terminator")
+    check(len(iters_seen) >= 2 and max(iters_seen) > min(iters_seen),
+          f"(a) the scrapes saw gmm_em_iters_total {iters_seen}")
+    check(hbm_seen and 0 < max(hbm_seen) < total_mem,
+          f"(a) the scrapes saw gmm_hbm_peak_bytes {hbm_seen}")
+    env = res.envelope
+    check(env is not None and env["num_events"] == N_EVENTS
+          and sum(env["occupancy"]) == N_EVENTS
+          and env["score"]["count"] == N_EVENTS
+          and summary.get("envelope") == env,
+          "(a) the envelope (num_events, occupancy, run_summary)")
+    rec["a"] = dict(
+        wall_s=wall, records=len(records), spans=sum(
+            r["event"] == "span" for r in records),
+        compiles=[(r["site"], r.get("width"), r["seconds"],
+                   r.get("graph_pool_bytes")) for r in compiles],
+        captures=model.capture_log, watermarks=marks,
+        hbm_peak_bytes=prof["hbm_peak_bytes"], scrapes=len(scrapes),
+        em_iters_seen=sorted(set(iters_seen)), launches=launches,
+        phase_profile=summary["phase_profile"],
+        envelope_mean=env["score"]["mean"])
+    print(f"  (a) observed fit (recorder, live plane, profile, envelope): "
+          f"== phase 4's fit; {len(records)} records valid, span tree fit > "
+          f"sweep > {len(em_ks)} em_k; compile events (site, width, s, pool "
+          f"bytes) {rec['a']['compiles']} for captures {model.capture_log}; "
+          f"watermarks {marks}; {len(scrapes)} scrapes, no error, "
+          f"gmm_em_iters_total seen {rec['a']['em_iters_seen']}, "
+          f"gmm_hbm_peak_bytes {max(hbm_seen):.0f}; envelope over "
+          f"{env['num_events']} events, occupancy sums to "
+          f"{sum(env['occupancy'])}; launches {launches}")
+    print("  (a) --profile table:\n    " + res.profile_report.replace(
+        "\n", "\n    "))
+    # --- (b) costs: bare and observed fits in turns; the envelope pass
+    # Whole-fit EM iters/s, and over the Ks after the first: the first K
+    # carries the width's capture, whose time spreads between fits
+    # (0.21-0.58 s on the card, observed or not).
+    rates = {"bare": [], "observed": []}
+    steady = {"bare": [], "observed": []}
+    for turn in ("bare", "observed", "observed", "bare"):
+        cfg = ({} if turn == "bare" else dict(
+            metrics_file=str(workdir / f"{turn}.jsonl"), metrics_port=0,
+            profile=True))
+        r_, m_, _, _ = fit(data, K0, K_TARGET, ITERS, **cfg)
+        check(_equal_fits(r_, main_result), f"(b) {turn} fit differs")
+        rates[turn].append(_rate(r_))
+        steady[turn].append(sum(r[3] for r in r_.sweep_log[1:])
+                            / sum(r[4] for r in r_.sweep_log[1:]))
+        del m_
+    chunks_np, _ = chunk_events(
+        data.astype(np.float32) - np.asarray(res.data_shift)[None, :], 65536)
+    chunks = model.place(chunks_np)
+    env_s = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = compute_envelope(model, res.state, chunks, N_EVENTS,
+                                 res.ideal_num_clusters)
+        torch.cuda.synchronize()
+        env_s.append(time.perf_counter() - t0)
+        check(again is not None and again["occupancy"] == env["occupancy"]
+              and again["score"]["buckets"] == env["score"]["buckets"],
+              "(b) the envelope pass on its own differs from the fit's")
+    del chunks
+    rec["b"] = dict(em_iters_per_s=rates, after_first_k=steady,
+                    envelope_s=env_s)
+    print(f"  (b) EM iters/s (turns bare, observed, observed, bare): bare "
+          f"{rates['bare']}, observed {rates['observed']}; over the Ks after "
+          f"the first: bare {steady['bare']}, observed {steady['observed']}; "
+          f"the envelope pass over {N_EVENTS} events at "
+          f"K={res.ideal_num_clusters}: {env_s} s")
+    # --- (c) a fit under --trace-dir: K1 kernel events against the counter
+    tdir = workdir / "trace"
+    fs.fused_stats.launches = 0
+    with trace(str(tdir), device="cuda"):
+        r_, m_, _, _ = fit(data, K0, K_TARGET, ITERS)
+        torch.cuda.synchronize()
+    k1_counter = fs.fused_stats.launches
+    # Each captured width's warm-up runs the initial E-step and one
+    # iteration eagerly once: two K1 launches on the card that the counter
+    # sets back (models/em_program.py::warm_up).
+    k1_warm = 2 * len(m_.capture_log)
+    del m_
+    (tfile,) = tdir.glob("gmm_trace.*.json")
+    events = json.loads(tfile.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    k1_events = sum("fused_stats_kernel" in e.get("name", "")
+                    for e in kernels)
+    check(kernels, "(c) the trace holds no CUDA kernel event")
+    check(_equal_fits(r_, main_result), "(c) the traced fit differs")
+    rec["c"] = dict(trace_bytes=tfile.stat().st_size,
+                    kernel_events=len(kernels), k1_events=k1_events,
+                    k1_launches=k1_counter, k1_warm_up=k1_warm)
+    print(f"  (c) --trace-dir fit: {tfile.stat().st_size} bytes of Chrome "
+          f"trace, {len(kernels)} kernel events, K1 kernel events "
+          f"{k1_events} against the launch counter's {k1_counter} + "
+          f"{k1_warm} warm-up launches of the captured widths"
+          + ("" if k1_events == k1_counter + k1_warm else
+             " (MISMATCH: the profiler lost or added K1 records)"))
+    # --- (d) the port's CLI on (a)'s stream
+    rundir = workdir / "runs"
+    rundir.mkdir()
+    shutil.copy(path, rundir / "observed.jsonl")
+    cli = {}
+    for name, argv in (
+            ("report", ["report", str(path), "--validate"]),
+            ("diff", ["diff", str(path), str(path)]),
+            ("runs", ["runs", str(rundir)]),
+            ("timeline", ["timeline", str(path), "--validate", "-o",
+                          str(workdir / "timeline.json")])):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = cli_main(argv)
+        cli[name] = (rc, len(out.getvalue().splitlines()))
+        check(rc == 0, f"(d) cli {name} exited {rc}")
+    report = subprocess.run(
+        [sys.executable, "-m", "cuda_gmm_mpi_tpu_torch.cli", "report",
+         str(path)], capture_output=True, text=True, timeout=120,
+        cwd=Path(__file__).resolve().parent)
+    check(report.returncode == 0 and "Trace spans" in report.stdout
+          and "Compile activity" in report.stdout,
+          f"(d) report in a fresh process: {report.stderr[-300:]}")
+    rec["d"] = cli
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  (d) the port's CLI on (a)'s stream (exit code, stdout lines): "
+          f"{cli}; report in a fresh process renders its Trace spans and "
+          f"Compile activity")
+    print(f"  phase 14: {rec['seconds']:.1f} s; card: {card_line()}")
+    print("  phase 14 record: " + json.dumps(rec, default=str))
+    return rec
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2934,6 +3194,16 @@ def main() -> int:
         capture = phase_capture(data, main_result, capdir)
     finally:
         shutil.rmtree(capdir, ignore_errors=True)
+
+    print("phase 14: the fit's observability: the observed fit, its costs, "
+          "--trace-dir and the port's stream tools")
+    obsdir = Path(__file__).resolve().parent / "build" / "chip_smoke_observe"
+    shutil.rmtree(obsdir, ignore_errors=True)
+    obsdir.mkdir(parents=True)
+    try:
+        phase_observability(data, main_result, obsdir)
+    finally:
+        shutil.rmtree(obsdir, ignore_errors=True)
 
     src = "cuda_gmm_mpi_tpu_torch/csrc/"
     pallas = "cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py:"

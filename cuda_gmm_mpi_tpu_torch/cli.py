@@ -26,6 +26,19 @@ run stopped by SIGTERM/SIGINT or ``--max-runtime`` exits 75 after an
 emergency checkpoint (with ``--checkpoint-dir``), and the same command
 with ``--resume auto`` (the default) continues inside the interrupted fit.
 ``--metrics-file`` writes the JSONL event stream.
+
+Observability (the JAX CLI's): ``--profile`` prints the seven-category
+phase table (gaussian.cu:967), the I/O time and the EM time;
+``--trace-dir DIR`` writes a torch.profiler Chrome trace of the fit;
+``--metrics-port PORT`` serves OpenMetrics text on 127.0.0.1:PORT/metrics
+during the fit and emits trace spans. The subcommands read recorded
+streams and touch no device:
+
+    python -m cuda_gmm_mpi_tpu_torch.cli report STREAM [--validate] [--json] [--follow]
+    python -m cuda_gmm_mpi_tpu_torch.cli top STREAM      (report --follow)
+    python -m cuda_gmm_mpi_tpu_torch.cli diff A B [--fail-on SPEC]
+    python -m cuda_gmm_mpi_tpu_torch.cli runs DIR
+    python -m cuda_gmm_mpi_tpu_torch.cli timeline RUN [RUN ...] [--validate]
 """
 
 from __future__ import annotations
@@ -34,6 +47,7 @@ import argparse
 import contextlib
 import os
 import sys
+import time
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -192,6 +206,20 @@ def build_parser() -> argparse.ArgumentParser:
                    "schema-versioned JSONL records (run_start, em_iter, "
                    "em_done, merge, health, recovery, run_summary, ...); "
                    "`python -m cuda_gmm_mpi_tpu.cli report FILE` renders it")
+    t.add_argument("--metrics-port", type=int, default=None,
+                   metavar="PORT",
+                   help="live observability plane: serve Prometheus/"
+                   "OpenMetrics text on 127.0.0.1:PORT/metrics (0 = "
+                   "OS-assigned port), sample host RSS and device memory "
+                   "onto heartbeat records, and emit trace spans around "
+                   "the sweep / per-K EM / checkpoint phases (default: off)")
+    t.add_argument("--profile", action="store_true",
+                   help="per-phase timing report (reference profile_t "
+                   "taxonomy)")
+    t.add_argument("--trace-dir", default=None,
+                   help="capture a torch.profiler trace of the fit (host "
+                   "and, on the card, device activity) as a Chrome trace "
+                   "into this directory")
     t.add_argument("--sweep-log", default=None, metavar="FILE.jsonl",
                    help="write the per-K sweep trajectory (num_clusters, "
                    "loglik, score, criterion, em_iters, seconds) as JSON "
@@ -225,6 +253,31 @@ def _parse_mesh(spec):
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv and argv[0] in ("report", "top"):
+        # `report STREAM`: render a --metrics-file stream; `top` is
+        # `report --follow`, a live one-screen view as the stream grows.
+        from .telemetry import report_main
+
+        return report_main((["--follow"] if argv[0] == "top" else [])
+                           + argv[1:])
+    if argv and argv[0] == "diff":
+        # `diff A B`: cross-run regression analytics with --fail-on gates
+        # (0 clean / 1 regressions / 2 usage).
+        from .telemetry.diff import diff_main
+
+        return diff_main(argv[1:])
+    if argv and argv[0] == "runs":
+        # `runs DIR`: index recorded run streams.
+        from .telemetry.diff import runs_main
+
+        return runs_main(argv[1:])
+    if argv and argv[0] == "timeline":
+        # `timeline RUN [RUN ...]`: one Chrome trace of recorded streams,
+        # their clocks aligned.
+        from .telemetry.timeline import timeline_main
+
+        return timeline_main(argv[1:])
     args = build_parser().parse_args(argv)
 
     from .config import GMMConfig
@@ -261,7 +314,8 @@ def main(argv=None) -> int:
             checkpoint_retries=args.checkpoint_retries,
             max_runtime_s=args.max_runtime, resume=args.resume,
             preempt_poll_iters=args.preempt_poll_iters,
-            metrics_file=args.metrics_file)
+            metrics_file=args.metrics_file, profile=args.profile,
+            metrics_port=args.metrics_port)
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
@@ -281,6 +335,7 @@ def main(argv=None) -> int:
             ("--seed-method", args.seed_method != "even"),
             ("--sweep-log", args.sweep_log),
             ("--metrics-file", args.metrics_file),
+            ("--metrics-port", args.metrics_port is not None),
             ("--checkpoint-dir", args.checkpoint_dir),
             ("--fused-sweep", args.fused_sweep),
             ("--sweep-k-buckets", args.sweep_k_buckets != "pow2"),
@@ -339,10 +394,12 @@ def _run(args, config, rank: int, world: int) -> int:
     if args.allow_nonfinite and world > 1:
         print("--allow-nonfinite is a single-process mode", file=sys.stderr)
         return 1
+    t0 = time.perf_counter()
     data, rc = _read_events(args.infile, allow_nonfinite=args.allow_nonfinite,
                             dtype=config.dtype)
     if data is None:
         return rc
+    t_io = time.perf_counter() - t0
     n_events, n_dims = data.shape
     init_means = None
     if args.init_from:
@@ -383,7 +440,8 @@ def _run(args, config, rank: int, world: int) -> int:
             stack.enter_context(supervisor.use(supervisor.RunSupervisor(
                 max_runtime_s=config.max_runtime_s)))
         try:
-            return _fit_and_write(args, config, model, data, init_means, rank)
+            return _fit_and_write(args, config, model, data, init_means, rank,
+                                  t_io)
         except NotImplementedError as e:
             print(str(e), file=sys.stderr)
             return 1
@@ -401,22 +459,27 @@ def _run(args, config, rank: int, world: int) -> int:
             return supervisor.EX_IOERR
 
 
-def _fit_and_write(args, config, model, data, init_means, rank) -> int:
+def _fit_and_write(args, config, model, data, init_means, rank,
+                   t_io) -> int:
     """The supervised span of a fit run: fit, then write the outputs."""
     import json
 
     from .io import stream_results, write_summary
     from .models import fit_gmm, iter_memberships
+    from .utils.profiling import trace
     from .validation import InvalidInputError
 
-    try:
-        result = fit_gmm(data, args.num_clusters, args.target_num_clusters,
-                         config=config, model=model, init_means=init_means)
-    except InvalidInputError as e:
-        print(str(e), file=sys.stderr)
-        return 1
+    with trace(args.trace_dir, device=config.device):
+        try:
+            result = fit_gmm(data, args.num_clusters,
+                             args.target_num_clusters, config=config,
+                             model=model, init_means=init_means)
+        except InvalidInputError as e:
+            print(str(e), file=sys.stderr)
+            return 1
     if rank != 0:  # rank 0 alone writes the outputs
         return 0
+    t_out0 = time.perf_counter()
     write_summary(args.outfile + ".summary", result,
                   enable_output=config.enable_output)
     if args.sweep_log:
@@ -430,6 +493,14 @@ def _fit_and_write(args, config, model, data, init_means, rank) -> int:
     if config.enable_output:
         stream_results(args.outfile + ".results",
                        iter_memberships(result, data, config, result.model))
+    t_out = time.perf_counter() - t_out0
+    if config.profile:
+        em_s = sum(r[4] for r in result.sweep_log)
+        if result.profile_report:
+            print(result.profile_report)  # 7-category table (gaussian.cu:967)
+        print(f"I/O time: {(t_io + t_out) * 1e3:.3f} (ms)")  # :1093
+        print(f"EM time: {em_s * 1e3:.3f} (ms) over "
+              f"{sum(r[3] for r in result.sweep_log)} iterations")
     return 0
 
 

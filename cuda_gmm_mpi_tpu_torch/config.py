@@ -163,6 +163,27 @@ class GMMConfig:
     # JSONL path of the run's telemetry stream (telemetry/); None = off.
     metrics_file: Optional[str] = None
 
+    # --- observability (telemetry/, utils/profiling.py) ---
+    # Per-phase timing in the reference's seven profile_t categories
+    # (gaussian.cu:967): ``GMMResult.profile``/``profile_report`` and the
+    # CLI's --profile table. A fit with an active recorder times its phases
+    # anyway (``run_summary.phase_profile``).
+    profile: bool = False
+    # Live observability plane: serve OpenMetrics text on
+    # 127.0.0.1:<port>/metrics for the fit's duration, sample host RSS and
+    # the device's allocator counters onto heartbeat records, and emit
+    # trace spans (fit, sweep, em_k, recovery, checkpoint, fused_sweep) and
+    # a fit-scoped trace_id on the stream. 0 = an OS-assigned port. None
+    # (default) = off.
+    metrics_port: Optional[int] = None
+    # Training envelope: at the fit's end one more pass of the fit data
+    # through the final parameters, on the device, sketches the per-event
+    # log evidence and counts each cluster's argmax occupancy
+    # (telemetry/sketch.py); it rides ``GMMResult.envelope`` and
+    # ``run_summary.envelope``. Observational: a failure logs and leaves
+    # None. False skips the pass.
+    envelope: bool = True
+
     def __post_init__(self):
         if self.min_iters > self.max_iters:
             raise ValueError(
@@ -170,6 +191,10 @@ class GMMConfig:
                 f"({self.max_iters})")
         if self.max_clusters < 1:
             raise ValueError("max_clusters must be >= 1")
+        if self.metrics_port is not None and not (
+                0 <= self.metrics_port <= 65535):
+            raise ValueError(
+                f"metrics_port must be in [0, 65535], got {self.metrics_port}")
         if self.covariance_type not in ("full", "diag", "spherical", "tied"):
             raise ValueError(
                 f"unknown covariance_type: {self.covariance_type!r}")

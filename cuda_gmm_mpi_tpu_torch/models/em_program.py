@@ -49,6 +49,7 @@ import torch
 from .. import health
 from ..ops.mstep import SuffStats
 from ..state import GMMState
+from ..telemetry import profiling as tl_profiling
 
 
 def leaves(obj) -> list:
@@ -301,7 +302,9 @@ class EMProgram:
     shapes.
 
     After capture, ``capture_s`` holds the seconds the warm-up and the two
-    captures took (:func:`pool_bytes` gives the shared pool's size)."""
+    captures took (:func:`pool_bytes` gives the shared pool's size); under
+    an active compile watch the capture is one ``em_program`` compile
+    event with its width and the pool's bytes."""
 
     def __init__(self, estep: Callable, mstep: Callable, count: Callable,
                  state_like: GMMState, length: int, *, capture: bool,
@@ -314,7 +317,10 @@ class EMProgram:
         self.carry: Optional[EMCarry] = None
         self.capture_s = 0.0
         if capture:
-            self._capture(state_like, pool)
+            tl_profiling.site_compile(
+                "em_program", lambda: self._capture(state_like, pool),
+                memory=lambda _: {"graph_pool_bytes": pool_bytes(pool)},
+                width=int(state_like.num_clusters_padded))
 
     def _init(self) -> EMCarry:
         estep, _, count = self.fns

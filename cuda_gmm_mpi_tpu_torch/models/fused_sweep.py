@@ -45,8 +45,9 @@ from .. import health
 from ..ops.formulas import model_score
 from ..ops.merge import eliminate_and_reduce_device
 from ..state import GMMState
+from ..telemetry import profiling as tl_profiling
 from .em_program import (
-    Captured, EMProgram, clone_tree, copy_into, select, warm_up,
+    Captured, EMProgram, clone_tree, copy_into, pool_bytes, select, warm_up,
 )
 
 
@@ -127,8 +128,16 @@ class FusedSweep:
             # Static buffers, outside the graphs' pool (the EM carry holds
             # its warm-up values: any values do for warming up).
             self.carry = clone_tree(self.carry)
-            warm_up(self._k_step)
-            self.graph = Captured(self._k_step_into_static, pool)
+            self.graph = tl_profiling.site_compile(
+                "fused_sweep", lambda: self._capture(pool),
+                memory=lambda _: {"graph_pool_bytes": pool_bytes(pool)},
+                width=int(state_like.num_clusters_padded))
+
+    def _capture(self, pool) -> Captured:
+        """The per-K step's graph (one ``fused_sweep`` compile event under
+        an active compile watch)."""
+        warm_up(self._k_step)
+        return Captured(self._k_step_into_static, pool)
 
     def _carry0(self, state, resume) -> SweepCarry:
         """A fresh sweep position at ``state`` (or ``resume``'s)."""

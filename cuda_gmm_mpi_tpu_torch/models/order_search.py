@@ -50,6 +50,19 @@ emergency mid-EM sub-step and raises ``PreemptedError``. With
 supervisor are not ported yet (ROADMAP item 9) and raise
 ``NotImplementedError``. Streaming is not ported.
 
+Observability at the JAX package's sites and under its conditions: a fit
+with an active recorder (or ``profile``) times its phases in the
+reference's seven categories (``utils/profiling.PhaseTimer``:
+``GMMResult.profile``/``profile_report``, ``run_summary.phase_profile``)
+and runs under a compile watch (``telemetry/profiling.py``: kernel builds
+and CUDA-graph captures as ``compile`` events, the ``sweep``/``em_k``
+memory watermarks, ``run_summary.profile``); ``metrics_port`` starts the
+live plane (the OpenMetrics endpoint and the resource sampler) and the
+trace spans ``fit`` > ``sweep`` > ``em_k`` / ``recovery`` /
+``checkpoint`` (``fused_sweep`` on that path); ``envelope`` (on by
+default) sketches the fit data under the final parameters
+(:func:`compute_envelope`).
+
 ``sweep_k_buckets='off'`` keeps the starting width for every K. With
 ``fused_sweep`` the whole sweep runs on the device (models/fused_sweep.py,
 ``_run_fused_sweep``): fixed-width, the per-K checkpoints and the
@@ -82,8 +95,13 @@ from ..ops.seeding import (
 )
 from ..parallel.mesh import shard_chunks
 from ..state import GMMState, bucket_width, clone_state, compact, compact_to
+from ..telemetry import exporter as tl_exporter
+from ..telemetry import profiling as tl_profiling
+from ..telemetry import sketch as tl_sketch
+from ..telemetry import spans as tl_spans
 from ..testing import faults
 from ..utils.logging_ import get_logger, metrics_line
+from ..utils.profiling import PhaseTimer
 from ..validation import InvalidInputError, validate_finite
 from .gmm import GMMModel, chunk_events
 
@@ -209,37 +227,87 @@ def _emit_score_health(rec, k):
         rec.metrics.count("health_events")
 
 
-def _phase_profile(em_s=0.0, em_n=0, reduce_s=0.0, reduce_n=0, cpu_s=0.0,
-                   cpu_n=0, memcpy_s=0.0, memcpy_n=0) -> dict:
-    """``run_summary.phase_profile`` in the JAX package's seven
-    categories, from the sweep's host clock: EM (e_step), merge scans
-    (reduce), checkpoint writes (cpu) and rebucketing (memcpy)."""
-    cats = ("e_step", "m_step", "constants", "reduce", "memcpy", "cpu", "mpi")
-    seconds = dict.fromkeys(cats, 0.0)
-    counts = dict.fromkeys(cats, 0)
-    seconds.update(e_step=em_s, reduce=reduce_s, cpu=cpu_s, memcpy=memcpy_s)
-    counts.update(e_step=em_n, reduce=reduce_n, cpu=cpu_n, memcpy=memcpy_n)
-    return {"seconds": seconds, "counts": counts}
+@contextlib.contextmanager
+def _null_phase(_name):
+    yield
 
 
-def _emit_run_summary(rec, model, config, sweep_log, ideal_k, best_score,
-                      best_ll, em_walls, buckets=None, health_section=None,
-                      phase_profile=None):
-    """The final ``run_summary`` record (the JAX package's fields; no
-    ``profile``: the compile watch is not ported)."""
+def compute_envelope(model, state, chunks, n_events, k):
+    """The training envelope (telemetry/sketch.py): one pass of the fit's
+    events through the final compacted ``state``, sketching the
+    per-event log evidence and counting each cluster's argmax occupancy
+    -- the distribution serve-time drift is measured against.
+
+    The events stay on the device: block by block (one chunk of the
+    model's chunk grid, its ``inference_block``) through
+    ``infer_posteriors``, with the argmax and the bincount on the device;
+    only each block's log evidence goes to the host for the sketch. (The
+    JAX package copies the whole array to the host first; the values are
+    the same.) ``n_events`` is the fit's event count; on a mesh each rank
+    of cluster index 0 sketches the real events of its data block, and
+    the ranks' envelopes merge through ``allgather_json``, which every
+    rank reaches. Observational: a failure logs and returns None."""
+    from ..parallel import distributed
+
+    log = get_logger()
+    local = None
+    try:
+        B = int(chunks.shape[1])
+        n_valid = int(n_events)
+        mesh = getattr(model, "mesh", None)
+        if mesh is not None:  # this rank's block of the chunk grid
+            rows = int(chunks.shape[0]) * B
+            n_valid = (min(max(n_valid - mesh.data_index * rows, 0), rows)
+                       if mesh.cluster_index == 0 else 0)
+        if n_valid > 0:
+            k = int(k)
+            state = state.to(model.device)
+            sk = tl_sketch.StreamSketch()
+            occ = torch.zeros((k,), dtype=torch.int64, device=model.device)
+            for i in range(-(-n_valid // B)):
+                valid = min(B, n_valid - i * B)
+                w, logz = model.infer_posteriors(state, chunks[i])
+                sk.update(logz[:valid].cpu().numpy())
+                occ += torch.bincount(torch.argmax(w[:valid, :k], dim=1),
+                                      minlength=k)
+            local = tl_sketch.make_envelope(sk, occ.cpu().numpy(), k=k,
+                                            num_events=n_valid)
+    except Exception:  # noqa: BLE001 -- observational, never run-fatal
+        log.warning("envelope computation failed; fit continues "
+                    "without one", exc_info=True)
+    if distributed.world_size() > 1:
+        try:
+            return tl_sketch.merge_envelopes(
+                distributed.allgather_json(local))
+        except Exception:  # noqa: BLE001
+            log.warning("envelope allgather failed", exc_info=True)
+            return None
+    return local
+
+
+def _emit_run_summary(rec, model, config, timer, sweep_log, ideal_k,
+                      best_score, best_ll, em_walls, buckets=None,
+                      health_section=None, envelope=None):
+    """The final ``run_summary`` record (the JAX package's fields):
+    ``profile`` from the active compile watch, ``phase_profile`` from
+    ``timer`` (empty without one), ``envelope`` when computed."""
     if not rec.active:
         return
     first = em_walls[0] if em_walls else None
     warm = min(em_walls[1:]) if len(em_walls) > 1 else None
+    watch = tl_profiling.active()
     fields = dict(
+        **({"profile": watch.snapshot()} if watch is not None else {}),
         **({"buckets": buckets} if buckets is not None else {}),
         **({"health": health_section} if health_section is not None else {}),
         em_backend=model.estep_backend,
+        **({"envelope": envelope} if envelope is not None else {}),
         ideal_k=int(ideal_k), score=float(best_score),
         criterion=config.criterion, final_loglik=float(best_ll),
         total_iters=int(sum(r[3] for r in sweep_log)),
         wall_s=round(float(sum(r[4] for r in sweep_log)), 6),
-        phase_profile=phase_profile or _phase_profile(),
+        phase_profile=(timer.snapshot() if timer is not None
+                       else {"seconds": {}, "counts": {}}),
         compile={
             "first_call_s": (round(first, 6) if first is not None else None),
             "warm_call_s": (round(warm, 6) if warm is not None else None),
@@ -335,6 +403,11 @@ class GMMResult:
     restart driver's parts (prepare, seed, em, merge; empty on the other
     paths): consecutive pieces of the fit's wall, so device work that a
     piece leaves queued is counted in the next one that waits for it.
+    ``profile``/``profile_report`` are the seven-category phase seconds and
+    their table (with ``config.profile`` or an active recorder; None on
+    the batched restart path, as in the JAX package); ``envelope`` the
+    training envelope (:func:`compute_envelope`; None when
+    ``config.envelope`` is off or it failed).
     """
 
     state: GMMState
@@ -351,6 +424,9 @@ class GMMResult:
     init_index: Optional[int] = None
     timings: dict = dataclasses.field(default_factory=dict)
     health: Optional[dict] = None
+    profile: Optional[dict] = None
+    profile_report: Optional[str] = None
+    envelope: Optional[dict] = None
 
     @property
     def means(self) -> np.ndarray:
@@ -425,65 +501,76 @@ def _check_sample_weight(sample_weight, n_events: int,
 
 
 def _prepare_data(data: np.ndarray, config: GMMConfig, model: GMMModel,
-                  num_clusters: int = 1, sample_weight=None):
+                  num_clusters: int = 1, sample_weight=None,
+                  phase=_null_phase):
     """Validate, center, chunk and place the events. Returns (data, chunks,
     wts, n_events, n_dims, shift, var_mean), ``data`` as a contiguous host
     array. ``sample_weight`` (checked against ``num_clusters``) becomes the
     events' weight row; the moments, seeding and event counts stay
-    unweighted, as in the JAX package."""
-    data = np.ascontiguousarray(data)
-    n_events, n_dims = data.shape
-    if sample_weight is not None:
-        sample_weight = _check_sample_weight(sample_weight, n_events,
-                                             num_clusters)
+    unweighted, as in the JAX package. ``phase`` times the steps in the
+    JAX package's categories (cpu, mpi for the moments, memcpy for the
+    placement)."""
+    with phase("cpu"):
+        data = np.ascontiguousarray(data)
+        n_events, n_dims = data.shape
+        if sample_weight is not None:
+            sample_weight = _check_sample_weight(sample_weight, n_events,
+                                                 num_clusters)
     dtype = np.dtype(config.dtype)
     # Before any arithmetic touches the data: reject rows non-finite now or
     # after the cast to the compute dtype.
     if config.validate_input:
         validate_finite(data, dtype=dtype)
-    mean64, var64 = _moments(data, config.chunk_size)
-    # Global centering keeps the expanded quadratic form well-conditioned
-    # (shift-equivariant: EM on x-c equals EM on x, means shifted by c).
-    shift = (mean64.astype(dtype) if config.center_data
-             else np.zeros((n_dims,), dtype))
-    local = data.astype(dtype, copy=False)
-    if config.center_data:
-        local = local - shift[None, :]
-    chunks_np, wts_np = chunk_events(
-        local, config.chunk_size,
-        num_shards=model.mesh.data_size if _sharded(model) else 1,
-        sample_weight=(None if sample_weight is None
-                       else sample_weight.astype(dtype)))
-    if _sharded(model):  # this rank's block of the chunk grid
-        chunks_np, wts_np = shard_chunks(model.mesh, chunks_np, wts_np)
-    chunks, wts = model.place(chunks_np), model.place(wts_np)
+    with phase("mpi"):
+        mean64, var64 = _moments(data, config.chunk_size)
+    with phase("cpu"):
+        # Global centering keeps the expanded quadratic form
+        # well-conditioned (shift-equivariant: EM on x-c equals EM on x,
+        # means shifted by c).
+        shift = (mean64.astype(dtype) if config.center_data
+                 else np.zeros((n_dims,), dtype))
+        local = data.astype(dtype, copy=False)
+        if config.center_data:
+            local = local - shift[None, :]
+        chunks_np, wts_np = chunk_events(
+            local, config.chunk_size,
+            num_shards=model.mesh.data_size if _sharded(model) else 1,
+            sample_weight=(None if sample_weight is None
+                           else sample_weight.astype(dtype)))
+        if _sharded(model):  # this rank's block of the chunk grid
+            chunks_np, wts_np = shard_chunks(model.mesh, chunks_np, wts_np)
+    with phase("memcpy"):
+        chunks, wts = model.place(chunks_np), model.place(wts_np)
     return (data, chunks, wts, n_events, n_dims, shift, float(var64.mean()))
 
 
 def _prepare_fit(data: np.ndarray, num_clusters: int, config: GMMConfig,
                  model: GMMModel, prepared=None, init_means=None,
-                 sample_weight=None):
+                 sample_weight=None, phase=_null_phase):
     """Prepare the data (unless ``prepared``, a :func:`_prepare_data`
     result, is given) and seed. Returns (state, chunks, wts, n_events,
     n_dims, shift)."""
     if prepared is None:
         prepared = _prepare_data(data, config, model, num_clusters,
-                                 sample_weight)
+                                 sample_weight, phase)
     data, chunks, wts, n_events, n_dims, shift, var_mean = prepared
     dtype = np.dtype(config.dtype)
-    # Seed rows in ORIGINAL coordinates, shifted into fit coordinates.
-    rows = _seed_rows(data, num_clusters, n_events,
-                      seed_method=config.seed_method, seed=config.seed,
-                      init_means=init_means)
-    state = seed_state_from_parts(
-        np.asarray(rows, dtype) - shift[None, :], n_events, var_mean,
-        num_clusters, covariance_dynamic_range=config.covariance_dynamic_range,
-        dtype=dtype, device=model.device)
-    # Deterministic singular-covariance injection (testing.faults), before
-    # mesh placement as in the JAX package.
-    state = faults.maybe_poison_state(state)
+    with phase("cpu"):
+        # Seed rows in ORIGINAL coordinates, shifted into fit coordinates.
+        rows = _seed_rows(data, num_clusters, n_events,
+                          seed_method=config.seed_method, seed=config.seed,
+                          init_means=init_means)
+        state = seed_state_from_parts(
+            np.asarray(rows, dtype) - shift[None, :], n_events, var_mean,
+            num_clusters,
+            covariance_dynamic_range=config.covariance_dynamic_range,
+            dtype=dtype, device=model.device)
+        # Deterministic singular-covariance injection (testing.faults),
+        # before mesh placement as in the JAX package.
+        state = faults.maybe_poison_state(state)
     if _sharded(model):
-        state = model.prepare_state(state)
+        with phase("memcpy"):
+            state = model.prepare_state(state)
     return state, chunks, wts, n_events, n_dims, shift
 
 
@@ -529,7 +616,9 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
     :class:`~cuda_gmm_mpi_tpu_torch.telemetry.RunRecorder` (an ambient one
     a caller activated is reused); with ``config.max_runtime_s`` and no
     ambient supervisor, under a deadline-only
-    :class:`~cuda_gmm_mpi_tpu_torch.supervisor.RunSupervisor`.
+    :class:`~cuda_gmm_mpi_tpu_torch.supervisor.RunSupervisor`. With
+    ``config.metrics_port`` the live plane runs for the fit and the trace
+    spans light up; an active recorder brings the compile watch.
     """
     with contextlib.ExitStack() as stack:
         if config.metrics_file and not telemetry.current().active:
@@ -542,6 +631,27 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
             # application's SIGTERM is the CLI's business.
             stack.enter_context(supervisor.use(supervisor.RunSupervisor(
                 max_runtime_s=config.max_runtime_s, install_signals=False)))
+        if config.metrics_port is not None:
+            if not tl_spans.active():
+                # The live plane and a fit-scoped trace, whose id rides
+                # every record. A sequential restart's sub-fit finds the
+                # outer fit's trace active and shares its plane (a second
+                # endpoint would fight for a fixed port).
+                stack.enter_context(tl_exporter.live_plane(
+                    config.metrics_port,
+                    registry_provider=lambda: telemetry.current().metrics,
+                    device=config.device))
+                rec = telemetry.current()
+                tid = stack.enter_context(tl_spans.trace())
+                if rec.active:
+                    rec.set_context(trace_id=tid)
+                    stack.callback(rec.set_context, trace_id=None)
+            stack.enter_context(tl_spans.span("fit"))
+        if telemetry.current().active and tl_profiling.active() is None:
+            # The compile watch rides every active-recorder fit: kernel
+            # builds and graph captures as ``compile`` events, the memory
+            # watermarks, and ``run_summary.profile``.
+            stack.enter_context(tl_profiling.watch(device=config.device))
         result = None
         try:
             result = _fit_gmm(data, num_clusters, target_num_clusters,
@@ -595,10 +705,14 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
     diag_only = config.diag_only
     log = get_logger(config)
     rec = telemetry.current()
+    # An active recorder times the phases too (run_summary.phase_profile);
+    # the table prints only under config.profile.
+    timer = PhaseTimer() if (config.profile or rec.active) else None
+    phase = timer.phase if timer else _null_phase
 
     state, chunks, wts, n_events, n_dims, shift = _prepare_fit(
         data, num_clusters, config, model, _prepared, init_means,
-        sample_weight)
+        sample_weight, phase)
     epsilon = convergence_epsilon(n_events, n_dims, config.epsilon_scale)
     if verbose:
         print(f"epsilon = {epsilon}")  # gaussian.cu:462
@@ -623,10 +737,10 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
     # host-driven rerun below folds them into its summary).
     fused_fatal_counts = None
     if config.fused_sweep:
-        # Checkpoints and the recorder's per-K seconds ride the per-K
-        # emission; a model without the fused sweep runs the host-driven
-        # sweep (the JAX package's blockers).
-        want_emit = ckpt is not None or rec.active
+        # Checkpoints and the per-K seconds of the phase timer ride the
+        # per-K emission; a model without the fused sweep runs the
+        # host-driven sweep (the JAX package's blockers).
+        want_emit = ckpt is not None or timer is not None
         blockers = []
         maker = getattr(model, "make_fused_sweep", None)
         if maker is None:
@@ -644,10 +758,11 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
                           start_k=num_clusters, stop_number=stop_number,
                           target_k=target_num_clusters, num_events=n_events,
                           num_dimensions=n_dims)
-            fused_result = _run_fused_sweep(
-                fused, config, state, chunks, wts, epsilon, num_clusters,
-                n_events, n_dims, shift, verbose, model, ckpt=ckpt, log=log,
-                want_emit=want_emit)
+            with tl_spans.span("fused_sweep", start_k=int(num_clusters)):
+                fused_result = _run_fused_sweep(
+                    fused, config, state, chunks, wts, epsilon, num_clusters,
+                    n_events, n_dims, shift, verbose, model, ckpt=ckpt,
+                    log=log, want_emit=want_emit, timer=timer)
             if isinstance(fused_result, GMMResult):
                 return fused_result
             # A counter vector: the fused sweep stopped on a fatal word
@@ -735,8 +850,10 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
     supervised = sup.active and ckpt is not None
     em_walls, em_widths = [], []
     n_rebuckets = 0
-    reduce_s = cpu_s = memcpy_s = 0.0
-    reduce_n = cpu_n = 0
+    # Non-lexical sweep span: the loop raises through _shutdown_and_raise
+    # on a stop, and an un-ended span simply never emits.
+    sweep_span = tl_spans.begin("sweep", start_k=int(k))
+    sweep_wm = tl_profiling.wm_begin("sweep")
     while k >= stop_number:
         if sup.active and sup.poll(where="sweep", k=int(k)):
             # Between Ks every completed K is already durable.
@@ -747,41 +864,51 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
         last_k = k <= stop_number
         em_widths.append(int(state.num_clusters_padded))
         rollback = clone_state(state) if recovery_on else None
-        if supervised or resume_em is not None:
-            state, ll, iters, _, stopped, extra = model.run_em_resumable(
-                state, chunks, wts, epsilon, n_events=n_events, sweep=True,
-                poll_iters=config.preempt_poll_iters,
-                should_stop=((lambda done, _k=int(k): sup.poll(
-                    where="em", k=_k, em_iter=done)) if sup.active else None),
-                resume=resume_em)
-            resume_em = None
-            if stopped:
-                payload = checkpoint_payload(state)
-                if not math.isfinite(best_ll):
-                    # No K has completed: the mid-EM state stands in (the
-                    # resumed first K always takes the best slot anyway).
-                    payload["best_state"] = payload["state"]
-                payload.update(extra)
-                _shutdown_and_raise(sup, rec, log, ckpt, step=step, k=int(k),
-                                    em_iter=int(iters), payload=payload)
-            if resume_sub_step is not None and ckpt is not None:
-                # The interrupted K completed: its sub-step is superseded.
-                ckpt.discard_substeps(resume_sub_step)
-                resume_sub_step = None
-        else:
-            state, ll, iters = model.run_em(state, chunks, wts, epsilon,
-                                            n_events=n_events, sweep=True)
-        counts = model.last_health
-        lls = model.last_lls
-        dt = time.perf_counter() - t0  # EM only: run_em ends on a host read
+        # em_k = one K's EM (m_step/constants folded into e_step).
+        with tl_spans.span("em_k", k=int(k)), \
+                tl_profiling.watermark("em_k"), phase("e_step"):
+            if supervised or resume_em is not None:
+                state, ll, iters, _, stopped, extra = \
+                    model.run_em_resumable(
+                        state, chunks, wts, epsilon, n_events=n_events,
+                        sweep=True, poll_iters=config.preempt_poll_iters,
+                        should_stop=((lambda done, _k=int(k): sup.poll(
+                            where="em", k=_k, em_iter=done))
+                            if sup.active else None),
+                        resume=resume_em)
+                resume_em = None
+                if stopped:
+                    payload = checkpoint_payload(state)
+                    if not math.isfinite(best_ll):
+                        # No K has completed: the mid-EM state stands in
+                        # (the resumed first K always takes the best slot
+                        # anyway).
+                        payload["best_state"] = payload["state"]
+                    payload.update(extra)
+                    _shutdown_and_raise(sup, rec, log, ckpt, step=step,
+                                        k=int(k), em_iter=int(iters),
+                                        payload=payload)
+                if resume_sub_step is not None and ckpt is not None:
+                    # The interrupted K completed: its sub-step is
+                    # superseded.
+                    ckpt.discard_substeps(resume_sub_step)
+                    resume_sub_step = None
+            else:
+                state, ll, iters = model.run_em(state, chunks, wts, epsilon,
+                                                n_events=n_events, sweep=True)
+            counts = model.last_health
+            lls = model.last_lls
+            dt = time.perf_counter() - t0  # EM only: run_em ends on a read
         if health.word_is_fatal(health.pack_word(counts)):
             # The observed fault is recorded before recovery replaces the
             # counters with the retried run's.
             health_totals += counts
             _emit_health(rec, k, counts)
-            model, state, ll, iters, counts, lls = health.recover_em(
-                model, config, rollback, chunks, wts, epsilon, k,
-                n_events=n_events, rec=rec, log=log, faulty_counts=counts)
+            with tl_spans.span("recovery", k=int(k)):
+                model, state, ll, iters, counts, lls = health.recover_em(
+                    model, config, rollback, chunks, wts, epsilon, k,
+                    n_events=n_events, rec=rec, log=log,
+                    faulty_counts=counts)
             n_recoveries += 1
             dt = time.perf_counter() - t0
         if (last_k and config.recovery_reseed_empty and target_num_clusters
@@ -805,6 +932,8 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
             log.warning("non-finite %s score at K=%d; excluded from "
                         "best-model selection", config.criterion, k)
             _emit_score_health(rec, k)
+        if timer:
+            timer.counts["e_step"] += int(iters) - 1  # per-iter averages
         sweep_log.append((k, ll, riss, iters, dt))
         em_walls.append(dt)
         if verbose:
@@ -832,11 +961,9 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
         if last_k:
             break
         # Order reduction (gaussian.cu:857-952).
-        t1 = time.perf_counter()
-        next_state, k, min_d, pair = eliminate_and_reduce(
-            state, diag_only=diag_only)
-        reduce_s += time.perf_counter() - t1
-        reduce_n += 1
+        with phase("reduce"):
+            next_state, k, min_d, pair = eliminate_and_reduce(
+                state, diag_only=diag_only)
         if sharded:
             model.assert_same_merge(k, pair)
         if k < 2:
@@ -860,12 +987,12 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
         cur_w = state.num_clusters_padded
         width = (bucket_width(k, cur_w, multiple=model.bucket_multiple)
                  if config.sweep_k_buckets == "pow2" else cur_w)
-        t1 = time.perf_counter()
-        if sharded:
-            state = model.rebucket_state(state, width)
-        elif width < cur_w:
-            state = compact_to(state, width)
-        memcpy_s += time.perf_counter() - t1
+        with (phase("memcpy") if width < cur_w
+              else contextlib.nullcontext()):
+            if sharded:
+                state = model.rebucket_state(state, width)
+            elif width < cur_w:
+                state = compact_to(state, width)
         if width < cur_w:
             n_rebuckets += 1
             if rec.active:
@@ -873,15 +1000,16 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
                 rec.emit("rebucket", k_active=int(k), from_width=int(cur_w),
                          to_width=int(state.num_clusters_padded))
         if ckpt is not None:
-            t1 = time.perf_counter()
             if rec.active:
                 rec.metrics.count("checkpoint_saves")
-            ckpt.save(step, checkpoint_payload(state))
-            cpu_s += time.perf_counter() - t1
-            cpu_n += 1
+            with tl_spans.span("checkpoint", step=int(step)), phase("cpu"):
+                ckpt.save(step, checkpoint_payload(state))
         step += 1
 
-    compact_state, n_active = compact(best_state)
+    tl_spans.end(sweep_span)
+    tl_profiling.wm_end(sweep_wm)
+    with phase("memcpy"):
+        compact_state, n_active = compact(best_state)
     if verbose:
         # Exact reference wording for the default criterion (gaussian.cu:962).
         print(f"Final {config.criterion} score was: {min_rissanen}, "
@@ -889,29 +1017,30 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
     health_section = health.health_summary(
         health_totals, recoveries=n_recoveries,
         io_retries=ckpt.io_retries if ckpt is not None else 0)
+    envelope = (compute_envelope(model, compact_state, chunks, n_events,
+                                 n_active) if config.envelope else None)
     _emit_run_summary(
-        rec, model, config, sweep_log, n_active, float(min_rissanen),
+        rec, model, config, timer, sweep_log, n_active, float(min_rissanen),
         float(best_ll), em_walls,
         buckets=dict(mode=config.sweep_k_buckets,
                      em_widths=sorted(set(em_widths), reverse=True),
                      em_compiles=len(set(em_widths)),
                      rebuckets=n_rebuckets),
-        health_section=health_section,
-        phase_profile=_phase_profile(
-            em_s=float(sum(em_walls)), em_n=len(em_walls),
-            reduce_s=reduce_s, reduce_n=reduce_n, cpu_s=cpu_s, cpu_n=cpu_n,
-            memcpy_s=memcpy_s, memcpy_n=n_rebuckets))
+        health_section=health_section, envelope=envelope)
     return GMMResult(
         state=compact_state.to("cpu"), ideal_num_clusters=n_active,
         min_rissanen=float(min_rissanen), final_loglik=float(best_ll),
         epsilon=epsilon, num_events=n_events, num_dimensions=n_dims,
         data_shift=np.asarray(shift), sweep_log=sweep_log, merges=merges,
-        model=model, health=health_section)
+        model=model, health=health_section,
+        profile=timer.as_dict() if timer else None,
+        profile_report=timer.report() if timer else None,
+        envelope=envelope)
 
 
 def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
                      num_clusters, n_events, n_dims, shift, verbose, model,
-                     ckpt=None, log=None, want_emit=False):
+                     ckpt=None, log=None, want_emit=False, timer=None):
     """The fused sweep (models/fused_sweep.py) under the sweep's
     checkpoints, supervisor and recorder: the JAX package's
     ``_run_fused_sweep``. Returns the ``GMMResult``, or the sweep's health
@@ -923,10 +1052,12 @@ def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
     K is saved as ``<step>.npz`` from the per-K emission; a stop requested
     of the run supervisor takes effect there, after that K's checkpoint
     (exit 75 in the CLI). With emission on (``want_emit``: checkpoints or
-    an active recorder) each K's seconds are real (emission arrivals);
+    a phase ``timer``) each K's seconds are real (emission arrivals);
     without, they are the sweep's wall over its Ks. The sweep log is
     rebuilt from the device log; the stream carries ``em_done`` per K and
-    no ``em_iter`` records (the EM iterations never reach the host)."""
+    no ``em_iter`` records (the EM iterations never reach the host). The
+    ``timer`` gets each K's whole span as e_step, as in the JAX
+    package."""
     rec = telemetry.current()
     resume = None
     if ckpt is not None and config.resume != "never":
@@ -1051,8 +1182,20 @@ def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
     if verbose:
         print(f"Final rissanen score was: {best_riss}, "
               f"with {n_active} clusters.")  # gaussian.cu:962
+    profile = profile_report = None
+    if timer is not None:
+        # Each K's whole span (EM + its order reduction) lands in e_step:
+        # the finer split needs host-observed phase boundaries, which one
+        # device program does not have.
+        for i, dt in sorted(step_secs.items()):
+            timer.add("e_step", dt, count=int(rows[i][3]))
+        profile = timer.as_dict()
+        profile_report = (timer.report() + "\n  (fused sweep: whole-K "
+                          "spans attributed to e_step)")
     health_section = health.health_summary(
         health_counts, io_retries=ckpt.io_retries if ckpt is not None else 0)
+    envelope = (compute_envelope(model, compact_state, chunks, n_events,
+                                 n_active) if config.envelope else None)
     if rec.active:
         for (k_, ll_, riss_, it_, secs_), r in zip(sweep_log, rows[:steps]):
             rec.metrics.count("em_iters", int(it_))
@@ -1065,19 +1208,17 @@ def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
                 rec.emit("health", k=int(k_), where="em", flags=word_k,
                          flag_names=health.flag_names(word_k))
                 rec.metrics.count("health_events")
-        secs = [v for _, v in sorted(step_secs.items())]
         _emit_run_summary(
-            rec, model, config, sweep_log, n_active, best_riss, best_ll,
-            secs, health_section=health_section,
-            phase_profile=_phase_profile(
-                em_s=float(sum(secs)),
-                em_n=int(sum(r[3] for r in sweep_log))))
+            rec, model, config, timer, sweep_log, n_active, best_riss,
+            best_ll, [v for _, v in sorted(step_secs.items())],
+            health_section=health_section, envelope=envelope)
     return GMMResult(
         state=compact_state, ideal_num_clusters=n_active,
         min_rissanen=best_riss, final_loglik=best_ll, epsilon=epsilon,
         num_events=n_events, num_dimensions=n_dims,
         data_shift=np.asarray(shift), sweep_log=sweep_log, model=model,
-        health=health_section)
+        health=health_section, profile=profile,
+        profile_report=profile_report, envelope=envelope)
 
 
 def _fit_with_restarts(data, num_clusters: int, target_num_clusters: int,

@@ -224,9 +224,11 @@ def fit_restarts_batched(prepared, num_clusters: int,
     winner, the same init the sequential path picks at the same seeds
     (``init_index``). Its ``timings`` sum the host-clock seconds of the
     batches' seeding, EM and merge scans; its ``health`` the batches'
-    counters, recoveries and dropped restarts."""
+    counters, recoveries and dropped restarts; its ``envelope`` the
+    winner's (no ``profile``: the per-init run_summary records carry an
+    empty phase profile, as the JAX package's do)."""
     from .order_search import (
-        GMMResult, _emit_run_start, _emit_run_summary, _phase_profile,
+        GMMResult, _emit_run_start, _emit_run_summary, compute_envelope,
     )
 
     log = get_logger(config)
@@ -285,7 +287,7 @@ def fit_restarts_batched(prepared, num_clusters: int,
                 rec.set_context(init=g)
                 logs = out["sweep_logs"][j]
                 _emit_run_summary(
-                    rec, model, config, logs, int(out["n_active"][j]),
+                    rec, model, config, None, logs, int(out["n_active"][j]),
                     float(out["min_riss"][j]), float(out["best_ll"][j]),
                     [row[4] for row in logs],
                     buckets=dict(mode="off", em_widths=[out["width"]],
@@ -293,10 +295,7 @@ def fit_restarts_batched(prepared, num_clusters: int,
                     health_section=health.health_summary(
                         out["health_lane"][j],
                         recoveries=out["recoveries"],
-                        restart_drops=int(out["dropped"][j])),
-                    phase_profile=_phase_profile(
-                        em_s=float(sum(row[4] for row in logs)),
-                        em_n=len(logs)))
+                        restart_drops=int(out["dropped"][j])))
                 rec.set_context(init=None)
             if verbose:
                 print(f"init {g}: {config.criterion}="
@@ -317,6 +316,10 @@ def fit_restarts_batched(prepared, num_clusters: int,
         print(f"best of {config.n_init} inits: "
               f"{config.criterion}={winner['min_riss']:.6e} "
               f"K={winner['n_active']}")
+    # The training envelope of the winning init's parameters.
+    envelope = (compute_envelope(model, winner["state"], chunks, n_events,
+                                 winner["n_active"])
+                if config.envelope else None)
     return GMMResult(
         state=winner["state"], ideal_num_clusters=winner["n_active"],
         min_rissanen=float(winner["min_riss"]),
@@ -327,7 +330,8 @@ def fit_restarts_batched(prepared, num_clusters: int,
         timings=timings,
         health=health.health_summary(health_totals, recoveries=n_recoveries,
                                      io_retries=io_retries,
-                                     restart_drops=n_drops))
+                                     restart_drops=n_drops),
+        envelope=envelope)
 
 
 def _pad_sweep_logs(sweep_logs) -> np.ndarray:

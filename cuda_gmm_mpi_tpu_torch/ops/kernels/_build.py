@@ -92,15 +92,24 @@ def build_all() -> dict:
     return paths
 
 
+def _load(src: str) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(build_all()[src]))
+    for name, argtypes in SIGNATURES[src]:
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def library(src: str) -> ctypes.CDLL:
-    """The loaded library of ``src`` (built on first use)."""
+    """The loaded library of ``src`` (built on first use; under an active
+    compile watch the build and load are one ``kernel_library`` compile
+    event)."""
+    from ...telemetry.profiling import site_compile
+
     with _lock:
         lib = _libs.get(src)
         if lib is None:
-            lib = ctypes.CDLL(str(build_all()[src]))
-            for name, argtypes in SIGNATURES[src]:
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _libs[src] = lib
+            lib = _libs[src] = site_compile(
+                "kernel_library", lambda: _load(src), source=src)
         return lib

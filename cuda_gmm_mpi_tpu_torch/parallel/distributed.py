@@ -123,3 +123,23 @@ def allgather_host(values) -> np.ndarray:
     buf[rank()] = torch.as_tensor(values, device=buf.device).to(wide)
     dist.all_reduce(buf, op=dist.ReduceOp.SUM)
     return buf.cpu().numpy().astype(values.dtype)
+
+
+def allgather_json(obj) -> list:
+    """One small JSON-serializable object from every rank: ``[rank0_obj,
+    rank1_obj, ...]``, the same on every rank (the JAX package's
+    ``allgather_json``). Two collectives through :func:`allgather_host`:
+    the payloads' lengths, then the payloads as byte rows padded to the
+    longest. Every rank must call it. Single process: ``[obj]``. For
+    summaries, not data."""
+    import json
+
+    if not is_initialized():
+        return [obj]
+    payload = np.frombuffer(json.dumps(obj).encode("utf-8"), np.uint8)
+    sizes = allgather_host(np.asarray([payload.size], np.int64)).reshape(-1)
+    buf = np.zeros((max(int(sizes.max()), 1),), np.uint8)
+    buf[:payload.size] = payload
+    rows = allgather_host(buf)
+    return [json.loads(rows[i, :int(n)].tobytes().decode("utf-8"))
+            for i, n in enumerate(sizes)]

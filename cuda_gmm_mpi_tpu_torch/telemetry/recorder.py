@@ -259,10 +259,21 @@ def read_stream(path: str) -> List[dict]:
 def memory_stats(device=None) -> Optional[dict]:
     """The CUDA device's allocator counters under the JAX package's key
     names (``bytes_in_use``, ``peak_bytes_in_use``, ``bytes_limit``), or
-    None for a CPU device."""
+    None for a CPU device. ``device=None`` reads the current CUDA device
+    once this process has initialized CUDA (the JAX package's first local
+    device), else None.
+
+    Only the caching allocator's counters and the cached device
+    properties are read: no CUDA call that a stream capture forbids, so
+    the resource sampler's thread may call this while a fit captures.
+    The peak is never reset (the compile watch takes deltas of it)."""
     import torch
 
-    if device is None or torch.device(device).type != "cuda":
+    if device is None:
+        if not torch.cuda.is_initialized():
+            return None
+        device = torch.device("cuda", torch.cuda.current_device())
+    if torch.device(device).type != "cuda":
         return None
     stats = torch.cuda.memory_stats(device)
     return {

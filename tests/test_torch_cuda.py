@@ -1109,3 +1109,68 @@ def test_fused_sweep_equals_host_sweep_off_on_the_card(dev):
     assert fused.final_loglik == host.final_loglik
     for f in ("N", "pi", "constant", "means", "R", "Rinv", "active"):
         assert torch.equal(getattr(fused.state, f), getattr(host.state, f)), f
+
+
+def test_observed_fit_on_the_card(dev, tmp_path, monkeypatch):
+    """A fit under the recorder and the live plane on the card: while each
+    width's graphs are being captured, another thread samples the device's
+    memory (the resource sampler) and scrapes /metrics, and the capture
+    holds; the result == the bare fit's; one ``em_program`` compile event
+    per captured width, as many as the model's own captures; the ``em_k``
+    and ``sweep`` watermarks are not null and stay below the card's
+    memory."""
+    import json
+    import threading
+    import urllib.request
+
+    from cuda_gmm_mpi_tpu_torch.models import em_program
+    from cuda_gmm_mpi_tpu_torch.telemetry import exporter
+
+    data, _, _, cfg = _em_case(dev, False, "cuda")
+    bare = fit_gmm(data, 8, 3, config=cfg)
+    during = []
+    init = em_program.Captured.__init__
+
+    def capture_with_observers(self, fn, pool):
+        def observed():
+            fn()
+
+            def other():
+                sample = exporter.ResourceSampler(device=dev).sample_once()
+                port = exporter.current_exporter().port
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/metrics", timeout=30) as r:
+                    during.append((sample, r.status, r.read().decode()))
+
+            t = threading.Thread(target=other)
+            t.start()
+            t.join()
+        init(self, observed, pool)
+
+    monkeypatch.setattr(em_program.Captured, "__init__",
+                        capture_with_observers)
+    path = tmp_path / "s.jsonl"
+    model = GMMModel(cfg)
+    res = fit_gmm(data, 8, 3, config=dataclasses.replace(
+        cfg, metrics_file=str(path), metrics_port=0), model=model)
+    monkeypatch.undo()
+    assert [r[:4] for r in res.sweep_log] == [r[:4] for r in bare.sweep_log]
+    assert res.final_loglik == bare.final_loglik
+    for f in ("N", "pi", "constant", "means", "R", "Rinv", "active"):
+        assert torch.equal(getattr(res.state, f), getattr(bare.state, f)), f
+    assert len(during) == 2 * len(model.capture_log)  # init + step graphs
+    for sample, status, body in during:
+        assert sample["memory_stats"]["bytes_in_use"] > 0
+        assert status == 200 and body.endswith("# EOF\n")
+    records = [json.loads(line) for line in open(path)]
+    compiles = [r for r in records if r["event"] == "compile"
+                and r["site"] == "em_program"]
+    assert [c["width"] for c in compiles] == [w for w, _ in model.capture_log]
+    assert all(c["graph_pool_bytes"] > 0 for c in compiles)
+    prof = [r for r in records if r["event"] == "run_summary"][-1]["profile"]
+    total = torch.cuda.get_device_properties(dev).total_memory
+    for name in ("em_k", "sweep"):
+        w = prof["watermarks"][name]
+        assert 0 < w["peak_bytes"] < total, name
+    assert 0 < prof["hbm_peak_bytes"] < total
+    assert res.envelope["num_events"] == data.shape[0]

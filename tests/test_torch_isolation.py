@@ -43,6 +43,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert (REPO / "cuda_gmm_mpi_tpu_torch" / "estimator.py") in files
     models = REPO / "cuda_gmm_mpi_tpu_torch" / "models"
     assert {models / "fused_sweep.py", models / "em_program.py"} <= set(files)
+    tel = REPO / "cuda_gmm_mpi_tpu_torch" / "telemetry"
+    assert {tel / f"{m}.py" for m in (
+        "spans", "report", "profiling", "sketch", "exporter", "diff",
+        "timeline")} <= set(files)
+    assert REPO / "cuda_gmm_mpi_tpu_torch" / "utils" / "profiling.py" in files
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"

@@ -11,7 +11,8 @@ Ported from tests/test_parallel.py and tests/test_pallas.py:
   last-bit difference carried through every iteration); K = 3 padded to 4
   over the cluster axis; events that do not fill the data shards;
 - ``fit_gmm`` on (2, 2) against JAX's: the same K and merge pairs,
-  min_rissanen rtol 1e-8;
+  min_rissanen rtol 1e-8, and the same training envelope on every rank
+  (tests/test_torch_envelope.py's bar);
 - the cluster-sharded statistics hook ``fused_stats_cuda_sharded`` (K5 +
   collectives + K6, their plain versions on the CPU) at float32, as an
   explicit stats_fn, against JAX's unsharded EM (test_pallas.py's
@@ -49,6 +50,7 @@ from cuda_gmm_mpi_tpu_torch.parallel import ShardedGMMModel, make_mesh, pad_stat
 from cuda_gmm_mpi_tpu_torch.state import bucket_width
 
 from .conftest import make_blobs
+from .test_torch_envelope import hold_envelope
 from .torch_mesh_worker import run_cases, spawn_world
 
 REPO = Path(__file__).resolve().parents[1]
@@ -205,6 +207,10 @@ def test_fit_gmm_on_a_mesh_matches_jax(world, tmp_path):
         np.testing.assert_allclose(r["min_rissanen"], ref.min_rissanen,
                                    rtol=1e-8)
         np.testing.assert_allclose(r["means"], ref.means, rtol=1e-6, atol=1e-8)
+        # The training envelope: each data block sketched once (by the
+        # ranks of cluster index 0), merged over the world, on every rank.
+        hold_envelope(r["envelope"], ref.envelope)
+        assert r["envelope"] == results[0]["envelope"]
     _same_on_every_rank(results, "min_rissanen")
 
 
@@ -247,6 +253,8 @@ def test_allgather_host_and_barrier(world):
                                                     for i in range(WORLD)])
         np.testing.assert_array_equal(
             out["floats"], np.arange(WORLD)[:, None, None] + np.full((2, 2), 0.5))
+        assert out["objs"] == [{"rank": i, "x": [0.5] * i}
+                               for i in range(WORLD)]
 
 
 # ------------------------------------------------------- in one process

@@ -17,8 +17,11 @@ from .test_torch_health import (  # noqa: F401  (fixture)
     both_fits, one_torch_thread,
 )
 
-# JAX-only records: the compile watch's (not ported) and the rate-limited
-# heartbeat (a clock decides how many there are).
+# Left out of the event-by-event comparison: the compile watch's records
+# (the two packages compile different things: XLA executables there, the
+# port's kernel libraries and CUDA-graph captures here; the port's own are
+# checked in test_port_compile_events_are_its_captures) and the
+# rate-limited heartbeat (a clock decides how many there are).
 SKIP = {"compile", "heartbeat"}
 FIELDS = ("k", "k_active", "next_k", "iter", "iters", "flags", "flag_names",
           "attempt", "action", "outcome", "pair", "where", "criterion",
@@ -70,6 +73,22 @@ def test_port_stream_equals_jax(streams):
             "recovery", "run_summary"} <= kinds
 
 
+def test_port_compile_events_are_its_captures(streams):
+    """The port's compile events are its own builds: one ``em_program``
+    event per captured width (none on the CPU, where nothing is captured)
+    and no other site a CPU fit builds; ``run_summary.profile`` counts
+    them, with the XLA counters at 0."""
+    _, te = streams
+    compiles = [e for e in te if e["event"] == "compile"]
+    assert all(e["source"] == "aot" and e["site"] in (
+        "em_program", "fused_sweep", "kernel_library") for e in compiles)
+    summary = te[-1]
+    prof = summary["profile"]
+    assert prof["compiles"] == len(compiles) == 0
+    assert prof["xla_compiles"] == 0 and prof["xla_compile_seconds"] == 0.0
+    assert "cost" not in prof
+
+
 def test_registry_and_recorder_match_jax(tmp_path):
     for tel in (t_tel, j_tel):
         reg = tel.MetricsRegistry()
@@ -95,6 +114,8 @@ def test_registry_and_recorder_match_jax(tmp_path):
     assert "clock" in records[0] and records[0]["process"] == 0
     assert j_tel.validate_stream(records) == []
     assert t_tel.memory_stats("cpu") is None
+    # No CUDA initialized in this process: the default device reads None.
+    assert t_tel.memory_stats() is None
 
 
 @pytest.mark.parametrize("flag", ["--allow-nonfinite", "--sweep-log",

@@ -97,19 +97,22 @@ def fit_case(data, k0, target, **cfg):
     r = fit_gmm(data, k0, target, config=GMMConfig(device="cpu", **cfg))
     return dict(k=r.ideal_num_clusters, merges=[m[1] for m in r.merges],
                 min_rissanen=r.min_rissanen, final_loglik=r.final_loglik,
-                means=r.means, sweep=[row[:4] for row in r.sweep_log])
+                means=r.means, sweep=[row[:4] for row in r.sweep_log],
+                envelope=r.envelope)
 
 
 def collectives_case():
-    """``allgather_host`` (ints and floats) around a ``barrier``."""
+    """``allgather_host`` (ints and floats) around a ``barrier``, and
+    ``allgather_json`` of payloads of different lengths."""
     from cuda_gmm_mpi_tpu_torch.parallel import distributed
 
     me = distributed.rank()
     ints = distributed.allgather_host(np.array([me, 10 * me], np.int32))
     distributed.barrier()
     floats = distributed.allgather_host(np.full((2, 2), me + 0.5))
+    objs = distributed.allgather_json({"rank": me, "x": [0.5] * me})
     return dict(rank=me, world=distributed.world_size(), ints=ints,
-                floats=floats)
+                floats=floats, objs=objs)
 
 
 def run_cases(cases):
