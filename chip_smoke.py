@@ -221,6 +221,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    itself, ``runs`` and ``timeline --validate`` (exit 0 each), and
    ``report`` in a fresh process, which imports no jax.
 
+15. the mesh made whole: 2 ranks of a (2, 1) mesh sharing the card over
+   gloo (a ``file://`` store in the build directory), the main path's
+   events at K = 100 -> 98 with 10 iterations per K. (a) ``--n-init 4``
+   on the mesh against the one-card batched restart fit on the same events
+   and seeds: the same chosen init, K and merge pairs, final loglik within
+   rtol 1e-5; K3 and K4 launches per rank counted from 0 (K1/K2 never),
+   ms per batched iteration and lane-iterations/s per rank (K4 launches x
+   4 lanes over the EM seconds). (b) A ``preempt`` at iteration 4, first
+   in K = 100, then (resumed) in K = 99, then the resume: both ranks stop
+   at the same step and iteration (the CLI's exit 75), and the resumed fit
+   == the uninterrupted mesh fit; rank 0's checkpoint ms per K. (c)
+   ``rank_lost`` of rank 1 at iteration 3 of K = 100: without elastic
+   both ranks stop with PeerLostError (exit 75) within the peer timeout
+   plus the grace of the declaration; with elastic rank 1 leaves, rank 0
+   seals generation 1 and finishes at world 1, its fit == one process
+   resumed (elastic) from the first run's emergency sub-step. (d) The
+   port's CLI on a BIN file, 2 ranks with ``--part-dir`` beside one
+   process, at float64 (a float32 mesh sums the data axis in another
+   order): each rank's range reads inside its ``host_range``, ``.summary``
+   and ``.results`` byte-identical, each process's host memory above its
+   CUDA baseline. (e) diag restarts (2 inits) on a (1, 2) mesh: the lanes
+   of the cluster-sharded loop, K5 and K6 per lane (K1-K4 never), against
+   the one-card batched fit (init, K, merge pairs, loglik rtol 1e-5). One
+   JSON line per part, each with the card's name and power limit.
+
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Whatever happens, it leaves no
@@ -3009,6 +3034,434 @@ def phase_observability(data, main_result, workdir: Path) -> dict:
     return rec
 
 
+# --- phase 15: the mesh made whole (restarts, resume, liveness, per-rank I/O)
+
+P15_MESH, P15_ITERS, P15_TARGET = (2, 1), 10, K0 - 2  # K 100 -> 98
+P15_LANES, P15_PEER_TIMEOUT_S = 4, 5.0
+P15_TIMEOUT_S = 420
+
+
+def _p15_cfg(**kw):
+    from cuda_gmm_mpi_tpu_torch import GMMConfig
+
+    return GMMConfig(min_iters=P15_ITERS, max_iters=P15_ITERS, **kw)
+
+
+def _p15_summary(r) -> dict:
+    return dict(k=r.ideal_num_clusters, merges=[list(m[1]) for m in r.merges],
+                final_loglik=r.final_loglik, init_index=r.init_index,
+                sweep=[list(row[:4]) for row in r.sweep_log],
+                host_range=list(r.host_range) if r.host_range else None)
+
+
+def _p15_rank(rank, world, workdir):
+    """One rank of phase 15 (a)-(c), in this order (the elastic shrink of
+    (c), which leaves this world, comes last). Writes rank<r>.json."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import fit_gmm, supervisor
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.parallel import distributed
+    from cuda_gmm_mpi_tpu_torch.testing import faults
+
+    workdir = Path(workdir)
+    distributed.initialize("cuda", coordinator=f"file://{workdir}/store",
+                           num_processes=world, process_id=rank,
+                           timeout_s=P15_TIMEOUT_S)
+    report = {"rank": rank}
+    counters = dict(K1=fs.fused_stats, K2=fs.mstep, K3=fs.fused_stats_batched,
+                    K4=fs.mstep_batched, K5=fs.local_lse, K6=fs.stats_logz)
+
+    def supervised(spec, **cfg):
+        """fit_gmm under a supervisor with ``spec`` armed: (summary or
+        None, exit code the CLI maps the outcome to, stop fields)."""
+        with faults.use(spec or {}), supervisor.use(
+                supervisor.RunSupervisor(install_signals=False)) as sup:
+            t0 = time.perf_counter()
+            try:
+                r = fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(**cfg))
+                return _p15_summary(r), 0, {"s": time.perf_counter() - t0}
+            except (supervisor.PreemptedError,
+                    supervisor.PeerLostError) as e:
+                lost = sup.lost_peer
+                return None, supervisor.EX_TEMPFAIL, dict(
+                    error=type(e).__name__, step=getattr(e, "step", None),
+                    em_iter=getattr(e, "em_iter", None),
+                    reason=getattr(e, "reason", None),
+                    s=time.perf_counter() - t0,
+                    stop_to_raise_s=(time.monotonic() - lost["at"]
+                                     if lost and "at" in lost else None))
+    try:
+        data = np.load(workdir / "events.npy")
+        # (a) n_init = 4 on the (2, 1) mesh: K3 + one all_reduce + K4 per
+        # batched iteration on each rank's half of the events.
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(
+            mesh_shape=P15_MESH, n_init=P15_LANES,
+            restart_batch_size=P15_LANES))
+        torch.cuda.synchronize()
+        report["a"] = dict(_p15_summary(r), fit_s=time.perf_counter() - t0,
+                           launches={k: c.launches
+                                     for k, c in counters.items()},
+                           timings=r.timings, backend=r.model.estep_backend)
+        # (e) diag restarts on a (1, 2) mesh: the lanes of the
+        # cluster-sharded loop, K5/K6 per lane (2 inits: the 'even' seed
+        # and one k-means++).
+        for c in counters.values():
+            c.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(
+            mesh_shape=(1, 2), n_init=2, restart_batch_size=2,
+            diag_only=True))
+        torch.cuda.synchronize()
+        report["e"] = dict(_p15_summary(r), fit_s=time.perf_counter() - t0,
+                           launches={k: c.launches
+                                     for k, c in counters.items()},
+                           timings=r.timings, backend=r.model.estep_backend)
+        # (b) preempt in K = 99 on both ranks (a stop in K = 100 first,
+        # resumed into K = 99), then resume: == the uninterrupted mesh fit.
+        report["b"] = {"ref": supervised(None, mesh_shape=P15_MESH)[0]}
+        ck = str(workdir / "ck_b")
+        with timed_checkpoints() as ck_times:
+            stops = []
+            for _ in range(2):
+                _, rc, info = supervised(
+                    {"preempt": {"iter": 4}}, mesh_shape=P15_MESH,
+                    checkpoint_dir=ck, preempt_poll_iters=1)
+                stops.append(dict(info, rc=rc))
+            resumed, rc, _ = supervised(None, mesh_shape=P15_MESH,
+                                        checkpoint_dir=ck,
+                                        preempt_poll_iters=1)
+        report["b"].update(stops=stops, resumed=resumed, resumed_rc=rc,
+                           save_ms=[1e3 * t for t in ck_times["save"]],
+                           substep_ms=[1e3 * t for t in
+                                       ck_times["save_substep"]])
+        # (c) rank_lost on rank 1 at iteration 3 of K = 100, without and
+        # with elastic recovery (the shrink leaves this world: last).
+        common = dict(mesh_shape=P15_MESH, preempt_poll_iters=1,
+                      peer_timeout_s=P15_PEER_TIMEOUT_S, sweep_k_buckets="off")
+        lost = {"rank_lost": {"iter": 3, "rank": 1}}
+        _, rc, info = supervised(lost, checkpoint_dir=str(workdir / "ck_c1"),
+                                 **common)
+        report["c"] = {"plain": dict(info, rc=rc)}
+        res, rc, info = supervised(lost, checkpoint_dir=str(workdir / "ck_c2"),
+                                   elastic=True, elastic_backoff_s=0.0,
+                                   **common)
+        from cuda_gmm_mpi_tpu_torch.parallel import elastic
+
+        report["c"]["elastic"] = dict(info, rc=rc, result=res,
+                                      world=list(elastic.world()),
+                                      generation=elastic.generation())
+        (workdir / f"rank{rank}.json").write_text(json.dumps(report))
+    finally:
+        distributed.shutdown()
+
+
+def _stamp_peer_loss():
+    """Stamps the monotonic instant a peer is declared lost onto the
+    supervisor's ``lost_peer`` (phase 15 (c) times the exit from it)."""
+    from cuda_gmm_mpi_tpu_torch import supervisor
+
+    orig = supervisor.RunSupervisor._synthesize_peer_loss
+
+    def stamped(self, **kw):
+        orig(self, **kw)
+        self._lost_peer["at"] = time.monotonic()
+    supervisor.RunSupervisor._synthesize_peer_loss = stamped
+
+
+def _p15_rank_main(rank, world, workdir):
+    _stamp_peer_loss()
+    _p15_rank(rank, world, workdir)
+
+
+_P15_CLI = r"""
+import json, resource, sys, threading
+import torch
+from cuda_gmm_mpi_tpu_torch.io import readers
+from cuda_gmm_mpi_tpu_torch.cli import main
+
+def rss_mib():
+    for line in open("/proc/self/status"):
+        if line.startswith("VmRSS:"):
+            return int(line.split()[1]) / 1024
+# The host memory of the run above the process's CUDA baseline: the peak
+# of VmRSS sampled every 10 ms after the context is up (the CUDA start-up
+# spike sets ru_maxrss alike in every process).
+torch.zeros(1, device="cuda")
+base, peak, done = rss_mib(), [0.0], threading.Event()
+def sample():
+    while not done.wait(0.01):
+        peak[0] = max(peak[0], rss_mib())
+threading.Thread(target=sample, daemon=True).start()
+ranges, rows = [], [0]
+orig_range, orig_rows = readers.FileSource.read_range, readers.FileSource.read_rows
+def read_range(self, a, b):
+    ranges.append([int(a), int(b)]); return orig_range(self, a, b)
+def read_rows(self, idx):
+    rows[0] += len(idx); return orig_rows(self, idx)
+readers.FileSource.read_range, readers.FileSource.read_rows = read_range, read_rows
+rc = main(sys.argv[1:])
+done.set()
+print("P15 " + json.dumps({"rc": rc, "ranges": ranges, "seed_rows": rows[0],
+      "maxrss_kib": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss,
+      "rss_base_mib": base, "rss_peak_mib": max(peak[0], rss_mib())}),
+      file=sys.stderr)
+sys.exit(rc)
+"""
+
+
+def _p15_cli(workdir: Path, infile: str, out: str, world: int) -> list:
+    """The port's CLI on ``world`` ranks (their own processes, one
+    ``file://`` store), each wrapped to log its range reads and peak RSS.
+    Returns the processes; the caller collects them."""
+    # float64: a float32 mesh sums the data axis's statistics in another
+    # order than one process, and a last-bit difference can flip a printed
+    # digit; the bytes are the same only where the sums are exact enough.
+    args = [str(K0), infile, str(workdir / out), str(P15_TARGET),
+            f"--min-iters={P15_ITERS}", f"--max-iters={P15_ITERS}",
+            "--dtype=float64"]
+    if world > 1:
+        args += [f"--mesh={P15_MESH[0]},{P15_MESH[1]}",
+                 f"--part-dir={workdir / 'parts'}",
+                 f"--coordinator=file://{workdir / ('store_' + out)}",
+                 f"--num-processes={world}"]
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, OMP_NUM_THREADS="2",
+               PYTHONPATH=root + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    return [subprocess.Popen(
+        [sys.executable, "-c", _P15_CLI, *args]
+        + ([f"--process-id={r}"] if world > 1 else []),
+        cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True) for r in range(world)]
+
+
+def _p15_collect(procs, label) -> list:
+    out = []
+    for r, p in enumerate(procs):
+        try:
+            _, err = p.communicate(timeout=P15_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.communicate()
+            raise PhaseError(f"(d) {label} rank {r} still running after "
+                             f"{P15_TIMEOUT_S} s") from None
+        lines = [ln for ln in err.splitlines() if ln.startswith("P15 ")]
+        check(p.returncode == 0 and lines,
+              f"(d) {label} rank {r}: exit {p.returncode}: {err[-2000:]}")
+        out.append(json.loads(lines[-1][4:]))
+    return out
+
+
+def _same_bytes(a: Path, b: Path, block: int = 1 << 24) -> bool:
+    if a.stat().st_size != b.stat().st_size:
+        return False
+    with open(a, "rb") as fa, open(b, "rb") as fb:
+        while True:
+            x, y = fa.read(block), fb.read(block)
+            if x != y:
+                return False
+            if not x:
+                return True
+
+
+def phase_mesh_whole(data, workdir: Path, card: str) -> dict:
+    """Phase 15: restarts on a mesh, preempt and resume, peer loss and
+    per-rank I/O, on 2 ranks sharing the one card over gloo."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from cuda_gmm_mpi_tpu_torch import fit_gmm, supervisor
+    from cuda_gmm_mpi_tpu_torch.io import write_bin
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    world = P15_MESH[0] * P15_MESH[1]
+    np.save(workdir / "events.npy", data)
+    infile = str(workdir / "events.bin")
+    write_bin(infile, data)
+    t_phase = time.perf_counter()
+    # The one-card references: the batched restart fit of (a), then the
+    # ranks of (a)-(c); (d)'s CLI runs last (2 ranks beside 1 process).
+    t0 = time.perf_counter()
+    ref_a = fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(
+        n_init=P15_LANES, restart_batch_size=P15_LANES))
+    torch.cuda.synchronize()
+    ref_a_s = time.perf_counter() - t0
+    ref_e = fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(
+        n_init=2, restart_batch_size=2, diag_only=True))
+    ctx = mp.start_processes(_p15_rank_main, args=(world, str(workdir)),
+                             nprocs=world, join=False, start_method="spawn")
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > P15_TIMEOUT_S:
+                raise PhaseError(f"phase 15 ranks still running after "
+                                 f"{P15_TIMEOUT_S} s")
+    except mp.ProcessRaisedException as e:
+        raise PhaseError(f"a phase 15 rank failed: {e}") from None
+    except mp.ProcessExitedException as e:
+        raise PhaseError(f"a phase 15 rank died: {e}") from None
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        stop_resource_tracker()
+    ranks = [json.loads((workdir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    out = {}
+
+    # (a)
+    a = [rk["a"] for rk in ranks]
+    ref_pairs = [list(m[1]) for m in ref_a.merges]
+    rec_a = {"card": card, "ref_fit_s": ref_a_s, "ranks": []}
+    for rk, x in zip(ranks, a):
+        lc = x["launches"]
+        check(x["backend"] == "cuda", f"(a) rank {rk['rank']} backend")
+        check(lc["K3"] > 0 and lc["K4"] > 0 and lc["K1"] == lc["K2"] == 0,
+              f"(a) rank {rk['rank']} launches {lc}")
+        check(x["init_index"] == ref_a.init_index
+              and x["k"] == ref_a.ideal_num_clusters
+              and x["merges"] == ref_pairs,
+              f"(a) rank {rk['rank']}: init {x['init_index']}, K {x['k']}, "
+              f"pairs {x['merges']} against the one-card fit's "
+              f"{ref_a.init_index}, {ref_a.ideal_num_clusters}, {ref_pairs}")
+        rel = abs(x["final_loglik"] - ref_a.final_loglik) / abs(
+            ref_a.final_loglik)
+        check(rel <= 1e-5, f"(a) rank {rk['rank']}: loglik rtol {rel:.2e}")
+        lane_iters = lc["K4"] * P15_LANES
+        em_s = x["timings"]["em"]
+        rec_a["ranks"].append(dict(
+            rank=rk["rank"], launches=lc, loglik_rtol=rel,
+            lane_iterations=lane_iters, em_s=em_s,
+            lane_iterations_per_s=lane_iters / em_s, fit_s=x["fit_s"],
+            seed_s=x["timings"]["seed"], host_range=x["host_range"],
+            ms_per_batched_iteration=1e3 * em_s / lc["K4"]))
+    rec_a["ref"] = dict(timings=ref_a.timings,
+                        init_index=ref_a.init_index, k=ref_a.ideal_num_clusters)
+    out["a"] = rec_a
+    print(json.dumps({"phase15": "a", **rec_a}))
+
+    # (e)
+    rec_e = {"card": card, "ranks": []}
+    e_pairs = [list(m[1]) for m in ref_e.merges]
+    for rk in ranks:
+        x, lc = rk["e"], rk["e"]["launches"]
+        check(x["backend"] == "cuda" and lc["K5"] > 0 and lc["K5"] == lc["K6"]
+              and lc["K1"] == lc["K2"] == lc["K3"] == lc["K4"] == 0,
+              f"(e) rank {rk['rank']}: backend {x['backend']}, launches {lc}")
+        check(x["init_index"] == ref_e.init_index
+              and x["k"] == ref_e.ideal_num_clusters and x["merges"] == e_pairs,
+              f"(e) rank {rk['rank']}: init {x['init_index']}, K {x['k']}, "
+              f"pairs {x['merges']} against {ref_e.init_index}, "
+              f"{ref_e.ideal_num_clusters}, {e_pairs}")
+        rel = abs(x["final_loglik"] - ref_e.final_loglik) / abs(
+            ref_e.final_loglik)
+        check(rel <= 1e-5, f"(e) rank {rk['rank']}: loglik rtol {rel:.2e}")
+        rec_e["ranks"].append(dict(
+            rank=rk["rank"], launches=lc, loglik_rtol=rel,
+            em_s=x["timings"]["em"],
+            ms_per_lane_estep=1e3 * x["timings"]["em"] / lc["K5"]))
+    out["e"] = rec_e
+    print(json.dumps({"phase15": "e", **rec_e}))
+
+    # (b)
+    b = [rk["b"] for rk in ranks]
+    for rk, x in zip(ranks, b):
+        st = [(s["rc"], s["step"], s["em_iter"]) for s in x["stops"]]
+        check(st == [(75, 0, 4), (75, 1, 4)],
+              f"(b) rank {rk['rank']}: stops (exit, step, iteration) {st}")
+        # The merge of K = 100 was made before the stop in K = 99: the
+        # resumed fit's own merges are the rest.
+        ref = dict(x["ref"], merges=x["ref"]["merges"][1:])
+        check(x["resumed_rc"] == 0 and x["resumed"] == ref,
+              f"(b) rank {rk['rank']}: the resumed fit differs from the "
+              f"uninterrupted mesh fit")
+    check(b[0]["save_ms"] and b[0]["substep_ms"], "(b) rank 0 wrote nothing")
+    rec_b = {"card": card, "stops": b[0]["stops"],
+             "save_ms_per_k": b[0]["save_ms"],
+             "emergency_substep_ms": b[0]["substep_ms"],
+             "rank1_save_calls": len(b[1]["save_ms"])}
+    out["b"] = rec_b
+    print(json.dumps({"phase15": "b", **rec_b}))
+
+    # (c)
+    plain = [rk["c"]["plain"] for rk in ranks]
+    check([p["rc"] for p in plain] == [75, 75]
+          and [p["error"] for p in plain] == ["PeerLostError"] * 2,
+          f"(c) without elastic: {plain}")
+    grace = min(P15_PEER_TIMEOUT_S, 30.0)
+    check(plain[0]["stop_to_raise_s"] is not None
+          and plain[0]["stop_to_raise_s"] <= P15_PEER_TIMEOUT_S + grace,
+          f"(c) rank 0 took {plain[0]['stop_to_raise_s']} s to exit")
+    el = [rk["c"]["elastic"] for rk in ranks]
+    check(el[0]["rc"] == 0 and el[0]["world"] == [0, 1]
+          and el[0]["generation"] == 1 and el[1]["rc"] == 75,
+          f"(c) elastic: rank 0 exit {el[0]['rc']} world {el[0]['world']}, "
+          f"rank 1 exit {el[1]['rc']}")
+    with supervisor.use(supervisor.RunSupervisor(install_signals=False)):
+        one = _p15_summary(fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(
+            checkpoint_dir=str(workdir / "ck_c1"), elastic=True,
+            preempt_poll_iters=1, sweep_k_buckets="off")))
+    check(el[0]["result"] == one,
+          "(c) the survivor's fit differs from one process resumed from the "
+          "same emergency sub-step")
+    rec_c = {"card": card, "plain_exit": [p["rc"] for p in plain],
+             "plain_stop_to_exit_s": [p["stop_to_raise_s"] for p in plain],
+             "peer_timeout_s": P15_PEER_TIMEOUT_S, "grace_s": grace,
+             "elastic_exit": [x["rc"] for x in el],
+             "elastic_fit_s": el[0]["s"], "elastic_world": el[0]["world"],
+             "survivor_equals_one_process_resume": True}
+    out["c"] = rec_c
+    print(json.dumps({"phase15": "c", **rec_c}))
+
+    # (d) the CLI: per-rank reading and output, beside one process
+    t0 = time.perf_counter()
+    mesh_procs = _p15_cli(workdir, infile, "mesh", world)
+    one_procs = _p15_cli(workdir, infile, "one", 1)
+    mesh_logs = _p15_collect(mesh_procs, "mesh")
+    one_log = _p15_collect(one_procs, "one process")[0]
+    cli_s = time.perf_counter() - t0
+    n = data.shape[0]
+    for r, lg in enumerate(mesh_logs):
+        lo, hi = (r * n) // world, ((r + 1) * n) // world
+        fit_range = lg["ranges"][0]
+        read = sum(b - a for a, b in lg["ranges"])
+        check(all(fit_range[0] <= a <= b <= fit_range[1]
+                  for a, b in lg["ranges"]) and read <= 2 * (hi - lo) + 65536,
+              f"(d) rank {r} read ranges {lg['ranges']}")
+    same = {ext: _same_bytes(workdir / f"mesh{ext}", workdir / f"one{ext}")
+            for ext in (".summary", ".results")}
+    check(all(same.values()), f"(d) files differ from one process: {same}")
+    check(not list((workdir / "parts").glob("*.part*")), "(d) parts left")
+    rec_d = {"card": card, "cli_wall_s": cli_s,
+             "rank_ranges": [lg["ranges"] for lg in mesh_logs],
+             "rank_seed_rows": [lg["seed_rows"] for lg in mesh_logs],
+             "rank_maxrss_mib": [lg["maxrss_kib"] / 1024 for lg in mesh_logs],
+             "one_process_maxrss_mib": one_log["maxrss_kib"] / 1024,
+             "rank_rss_above_cuda_baseline_mib": [
+                 lg["rss_peak_mib"] - lg["rss_base_mib"] for lg in mesh_logs],
+             "one_process_rss_above_cuda_baseline_mib":
+                 one_log["rss_peak_mib"] - one_log["rss_base_mib"],
+             "rss_cuda_baseline_mib": [lg["rss_base_mib"]
+                                       for lg in mesh_logs + [one_log]],
+             "one_process_ranges": one_log["ranges"],
+             "results_bytes": (workdir / "mesh.results").stat().st_size,
+             "byte_identical": same}
+    out["d"] = rec_d
+    print(json.dumps({"phase15": "d", **rec_d}))
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 15 took {out['wall_s']:.1f} s; {card}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3205,6 +3658,16 @@ def main() -> int:
     finally:
         shutil.rmtree(obsdir, ignore_errors=True)
 
+    print("phase 15: the mesh made whole: restarts on a mesh, preempt and "
+          "resume, peer loss, per-rank reading and output")
+    wholedir = Path(__file__).resolve().parent / "build" / "chip_smoke_whole"
+    shutil.rmtree(wholedir, ignore_errors=True)
+    wholedir.mkdir(parents=True)
+    try:
+        whole = phase_mesh_whole(data, wholedir, card)
+    finally:
+        shutil.rmtree(wholedir, ignore_errors=True)
+
     src = "cuda_gmm_mpi_tpu_torch/csrc/"
     pallas = "cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py:"
     kernels = [
@@ -3297,6 +3760,19 @@ def main() -> int:
     for prec in BF16_PASSES:
         kernels.extend(shard_precision_records(
             prec, pallas, mesh["bf16"][prec], k56_bf16, k56_bf16_times))
+    mesh_restart = [dict(rank=x["rank"], launches=x["launches"],
+                         ms_per_batched_iteration=x["ms_per_batched_iteration"],
+                         lane_iterations_per_s=x["lane_iterations_per_s"])
+                    for x in whole["a"]["ranks"]]
+    kernels[2]["mesh_restart"] = [dict(x, launches=x["launches"]["K3"])
+                                  for x in mesh_restart]
+    kernels[3]["mesh_restart"] = [dict(x, launches=x["launches"]["K4"])
+                                  for x in mesh_restart]
+    for i, key in ((4, "K5"), (5, "K6")):
+        kernels[i]["mesh_restart"] = [dict(
+            rank=x["rank"], launches=x["launches"][key],
+            ms_per_lane_estep=x["ms_per_lane_estep"])
+            for x in whole["e"]["ranks"]]
     kernels[0]["estimator"] = estimator
     kernels[0]["containment"] = containment
     kernels[0]["capture"] = capture

@@ -8,12 +8,19 @@ validateArguments: a missing infile exits 2, num_clusters outside
 absent target means "search down to 1, keep the best Rissanen score".
 
 The mesh path runs one process per rank (one per GPU with NCCL), every rank
-with the same command, and rank 0 writes the outputs:
+with the same command:
 
     torchrun --nproc-per-node=R -m cuda_gmm_mpi_tpu_torch.cli K infile outfile [target] --mesh DATA,CLUSTER
 
 or with ``--coordinator HOST:PORT --num-processes R --process-id I`` on each
-rank in place of torchrun.
+rank in place of torchrun. Each rank reads only its block of the events
+(a range read of the file), computes the memberships of its own rows on
+its own device and writes them as a ``.results`` part (beside the output,
+or in ``--part-dir``); rank 0 writes the ``.summary`` and assembles the
+parts. With ``--checkpoint-dir`` every rank heartbeats into
+``<dir>/heartbeats``: a peer silent for ``--peer-timeout`` seconds stops
+the others with exit 75 instead of a hang, and ``--elastic`` shrinks the
+world over the survivors and finishes the fit there.
 
 ``--init-from MODEL.summary`` seeds the fit's means from a saved model;
 ``--predict-from MODEL.summary`` fits nothing and writes the memberships of
@@ -44,7 +51,6 @@ streams and touch no device:
 from __future__ import annotations
 
 import argparse
-import contextlib
 import os
 import sys
 import time
@@ -238,6 +244,25 @@ def build_parser() -> argparse.ArgumentParser:
                    help="world size (MPI world size)")
     d.add_argument("--process-id", type=int, default=None,
                    help="this process's rank (0-based)")
+    d.add_argument("--part-dir", default=None,
+                   help="directory of the ranks' .results parts (default: "
+                   "beside the output); when rank 0 cannot see them there, "
+                   "the parts come to it over the process group")
+    d.add_argument("--peer-timeout", type=float, default=60.0,
+                   metavar="SECONDS",
+                   help="liveness watchdog (with --checkpoint-dir): a peer "
+                   "rank whose heartbeat is stale beyond this stops the run "
+                   "with exit 75 and an emergency checkpoint instead of a "
+                   "hang in the next collective; 0 disables")
+    d.add_argument("--elastic", action="store_true",
+                   help="on a lost peer the survivors seal a shrunken "
+                   "membership on the checkpoint filesystem, rebuild the "
+                   "process group over themselves and finish the fit from "
+                   "the newest checkpoint, instead of exiting 75. Requires "
+                   "--checkpoint-dir")
+    d.add_argument("--min-hosts", type=int, default=1, metavar="N",
+                   help="smallest world --elastic may shrink to; a loss "
+                   "below it exits 75 as without --elastic")
     return p
 
 
@@ -315,7 +340,9 @@ def main(argv=None) -> int:
             max_runtime_s=args.max_runtime, resume=args.resume,
             preempt_poll_iters=args.preempt_poll_iters,
             metrics_file=args.metrics_file, profile=args.profile,
-            metrics_port=args.metrics_port)
+            metrics_port=args.metrics_port,
+            peer_timeout_s=args.peer_timeout, elastic=args.elastic,
+            min_hosts=args.min_hosts)
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
@@ -339,6 +366,7 @@ def main(argv=None) -> int:
             ("--checkpoint-dir", args.checkpoint_dir),
             ("--fused-sweep", args.fused_sweep),
             ("--sweep-k-buckets", args.sweep_k_buckets != "pow2"),
+            ("--part-dir", args.part_dir),
         ]
         for flag, present in fit_only:
             if present:
@@ -395,8 +423,15 @@ def _run(args, config, rank: int, world: int) -> int:
         print("--allow-nonfinite is a single-process mode", file=sys.stderr)
         return 1
     t0 = time.perf_counter()
-    data, rc = _read_events(args.infile, allow_nonfinite=args.allow_nonfinite,
-                            dtype=config.dtype)
+    if world > 1:
+        # Per-rank reading: the fit pulls each rank's rows through the file
+        # source (the reference broadcast the whole dataset,
+        # gaussian.cu:191-201).
+        data, rc = _read_events(args.infile, source=True)
+    else:
+        data, rc = _read_events(args.infile,
+                                allow_nonfinite=args.allow_nonfinite,
+                                dtype=config.dtype)
     if data is None:
         return rc
     t_io = time.perf_counter() - t0
@@ -432,40 +467,40 @@ def _run(args, config, rank: int, world: int) -> int:
             print(f"mesh (data, cluster): {model.mesh.shape} over {world} "
                   f"rank(s); collective backend: {model.collective_backend}")
     # The run supervisor turns SIGTERM/SIGINT and --max-runtime into a
-    # cooperative stop with an emergency checkpoint and exit 75. One process
-    # only: a mesh's ranks would each stop on their own (ROADMAP item 9), so
-    # there fit_gmm refuses --checkpoint-dir and --max-runtime instead.
-    with contextlib.ExitStack() as stack:
-        if world == 1:
-            stack.enter_context(supervisor.use(supervisor.RunSupervisor(
-                max_runtime_s=config.max_runtime_s)))
-        try:
-            return _fit_and_write(args, config, model, data, init_means, rank,
+    # cooperative stop with an emergency checkpoint and exit 75, on every
+    # rank: a stop on any rank stops all of them at the same poll, and a
+    # lost peer exits 75 too. It stays active through the output writing,
+    # so the assembly's barriers take the watchdog's timeout.
+    try:
+        with supervisor.use(supervisor.RunSupervisor(
+                max_runtime_s=config.max_runtime_s)):
+            return _fit_and_write(args, config, model, data, init_means,
                                   t_io)
-        except NotImplementedError as e:
-            print(str(e), file=sys.stderr)
-            return 1
-        except NumericalFaultError as e:
-            # Unrecovered (or recovery disabled): never write a poisoned
-            # model.
-            print(f"Numerical fault -- no model written.\n{e}",
-                  file=sys.stderr)
-            return supervisor.EX_SOFTWARE
-        except supervisor.PreemptedError as e:
-            print(f"Preempted -- {e}", file=sys.stderr)
-            return supervisor.EX_TEMPFAIL
-        except CheckpointRestoreError as e:
-            print(f"Checkpoint unreadable -- {e}", file=sys.stderr)
-            return supervisor.EX_IOERR
+    except NumericalFaultError as e:
+        # Unrecovered (or recovery disabled): never write a poisoned model.
+        print(f"Numerical fault -- no model written.\n{e}", file=sys.stderr)
+        return supervisor.EX_SOFTWARE
+    except supervisor.PreemptedError as e:
+        print(f"Preempted -- {e}", file=sys.stderr)
+        return supervisor.EX_TEMPFAIL
+    except supervisor.PeerLostError as e:
+        print(f"Peer lost -- {e}", file=sys.stderr)
+        return supervisor.EX_TEMPFAIL
+    except CheckpointRestoreError as e:
+        print(f"Checkpoint unreadable -- {e}", file=sys.stderr)
+        return supervisor.EX_IOERR
 
 
-def _fit_and_write(args, config, model, data, init_means, rank,
-                   t_io) -> int:
-    """The supervised span of a fit run: fit, then write the outputs."""
+def _fit_and_write(args, config, model, data, init_means, t_io) -> int:
+    """The supervised span of a fit run: fit, then write the outputs. On a
+    mesh every rank writes the ``.results`` part of its own rows and rank 0
+    the ``.summary`` and the assembled ``.results``; the ranks are those of
+    the world the fit ended in (an elastic fit may have shrunk it)."""
     import json
 
     from .io import stream_results, write_summary
     from .models import fit_gmm, iter_memberships
+    from .parallel import distributed
     from .utils.profiling import trace
     from .validation import InvalidInputError
 
@@ -477,24 +512,33 @@ def _fit_and_write(args, config, model, data, init_means, rank,
         except InvalidInputError as e:
             print(str(e), file=sys.stderr)
             return 1
-    if rank != 0:  # rank 0 alone writes the outputs
-        return 0
+    rank, world = distributed.rank(), distributed.world_size()
     t_out0 = time.perf_counter()
-    write_summary(args.outfile + ".summary", result,
-                  enable_output=config.enable_output)
-    if args.sweep_log:
-        with open(args.sweep_log, "w") as f:
-            for k, ll, riss, iters, secs in result.sweep_log:
-                f.write(json.dumps({
-                    "num_clusters": int(k), "loglik": float(ll),
-                    "score": float(riss), "criterion": config.criterion,
-                    "em_iters": int(iters), "seconds": float(secs),
-                }) + "\n")
+    if rank == 0:
+        write_summary(args.outfile + ".summary", result,
+                      enable_output=config.enable_output)
+        if args.sweep_log:
+            with open(args.sweep_log, "w") as f:
+                for k, ll, riss, iters, secs in result.sweep_log:
+                    f.write(json.dumps({
+                        "num_clusters": int(k), "loglik": float(ll),
+                        "score": float(riss), "criterion": config.criterion,
+                        "em_iters": int(iters), "seconds": float(secs),
+                    }) + "\n")
     if config.enable_output:
-        stream_results(args.outfile + ".results",
-                       iter_memberships(result, data, config, result.model))
+        out_path = args.outfile + ".results"
+        if world > 1:
+            lo, hi = _output_rows(result, config.chunk_size)
+            part = distributed.results_part_path(out_path,
+                                                 part_dir=args.part_dir)
+            stream_results(part, iter_memberships(
+                result, data.read_range(lo, hi), config, result.model))
+            distributed.assemble_results_multihost(out_path, part)
+        else:
+            stream_results(out_path, iter_memberships(result, data, config,
+                                                      result.model))
     t_out = time.perf_counter() - t_out0
-    if config.profile:
+    if config.profile and rank == 0:
         em_s = sum(r[4] for r in result.sweep_log)
         if result.profile_report:
             print(result.profile_report)  # 7-category table (gaussian.cu:967)
@@ -504,17 +548,40 @@ def _fit_and_write(args, config, model, data, init_means, rank,
     return 0
 
 
-def _read_events(path, allow_nonfinite: bool = False, dtype=None):
+def _output_rows(result, chunk_size: int):
+    """[lo, hi): the events whose memberships this rank writes. Its mesh
+    row's events (``result.host_range``), split over the row's ranks in
+    whole chunks, so the parts in rank order are the events in order and
+    every block of the output pass starts where one process's would."""
+    from .parallel.distributed import host_slice
+
+    start, stop = result.host_range
+    mesh = getattr(result.model, "mesh", None)
+    if mesh is None or mesh.cluster_size == 1:
+        return start, stop
+    a, b = host_slice(-(-(stop - start) // chunk_size), mesh.cluster_index,
+                      mesh.cluster_size)
+    return (min(start + a * chunk_size, stop),
+            min(start + b * chunk_size, stop))
+
+
+def _read_events(path, allow_nonfinite: bool = False, dtype=None,
+                 source: bool = False):
     """(events, 0), or (None, exit code) after the reference's abort
     message (gaussian.cu:204-205): 74 (EX_IOERR) for an unreadable or torn
     file, 1 for malformed content. ``allow_nonfinite`` drops NaN/Inf rows
-    (in the compute ``dtype``) with a warning."""
+    (in the compute ``dtype``) with a warning. ``source``: an
+    ``io.FileSource`` whose shape is probed here, for range reads."""
     import numpy as np
 
     from . import supervisor
-    from .io import TruncatedInputError, read_data
+    from .io import FileSource, TruncatedInputError, read_data
 
     try:
+        if source:
+            src = FileSource(path)
+            src.shape  # the header parse, inside this error guard
+            return src, 0
         return read_data(path, screen="quarantine" if allow_nonfinite
                          else "off",
                          screen_dtype=np.dtype(dtype) if dtype else None), 0

@@ -160,6 +160,23 @@ class GMMConfig:
     # 'auto' resumes from the newest checkpoint (an emergency mid-EM
     # sub-step included); 'never' starts fresh (and still writes).
     resume: str = "auto"
+    # Liveness watchdog timeout of a mesh of more than one rank (with a
+    # supervisor and checkpoint_dir): a peer whose heartbeat on the
+    # checkpoint filesystem goes stale beyond this raises PeerLostError
+    # (exit 75) instead of hanging in the next collective. 0 disables it.
+    peer_timeout_s: float = 60.0
+    # Elastic recovery (parallel/elastic.py): on PeerLostError the
+    # surviving ranks rendezvous on the checkpoint filesystem, seal a
+    # shrunken generation-stamped membership, rebuild the process group
+    # over themselves and refit from the newest checkpoint. Requires
+    # checkpoint_dir.
+    elastic: bool = False
+    # Smallest world an elastic shrink may leave; below it the run exits 75.
+    min_hosts: int = 1
+    # Shrinks before elastic recovery gives up (each loss takes one).
+    elastic_max_retries: int = 2
+    # Pause before the first rendezvous (doubles per attempt).
+    elastic_backoff_s: float = 0.5
     # JSONL path of the run's telemetry stream (telemetry/); None = off.
     metrics_file: Optional[str] = None
 
@@ -264,6 +281,19 @@ class GMMConfig:
             raise ValueError(
                 f"unknown resume: {self.resume!r} "
                 "(expected 'auto' or 'never')")
+        if self.peer_timeout_s < 0:
+            raise ValueError("peer_timeout_s must be >= 0 (0 disables)")
+        if self.elastic and not self.checkpoint_dir:
+            raise ValueError(
+                "elastic recovery requires checkpoint_dir: the checkpoint "
+                "filesystem is the survivors' rendezvous medium and the "
+                "resume source")
+        if self.min_hosts < 1:
+            raise ValueError("min_hosts must be >= 1")
+        if self.elastic_max_retries < 1:
+            raise ValueError("elastic_max_retries must be >= 1")
+        if self.elastic_backoff_s < 0:
+            raise ValueError("elastic_backoff_s must be >= 0")
         if self.recovery not in ("retry", "off"):
             raise ValueError(
                 f"unknown recovery: {self.recovery!r} "

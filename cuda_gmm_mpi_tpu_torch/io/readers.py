@@ -17,6 +17,8 @@ implements the reference's ``readData.cpp`` semantics:
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import numpy as np
 
 
@@ -25,9 +27,11 @@ class TruncatedInputError(ValueError):
     declared size (a partial copy, a crashed writer)."""
 
 
-def read_data(path: str, use_native: str = "auto", screen: str = "off",
+def read_data(path: str, start: int = 0, stop: Optional[int] = None,
+              use_native: str = "auto", screen: str = "off",
               screen_dtype=None) -> np.ndarray:
-    """Read every event of ``path`` as a float32 [num_events, D] array.
+    """Read events [start, stop) of ``path`` as a float32 [rows, D] array
+    (the whole file by default).
 
     A BIN file the native reader rejects is re-read by the Python reader,
     so a torn header or payload surfaces as :class:`TruncatedInputError`
@@ -35,20 +39,30 @@ def read_data(path: str, use_native: str = "auto", screen: str = "off",
     'quarantine') runs :func:`screen_nonfinite` on the rows."""
     from .native import select
 
+    _check_range(path, start, stop)
     native = select(use_native)
     data = None
     if native is not None:
         try:
-            data = native.read_data(path)
+            data = (native.read_data(path) if start == 0 and stop is None
+                    else native.read_range(path, start, stop))
         except ValueError:
             if not path.endswith("bin"):
                 raise
     if data is None:
-        data = read_bin(path) if path.endswith("bin") else read_csv(path)
+        data = (read_bin(path, start, stop) if path.endswith("bin")
+                else read_csv(path, start, stop))
     if screen != "off":
         data, _ = screen_nonfinite(data, path, mode=screen,
                                    dtype=screen_dtype)
     return data
+
+
+def _check_range(path: str, start: int, stop: Optional[int]) -> None:
+    """One sign/order check for every reader: a negative ``stop`` must never
+    reach the native layer, which reads it as "to the end"."""
+    if start < 0 or (stop is not None and stop < start):
+        raise ValueError(f"{path}: invalid row range [{start}, {stop})")
 
 
 def screen_nonfinite(data: np.ndarray, path: str, *, mode: str = "reject",
@@ -117,8 +131,11 @@ def data_shape(path: str, use_native: str = "auto"):
     return rows, num_dims
 
 
-def read_bin(path: str) -> np.ndarray:
-    """BIN rows: an 8-byte header, then the float32 payload."""
+def read_bin(path: str, start: int = 0,
+             stop: Optional[int] = None) -> np.ndarray:
+    """BIN rows [start, stop): the 8-byte header, one seek and one bounded
+    read of the float32 payload (readData.cpp:35-47)."""
+    _check_range(path, start, stop)
     with open(path, "rb") as f:
         header = np.fromfile(f, dtype=np.int32, count=2)
         if header.size != 2:
@@ -126,10 +143,16 @@ def read_bin(path: str) -> np.ndarray:
         num_events, num_dims = int(header[0]), int(header[1])
         if num_events <= 0 or num_dims <= 0:
             raise ValueError(f"{path}: malformed BIN header {header.tolist()}")
-        data = np.fromfile(f, dtype=np.float32, count=num_events * num_dims)
-    if data.size != num_events * num_dims:
+        stop = num_events if stop is None else stop
+        if stop > num_events:
+            raise ValueError(f"{path}: range [{start}, {stop}) out of bounds "
+                             f"for {num_events} events")
+        f.seek(8 + start * num_dims * 4)
+        rows = stop - start
+        data = np.fromfile(f, dtype=np.float32, count=rows * num_dims)
+    if data.size != rows * num_dims:
         raise TruncatedInputError(f"{path}: truncated BIN payload")
-    return data.reshape(num_events, num_dims)
+    return data.reshape(rows, num_dims)
 
 
 def _atof(s: str) -> float:
@@ -156,15 +179,18 @@ def _parse_fields(fields, out_row):
             out_row[j] = _atof(s)
 
 
-def read_csv(path: str) -> np.ndarray:
-    """CSV rows, streaming: one pass, amortized-doubling row buffer.
+def read_csv(path: str, start: int = 0,
+             stop: Optional[int] = None) -> np.ndarray:
+    """CSV rows [start, stop), streaming: one pass, amortized-doubling row
+    buffer, O(slice) memory; a bounded ``stop`` ends the scan there.
 
     The first non-blank line is dropped as a header (readData.cpp:84) and sets
     the dimension count; ragged rows raise (readData.cpp:104-107).
     """
+    _check_range(path, start, stop)
     num_dims = None
     data = None
-    seen = 0
+    seen = row = 0
     with open(path, "rb") as f:
         for raw in f:
             line = raw.decode("utf-8").strip("\r\n")
@@ -173,10 +199,15 @@ def read_csv(path: str) -> np.ndarray:
             if num_dims is None:
                 num_dims = line.count(",") + 1
                 continue
+            if stop is not None and row >= stop:
+                break
+            row += 1
+            if row <= start:
+                continue
             fields = line.split(",")
             if len(fields) != num_dims:
                 raise ValueError(
-                    f"{path}: row {seen + 2} has {len(fields)} fields, "
+                    f"{path}: row {row + 1} has {len(fields)} fields, "
                     f"expected {num_dims}")
             if data is None:
                 data = np.empty((4096, num_dims), np.float32)
@@ -186,9 +217,80 @@ def read_csv(path: str) -> np.ndarray:
             seen += 1
     if num_dims is None:
         raise ValueError(f"{path}: empty input file")
-    if seen == 0:
+    if row == 0:
         raise ValueError(f"{path}: no data rows after header")
+    if (stop is not None and row < stop) or start > row:
+        raise ValueError(f"{path}: range [{start}, {stop}) out of bounds "
+                         f"for {row} rows")
+    if data is None:
+        return np.zeros((0, num_dims), np.float32)
     return data[:seen]
+
+
+def read_rows(path: str, indices, use_native: str = "auto") -> np.ndarray:
+    """The rows at ``indices`` (order kept, repeats allowed) without reading
+    the file: BIN through a read-only memory map of the payload, CSV in one
+    streaming pass. The seeding rows of a run that reads its events per
+    rank (the JAX package's ``read_rows``)."""
+    from .native import select
+
+    select(use_native)  # 'always' still asserts the library is there
+    indices = np.asarray(indices, np.int64)
+    n, d = data_shape(path, use_native=use_native)
+    if indices.size and (indices.min() < 0 or indices.max() >= n):
+        raise ValueError(f"{path}: row index out of bounds")
+    if path.endswith("bin"):
+        payload = np.memmap(path, dtype=np.float32, mode="r", offset=8,
+                            shape=(n, d))
+        return np.array(payload[indices])
+    want = {int(i): None for i in np.unique(indices)}
+    row = -1
+    with open(path, "rb") as f:
+        for raw in f:
+            line = raw.decode("utf-8").strip("\r\n")
+            if line == "":
+                continue
+            if row >= 0 and row in want:
+                out = np.empty((d,), np.float32)
+                _parse_fields(line.split(","), out)
+                want[row] = out
+            row += 1
+    return (np.stack([want[int(i)] for i in indices]) if indices.size
+            else np.zeros((0, d), np.float32))
+
+
+class FileSource:
+    """A dataset file as a random-access row source (the JAX package's
+    ``FileSource``): ``shape`` probes the header, ``read_range`` and
+    ``read_rows`` read only what the caller asks for, so a rank of a mesh
+    holds its own block of the events and nothing more."""
+
+    def __init__(self, path: str, use_native: str = "auto"):
+        self.path = path
+        self.use_native = use_native
+        self._shape: Optional[Tuple[int, int]] = None
+
+    @property
+    def shape(self) -> Tuple[int, int]:
+        if self._shape is None:
+            self._shape = data_shape(self.path, use_native=self.use_native)
+        return self._shape
+
+    def read_range(self, start: int, stop: int) -> np.ndarray:
+        return read_data(self.path, start, stop, use_native=self.use_native)
+
+    def read_rows(self, indices) -> np.ndarray:
+        return read_rows(self.path, indices, use_native=self.use_native)
+
+    def read_all(self) -> np.ndarray:
+        return read_data(self.path, use_native=self.use_native)
+
+    def __getitem__(self, key) -> np.ndarray:
+        # Contiguous row slices only: one bounded range read each.
+        if isinstance(key, slice) and key.step in (None, 1):
+            start, stop, _ = key.indices(self.shape[0])
+            return self.read_range(start, stop)
+        raise TypeError("FileSource supports contiguous row slices only")
 
 
 def write_bin(path: str, data: np.ndarray) -> None:

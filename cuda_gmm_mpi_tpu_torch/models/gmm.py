@@ -479,6 +479,16 @@ class GMMModel:
         self.last_stop = (run.stopped, run.extra)
         return run.state, run.loglik, run.iters
 
+    def prepare_states_batched(self, states):
+        """A restart-batched state on the model's device (the mesh's rows
+        of it on ``parallel.ShardedGMMModel``)."""
+        return states.to(self.device)
+
+    def gather_states_batched(self, states):
+        """The whole restart-batched state (a mesh row's clusters gathered
+        on ``parallel.ShardedGMMModel``)."""
+        return states
+
     @property
     def inference_block(self) -> int:
         """Events per output-path step."""
@@ -745,7 +755,8 @@ def em_while_loop_batched(states, data_chunks, wts_chunks, epsilon: float,
                           nan_restart: Optional[int] = None,
                           should_stop: Optional[Callable[[int], bool]] = None,
                           poll_iters: int = 25, freeze=None,
-                          resume: Optional[dict] = None) -> EMRun:
+                          resume: Optional[dict] = None,
+                          cluster_group=None) -> EMRun:
     """EM for a batch of restarts as one host loop over the whole batch,
     returning the :class:`EMRun` (states, loglik [R] and iters [R] as
     numpy arrays, [R, NUM_FLAGS] health rows): the port of the JAX
@@ -762,7 +773,10 @@ def em_while_loop_batched(states, data_chunks, wts_chunks, epsilon: float,
     initial E-step masks it too, its loglik is NaN and its counters stay
     0. ``nan_iter``/``nan_restart`` is an armed ``nan_loglik`` fault (on
     lane ``nan_restart`` only, when set); ``should_stop``, ``poll_iters``
-    and ``resume`` as in :meth:`GMMModel.run_em_batched`.
+    and ``resume`` as in :meth:`GMMModel.run_em_batched`. On a mesh the
+    hooks reduce the statistics over the data axis themselves, and
+    ``cluster_group`` (a sharded cluster axis) sums the state's counters
+    over the ranks of a mesh row.
     """
     lo = np.asarray(min_iters_r, np.int64)
     hi = np.asarray(max_iters_r, np.int64)
@@ -800,7 +814,8 @@ def em_while_loop_batched(states, data_chunks, wts_chunks, epsilon: float,
                              lane_mask=runs)  # gaussian.cu:487-516
     ll = torch.where(runs, stats.loglik, torch.nan)
     c0 = health.iteration_counts(states, stats, ll,
-                                 dynamic_range=dynamic_range)
+                                 dynamic_range=dynamic_range,
+                                 cluster_group=cluster_group)
     vals = np.asarray(_read(ll, torch.where(runs[:, None], c0, 0.0)))
     totals = np.rint(vals[R:].reshape(R, health.NUM_FLAGS)).astype(np.int64)
     for r in np.flatnonzero(runs_np):
@@ -835,7 +850,8 @@ def em_while_loop_batched(states, data_chunks, wts_chunks, epsilon: float,
             ll_new = torch.where(hit, torch.nan, ll_new)
         counts = health.iteration_counts(new_states, new_stats, ll_new, ll,
                                          reg_tol,
-                                         dynamic_range=dynamic_range)
+                                         dynamic_range=dynamic_range,
+                                         cluster_group=cluster_group)
         vals = np.asarray(_read(ll_new, ll_new - ll, counts))  # :748
         counts = np.rint(vals[2 * R:].reshape(R, health.NUM_FLAGS)).astype(
             np.int64)

@@ -135,7 +135,7 @@ def resolve_restart_batch_size(config, data, num_clusters: int,
         return 1
     requested = config.restart_batch_size
     if requested is None:
-        n_events, n_dims = np.shape(data)
+        n_events, n_dims = getattr(data, "shape", None) or np.shape(data)
         requested = restart_batch_auto_cap(config, int(n_events), int(n_dims),
                                            int(num_clusters), device=device)
     return max(1, min(int(requested), config.n_init))
@@ -169,13 +169,15 @@ def _recover_batched(model, config, rollback, chunks, wts, epsilon, k_r,
                                 config=config))
     ladder = health.escalation_ladder(config)
     attempts = []
+    group = (model.mesh.cluster_group
+             if getattr(model, "mesh", None) is not None else None)
     for attempt, rung in enumerate(ladder, start=1):
         m2, cfg2 = health.rung_model(model, config, rung)
         boost = float(config.recovery_boost) ** attempt
         states2 = stack_states([
             health.repair_state(lane(rollback, r), diag_only=cfg2.diag_only,
-                                boost=boost) if live[r] else lane(rollback, r)
-            for r in range(R)])
+                                boost=boost, cluster_group=group)
+            if live[r] else lane(rollback, r) for r in range(R)])
         lo_r = np.where(live, min(config.min_iters, config.max_iters), 0)
         hi_r = np.where(live, config.max_iters, 0)
         states2, ll_np, iters_np = m2.run_em_batched(
@@ -228,7 +230,8 @@ def fit_restarts_batched(prepared, num_clusters: int,
     winner's (no ``profile``: the per-init run_summary records carry an
     empty phase profile, as the JAX package's do)."""
     from .order_search import (
-        GMMResult, _emit_run_start, _emit_run_summary, compute_envelope,
+        GMMResult, _emit_run_start, _emit_run_summary, _host_bounds,
+        compute_envelope,
     )
 
     log = get_logger(config)
@@ -238,8 +241,10 @@ def fit_restarts_batched(prepared, num_clusters: int,
     epsilon = convergence_epsilon(n_events, n_dims, config.epsilon_scale)
     if verbose:
         print(f"epsilon = {epsilon}")  # gaussian.cu:462
+    mesh = getattr(model, "mesh", None)
     if rec.active:
-        rec.set_context(path="in-memory", mesh=None)
+        rec.set_context(path="sharded" if mesh is not None else "in-memory",
+                        mesh=list(mesh.shape) if mesh is not None else None)
     winner = None
     timings = dict.fromkeys(("seed", "em", "merge"), 0.0)
     all_scores = [None] * config.n_init
@@ -266,7 +271,8 @@ def fit_restarts_batched(prepared, num_clusters: int,
             ckpt = SweepCheckpointer(
                 os.path.join(config.checkpoint_dir, f"batch{b0}"),
                 keep=config.checkpoint_keep,
-                retries=config.checkpoint_retries)
+                retries=config.checkpoint_retries,
+                allow_world_change=config.elastic)
         out = _run_batch(model, config, data, num_clusters, stop_number,
                          target_num_clusters, chunks, wts, n_events, n_dims,
                          shift, var_mean, epsilon, idxs, verbose,
@@ -328,6 +334,7 @@ def fit_restarts_batched(prepared, num_clusters: int,
         data_shift=np.asarray(shift), sweep_log=winner["sweep_log"],
         merges=winner["merges"], model=model, init_index=winner["init"],
         timings=timings,
+        host_range=_host_bounds(n_events, config.chunk_size, model)[:2],
         health=health.health_summary(health_totals, recoveries=n_recoveries,
                                      io_retries=io_retries,
                                      restart_drops=n_drops),
@@ -373,6 +380,7 @@ def _run_batch(model, config, data, num_clusters, stop_number,
     R = len(batch_indices)
     dtype = np.dtype(config.dtype)
     dev = model.device
+    mesh = getattr(model, "mesh", None)
     t0 = time.perf_counter()
     rows = np.stack([
         np.asarray(_seed_rows(
@@ -394,6 +402,11 @@ def _run_batch(model, config, data, num_clusters, stop_number,
         Rinv[0, c] = float("inf")
         states = states.replace(R=R_, Rinv=Rinv)
     width = int(states.N.shape[-1])
+    # ``states`` is the model's placement (on a mesh: this rank's clusters
+    # of every lane); scoring, the best states, the merge scan and the
+    # checkpoints use the whole states (``full``).
+    best_states = clone_state(states)
+    states = model.prepare_states_batched(states)
     timings = {"seed": time.perf_counter() - t0, "em": 0.0, "merge": 0.0}
 
     k_r = np.full((R,), num_clusters, np.int64)
@@ -404,7 +417,6 @@ def _run_batch(model, config, data, num_clusters, stop_number,
     best_ll_r = np.full((R,), -np.inf)
     sweep_logs = [[] for _ in range(R)]
     merges = [[] for _ in range(R)]
-    best_states = clone_state(states)
     health_lane = np.zeros((R, health.NUM_FLAGS), np.int64)
     n_recoveries = 0
     recovery_on = config.recovery == "retry"
@@ -427,7 +439,7 @@ def _run_batch(model, config, data, num_clusters, stop_number,
             if not usable(restored):
                 restored = None
         if restored is not None:
-            states = restored["state"].to(dev)
+            states = model.prepare_states_batched(restored["state"])
             best_states = restored["best_state"].to(dev)
             k_r = np.asarray(restored["k"], np.int64).copy()
             alive = np.asarray(restored["alive"], bool).copy()
@@ -456,7 +468,7 @@ def _run_batch(model, config, data, num_clusters, stop_number,
 
     def host_payload():
         return {
-            "state": _batched_host(states),
+            "state": _batched_host(model.gather_states_batched(states)),
             "best_state": _batched_host(best_states),
             "min_rissanen": np.asarray(min_riss_r, np.float64),
             "ideal_k": np.asarray(ideal_k_r, np.int64),
@@ -475,7 +487,7 @@ def _run_batch(model, config, data, num_clusters, stop_number,
 
     while alive.any():
         k_top = int(k_r[alive].max())
-        if sup.active and sup.poll(where="sweep", k=k_top):
+        if sup.active and sup.poll_world(where="sweep", k=k_top):
             _shutdown_and_raise(sup, rec, log, ckpt,
                                 step=step - 1 if step else None, k=k_top,
                                 checkpointed=ckpt is not None and step > 0)
@@ -489,15 +501,20 @@ def _run_batch(model, config, data, num_clusters, stop_number,
                 states, chunks, wts, epsilon, min_iters=lo_r,
                 max_iters=hi_r, n_events=n_events, sweep=True,
                 poll_iters=config.preempt_poll_iters,
-                should_stop=((lambda done, _k=k_top: sup.poll(
+                should_stop=((lambda done, _k=k_top: sup.poll_world(
                     where="em", k=_k, em_iter=done))
                     if sup.active else None),
                 freeze=~live, resume=resume_em)
             resume_em = None
             stopped, extra = model.last_stop
             if stopped:
-                payload = host_payload()
-                payload.update(extra)
+                payload = None
+                if sup.lost_peer is None or mesh is None \
+                        or mesh.cluster_group is None:
+                    # (A lost peer's clusters cannot be gathered: the
+                    # completed steps stay durable.)
+                    payload = host_payload()
+                    payload.update(extra)
                 _shutdown_and_raise(
                     sup, rec, log, ckpt, step=step, k=k_top,
                     em_iter=int(extra.get("em_iter", 0)), payload=payload)
@@ -600,9 +617,10 @@ def _run_batch(model, config, data, num_clusters, stop_number,
                 min_riss_r[r], ideal_k_r[r], best_ll_r[r] = riss, k, ll_f
         if rec.active:
             rec.heartbeat("sweep", k=k_top)
+        full = model.gather_states_batched(states)
         if improved.any():
             best_states = where_lanes(torch.as_tensor(improved, device=dev),
-                                      states, best_states)
+                                      full, best_states)
 
         # --- sweep advance per lane
         finished = live & (k_r <= stop_number)
@@ -612,7 +630,7 @@ def _run_batch(model, config, data, num_clusters, stop_number,
             break
         t0 = time.perf_counter()
         next_states, k_active, min_d, pairs = eliminate_and_reduce_batched(
-            states, live, diag_only=config.diag_only)
+            full, live, diag_only=config.diag_only)
         merge_mask = np.zeros((R,), bool)
         for r in np.flatnonzero(live):
             k_new = int(k_active[r])
@@ -632,14 +650,16 @@ def _run_batch(model, config, data, num_clusters, stop_number,
                          pair=[int(pairs[r][0]), int(pairs[r][1])])
                 rec.metrics.count("merges")
                 rec.set_context(init=None)
+            if mesh is not None:
+                model.assert_same_merge(k_new, pairs[r])
             merge_mask[r] = True
             merges[r].append((k_new, pairs[r], float(min_d[r])))
             k_r[r] = k_new - 1
             if k_r[r] < stop_number:
                 alive[r] = False
         if merge_mask.any():
-            states = where_lanes(torch.as_tensor(merge_mask, device=dev),
-                                 next_states, states)
+            states = model.prepare_states_batched(where_lanes(
+                torch.as_tensor(merge_mask, device=dev), next_states, full))
         timings["merge"] += time.perf_counter() - t0
         if ckpt is not None and alive.any():
             if rec.active:

@@ -98,11 +98,13 @@ def make_stats_fn(config, cluster_sharded: bool = False, cluster_group=None):
         block_b=config.pallas_block_b, precision=config.matmul_precision)
 
 
-def make_batched_stats_fn(config):
-    """Restart-batched stats_fn hook (K3), or None for the torch-ops lane
-    loop."""
-    backend, _ = resolve_estep_backend(config)
-    if backend != "cuda":
+def make_batched_stats_fn(config, cluster_sharded: bool = False):
+    """Restart-batched stats_fn hook (K3), or None for the lane loop: the
+    torch-ops one, or on a cluster-sharded mesh the mesh's own statistics
+    lane by lane (the two-pass K5/K6 has no batched form, as in the JAX
+    package)."""
+    backend, _ = resolve_estep_backend(config, cluster_sharded)
+    if backend != "cuda" or cluster_sharded:
         return None
     return functools.partial(
         fused_stats_cuda_batched, diag_only=config.diag_only,

@@ -38,11 +38,12 @@ import torch.distributed as dist
 
 from ..config import GMMConfig
 from ..models.gmm import (
-    GMMModel, _memberships, em_program_run, setup_device,
+    GMMModel, _memberships, em_program_run, em_while_loop_batched,
+    lane_loop_mstep, lane_loop_stats, resolve_iters_batched, setup_device,
 )
 from ..ops.estep import posteriors
-from ..ops.mstep import SuffStats
-from ..state import compact_to
+from ..ops.mstep import SuffStats, accumulate_stats, apply_mstep
+from ..state import compact_to, lane, stack_states
 from . import distributed
 from .mesh import cluster_slice, make_mesh, pad_clusters, shard_chunks
 
@@ -97,7 +98,10 @@ class ShardedGMMModel:
 
     def __init__(self, config: GMMConfig = GMMConfig(), mesh=None,
                  stats_fn=None):
-        from ..ops.kernels import make_mstep_fn, make_stats_fn, resolve_estep_backend
+        from ..ops.kernels import (
+            make_batched_stats_fn, make_mstep_fn, make_stats_fn,
+            resolve_estep_backend,
+        )
 
         self.config = config
         self.device = setup_device(config)
@@ -109,10 +113,17 @@ class ShardedGMMModel:
             stats_fn = make_stats_fn(config, cluster_sharded=sharded,
                                      cluster_group=self.mesh.cluster_group)
             self.mstep_fn = make_mstep_fn(config, cluster_sharded=sharded)
+            # Restart batches: K3 + K4 per rank on a data-only mesh; the
+            # lanes of the mesh's own loop where these are None.
+            self.batched_stats_fn = make_batched_stats_fn(
+                config, cluster_sharded=sharded)
+            self.batched_mstep_fn = make_mstep_fn(
+                config, cluster_sharded=sharded, batched=True)
         else:
             self.estep_backend = "custom"
             self.estep_backend_reason = "caller-supplied stats_fn"
             self.mstep_fn = None
+            self.batched_stats_fn = self.batched_mstep_fn = None
         self.stats_fn = stats_fn
         self.collective_backend = distributed.backend() or "none"
         # Buckets must stay evenly partitionable over the cluster axis.
@@ -208,6 +219,101 @@ class ShardedGMMModel:
         self.last_health, self.last_lls = run.health, run.lls
         return (run.state, run.loglik, run.iters, run.lls, run.stopped,
                 run.extra)
+
+    # -- restart batches on the mesh (the JAX package's sharded_em.py:
+    # 453-528): the lane axis is replicated over the mesh and the clusters
+    # sharded like one state's (``batched_state_pspecs``).
+
+    def prepare_states_batched(self, states):
+        """This rank's clusters of every lane of a whole restart-batched
+        state: each lane padded to the cluster axis with inert slots, then
+        the rank's rows (``prepare_states_batched``)."""
+        self._k_cols = int(states.N.shape[-1])
+        R = int(states.N.shape[0])
+        return stack_states([
+            cluster_slice(self.mesh, pad_state_clusters(
+                lane(states, r).to(self.device), self.cluster_size))
+            for r in range(R)])
+
+    def gather_states_batched(self, states):
+        """Every lane's whole state from this rank's rows (the batched
+        sibling of :meth:`gather_state`; ``host_batched_state``)."""
+        if self.mesh.cluster_group is None:
+            return states
+        R = int(states.N.shape[0])
+        return stack_states([self.gather_state(lane(states, r))
+                             for r in range(R)])
+
+    def run_em_batched(self, states, data_chunks, wts_chunks, epsilon: float,
+                       min_iters=None, max_iters=None,
+                       n_events: Optional[int] = None, *, sweep: bool = False,
+                       poll_iters: int = 25, should_stop=None, freeze=None,
+                       resume: Optional[dict] = None):
+        """:meth:`GMMModel.run_em_batched` on this rank's shard.
+
+        On a data-only mesh each iteration is one batched statistics pass
+        over the rank's events (K3 on the kernel path), one all_reduce of
+        the [R, ...] statistics over the data axis, and one batched M-step
+        (K4): the JAX package's "one batched kernel launch per iteration
+        per device + one fused collective". With the cluster axis sharded
+        the lanes run the mesh's own statistics and M-step one after
+        another (K5/K6 and the torch-ops update, or the torch-ops
+        collective-LSE path), as the JAX package vmaps its unbatched
+        sharded loop."""
+        cfg = self.config
+        lo, hi = resolve_iters_batched(cfg, states.N.shape[0], min_iters,
+                                       max_iters)
+        group = self.mesh.cluster_group
+        numerics = dict(diag_only=cfg.diag_only, quad_mode=cfg.quad_mode,
+                        matmul_precision=cfg.matmul_precision)
+        stats_fn = self.batched_stats_fn
+        if stats_fn is None and self.cluster_size > 1 and not getattr(
+                self, "_lanes_logged", False):
+            from ..utils.logging_ import get_logger
+
+            self._lanes_logged = True
+            get_logger(cfg).info(
+                "restart batch on a cluster-sharded mesh: the two-pass "
+                "statistics (%s) have no batched form; the %d lanes run "
+                "the mesh's own loop one after another",
+                self.estep_backend_reason, int(states.N.shape[0]))
+        if stats_fn is not None:
+            if n_events is not None and self.estep_backend == "cuda":
+                stats_fn = functools.partial(
+                    stats_fn,
+                    n_events=self.local_events(n_events, data_chunks))
+        else:
+            one = self.stats_fn
+            if one is None:
+                one = functools.partial(accumulate_stats, cluster_group=group,
+                                        **numerics)
+            elif n_events is not None and self.estep_backend == "cuda":
+                one = functools.partial(
+                    one, n_events=self.local_events(n_events, data_chunks))
+            stats_fn = lane_loop_stats(one, diag_only=cfg.diag_only)
+        reduce = self._reduce
+
+        def batched_stats(s, c, w, lane_mask=None):
+            return reduce(stats_fn(s, c, w, lane_mask=lane_mask))
+
+        mstep_fn = self.batched_mstep_fn or lane_loop_mstep(
+            self.mstep_fn or functools.partial(
+                apply_mstep, diag_only=cfg.diag_only, cluster_group=group,
+                covariance_type=cfg.covariance_type))
+        inj = self.armed_fault(states, data_chunks, sweep=sweep, batched=True)
+        run = em_while_loop_batched(
+            states, data_chunks, wts_chunks, epsilon, lo, hi,
+            batched_stats_fn=batched_stats, mstep_fn=mstep_fn,
+            dynamic_range=cfg.covariance_dynamic_range,
+            regression_scale=cfg.health_regression_scale,
+            nan_iter=None if inj is None else int(inj["iter"]),
+            nan_restart=(None if inj is None or "restart" not in inj
+                         else int(inj["restart"])),
+            should_stop=should_stop, poll_iters=poll_iters, freeze=freeze,
+            resume=resume, cluster_group=group)
+        self.last_health, self.last_lls = run.health, run.lls
+        self.last_stop = (run.stopped, run.extra)
+        return run.state, run.loglik, run.iters
 
     def gather_state(self, state):
         """The full state of this rank's mesh row, with the cluster padding

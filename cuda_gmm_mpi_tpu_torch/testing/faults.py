@@ -2,9 +2,11 @@
 
 The port's own copy of the JAX package's ``testing/faults.py``: the same
 kinds, spec format (``GMM_FAULTS``) and firing budgets. The port fires
-``nan_loglik``, ``singular_cov``, ``checkpoint_eio`` and ``preempt``; the
-other kinds belong to paths it does not have yet (streaming, multi-host
-liveness, serving, lifecycle) and are accepted in a plan but never fire.
+``nan_loglik``, ``singular_cov``, ``checkpoint_eio``, ``preempt`` and the
+liveness kinds ``rank_hang``, ``rank_lost`` and ``collective_timeout``
+(supervisor.py, parallel/); the other kinds belong to paths it does not
+have yet (streaming, serving, lifecycle) and are accepted in a plan but
+never fire.
 
 The reference has no way to rehearse its failure modes: a singular
 covariance or NaN event appears only when real data produces one, so the

@@ -165,12 +165,13 @@ def _load_npz_tree(path: str) -> Dict[str, Any]:
     return tree
 
 
-def world_size() -> int:
-    """The torch.distributed world size (1 without a process group)."""
-    import torch.distributed as dist
+def _primary() -> bool:
+    """Rank 0 of the (effective) world writes; every rank holds the same
+    sweep state, so one durable copy on the checkpoint filesystem is the
+    whole story (the JAX package's process-0 writes)."""
+    from ..parallel import elastic
 
-    return (int(dist.get_world_size())
-            if dist.is_available() and dist.is_initialized() else 1)
+    return elastic.world()[0] == 0
 
 
 class SweepCheckpointer:
@@ -178,14 +179,19 @@ class SweepCheckpointer:
 
     ``keep`` bounds the retained steps (default 2: the newest plus one
     fallback in case the newest is torn -- restore() walks back);
-    ``retries`` bounds the retries of a failed write.
+    ``retries`` bounds the retries of a failed write. On a mesh every rank
+    builds one and calls it alike; rank 0 writes and prunes, the others
+    return, and every rank restores. ``allow_world_change`` (an elastic
+    run) accepts a checkpoint written at another world size.
     """
 
-    def __init__(self, directory: str, keep: int = 2, retries: int = 3):
+    def __init__(self, directory: str, keep: int = 2, retries: int = 3,
+                 allow_world_change: bool = False):
         self._dir = os.path.abspath(os.path.join(directory, "sweep"))
         os.makedirs(self._dir, exist_ok=True)
         self._keep = max(1, keep)
         self._retries = max(0, retries)
+        self._allow_world_change = bool(allow_world_change)
         # Transient-failure retries observed so far (run_summary.health).
         self.io_retries = 0
 
@@ -193,21 +199,29 @@ class SweepCheckpointer:
     def _world_meta() -> Dict[str, Any]:
         """The world-size/generation stamp every save carries (the JAX
         package's, so either package diagnoses a world mismatch)."""
-        return {"ckpt_world_size": np.asarray(world_size(), np.int64),
-                "ckpt_generation": np.asarray(0, np.int64)}
+        from ..parallel import elastic
+
+        return {"ckpt_world_size": np.asarray(elastic.world()[1], np.int64),
+                "ckpt_generation": np.asarray(elastic.generation(),
+                                              np.int64)}
 
     def _validate_meta(self, tree: Dict[str, Any], step: int) -> None:
         """Raise when a stamped checkpoint was written at another world
-        size (unstamped ones skip the check)."""
+        size and this run did not opt into world changes (unstamped ones
+        skip the check)."""
         if "ckpt_world_size" not in tree:
             return
+        from ..parallel import elastic
+
         saved = int(np.asarray(tree["ckpt_world_size"]))
-        here = world_size()
-        if saved != here:
+        gen = int(np.asarray(tree.get("ckpt_generation", 0)))
+        here = int(elastic.world()[1])
+        if saved != here and not self._allow_world_change:
             raise ValueError(
                 f"checkpoint step {step} was written at world size {saved} "
-                f"but this run has {here} process(es); resume at the "
-                "original world size")
+                f"(membership generation {gen}) but this run has {here} "
+                "host(s); resume at the original world size, or pass "
+                "--elastic to accept a shrunken world")
 
     def _write_with_retries(self, op: str, step: int,
                             write: Callable[[], None]) -> bool:
@@ -281,6 +295,8 @@ class SweepCheckpointer:
         (GMMState on the CPU) and plain scalars/arrays. Write failures
         retry with jittered backoff (``retries``); ``op`` names the write
         in the ``io_retry`` records."""
+        if not _primary():
+            return
         flat = flatten_tree(dict(payload, **self._world_meta()))
         target = os.path.join(self._dir, f"{step}.npz")
         if self._write_with_retries(
@@ -301,7 +317,10 @@ class SweepCheckpointer:
         mid-EM state of the K being fitted at sweep step ``step`` with its
         iteration count and loglik trajectory (``em_iter``/``em_lls``). It
         outranks every full step below it at restore time and is pruned
-        when its K completes. Returns True when durable."""
+        when its K completes. Returns True when durable (on rank 0; the
+        other ranks write nothing and return True)."""
+        if not _primary():
+            return True
         flat = flatten_tree(dict(payload, em_iter=np.int64(em_iter),
                                  **self._world_meta()))
         target = os.path.join(self._dir, f"{step}.iter{em_iter}.npz")
@@ -320,7 +339,9 @@ class SweepCheckpointer:
 
     def discard_substeps(self, step: int) -> None:
         """Drop intra-K sub-steps at or below ``step`` (that K completed).
-        Best-effort."""
+        Best-effort; rank 0 only."""
+        if not _primary():
+            return
         for s, i in self._substeps():
             if s <= step:
                 try:

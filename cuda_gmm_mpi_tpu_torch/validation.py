@@ -30,11 +30,23 @@ def finite_row_stats(local: np.ndarray, start: int = 0, dtype=None):
     return n_bad, first_bad
 
 
-def validate_finite(local: np.ndarray, start: int = 0, dtype=None) -> None:
+def validate_finite(local: np.ndarray, start: int = 0, dtype=None,
+                    collective: bool = False) -> None:
     """Reject rows that are (or will become, once cast to ``dtype``, the
     compute dtype) non-finite: a value like 1e39 is finite in float64 but
-    overflows to Inf in float32."""
+    overflows to Inf in float32. With ``collective`` every rank of the
+    world checks its own slice (``start`` its first global row) and all
+    reach the same verdict (one gather of the counts), so a bad row on one
+    rank never strands the others in a later collective."""
     n_bad, first_bad = finite_row_stats(local, start, dtype=dtype)
+    if collective:
+        from .parallel import distributed
+
+        both = distributed.allgather_host(np.asarray([n_bad, first_bad],
+                                                     np.int64))
+        n_bad = int(both[:, 0].sum())
+        firsts = [int(f) for f in both[:, 1] if f >= 0]
+        first_bad = min(firsts) if firsts else -1
     if n_bad:
         raise InvalidInputError(
             f"input contains {n_bad} non-finite event row(s) "

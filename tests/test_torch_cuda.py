@@ -29,7 +29,10 @@ float64 at twice the plain version's error (floored at the mode's unit
 roundoff) always, and in the class of the plain version wherever that
 version itself lies within the class of float64. The mesh tests run 2-rank
 gloo worlds on the one GPU against single-device EM (float32, loglik rtol
-1e-5). ``GaussianMixture`` fits spherical and tied on the card (K1 for the
+1e-5); there K3 on a rank's block of the events and K4 on the all_reduced
+statistics must be torch.equal to the same launches outside the world, and
+restarts on a mesh (K3/K4 per rank, or K5/K6 per lane when the clusters
+are sharded) must pick the one-card fit's init, K and merge pairs. ``GaussianMixture`` fits spherical and tied on the card (K1 for the
 statistics, the torch-ops M-step) against the same fits on torch ops.
 """
 
@@ -837,6 +840,142 @@ def test_data_only_mesh_em_through_k1_k2_matches_single_device(dev, tmp_path):
         scale = float(np.abs(s.means.cpu().numpy()).max())
         np.testing.assert_allclose(r["state"]["means"], s.means.cpu().numpy(),
                                    rtol=1e-5, atol=1e-5 * scale)
+
+
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_k3_k4_on_a_rank_shard_equal_the_launch_outside_the_world(
+        dev, tmp_path, diag):
+    """The mesh restart loop's kernels inside a 2-rank (2, 1) world on the
+    one GPU: K3 on each rank's block of the events, then K4 on the
+    all_reduced statistics, are torch.equal to the same launches outside
+    the world (the reduction of two ranks is one addition, the same in
+    either order), and are held to their plain versions as today: K3 in
+    the K1 class over the live lanes, its frozen lane zero; K4's ok, N,
+    means and R equal to the plain version."""
+    from cuda_gmm_mpi_tpu_torch.parallel import distributed
+
+    from .torch_mesh_worker import k3_k4_shard_case, spawn_world
+
+    rng = np.random.default_rng(31 + diag)
+    k, d, chunk = 40, 8, 1024
+    data = rng.normal(scale=3.0, size=(5000, d)).astype(np.float32)
+    states_np = [_state(rng, k, d, diag, inactive=inact)
+                 for inact in ((1,), (), (0, 3))]
+    mask = [True, False, True]
+    ranks = spawn_world(k3_k4_shard_case, 2, tmp_path, data, states_np,
+                        chunk, diag, mask, device="cuda")
+    states = stack_states([state_from_numpy(st, device=dev)
+                           for st in states_np])
+    chunks, wts = chunk_events(data, chunk, num_shards=2)
+    block = chunks.shape[0] // 2
+    lanes = torch.tensor(mask, device=dev)
+    locals_ = []
+    for r in ranks:
+        assert r["launches"] == (1, 1)
+        lo, hi = r["rank"] * block, (r["rank"] + 1) * block
+        assert r["n"] == min(max(data.shape[0] - lo * chunk, 1),
+                             block * chunk)
+        c = torch.as_tensor(chunks[lo:hi], device=dev)
+        w = torch.as_tensor(wts[lo:hi], device=dev)
+        out = fs.fused_stats_cuda_batched(states, c, w, lanes,
+                                          diag_only=diag, n_events=r["n"])
+        for f in dataclasses.fields(out):
+            assert torch.equal(getattr(out, f.name).cpu(),
+                               torch.as_tensor(r["local"][f.name])), f.name
+        x, wt = fs._prep_events(c, w)
+        params = [fs._prep_params(lane(states, i), d, diag) for i in range(3)]
+        A, h, g = (torch.stack(p) for p in zip(*params))
+        got = fs.fused_stats_batched(x[:r["n"]], wt[:r["n"]],
+                                     lanes.float(), A, h, g, diag=diag)
+        ref = fs.fused_stats_batched_plain(x[:r["n"]], wt[:r["n"]],
+                                           lanes.float(), A, h, g, diag=diag)
+        for a, b, name in zip(got, ref, TOL):
+            assert not a[1].any(), name
+            rtol, atol = TOL[name]
+            err = float((a - b).abs().max())
+            assert err <= atol + rtol * float(b.abs().max()), (name, err)
+        locals_.append(out)
+    reduced = SuffStats(*(getattr(locals_[0], f.name)
+                          + getattr(locals_[1], f.name)
+                          for f in dataclasses.fields(SuffStats)))
+    ops = fs._mstep_operands(states, reduced, diag)
+    out = fs.mstep_batched(*ops, diag=diag)
+    plain = fs.mstep_batched_plain(*ops, diag=diag)
+    for i in (0, 1, 2, 6):
+        assert torch.equal(out[i], plain[i]), i
+    mine = fs.fused_mstep_cuda_batched(states, reduced, diag_only=diag)
+    for r in ranks:
+        for f in dataclasses.fields(reduced):
+            assert torch.equal(getattr(reduced, f.name).cpu(),
+                               torch.as_tensor(r["reduced"][f.name])), f.name
+        for f in dataclasses.fields(mine):
+            assert torch.equal(getattr(mine, f.name).cpu(),
+                               torch.as_tensor(r["mstep"][f.name])), f.name
+    assert distributed.world_size() == 1
+
+
+def test_mesh_restarts_through_k3_k4_match_one_card(dev, tmp_path):
+    """n_init = 3 on a (2, 1) mesh of two ranks on the one GPU runs K3 and
+    K4 on every rank (K3 once per batched iteration and sweep step, K4 once
+    per iteration; K1, K2, K5, K6 never) and picks the one-card batched
+    fit's init, K and merge pairs, loglik within rtol 1e-5."""
+    from .torch_mesh_worker import run_cases, spawn_world
+
+    rng = np.random.default_rng(12)
+    c = rng.normal(scale=4, size=(4, 5))
+    x = np.concatenate([rng.normal(c[i], 1, (600, 5))
+                        for i in range(4)]).astype(np.float32)
+    kw = dict(min_iters=8, max_iters=8, n_init=3, seed=1,
+              restart_batch_size=3, chunk_size=512)
+    ranks = [r[0] for r in spawn_world(
+        run_cases, 2, tmp_path, [("counted_fit_case", dict(
+            data=x, k0=4, target=3, mesh_shape=(2, 1), **kw))],
+        device="cuda")]
+    ref = fit_gmm(x, 4, 3, config=GMMConfig(**kw))
+    steps = len(ref.sweep_log)
+    for r in ranks:
+        lc = r["launches"]
+        assert lc["K3"] == 8 * steps + steps and lc["K4"] == 8 * steps, lc
+        assert lc["K1"] == lc["K2"] == lc["K5"] == lc["K6"] == 0, lc
+        assert r["init_index"] == ref.init_index
+        assert r["k"] == ref.ideal_num_clusters
+        assert r["merges"] == [m[1] for m in ref.merges]
+        np.testing.assert_allclose(r["final_loglik"], ref.final_loglik,
+                                   rtol=1e-5)
+
+
+def test_cluster_sharded_mesh_restarts_through_k5_k6_match_one_card(
+        dev, tmp_path):
+    """Diag restarts (n_init = 3) on a (1, 2) mesh: each lane runs the
+    mesh's own statistics, K5 + K6 once per lane and E-step (K1-K4 never),
+    and the fit picks the one-card batched fit's init, K and merge pairs,
+    loglik within rtol 1e-5."""
+    from .torch_mesh_worker import run_cases, spawn_world
+
+    rng = np.random.default_rng(13)
+    c = rng.normal(scale=4, size=(4, 5))
+    x = np.concatenate([rng.normal(c[i], 1, (600, 5))
+                        for i in range(4)]).astype(np.float32)
+    kw = dict(min_iters=8, max_iters=8, n_init=3, seed=1, diag_only=True,
+              restart_batch_size=3, chunk_size=512)
+    ranks = [r[0] for r in spawn_world(
+        run_cases, 2, tmp_path, [("counted_fit_case", dict(
+            data=x, k0=4, target=3, mesh_shape=(1, 2), **kw))],
+        device="cuda")]
+    ref = fit_gmm(x, 4, 3, config=GMMConfig(**kw))
+    steps = len(ref.sweep_log)
+    for r in ranks:
+        lc = r["launches"]
+        # 9 E-steps (8 iterations and the initial one) per lane and step,
+        # for every lane whose sweep has not ended.
+        assert lc["K5"] == lc["K6"] and 0 < lc["K5"] <= 3 * 9 * steps, lc
+        assert lc["K5"] % 9 == 0, lc
+        assert lc["K1"] == lc["K2"] == lc["K3"] == lc["K4"] == 0, lc
+        assert r["init_index"] == ref.init_index
+        assert r["k"] == ref.ideal_num_clusters
+        assert r["merges"] == [m[1] for m in ref.merges]
+        np.testing.assert_allclose(r["final_loglik"], ref.final_loglik,
+                                   rtol=1e-5)
 
 
 _MMA_PROBE = r"""

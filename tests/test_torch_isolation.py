@@ -38,8 +38,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "cuda_gmm_mpi_tpu_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 15
-    assert {"sharded_em.py", "mesh.py", "distributed.py"} <= {
+    assert {"sharded_em.py", "mesh.py", "distributed.py", "elastic.py"} <= {
         p.name for p in files if p.parent.name == "parallel"}
+    assert REPO / "cuda_gmm_mpi_tpu_torch" / "supervisor.py" in files
     assert (REPO / "cuda_gmm_mpi_tpu_torch" / "estimator.py") in files
     models = REPO / "cuda_gmm_mpi_tpu_torch" / "models"
     assert {models / "fused_sweep.py", models / "em_program.py"} <= set(files)

@@ -102,6 +102,10 @@ CASES = {
        for m, diag in SHARDED32},
     ("pad32", (1, 4)): _em_case("pad32", (1, 4), diag=True, stats="sharded"),
     ("collectives",): ("collectives_case", {}),
+    ("restarts", (2, 2)): ("fit_case", dict(
+        data=INPUTS["fit"], k0=5, target=2, min_iters=3, max_iters=3,
+        chunk_size=128, dtype="float64", mesh_shape=(2, 2), n_init=3,
+        restart_batch_size=3)),
 }
 
 
@@ -306,13 +310,21 @@ def test_single_process_mesh():
                                   GMMModel(cfg).memberships(state, chunks))
 
 
-def test_mesh_with_restarts_is_not_ported():
+def test_mesh_with_restarts_matches_one_process(world):
+    """n_init > 1 on a (2, 2) mesh (the batched restart loop over each
+    rank's events and clusters) picks the winner, K and merge pairs of one
+    process's batched restarts, to its loglik within rtol 1e-9."""
     from cuda_gmm_mpi_tpu_torch import fit_gmm
 
-    data = np.random.default_rng(0).normal(size=(64, 2))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        fit_gmm(data, 2, config=GMMConfig(device="cpu", n_init=2,
-                                          mesh_shape=(1, 1)))
+    ref = fit_gmm(INPUTS["fit"], 5, 2, config=GMMConfig(
+        device="cpu", min_iters=3, max_iters=3, chunk_size=128,
+        dtype="float64", n_init=3, restart_batch_size=3))
+    for r in world[("restarts", (2, 2))]:
+        assert r["init_index"] == ref.init_index
+        assert r["k"] == ref.ideal_num_clusters
+        assert r["merges"] == [m[1] for m in ref.merges]
+        np.testing.assert_allclose(r["final_loglik"], ref.final_loglik,
+                                   rtol=1e-9)
 
 
 # ------------------------------------------------------------- the CLI

@@ -123,15 +123,29 @@ def test_deadline_and_inert_default():
             supervisor.EX_TEMPFAIL) == (70, 74, 75)
 
 
-def test_mesh_refuses_supervision(monkeypatch):
-    """A mesh of more than one rank refuses checkpoints and the supervisor
-    (multi-host liveness is ROADMAP item 9), never running unsupervised."""
+def test_mesh_supervision_resumes_like_one_process(tmp_path):
+    """Checkpoints, --max-runtime and the supervisor run on a mesh model
+    too: a stop at EM iteration 3 on a (1, 1) mesh writes the emergency
+    sub-step, and the resumed fit equals the uninterrupted one."""
     from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm
-    from cuda_gmm_mpi_tpu_torch.parallel import distributed
 
-    monkeypatch.setattr(distributed, "world_size", lambda: 2)
-    data = np.random.default_rng(0).normal(size=(64, 2))
-    for cfg in (dict(checkpoint_dir="unused"), dict(max_runtime_s=10.0)):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fit_gmm(data, 2, config=GMMConfig(device="cpu", mesh_shape=(2, 1),
-                                              **cfg))
+    data = np.random.default_rng(0).normal(size=(256, 2))
+    data[:128] += 6.0
+    cfg = dict(device="cpu", dtype="float64", mesh_shape=(1, 1),
+               min_iters=6, max_iters=6, preempt_poll_iters=1,
+               checkpoint_dir=str(tmp_path / "ck"))
+    ref = fit_gmm(data, 4, 2, config=GMMConfig(
+        **dict(cfg, checkpoint_dir=None)))
+    with pytest.raises(supervisor.PreemptedError) as ei:
+        with faults.use({"preempt": {"iter": 3}}), supervisor.use(
+                supervisor.RunSupervisor(install_signals=False)):
+            fit_gmm(data, 4, 2, config=GMMConfig(**cfg))
+    assert ei.value.step == 0 and ei.value.em_iter == 3
+    with supervisor.use(supervisor.RunSupervisor(install_signals=False)):
+        res = fit_gmm(data, 4, 2, config=GMMConfig(**cfg))
+    assert res.ideal_num_clusters == ref.ideal_num_clusters
+    assert res.final_loglik == ref.final_loglik
+    assert [m[1] for m in res.merges] == [m[1] for m in ref.merges]
+    with pytest.raises(supervisor.PreemptedError, match="deadline"):
+        fit_gmm(data, 4, 2, config=GMMConfig(**dict(
+            cfg, max_runtime_s=1e-9, checkpoint_dir=str(tmp_path / "ck2"))))

@@ -9,6 +9,7 @@ package, so the ranks never load them.
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import pickle
 from pathlib import Path
@@ -95,10 +96,71 @@ def fit_case(data, k0, target, **cfg):
     from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm
 
     r = fit_gmm(data, k0, target, config=GMMConfig(device="cpu", **cfg))
+    return _summary(r)
+
+
+def _summary(r):
     return dict(k=r.ideal_num_clusters, merges=[m[1] for m in r.merges],
                 min_rissanen=r.min_rissanen, final_loglik=r.final_loglik,
                 means=r.means, sweep=[row[:4] for row in r.sweep_log],
-                envelope=r.envelope)
+                envelope=r.envelope, init_index=r.init_index,
+                host_range=r.host_range)
+
+
+def supervised_fit_case(data, k0, target, faults_spec=None, only_rank=None,
+                        **cfg):
+    """``fit_gmm`` under a run supervisor (no signal handlers) with the
+    fault plan ``faults_spec`` armed (on rank ``only_rank`` alone, when
+    set); returns the fit's summary, or the stop's exception type, step,
+    iteration and reason."""
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm, supervisor
+    from cuda_gmm_mpi_tpu_torch.parallel import distributed
+    from cuda_gmm_mpi_tpu_torch.testing import faults
+
+    if only_rank is not None and distributed.rank() != only_rank:
+        faults_spec = None
+    try:
+        with faults.use(faults_spec or {}), supervisor.use(
+                supervisor.RunSupervisor(install_signals=False)):
+            r = fit_gmm(data, k0, target,
+                        config=GMMConfig(device="cpu", **cfg))
+    except (supervisor.PreemptedError, supervisor.PeerLostError) as e:
+        return dict(stopped=type(e).__name__,
+                    step=getattr(e, "step", None),
+                    em_iter=getattr(e, "em_iter", None),
+                    reason=getattr(e, "reason", None))
+    return _summary(r)
+
+
+def moments_case(data, chunk, data_axis):
+    """This rank's ``host_chunk_bounds`` slice of ``data`` and the global
+    moments from every rank's slice (one all_reduce)."""
+    from cuda_gmm_mpi_tpu_torch.parallel import distributed
+
+    me, world = distributed.rank(), distributed.world_size()
+    start, stop, num = distributed.host_chunk_bounds(
+        data.shape[0], chunk, data_axis, me, world)
+    mean, var = distributed.global_moments(data[start:stop], chunk, num,
+                                           index=me, count=world)
+    return dict(bounds=(start, stop, num), mean=mean, var=var)
+
+
+def assemble_case(tmp_dir, payloads, shared):
+    """Each rank writes ``payloads[rank]`` as its .results part (in one
+    shared directory, or a directory of its own) and the ranks assemble
+    them; returns the assembled bytes on rank 0 and the files left."""
+    from cuda_gmm_mpi_tpu_torch.parallel import distributed
+
+    me = distributed.rank()
+    tmp = Path(tmp_dir)
+    part_dir = tmp / ("parts" if shared else f"parts{me}")
+    out = tmp / "out.results"
+    part = distributed.results_part_path(str(out), part_dir=str(part_dir))
+    Path(part).write_bytes(payloads[me])
+    distributed.assemble_results_multihost(str(out), part, chunk_bytes=7)
+    distributed.barrier()
+    left = sorted(str(p.relative_to(tmp)) for p in tmp.rglob("*.part*"))
+    return dict(out=out.read_bytes() if me == 0 else None, left=left)
 
 
 def collectives_case():
@@ -118,3 +180,55 @@ def collectives_case():
 def run_cases(cases):
     """Several cases in one world, in order: [(function name, kwargs)]."""
     return [globals()[name](**kw) for name, kw in cases]
+
+
+def k3_k4_shard_case(data, states_np, chunk, diag, lane_mask):
+    """K3 on this rank's block of the chunk grid of a (2, 1) mesh, the
+    all_reduce of its [R, ...] statistics over the data axis, and K4 on the
+    reduced statistics -- the mesh restart loop's three steps -- on the
+    card; returns the rank's block bounds, and every output as numpy."""
+    from cuda_gmm_mpi_tpu_torch import GMMConfig
+    from cuda_gmm_mpi_tpu_torch.interop import state_from_numpy
+    from cuda_gmm_mpi_tpu_torch.models.gmm import chunk_events
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.parallel import ShardedGMMModel, shard_chunks
+    from cuda_gmm_mpi_tpu_torch.state import stack_states
+
+    model = ShardedGMMModel(GMMConfig(chunk_size=chunk, diag_only=diag,
+                                      mesh_shape=(2, 1)))
+    chunks, wts = chunk_events(np.asarray(data, np.float32), chunk,
+                               num_shards=2)
+    c, w = shard_chunks(model.mesh, chunks, wts)
+    c, w = model.place(c), model.place(w)
+    states = model.prepare_states_batched(stack_states(
+        [state_from_numpy(s) for s in states_np]))
+    n = model.local_events(data.shape[0], c)
+    mask = torch.as_tensor(lane_mask, device=model.device)
+    k3, k4 = fs.fused_stats_batched.launches, fs.mstep_batched.launches
+    local = fs.fused_stats_cuda_batched(states, c, w, mask, diag_only=diag,
+                                        n_events=n)
+    reduced = model._reduce(local)
+    out = fs.fused_mstep_cuda_batched(states, reduced, diag_only=diag)
+    torch.cuda.synchronize()
+    leaves = lambda t: {f.name: getattr(t, f.name).cpu().numpy()
+                        for f in dataclasses.fields(t)}
+    return dict(rank=model.mesh.rank, n=n, local=leaves(local),
+                reduced=leaves(reduced), mstep=leaves(out),
+                launches=(fs.fused_stats_batched.launches - k3,
+                          fs.mstep_batched.launches - k4))
+
+
+def counted_fit_case(data, k0, target, **cfg):
+    """``fit_gmm`` on the card with every kernel's launch counter set to 0
+    just before; returns the fit's summary and the counts."""
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    counters = dict(K1=fs.fused_stats, K2=fs.mstep, K3=fs.fused_stats_batched,
+                    K4=fs.mstep_batched, K5=fs.local_lse, K6=fs.stats_logz)
+    for c in counters.values():
+        c.launches = 0
+    r = fit_gmm(data, k0, target, config=GMMConfig(**cfg))
+    out = _summary(r)
+    out["launches"] = {k: c.launches for k, c in counters.items()}
+    return out
