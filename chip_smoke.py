@@ -246,6 +246,35 @@ Phases (any failure exits non-zero, and no result line is printed):
    the one-card batched fit (init, K, merge pairs, loglik rtol 1e-5). One
    JSON line per part, each with the card's name and power limit.
 
+16. out-of-core EM (models/streaming.py, io/pipeline.py) at 10,000,000 x
+   24 float32 events of phase 4's generator (960 MB, written to a BIN file
+   in slices), K 100 -> 98, 10 iterations per K, 65,536-event blocks (153
+   per pass). (a) Each fit in a process of its own (``--p16-arm``), after a
+   warm-up fit, so that its host peak is its own: in memory (K1/K2 on the
+   whole grid), streaming 'resident', streaming 'pipelined' and 'resident'
+   at 1,048,576-event blocks: EM iterations/s after the first K, K1/K2
+   launches (K1 once per block per pass, K2 once per M-step), the peak
+   device memory and the peak VmRSS above the process's baseline (sampled
+   every 10 ms). The streaming fits have the in-memory fit's K and merge
+   pairs with the final loglik within rtol 1e-4; 'pipelined' equals
+   'resident' exactly (means, R, pi, loglik), and its host peak lies at
+   least 0.7 x the file below 'resident''s. (b) One pipelined pass under a
+   torch.profiler window: K1's device time per block, the device idle
+   share, the host-to-device copies and the host's wait on ingestion
+   against the rest of the pass. (c) Stepwise EM on the pipelined 10M file
+   (minibatches of 1,048,576 events, 40 steps per K): steps/s and the
+   final loglik's distance from (a)'s full EM, printed; the bar of
+   tests/test_ingest.py (within 10 x convergence_epsilon of full EM) in
+   that test's regime at 1M events (4 blobs, K = 4, 12 full iterations
+   against 340 steps over a quarter of the events). (d) On phase 4's 1M
+   events, pipelined: a ``preempt`` at pass 3, block 7 of K = 100 stops
+   the fit (exit 75 in the CLI) with the partial accumulator in the
+   sub-step, and the resumed fit == the uninterrupted one. (e) 2 ranks of
+   a (2, 1) data mesh on the one card (gloo), each streaming its half of
+   the 1M BIN pipelined: each rank's K1 launches (8 blocks per pass) and
+   K2 launches, the one-process streaming fit's K and merge pairs with the
+   loglik within rtol 1e-5, ms per pass per rank.
+
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Whatever happens, it leaves no
@@ -3462,6 +3491,471 @@ def phase_mesh_whole(data, workdir: Path, card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------------ phase 16
+
+P16_EVENTS, P16_ITERS, P16_TARGET = 10_000_000, 10, K0 - 2  # K 100 -> 98
+P16_CHUNK, P16_BIG_CHUNK = 65536, 1 << 20
+P16_MB_SIZE, P16_MB_STEPS = 1 << 20, 40
+# The stepwise-EM bar of tests/test_ingest.py:251-266 in that test's regime,
+# on 1M events: K = the 4 blobs of phase 4's generator, full EM 12
+# iterations against 340 steps over a quarter of the events each (the
+# test's matched gamma sum and minibatch share).
+P16_BAR_K, P16_BAR_FULL, P16_BAR_STEPS, P16_BAR_SIZE = 4, 12, 340, 1 << 18
+P16_PREEMPT = {"iter": 3, "block": 7}
+P16_TIMEOUT_S = 600
+P16_ARMS = ("inmemory", "resident", "pipelined", "resident_1m", "minibatch")
+
+
+def write_blobs_bin(path: str, seed: int, n: int, d: int, k: int,
+                    spread: float = NEAR, rows: int = 1 << 20) -> None:
+    """Phase 4's generator (:func:`make_blobs`: the same centres, weights and
+    spreads drawn from ``seed``), its labels and noise drawn and written
+    ``rows`` events at a time into a BIN file, so the writer never holds
+    the data."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-spread, spread, size=(k, d))
+    weights = rng.uniform(0.5, 1.5, size=k)
+    scales = rng.uniform(0.5, 1.5, size=k)
+    p = weights / weights.sum()
+    with open(path, "wb") as f:
+        np.asarray([n, d], np.int32).tofile(f)
+        for lo in range(0, n, rows):
+            m = min(rows, n - lo)
+            labels = rng.choice(k, size=m, p=p)
+            x = centers[labels] + rng.normal(size=(m, d)) * scales[labels, None]
+            f.write(x.astype(np.float32).tobytes())
+
+
+def _rss_mib() -> float:
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS:"):
+                return int(line.split()[1]) / 1024
+    return float("nan")
+
+
+@contextlib.contextmanager
+def rss_peak():
+    """The peak of VmRSS above the entry value, sampled every 10 ms on a
+    thread (phase 15's measure): yields a dict that holds ``base_mib`` and,
+    after the block, ``peak_above_mib``."""
+    import threading
+
+    out = {"base_mib": _rss_mib()}
+    peak, done = [out["base_mib"]], threading.Event()
+
+    def sample():
+        while not done.wait(0.01):
+            peak[0] = max(peak[0], _rss_mib())
+
+    t = threading.Thread(target=sample, daemon=True)
+    t.start()
+    try:
+        yield out
+    finally:
+        done.set()
+        t.join()
+        out["peak_above_mib"] = max(peak[0], _rss_mib()) - out["base_mib"]
+
+
+def _p16_rate(result) -> float:
+    """EM iterations (steps) per second over the Ks after the first."""
+    rows = result.sweep_log[1:] or result.sweep_log
+    return sum(r[3] for r in rows) / sum(r[4] for r in rows)
+
+
+def p16_arm(arm: str, infile: str, outdir: str) -> dict:
+    """``--p16-arm``: one fit of phase 16 (a)/(c) in this process, after a
+    warm-up fit of the same kind on the file's first 131,072 events (the
+    kernels and the native reader loaded, the allocators primed), so the
+    host peak above the baseline is the fit's own. Writes the final
+    state to ``outdir/<arm>.npz``; returns the record."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, GMMModel, fit_gmm
+    from cuda_gmm_mpi_tpu_torch.io import FileSource, read_data, write_bin
+    from cuda_gmm_mpi_tpu_torch.models.streaming import StreamingGMMModel
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import _build
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    _build.build_all()
+    stream = arm != "inmemory"
+    extra = dict(
+        resident={}, pipelined=dict(ingest="pipelined"),
+        resident_1m=dict(chunk_size=P16_BIG_CHUNK),
+        minibatch=dict(ingest="pipelined", em_mode="minibatch",
+                       minibatch_size=P16_MB_SIZE, min_iters=P16_MB_STEPS,
+                       max_iters=P16_MB_STEPS),
+    ).get(arm, {})
+    kw = dict(dict(min_iters=P16_ITERS, max_iters=P16_ITERS,
+                   chunk_size=P16_CHUNK), **extra)
+    if stream:
+        kw["stream_events"] = True
+
+    def run(path, k0, target, **over):
+        config = GMMConfig(**dict(kw, **over))
+        model = (StreamingGMMModel if stream else GMMModel)(config)
+        data = FileSource(path) if stream else read_data(path)
+        return fit_gmm(data, k0, target, config=config, model=model), model
+
+    warm = os.path.join(outdir, f"warm_{arm}.bin")
+    write_bin(warm, read_data(infile, 0, 1 << 17))
+    run(warm, 4, 4, min_iters=2, max_iters=2)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fs.fused_stats.launches = fs.mstep.launches = 0
+    with rss_peak() as host:
+        t0 = time.perf_counter()
+        result, model = run(infile, K0, P16_TARGET)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+    st = result.state
+    np.savez(os.path.join(outdir, f"{arm}.npz"), means=st.means.cpu().numpy(),
+             R=st.R.cpu().numpy(), pi=st.pi.cpu().numpy(),
+             loglik=np.float64(result.final_loglik))
+    rec = dict(
+        arm=arm, backend=model.estep_backend, k=result.ideal_num_clusters,
+        merges=[list(m[1]) for m in result.merges],
+        final_loglik=result.final_loglik,
+        sweep=[list(r[:5]) for r in result.sweep_log],
+        iters=sum(r[3] for r in result.sweep_log), ks=len(result.sweep_log),
+        rate_after_first_k=_p16_rate(result), fit_s=fit_s,
+        launches={"K1": fs.fused_stats.launches, "K2": fs.mstep.launches},
+        chunk_size=kw["chunk_size"],
+        device_peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+        host_peak_above_base_mib=host["peak_above_mib"],
+        host_base_mib=host["base_mib"])
+    if arm == "pipelined":
+        rec["profile"] = profile_stream_pass(model, result, infile)
+    return rec
+
+
+def profile_stream_pass(model, result, infile: str) -> dict:
+    """Phase 16 (b): one pipelined pass of the final K's state under a
+    torch.profiler window (the card's activity only, as phase 4's window):
+    K1 device time per block (kernel + reduction), the device idle share
+    between the first K1 and the last reduction, the host-to-device copies,
+    and the host's wait on ingestion (``prefetch_wait_s``) against the
+    rest of the pass."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from cuda_gmm_mpi_tpu_torch.io import FileSource, PipelinedBlockSource
+
+    n = FileSource(infile).shape[0]
+    cs = model.config.chunk_size
+    blocks = -(-n // cs)
+    shift = np.asarray(result.data_shift, np.float32)
+    state = result.state.to(model.device)
+
+    def one_pass():
+        src = PipelinedBlockSource(FileSource(infile), start=0, stop=n,
+                                   chunk_size=cs, num_chunks=blocks,
+                                   shift=shift, dtype=np.float32)
+        model._set_local_rows(src, None)
+        t0 = time.perf_counter()
+        model._estep_all(state, src, None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        src.close()
+        return wall, src.prefetch_wait_s
+
+    one_pass()  # warm
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.02)
+        wall, wait = one_pass()
+        time.sleep(0.02)
+    dev = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    starts = [e.time_range.start for e in dev if "fused_stats_kernel" in e.name]
+    ends = [e.time_range.end for e in dev if "reduce_partials" in e.name]
+    check(len(starts) == blocks and len(ends) == blocks,
+          f"(b) profiler: {len(starts)} K1 kernels, {len(ends)} reductions "
+          f"for {blocks} blocks")
+    lo, hi = starts[0], ends[-1]
+    busy, end = 0.0, lo
+    for e in dev:
+        a, b = max(e.time_range.start, end), min(e.time_range.end, hi)
+        if b > a:
+            busy += b - a
+        end = max(end, e.time_range.end)
+    copies = [e.time_range.elapsed_us() for e in dev
+              if "memcpy" in e.name.lower() and "htod" in e.name.lower()]
+    k1 = [(e - s) / 1e3 for s, e in zip(starts, ends)]
+    rec = dict(blocks=blocks, pass_wall_s=wall, prefetch_wait_s=wait,
+               host_other_s=wall - wait, window_ms=(hi - lo) / 1e3,
+               device_idle_share=1.0 - busy / (hi - lo),
+               k1_ms_per_block=float(np.mean(k1)),
+               k1_ms_per_block_median=float(np.median(k1)),
+               h2d_copies=len(copies),
+               h2d_ms_per_block=(float(np.mean(copies)) / 1e3 if copies
+                                 else None))
+    return rec
+
+
+def stepwise_bar(workdir: Path, seed: int) -> dict:
+    """Phase 16 (c)'s bar: stepwise EM within 10 x convergence_epsilon of
+    full EM (tests/test_ingest.py:251-266), in that test's regime at 1M x 24:
+    phase 4's generator with 4 blobs, K = 4 fixed, both fits streaming the
+    BIN pipelined; full EM 12 iterations, stepwise EM 340 steps of 262,144
+    events (a quarter of the data, as the test's 1024 of 4096)."""
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm
+    from cuda_gmm_mpi_tpu_torch.io import FileSource
+    from cuda_gmm_mpi_tpu_torch.ops.formulas import convergence_epsilon
+
+    path = str(workdir / "bar.bin")
+    write_blobs_bin(path, seed, N_EVENTS, DIMS, P16_BAR_K)
+    kw = dict(chunk_size=P16_CHUNK, stream_events=True, ingest="pipelined")
+    full = fit_gmm(FileSource(path), P16_BAR_K, P16_BAR_K, config=GMMConfig(
+        min_iters=P16_BAR_FULL, max_iters=P16_BAR_FULL, **kw))
+    t0 = time.perf_counter()
+    mb = fit_gmm(FileSource(path), P16_BAR_K, P16_BAR_K, config=GMMConfig(
+        min_iters=P16_BAR_STEPS, max_iters=P16_BAR_STEPS, em_mode="minibatch",
+        minibatch_size=P16_BAR_SIZE, **kw))
+    mb_s = time.perf_counter() - t0
+    eps = convergence_epsilon(N_EVENTS, DIMS)
+    dist = mb.final_loglik - full.final_loglik
+    check(abs(dist) <= 10.0 * eps,
+          f"(c) stepwise EM {dist:.6g} from full EM at 1M events (bar "
+          f"10 x epsilon = {10 * eps:.6g})")
+    return dict(bar_events=N_EVENTS, bar_k=P16_BAR_K,
+                bar_full_iters=P16_BAR_FULL, bar_steps=P16_BAR_STEPS,
+                bar_minibatch=P16_BAR_SIZE, bar_loglik_minus_full_em=dist,
+                bar_10_epsilon=10.0 * eps, bar_steps_per_s=P16_BAR_STEPS / mb_s,
+                bar_full_loglik=full.final_loglik)
+
+
+def _p16_arm_subprocess(arm: str, infile: str, outdir: str) -> dict:
+    proc = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--p16-arm", arm,
+         "--p16-file", infile, "--p16-out", outdir],
+        capture_output=True, text=True, timeout=P16_TIMEOUT_S)
+    check(proc.returncode == 0,
+          f"(a) the {arm} arm failed:\n{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+def _p16_rank(rank, world, workdir):
+    """One rank of phase 16 (e): the pipelined streaming fit of phase 4's
+    1M-event BIN on a (2, 1) mesh. Writes p16_rank<r>.json."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm
+    from cuda_gmm_mpi_tpu_torch.io import FileSource
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.parallel import distributed
+
+    workdir = Path(workdir)
+    distributed.initialize("cuda", coordinator=f"file://{workdir}/store16",
+                           num_processes=world, process_id=rank,
+                           timeout_s=P16_TIMEOUT_S)
+    try:
+        fs.fused_stats.launches = fs.mstep.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = fit_gmm(FileSource(str(workdir / "events1m.bin")), K0, P16_TARGET,
+                    config=GMMConfig(
+                        min_iters=P16_ITERS, max_iters=P16_ITERS,
+                        chunk_size=P16_CHUNK, stream_events=True,
+                        ingest="pipelined", mesh_shape=(2, 1)))
+        torch.cuda.synchronize()
+        rec = dict(rank=rank, k=r.ideal_num_clusters,
+                   merges=[list(m[1]) for m in r.merges],
+                   final_loglik=r.final_loglik, host_range=list(r.host_range),
+                   iters=sum(x[3] for x in r.sweep_log),
+                   ks=len(r.sweep_log), em_s=sum(x[4] for x in r.sweep_log),
+                   fit_s=time.perf_counter() - t0,
+                   launches={"K1": fs.fused_stats.launches,
+                             "K2": fs.mstep.launches},
+                   backend=r.model.estep_backend)
+        (workdir / f"p16_rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        distributed.shutdown()
+
+
+def _p16_mesh(workdir: Path) -> list:
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_p16_rank, args=(2, str(workdir)), nprocs=2,
+                             join=False, start_method="spawn")
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > P16_TIMEOUT_S:
+                raise PhaseError(f"phase 16 ranks still running after "
+                                 f"{P16_TIMEOUT_S} s")
+    except mp.ProcessRaisedException as e:
+        raise PhaseError(f"a phase 16 rank failed: {e}") from None
+    except mp.ProcessExitedException as e:
+        raise PhaseError(f"a phase 16 rank died: {e}") from None
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        stop_resource_tracker()
+    return [json.loads((workdir / f"p16_rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def phase_out_of_core(data, workdir: Path, card: str, seed: int) -> dict:
+    """Phase 16: out-of-core EM on the card (see the module docstring)."""
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm, supervisor
+    from cuda_gmm_mpi_tpu_torch.io import FileSource, write_bin
+    from cuda_gmm_mpi_tpu_torch.ops.formulas import convergence_epsilon
+    from cuda_gmm_mpi_tpu_torch.parallel.distributed import host_chunk_bounds
+    from cuda_gmm_mpi_tpu_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    big = str(workdir / "events10m.bin")
+    t0 = time.perf_counter()
+    write_blobs_bin(big, seed, P16_EVENTS, DIMS, K_TARGET)
+    write_s = time.perf_counter() - t0
+    file_mib = os.path.getsize(big) / 2 ** 20
+    print(f"  wrote {P16_EVENTS} x {DIMS} float32 events ({file_mib:.1f} MiB) "
+          f"in {write_s:.1f} s; card: {card}")
+
+    # (a) the fits, each arm in its own process; (b) rides the pipelined
+    # arm; (c)'s 10M stepwise fit is the last arm.
+    arms = {}
+    for arm in P16_ARMS:
+        arms[arm] = _p16_arm_subprocess(arm, big, str(workdir))
+        a = arms[arm]
+        print(json.dumps({"phase16": "a", "card": card,
+                          **{k: v for k, v in a.items() if k != "sweep"}}))
+    mem = arms["inmemory"]
+    blocks = -(-P16_EVENTS // P16_CHUNK)
+    for arm in ("inmemory", "resident", "pipelined", "resident_1m"):
+        a = arms[arm]
+        check(a["backend"] == "cuda", f"(a) {arm} backend {a['backend']}")
+        passes = a["iters"] + a["ks"]
+        per_pass = (1 if arm == "inmemory"
+                    else -(-P16_EVENTS // a["chunk_size"]))
+        check(a["launches"]["K1"] == per_pass * passes
+              and a["launches"]["K2"] == a["iters"],
+              f"(a) {arm}: K1 {a['launches']['K1']} for {passes} passes of "
+              f"{per_pass} block(s), K2 {a['launches']['K2']} for "
+              f"{a['iters']} M-steps")
+        if arm != "inmemory":
+            check(a["k"] == mem["k"] and a["merges"] == mem["merges"],
+                  f"(a) {arm}: K {a['k']}, pairs {a['merges']} against the "
+                  f"in-memory fit's {mem['k']}, {mem['merges']}")
+            rel = abs(a["final_loglik"] - mem["final_loglik"]) / abs(
+                mem["final_loglik"])
+            check(rel <= 1e-4, f"(a) {arm}: loglik rtol {rel:.2e} > 1e-4")
+            a["loglik_rtol_vs_inmemory"] = rel
+    res = np.load(workdir / "resident.npz")
+    pipe = np.load(workdir / "pipelined.npz")
+    same = {k: bool(np.array_equal(res[k], pipe[k]))
+            for k in ("means", "R", "pi", "loglik")}
+    check(all(same.values()),
+          f"(a) pipelined differs from resident: {same}")
+    gap = (arms["resident"]["host_peak_above_base_mib"]
+           - arms["pipelined"]["host_peak_above_base_mib"])
+    check(gap >= 0.7 * file_mib,
+          f"(a) pipelined host peak only {gap:.1f} MiB below resident's "
+          f"(bar: 0.7 x {file_mib:.1f} MiB)")
+    print(f"  (a) EM iterations/s after the first K: in-memory "
+          f"{mem['rate_after_first_k']:.2f}, resident "
+          f"{arms['resident']['rate_after_first_k']:.2f} (65,536-event "
+          f"blocks, {blocks} per pass), pipelined "
+          f"{arms['pipelined']['rate_after_first_k']:.2f}, resident at "
+          f"1,048,576-event blocks "
+          f"{arms['resident_1m']['rate_after_first_k']:.2f}; pipelined == "
+          f"resident; host peak above baseline (MiB): in-memory "
+          f"{mem['host_peak_above_base_mib']:.1f}, resident "
+          f"{arms['resident']['host_peak_above_base_mib']:.1f}, pipelined "
+          f"{arms['pipelined']['host_peak_above_base_mib']:.1f}; device "
+          f"peak (MiB): in-memory {mem['device_peak_mib']:.1f}, resident "
+          f"{arms['resident']['device_peak_mib']:.1f}, pipelined "
+          f"{arms['pipelined']['device_peak_mib']:.1f}")
+    prof = arms["pipelined"]["profile"]
+    print(json.dumps({"phase16": "b", "card": card, **prof}))
+
+    # (c) stepwise EM on 10M: steps/s and the distance from (a)'s full EM
+    mb = arms["minibatch"]
+    steps = mb["iters"]
+    mb_blocks = P16_MB_SIZE // P16_CHUNK
+    check(mb["launches"]["K1"] == steps * mb_blocks + mb["ks"] * blocks
+          and mb["launches"]["K2"] == steps,
+          f"(c) stepwise: K1 {mb['launches']['K1']}, K2 "
+          f"{mb['launches']['K2']} for {steps} steps")
+    eps10 = convergence_epsilon(P16_EVENTS, DIMS)
+    dist10 = mb["final_loglik"] - arms["pipelined"]["final_loglik"]
+    bar = stepwise_bar(workdir, seed)
+    small = str(workdir / "events1m.bin")
+    write_bin(small, data)
+    rec_c = dict(card=card, steps_10m=steps,
+                 steps_per_s_10m=steps / sum(r[4] for r in mb["sweep"]),
+                 minibatch_10m=P16_MB_SIZE, k_10m=mb["k"],
+                 loglik_minus_full_em_10m=dist10,
+                 convergence_epsilon_10m=eps10, **bar)
+    print(json.dumps({"phase16": "c", **rec_c}))
+
+    # (d) stop at pass 3, block 7 of K = 100 and resume, pipelined, 1M
+    cfg = dict(min_iters=P16_ITERS, max_iters=P16_ITERS,
+               chunk_size=P16_CHUNK, stream_events=True, ingest="pipelined")
+
+    def supervised(ck, spec=None):
+        with faults.use(spec or {}), supervisor.use(
+                supervisor.RunSupervisor(install_signals=False)):
+            try:
+                return fit_gmm(FileSource(small), K0, P16_TARGET,
+                               config=GMMConfig(checkpoint_dir=ck, **cfg)), 0
+            except supervisor.PreemptedError as e:
+                return e, supervisor.EX_TEMPFAIL
+    ref, _ = supervised(str(workdir / "ck_ref"))
+    stop, rc = supervised(str(workdir / "ck"), {"preempt": P16_PREEMPT})
+    check(rc == 75 and stop.step == 0,
+          f"(d) the stop gave exit {rc}, step {getattr(stop, 'step', None)}")
+    subs = sorted((workdir / "ck" / "sweep").glob("*.iter*.npz"))
+    check(len(subs) == 1, f"(d) sub-steps {subs}")
+    with np.load(subs[0]) as z:
+        where = (int(z["stream_pass"]), int(z["stream_block"]))
+    check(where == (P16_PREEMPT["iter"], P16_PREEMPT["block"] + 1),
+          f"(d) stopped at pass/block {where}")
+    resumed, rc2 = supervised(str(workdir / "ck"))
+    check(rc2 == 0 and _equal_fits(resumed, ref),
+          "(d) the resumed fit differs from the uninterrupted one")
+    rec_d = dict(card=card, exit=rc, stopped_at_pass_block=list(where),
+                 em_iter=stop.em_iter, resumed_equal=True,
+                 final_loglik=resumed.final_loglik)
+    print(json.dumps({"phase16": "d", **rec_d}))
+
+    # (e) a (2, 1) data mesh on the one card, pipelined, against one process
+    one = fit_gmm(FileSource(small), K0, P16_TARGET, config=GMMConfig(**cfg))
+    ranks = _p16_mesh(workdir)
+    one_pairs = [list(m[1]) for m in one.merges]
+    rec_e = dict(card=card, ranks=[])
+    per_rank_blocks = host_chunk_bounds(data.shape[0], P16_CHUNK, 2, 0, 2)[2]
+    for rk in ranks:
+        passes = rk["iters"] + rk["ks"]
+        check(rk["backend"] == "cuda"
+              and rk["launches"]["K1"] == per_rank_blocks * passes
+              and rk["launches"]["K2"] == rk["iters"],
+              f"(e) rank {rk['rank']}: launches {rk['launches']} for "
+              f"{passes} passes of {per_rank_blocks} blocks")
+        check(rk["k"] == one.ideal_num_clusters and rk["merges"] == one_pairs,
+              f"(e) rank {rk['rank']}: K {rk['k']}, pairs {rk['merges']} "
+              f"against one process's {one.ideal_num_clusters}, {one_pairs}")
+        rel = abs(rk["final_loglik"] - one.final_loglik) / abs(
+            one.final_loglik)
+        check(rel <= 1e-5, f"(e) rank {rk['rank']}: loglik rtol {rel:.2e}")
+        rec_e["ranks"].append(dict(
+            rank=rk["rank"], launches=rk["launches"], loglik_rtol=rel,
+            host_range=rk["host_range"], ms_per_pass=1e3 * rk["em_s"] / passes,
+            fit_s=rk["fit_s"]))
+    print(json.dumps({"phase16": "e", **rec_e}))
+    out = dict(arms=arms, b=prof, c=rec_c, d=rec_d, e=rec_e,
+               file_mib=file_mib, write_s=write_s,
+               wall_s=time.perf_counter() - t_phase)
+    print(f"  phase 16 took {out['wall_s']:.1f} s; {card}")
+    return out
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -3470,6 +3964,11 @@ def main() -> int:
                     "checkout in DIR, in turns with this one")
     ap.add_argument("--rate-of", default=None, metavar="ROOT",
                     help=argparse.SUPPRESS)  # phase 12's subprocess mode
+    # phase 16's subprocess mode: one arm of (a) on one file
+    ap.add_argument("--p16-arm", default=None, choices=P16_ARMS,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--p16-file", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--p16-out", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
 
@@ -3485,6 +3984,10 @@ def main() -> int:
         print(f"chip_smoke: run from a checkout of the repository ({e})",
               file=sys.stderr)
         return 1
+    if args.p16_arm:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        print(json.dumps(p16_arm(args.p16_arm, args.p16_file, args.p16_out)))
+        return 0
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card_line()
@@ -3668,6 +4171,17 @@ def main() -> int:
     finally:
         shutil.rmtree(wholedir, ignore_errors=True)
 
+    print("phase 16: out-of-core EM: in-memory, resident and pipelined "
+          "streaming at 10M events, one pass profiled, stepwise EM, stop "
+          "and resume, a data mesh")
+    oocdir = Path(__file__).resolve().parent / "build" / "chip_smoke_ooc"
+    shutil.rmtree(oocdir, ignore_errors=True)
+    oocdir.mkdir(parents=True)
+    try:
+        ooc = phase_out_of_core(data, oocdir, card, args.seed)
+    finally:
+        shutil.rmtree(oocdir, ignore_errors=True)
+
     src = "cuda_gmm_mpi_tpu_torch/csrc/"
     pallas = "cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py:"
     kernels = [
@@ -3773,6 +4287,20 @@ def main() -> int:
             rank=x["rank"], launches=x["launches"][key],
             ms_per_lane_estep=x["ms_per_lane_estep"])
             for x in whole["e"]["ranks"]]
+    # The streaming path (phase 16): each arm's K1/K2 launches counted
+    # from 0 around its fit, K1's device time per 65,536-event block.
+    stream_arms = {a: dict(launches=r["launches"],
+                           em_iters_per_s=r["rate_after_first_k"],
+                           chunk_size=r["chunk_size"])
+                   for a, r in ooc["arms"].items()}
+    kernels[0]["streaming"] = dict(
+        arms=stream_arms, ms_per_block=ooc["b"]["k1_ms_per_block"],
+        device_idle_share=ooc["b"]["device_idle_share"],
+        mesh_ranks=[dict(rank=r["rank"], launches=r["launches"]["K1"],
+                         ms_per_pass=r["ms_per_pass"])
+                    for r in ooc["e"]["ranks"]])
+    kernels[1]["streaming"] = {a: r["launches"]["K2"]
+                               for a, r in ooc["arms"].items()}
     kernels[0]["estimator"] = estimator
     kernels[0]["containment"] = containment
     kernels[0]["capture"] = capture

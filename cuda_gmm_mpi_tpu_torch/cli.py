@@ -34,6 +34,13 @@ emergency checkpoint (with ``--checkpoint-dir``), and the same command
 with ``--resume auto`` (the default) continues inside the interrupted fit.
 ``--metrics-file`` writes the JSONL event stream.
 
+Out of core (the JAX CLI's flags): ``--stream-events`` streams the events
+through the device block by block on every pass (K1 per block on the
+card); ``--ingest=pipelined`` never reads the file whole (a worker thread
+reads each block's rows, and the memberships pass reads the file block by
+block too); ``--em-mode=minibatch`` runs stepwise EM over
+``--minibatch-size`` events per step.
+
 Observability (the JAX CLI's): ``--profile`` prints the seven-category
 phase table (gaussian.cu:967), the I/O time and the EM time;
 ``--trace-dir DIR`` writes a torch.profiler Chrome trace of the fit;
@@ -162,6 +169,34 @@ def build_parser() -> argparse.ArgumentParser:
                    "fixed width. The fused sweep is fixed-width by design")
     p.add_argument("--no-validate-input", action="store_true",
                    help="skip the NaN/Inf input-row check at load")
+    o = p.add_argument_group("out of core (models/streaming.py)")
+    o.add_argument("--stream-events", action="store_true",
+                   help="stream the event chunks through the device block "
+                   "by block on every EM pass (N bounded by host memory, "
+                   "not device memory; slower -- use only when the data "
+                   "exceeds the device). Composes with --mesh=S to stream "
+                   "each rank's slice")
+    o.add_argument("--ingest", default="resident",
+                   choices=["resident", "pipelined"],
+                   help="how --stream-events chunks reach the host: "
+                   "'resident' loads the rank's slice up front; 'pipelined' "
+                   "reads each block's rows from the input file on a worker "
+                   "thread while the device computes, so host memory is "
+                   "O(queue depth x block) -- results bit-identical")
+    o.add_argument("--ingest-queue-depth", type=int, default=4,
+                   help="blocks --ingest=pipelined may read ahead")
+    o.add_argument("--em-mode", default="full", choices=["full", "minibatch"],
+                   help="'full' runs batch EM; 'minibatch' runs stepwise EM "
+                   "(Cappe-Moulines decayed sufficient statistics) over "
+                   "--minibatch-size events per step")
+    o.add_argument("--minibatch-size", type=int, default=0,
+                   help="events per stepwise-EM step (rounded up to whole "
+                   "blocks); 0 = one block per step")
+    o.add_argument("--minibatch-t0", type=float, default=2.0,
+                   help="stepwise-EM step size (t + t0)^-alpha: t0")
+    o.add_argument("--minibatch-alpha", type=float, default=0.7,
+                   help="stepwise-EM step size (t + t0)^-alpha: alpha in "
+                   "(0.5, 1]")
     p.add_argument("--init-from", default=None, metavar="MODEL.summary",
                    help="warm-start: initial means from a saved .summary "
                    "model (its K must equal num_clusters); covariances/"
@@ -342,7 +377,11 @@ def main(argv=None) -> int:
             metrics_file=args.metrics_file, profile=args.profile,
             metrics_port=args.metrics_port,
             peer_timeout_s=args.peer_timeout, elastic=args.elastic,
-            min_hosts=args.min_hosts)
+            min_hosts=args.min_hosts, stream_events=args.stream_events,
+            ingest=args.ingest, ingest_queue_depth=args.ingest_queue_depth,
+            em_mode=args.em_mode, minibatch_size=args.minibatch_size,
+            minibatch_t0=args.minibatch_t0,
+            minibatch_alpha=args.minibatch_alpha)
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
@@ -367,6 +406,9 @@ def main(argv=None) -> int:
             ("--fused-sweep", args.fused_sweep),
             ("--sweep-k-buckets", args.sweep_k_buckets != "pow2"),
             ("--part-dir", args.part_dir),
+            ("--stream-events", args.stream_events),
+            ("--ingest", args.ingest != "resident"),
+            ("--em-mode", args.em_mode != "full"),
         ]
         for flag, present in fit_only:
             if present:
@@ -422,11 +464,19 @@ def _run(args, config, rank: int, world: int) -> int:
     if args.allow_nonfinite and world > 1:
         print("--allow-nonfinite is a single-process mode", file=sys.stderr)
         return 1
+    if args.allow_nonfinite and config.ingest == "pipelined":
+        # Quarantine drops rows from a materialized array; pipelined
+        # ingestion reads fixed row ranges and never holds the array.
+        print("--allow-nonfinite requires --ingest=resident (quarantine "
+              "rewrites the event array; pipelined ingestion reads fixed "
+              "byte ranges)", file=sys.stderr)
+        return 1
     t0 = time.perf_counter()
-    if world > 1:
+    if world > 1 or config.ingest == "pipelined":
         # Per-rank reading: the fit pulls each rank's rows through the file
         # source (the reference broadcast the whole dataset,
-        # gaussian.cu:191-201).
+        # gaussian.cu:191-201); under --ingest=pipelined only the blocks in
+        # flight, and the memberships pass reads the file block by block.
         data, rc = _read_events(args.infile, source=True)
     else:
         data, rc = _read_events(args.infile,
@@ -531,10 +581,15 @@ def _fit_and_write(args, config, model, data, init_means, t_io) -> int:
             lo, hi = _output_rows(result, config.chunk_size)
             part = distributed.results_part_path(out_path,
                                                  part_dir=args.part_dir)
+            rows = (_SourceRows(data, lo, hi)
+                    if config.ingest == "pipelined"
+                    else data.read_range(lo, hi))
             stream_results(part, iter_memberships(
-                result, data.read_range(lo, hi), config, result.model))
+                result, rows, config, result.model))
             distributed.assemble_results_multihost(out_path, part)
         else:
+            # ``data`` is the events, or under --ingest=pipelined the file
+            # source, which iter_memberships reads block by block.
             stream_results(out_path, iter_memberships(result, data, config,
                                                       result.model))
     t_out = time.perf_counter() - t_out0
@@ -546,6 +601,19 @@ def _fit_and_write(args, config, model, data, init_means, t_io) -> int:
         print(f"EM time: {em_s * 1e3:.3f} (ms) over "
               f"{sum(r[3] for r in result.sweep_log)} iterations")
     return 0
+
+
+class _SourceRows:
+    """Rows [lo, hi) of a file source, read slice by slice: the memberships
+    pass of an out-of-core rank reads its rows block by block."""
+
+    def __init__(self, source, lo: int, hi: int):
+        self.source, self.lo, self.hi = source, lo, hi
+        self.shape = (hi - lo, source.shape[1])
+
+    def __getitem__(self, key):
+        start, stop, _ = key.indices(self.shape[0])
+        return self.source.read_range(self.lo + start, self.lo + stop)
 
 
 def _output_rows(result, chunk_size: int):

@@ -94,6 +94,42 @@ class GMMConfig:
     # boundary (at most ceil(log2 K0) + 1 widths, one EM program each);
     # 'off' keeps the starting width.
     sweep_k_buckets: str = "pow2"
+
+    # --- out of core (models/streaming.py, io/pipeline.py) ---
+    # Stream the events through the device block by block on every EM pass
+    # instead of uploading them once: the device holds one block (two on
+    # the card, double-buffered) and the statistics, so N is bounded by
+    # host memory (or, with ingest='pipelined', by the disk). Each block's
+    # statistics are one K1 launch and each M-step one K2 launch where the
+    # routing table (ops/kernels/__init__.py) gives 'cuda'; torch ops
+    # elsewhere. The JAX package refuses ``use_pallas='always'`` here,
+    # because its streaming path runs no Pallas kernel; this port's
+    # counterpart, ``estep_backend='cuda'``, is honoured: streaming runs on
+    # K1/K2 like the in-memory path. A data mesh (S, 1) streams each
+    # rank's slice and sums the statistics over the data axis once per
+    # pass.
+    stream_events: bool = False
+    # 'resident' reads this rank's events into host memory before
+    # streaming; 'pipelined' never does: a worker thread reads each
+    # block's rows from the file (a FileSource), casts and centres them
+    # while the device computes the previous block, so host memory is
+    # O(ingest_queue_depth x block). Bit-identical to 'resident'.
+    ingest: str = "resident"  # 'resident' | 'pipelined'
+    # Blocks the pipelined reader may hold ahead of the device.
+    ingest_queue_depth: int = 4
+    # 'full' = batch EM, one M-step per pass over the data; 'minibatch' =
+    # stepwise EM (Cappe & Moulines 2009): each step streams the next
+    # minibatch, rescales its statistics to the full weight, folds them
+    # into a running estimate with gamma_t = (t + minibatch_t0) **
+    # -minibatch_alpha and runs the M-step on it. min/max_iters count
+    # steps; one full pass gives the final loglik. Needs stream_events.
+    em_mode: str = "full"  # 'full' | 'minibatch'
+    # Events per minibatch, rounded up to whole streamed blocks (chunk_size
+    # x the data-axis size); 0 = one block per step.
+    minibatch_size: int = 0
+    minibatch_t0: float = 2.0
+    # In (0.5, 1] (the Robbins-Monro conditions).
+    minibatch_alpha: float = 0.7
     # Reject NaN/Inf event rows before any arithmetic (the reference's
     # reader admits them silently); False skips the check.
     validate_input: bool = True
@@ -271,6 +307,43 @@ class GMMConfig:
                     "precompute_features is the torch-ops feature hoist; "
                     "the CUDA kernels build their features on chip -- drop "
                     "one flag")
+            if self.stream_events:
+                raise ValueError(
+                    "precompute_features holds all features in device "
+                    "memory; stream_events exists because the data does "
+                    "not fit there -- drop one flag")
+        if (self.stream_events and self.mesh_shape is not None
+                and len(self.mesh_shape) == 2 and self.mesh_shape[1] != 1):
+            raise ValueError(
+                "stream_events shards events only; the cluster mesh axis "
+                "must be 1 (use mesh_shape=(S, 1))")
+        if self.ingest not in ("resident", "pipelined"):
+            raise ValueError(
+                f"unknown ingest: {self.ingest!r} "
+                "(expected 'resident' or 'pipelined')")
+        if self.ingest == "pipelined" and not self.stream_events:
+            raise ValueError(
+                "ingest='pipelined' feeds the streaming block loop; it "
+                "requires stream_events=True")
+        if self.ingest_queue_depth < 1:
+            raise ValueError("ingest_queue_depth must be >= 1")
+        if self.em_mode not in ("full", "minibatch"):
+            raise ValueError(
+                f"unknown em_mode: {self.em_mode!r} "
+                "(expected 'full' or 'minibatch')")
+        if self.em_mode == "minibatch" and not self.stream_events:
+            raise ValueError(
+                "em_mode='minibatch' is the streaming stepwise EM loop; it "
+                "requires stream_events=True")
+        if not 0.5 < self.minibatch_alpha <= 1.0:
+            raise ValueError(
+                f"minibatch_alpha must lie in (0.5, 1], got "
+                f"{self.minibatch_alpha}")
+        if self.minibatch_t0 < 0:
+            raise ValueError("minibatch_t0 must be >= 0")
+        if self.minibatch_size < 0:
+            raise ValueError(
+                "minibatch_size must be >= 0 (0 = one block per step)")
         if self.checkpoint_keep < 1:
             raise ValueError("checkpoint_keep must be >= 1")
         if self.max_runtime_s is not None and self.max_runtime_s <= 0:

@@ -422,7 +422,11 @@ def reseed_empty_clusters(model, state, chunks, seed: int = 0):
     empty = np.flatnonzero(act & (nk < MEMBERSHIP_FLOOR))
     if empty.size == 0:
         return state, 0
-    block = chunks.reshape(-1, chunks.shape[-1])[:model.inference_block]
+    if hasattr(chunks, "get_block"):  # a pipelined source: its block 0
+        block = chunks.get_block(0)[0]
+    else:
+        block = chunks.reshape(-1, chunks.shape[-1])[:model.inference_block]
+    block = torch.as_tensor(block, device=state.means.device)
     _, logz = model.infer_posteriors(state, block)
     worst = np.argsort(logz.cpu().numpy()[:block.shape[0]],
                        kind="stable")[:empty.size]

@@ -13,13 +13,42 @@ implements the reference's ``readData.cpp`` semantics:
   LINE IS DROPPED as a header (readData.cpp:84); blank lines skipped
   (readData.cpp:61); ragged rows -> error (readData.cpp:104-107); fields parsed
   with atof semantics (invalid text parses as 0.0)
+
+What a read learns about a file -- its shape, a BIN header, a CSV's row ->
+byte-offset marks -- is kept in a per-path metadata cache (``_file_meta``,
+the JAX package's), keyed by (absolute path, mtime_ns, size) so that a
+rewritten file never serves stale metadata. A CSV range read seeks to the
+nearest mark at or before its first row instead of parsing the file from
+byte 0, so the per-block reads of pipelined ingestion (io/pipeline.py)
+each parse their own rows after the first pass. The cache is shared by
+threads (the pipeline's worker reads through it).
 """
 
 from __future__ import annotations
 
+import os
+import threading
 from typing import Optional, Tuple
 
 import numpy as np
+
+_META_LOCK = threading.Lock()
+_META_CACHE: dict = {}
+
+
+def _file_meta(path: str) -> dict:
+    """The metadata dict of ``path`` at its current (mtime, size); entries
+    of an earlier version of the file are dropped. The dict is shared by
+    every caller and thread: each write to it is one item assignment."""
+    st = os.stat(path)
+    key = (os.path.abspath(path), st.st_mtime_ns, st.st_size)
+    with _META_LOCK:
+        meta = _META_CACHE.get(key)
+        if meta is None:
+            for k in [k for k in _META_CACHE if k[0] == key[0]]:
+                del _META_CACHE[k]
+            meta = _META_CACHE[key] = {}
+        return meta
 
 
 class TruncatedInputError(ValueError):
@@ -104,18 +133,23 @@ def screen_nonfinite(data: np.ndarray, path: str, *, mode: str = "reject",
 def data_shape(path: str, use_native: str = "auto"):
     """(num_events, num_dimensions) without loading the payload: BIN reads
     its 8-byte header, CSV makes one streaming pass counting the non-blank
-    lines after the header."""
+    lines after the header. Cached per (path, mtime, size)."""
     from .native import select
 
     native = select(use_native)
+    meta = _file_meta(path)
+    if meta.get("shape") is not None:
+        return meta["shape"]
     if native is not None:
-        return native.data_shape(path)
+        meta["shape"] = tuple(native.data_shape(path))
+        return meta["shape"]
     if path.endswith("bin"):
         with open(path, "rb") as f:
             header = np.fromfile(f, dtype=np.int32, count=2)
         if header.size != 2:
             raise TruncatedInputError(f"{path}: truncated BIN header")
-        return int(header[0]), int(header[1])
+        meta["shape"] = (int(header[0]), int(header[1]))
+        return meta["shape"]
     num_dims, rows = None, 0
     with open(path, "rb") as f:
         for raw in f:
@@ -128,21 +162,28 @@ def data_shape(path: str, use_native: str = "auto"):
                 rows += 1
     if num_dims is None:
         raise ValueError(f"{path}: empty input file")
-    return rows, num_dims
+    meta["shape"] = (rows, num_dims)
+    return meta["shape"]
 
 
 def read_bin(path: str, start: int = 0,
              stop: Optional[int] = None) -> np.ndarray:
-    """BIN rows [start, stop): the 8-byte header, one seek and one bounded
-    read of the float32 payload (readData.cpp:35-47)."""
+    """BIN rows [start, stop): the 8-byte header (cached per file after the
+    first read), one seek and one bounded read of the float32 payload
+    (readData.cpp:35-47)."""
     _check_range(path, start, stop)
+    meta = _file_meta(path)
     with open(path, "rb") as f:
-        header = np.fromfile(f, dtype=np.int32, count=2)
-        if header.size != 2:
-            raise TruncatedInputError(f"{path}: truncated BIN header")
-        num_events, num_dims = int(header[0]), int(header[1])
-        if num_events <= 0 or num_dims <= 0:
-            raise ValueError(f"{path}: malformed BIN header {header.tolist()}")
+        hdr = meta.get("bin_header")
+        if hdr is None:
+            header = np.fromfile(f, dtype=np.int32, count=2)
+            if header.size != 2:
+                raise TruncatedInputError(f"{path}: truncated BIN header")
+            if header[0] <= 0 or header[1] <= 0:
+                raise ValueError(
+                    f"{path}: malformed BIN header {header.tolist()}")
+            hdr = meta["bin_header"] = (int(header[0]), int(header[1]))
+        num_events, num_dims = hdr
         stop = num_events if stop is None else stop
         if stop > num_events:
             raise ValueError(f"{path}: range [{start}, {stop}) out of bounds "
@@ -185,22 +226,45 @@ def read_csv(path: str, start: int = 0,
     buffer, O(slice) memory; a bounded ``stop`` ends the scan there.
 
     The first non-blank line is dropped as a header (readData.cpp:84) and sets
-    the dimension count; ragged rows raise (readData.cpp:104-107).
+    the dimension count; ragged rows raise (readData.cpp:104-107). Each read
+    leaves row -> byte-offset marks at the range's ends in the file's
+    metadata cache, and a later read starts at the nearest mark at or before
+    ``start`` instead of byte 0.
     """
     _check_range(path, start, stop)
-    num_dims = None
+    meta = _file_meta(path)
+    marks = meta.setdefault("csv_marks", {})
+    num_dims = meta.get("csv_dims")
+    resume_row, resume_off = -1, 0
+    if num_dims is not None:
+        for r, off in list(marks.items()):
+            if resume_row < r <= start:
+                resume_row, resume_off = r, off
     data = None
-    seen = row = 0
+    seen = 0
+    row = max(resume_row, 0)
     with open(path, "rb") as f:
-        for raw in f:
+        header_done = resume_row >= 0
+        if header_done:
+            f.seek(resume_off)
+        while True:
+            pos = f.tell()
+            raw = f.readline()
+            if not raw:
+                break
             line = raw.decode("utf-8").strip("\r\n")
             if line == "":
                 continue  # blank lines skipped (readData.cpp:61)
-            if num_dims is None:
-                num_dims = line.count(",") + 1
+            if not header_done:
+                num_dims = meta["csv_dims"] = line.count(",") + 1
+                header_done = True
+                marks.setdefault(0, f.tell())
                 continue
             if stop is not None and row >= stop:
+                marks.setdefault(row, pos)
                 break
+            if row == start:
+                marks.setdefault(row, pos)
             row += 1
             if row <= start:
                 continue

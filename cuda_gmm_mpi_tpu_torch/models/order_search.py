@@ -55,7 +55,18 @@ writes), polls the supervisor at the same points (a stop on any rank stops
 all of them there: ``RunSupervisor.poll_world``) and, with a checkpoint
 directory, runs the liveness watchdog; ``elastic`` shrinks the world over
 the survivors of a lost peer and refits from the newest checkpoint (the
-retry loop of :func:`fit_gmm`). Streaming is not ported.
+retry loop of :func:`fit_gmm`).
+
+With ``stream_events`` the fit runs on ``models.StreamingGMMModel``: the
+chunk grid stays on the host and every E-step pass streams it through the
+device block by block (a data mesh ``(S, 1)`` streams each rank's slice).
+Under ``ingest='pipelined'`` the events are never read whole:
+``_prepare_data`` takes the moments and the input check in one pass of
+range reads (``io.streamed_moments``) and hands the model a
+``io.PipelinedBlockSource`` that reads each block on a worker thread. The
+outermost :func:`fit_gmm` owns that source: it closes it (joining its
+worker) on every way out, and an elastic refit re-seeks it to the
+survivor's rows instead of reopening the file.
 
 Observability at the JAX package's sites and under its conditions: a fit
 with an active recorder (or ``profile``) times its phases in the
@@ -194,25 +205,31 @@ def _emit_run_start(rec, model, config, n_events, n_dims, num_clusters,
         device_count=int(world), local_device_count=1,
         dtype=config.dtype, chunk_size=int(config.chunk_size),
         covariance_type=config.covariance_type, criterion=config.criterion,
-        fused_sweep=bool(config.fused_sweep), stream_events=False,
+        fused_sweep=bool(config.fused_sweep),
+        stream_events=bool(config.stream_events),
         n_init=int(config.n_init),
         em_backend=model.estep_backend,
         em_backend_reason=model.estep_backend_reason,
         memory_stats=telemetry.memory_stats(dev), **extra)
 
 
-def _emit_em_iters(rec, k, lls, iters, dt, epsilon):
+def _emit_em_iters(rec, k, lls, iters, dt, epsilon, model=None):
     """Per-iteration ``em_iter`` records of one K's EM from its loglik
-    trajectory (slot 0 the initial E-step's); wall time amortized over the
-    K (the JAX package's ``timing='amortized'``)."""
+    trajectory (slot 0 the initial E-step's). The wall time is measured
+    where the model's host loop measured it (``last_iter_seconds`` of the
+    streaming model), else amortized over the K (the JAX package's
+    ``timing``)."""
     if not rec.active or lls is None or iters <= 0:
         return
     n = min(int(iters), len(lls) - 1)
+    secs = getattr(model, "last_iter_seconds", None)
+    measured = isinstance(secs, list) and len(secs) == iters
     for i in range(n):
+        wall = secs[i] if measured else dt / max(iters, 1)
         rec.emit("em_iter", k=int(k), iter=i, loglik=float(lls[i + 1]),
                  delta=float(lls[i + 1] - lls[i]), epsilon=float(epsilon),
-                 wall_s=round(float(dt / max(iters, 1)), 6),
-                 timing="amortized")
+                 wall_s=round(float(wall), 6),
+                 timing="measured" if measured else "amortized")
 
 
 def _emit_health(rec, k, counts, where="em"):
@@ -517,7 +534,7 @@ def _check_sample_weight(sample_weight, n_events: int,
 
 def _prepare_data(data, config: GMMConfig, model: GMMModel,
                   num_clusters: int = 1, sample_weight=None,
-                  phase=_null_phase):
+                  phase=_null_phase, ingest: Optional[dict] = None):
     """Validate, center, chunk and place this rank's events. Returns (data,
     chunks, wts, n_events, n_dims, shift, var_mean): ``data`` the events
     as a contiguous host array, or the file source it was given, for the
@@ -533,11 +550,31 @@ def _prepare_data(data, config: GMMConfig, model: GMMModel,
     ``sample_weight`` (checked against ``num_clusters``; in-memory only)
     becomes the events' weight row; the moments, seeding and event counts
     stay unweighted. ``phase`` times the steps in the JAX package's
-    categories (cpu, mpi for the moments, memcpy for the placement)."""
+    categories (cpu, mpi for the moments, memcpy for the placement).
+
+    Under ``stream_events`` the chunk grid stays on the host (the model's
+    ``place``); with ``ingest='pipelined'`` (a file source only) nothing is
+    read whole: ``chunks`` is a ``io.PipelinedBlockSource`` over this
+    rank's rows and ``wts`` None. ``ingest`` is the outermost fit's holder
+    of that source (``ingest['source']``): a live one over the same file
+    is re-seeked to this rank's rows, else a new one is made and kept
+    there."""
     from ..parallel import distributed
 
     source = data if hasattr(data, "read_range") else None
     mesh = model.mesh if _sharded(model) else None
+    pipelined = config.stream_events and config.ingest == "pipelined"
+    if pipelined and source is None:
+        raise ValueError(
+            "ingest='pipelined' reads per-block byte ranges from a file "
+            "source; an in-memory array is already resident -- pass an "
+            "io.FileSource or keep ingest='resident'")
+    if pipelined:
+        if sample_weight is not None:
+            raise ValueError("sample_weight requires in-memory event data "
+                             "(a file source carries no weights)")
+        return _prepare_pipelined(source, config, model, mesh, phase,
+                                  {} if ingest is None else ingest)
     with phase("cpu"):
         if source is not None:
             if sample_weight is not None:
@@ -591,15 +628,59 @@ def _prepare_data(data, config: GMMConfig, model: GMMModel,
             n_dims, shift, float(var64.mean()))
 
 
+def _prepare_pipelined(source, config: GMMConfig, model, mesh, phase,
+                       ingest: dict):
+    """:func:`_prepare_data` under ``ingest='pipelined'``: the moments and
+    the input check from one pass of range reads, then the block source
+    (the JAX package's out-of-core prologue, order_search.py:1347-1398)."""
+    from ..io.pipeline import PipelinedBlockSource, streamed_moments
+    from ..parallel import distributed
+
+    dtype = np.dtype(config.dtype)
+    with phase("cpu"):
+        n_events, n_dims = source.shape
+        start, stop, num_chunks = _host_bounds(n_events, config.chunk_size,
+                                               model)
+    with phase("mpi"):
+        mean64, var64 = streamed_moments(
+            source, start, stop, config.chunk_size, num_chunks,
+            validate=config.validate_input,
+            collective=distributed.world_size() > 1, dtype=dtype,
+            index=mesh.data_index if mesh is not None else 0,
+            count=mesh.data_size if mesh is not None else 1,
+            group=mesh.data_group if mesh is not None else None)
+    with phase("cpu"):
+        shift = (mean64.astype(dtype) if config.center_data
+                 else np.zeros((n_dims,), dtype))
+        prior = ingest.get("source")
+        if (prior is not None and prior.source is source
+                and not prior.closed
+                and prior.chunk_size == config.chunk_size):
+            # An elastic refit over the same file: the survivor's new rows.
+            prior.reseek(start=start, stop=stop, num_chunks=num_chunks)
+            lazy = prior
+        else:
+            if prior is not None:
+                prior.close()
+            lazy = ingest["source"] = PipelinedBlockSource(
+                source, start=start, stop=stop,
+                chunk_size=config.chunk_size, num_chunks=num_chunks,
+                shift=shift if config.center_data else None, dtype=dtype,
+                queue_depth=config.ingest_queue_depth)
+    lazy.emit_start(telemetry.current(), em_mode=config.em_mode)
+    return (source, lazy, None, n_events, n_dims, shift,
+            float(var64.mean()))
+
+
 def _prepare_fit(data: np.ndarray, num_clusters: int, config: GMMConfig,
                  model: GMMModel, prepared=None, init_means=None,
-                 sample_weight=None, phase=_null_phase):
+                 sample_weight=None, phase=_null_phase, ingest=None):
     """Prepare the data (unless ``prepared``, a :func:`_prepare_data`
     result, is given) and seed. Returns (state, chunks, wts, n_events,
     n_dims, shift)."""
     if prepared is None:
         prepared = _prepare_data(data, config, model, num_clusters,
-                                 sample_weight, phase)
+                                 sample_weight, phase, ingest)
     data, chunks, wts, n_events, n_dims, shift, var_mean = prepared
     dtype = np.dtype(config.dtype)
     with phase("cpu"):
@@ -626,11 +707,17 @@ def _sharded(model) -> bool:
 
 
 def default_model(config: GMMConfig):
-    """The model ``fit_gmm`` builds: ``parallel.ShardedGMMModel`` when
-    ``mesh_shape`` is set or the torch.distributed world has more than one
-    rank, else :class:`GMMModel`."""
+    """The model ``fit_gmm`` builds: ``models.StreamingGMMModel`` under
+    ``stream_events`` (one rank of a data mesh on a mesh),
+    ``parallel.ShardedGMMModel`` when ``mesh_shape`` is set or the
+    torch.distributed world has more than one rank, else
+    :class:`GMMModel`."""
     from ..parallel import ShardedGMMModel, distributed
 
+    if config.stream_events:
+        from .streaming import StreamingGMMModel
+
+        return StreamingGMMModel(config)
     if config.mesh_shape is not None or distributed.world_size() > 1:
         return ShardedGMMModel(config)
     return GMMModel(config)
@@ -703,6 +790,9 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
             # watermarks, and ``run_summary.profile``.
             stack.enter_context(tl_profiling.watch(device=config.device))
         result = None
+        # The pipelined block source this fit makes (io/pipeline.py), kept
+        # across an elastic refit and closed on every way out.
+        ingest: dict = {}
         try:
             # The elastic retry loop (the JAX package's, order_search.py:
             # 538-560): under ``elastic`` a peer loss shrinks the world
@@ -715,7 +805,7 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
                     result = _fit_gmm(data, num_clusters,
                                       target_num_clusters, config, model,
                                       verbose, init_means, sample_weight,
-                                      _prepared)
+                                      _prepared, ingest)
                     return result
                 except supervisor.PreemptedError:
                     raise
@@ -738,6 +828,8 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
                             model.release_programs()
                         model = None
         finally:
+            if ingest.get("source") is not None:
+                ingest["source"].close()  # joins the worker; ingest_summary
             # The EM programs read this fit's events in place: free them
             # (and their graphs' memory) with the fit, not with the model.
             built = getattr(result, "model", None)
@@ -765,7 +857,8 @@ def _start_watchdog(config, sup) -> None:
 
 
 def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
-             verbose, init_means, sample_weight, _prepared) -> GMMResult:
+             verbose, init_means, sample_weight, _prepared,
+             ingest=None) -> GMMResult:
     """fit_gmm's body, under whatever ambient recorder and supervisor."""
     if not (1 <= num_clusters <= config.max_clusters):
         raise ValueError(f"num_clusters must be in [1, {config.max_clusters}],"
@@ -781,7 +874,7 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
     if config.n_init > 1:
         return _fit_with_restarts(data, num_clusters, target_num_clusters,
                                   config, model, verbose, init_means,
-                                  sample_weight)
+                                  sample_weight, ingest)
     diag_only = config.diag_only
     log = get_logger(config)
     rec = telemetry.current()
@@ -792,7 +885,7 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
 
     state, chunks, wts, n_events, n_dims, shift = _prepare_fit(
         data, num_clusters, config, model, _prepared, init_means,
-        sample_weight, phase)
+        sample_weight, phase, ingest)
     # After the preparation's collectives: the ranks start watching each
     # other together, not a start-up skew apart.
     _start_watchdog(config, supervisor.current())
@@ -802,7 +895,8 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
 
     sharded = _sharded(model)
     if rec.active:
-        rec.set_context(path="sharded" if sharded else "in-memory",
+        rec.set_context(path=("streaming" if config.stream_events
+                              else "sharded" if sharded else "in-memory"),
                         mesh=list(model.mesh.shape) if sharded else None)
         _emit_run_start(rec, model, config, n_events, n_dims, num_clusters,
                         target_num_clusters, epsilon)
@@ -899,6 +993,15 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
                 resume_em = {"em_iter": int(restored["em_iter"]),
                              "em_lls": np.asarray(
                                  restored.get("em_lls", ()), np.float64)}
+                # A streaming stop's position inside a pass (or a stepwise
+                # EM step) and its partial accumulator.
+                for key in ("stream_pass", "stream_block", "mb_step",
+                            "mb_cursor"):
+                    if key in restored:
+                        resume_em[key] = int(restored[key])
+                for key in ("stream_acc", "mb_acc"):
+                    if key in restored:
+                        resume_em[key] = restored[key]
                 log.info("resuming INSIDE the interrupted fit: K=%d at EM "
                          "iteration %d (intra-K sub-step %d.iter%d)",
                          k, resume_em["em_iter"], step, resume_em["em_iter"])
@@ -953,6 +1056,11 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
         with tl_spans.span("em_k", k=int(k)), \
                 tl_profiling.watermark("em_k"), phase("e_step"):
             if supervised or resume_em is not None:
+                # A streaming model also polls after every block.
+                streaming = ({"block_stop": (
+                    (lambda p, b, _k=int(k): sup.poll_block(
+                        k=_k, em_iter=p, block=b)) if sup.active else None)}
+                    if getattr(model, "streams", False) else {})
                 state, ll, iters, _, stopped, extra = \
                     model.run_em_resumable(
                         state, chunks, wts, epsilon, n_events=n_events,
@@ -960,7 +1068,7 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
                         should_stop=((lambda done, _k=int(k): sup.poll_world(
                             where="em", k=_k, em_iter=done))
                             if sup.active else None),
-                        resume=resume_em)
+                        resume=resume_em, **streaming)
                 resume_em = None
                 if stopped:
                     payload = None
@@ -1037,7 +1145,7 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
             rec.metrics.count("em_iters", int(iters))
             rec.metrics.gauge("active_k", int(k))
             rec.metrics.series("active_k", int(k))
-            _emit_em_iters(rec, k, lls, iters, dt, epsilon)
+            _emit_em_iters(rec, k, lls, iters, dt, epsilon, model)
             rec.emit("em_done", k=int(k), loglik=float(ll), score=float(riss),
                      criterion=config.criterion, iters=int(iters),
                      seconds=round(dt, 6))
@@ -1107,8 +1215,12 @@ def _fit_gmm(data, num_clusters, target_num_clusters, config, model,
     health_section = health.health_summary(
         health_totals, recoveries=n_recoveries,
         io_retries=ckpt.io_retries if ckpt is not None else 0)
+    # A pipelined source is a stream of blocks, not an array: no envelope
+    # (the JAX package skips it too).
     envelope = (compute_envelope(model, compact_state, chunks, n_events,
-                                 n_active) if config.envelope else None)
+                                 n_active)
+                if config.envelope and not hasattr(chunks, "get_block")
+                else None)
     _emit_run_summary(
         rec, model, config, timer, sweep_log, n_active, float(min_rissanen),
         float(best_ll), em_walls,
@@ -1316,7 +1428,7 @@ def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
 def _fit_with_restarts(data, num_clusters: int, target_num_clusters: int,
                        config: GMMConfig, model: GMMModel,
                        verbose: bool, init_means=None,
-                       sample_weight=None) -> GMMResult:
+                       sample_weight=None, ingest=None) -> GMMResult:
     """``n_init`` independent fits, keeping the best score.
 
     Init 0 uses ``init_means`` when given, else the caller's
@@ -1332,7 +1444,8 @@ def _fit_with_restarts(data, num_clusters: int, target_num_clusters: int,
     batch_size = resolve_restart_batch_size(config, data, num_clusters,
                                             model.device)
     t0 = time.perf_counter()
-    prepared = _prepare_data(data, config, model, num_clusters, sample_weight)
+    prepared = _prepare_data(data, config, model, num_clusters, sample_weight,
+                             ingest=ingest)
     _start_watchdog(config, supervisor.current())
     prepare_s = time.perf_counter() - t0
     if batch_size > 1:

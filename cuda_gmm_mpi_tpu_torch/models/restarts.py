@@ -117,21 +117,25 @@ def restart_batch_auto_cap(config, n_events: int, n_dims: int,
 def resolve_restart_batch_size(config, data, num_clusters: int,
                                device=None) -> int:
     """The restart batch size this fit will run: 1 (the sequential path)
-    for a single init or a fused sweep (each init runs the whole-sweep
-    program), else ``config.restart_batch_size`` or, when that is None,
-    the memory cap; clamped to [1, n_init]."""
+    for a single init, a streaming fit (its host-driven block loop is no
+    single EM program a restart axis can batch, JAX restarts.py:144) or a
+    fused sweep (each init runs the whole-sweep program), else
+    ``config.restart_batch_size`` or, when that is None, the memory cap;
+    clamped to [1, n_init]."""
     if config.n_init <= 1:
         return 1
-    if config.fused_sweep:
-        # Each init runs the whole-sweep program: one after another.
+    why = ("stream_events has no single EM program to batch"
+           if config.stream_events else
+           "fused_sweep runs the whole-sweep device program per init"
+           if config.fused_sweep else None)
+    if why is not None:
+        # The inits run one after another.
         if (config.restart_batch_size or 1) > 1:
             from ..utils.logging_ import get_logger
 
             get_logger(config).info(
                 "batched restarts disabled (%s); running the %d inits "
-                "sequentially",
-                "fused_sweep runs the whole-sweep device program per init",
-                config.n_init)
+                "sequentially", why, config.n_init)
         return 1
     requested = config.restart_batch_size
     if requested is None:

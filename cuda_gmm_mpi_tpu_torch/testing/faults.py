@@ -2,11 +2,12 @@
 
 The port's own copy of the JAX package's ``testing/faults.py``: the same
 kinds, spec format (``GMM_FAULTS``) and firing budgets. The port fires
-``nan_loglik``, ``singular_cov``, ``checkpoint_eio``, ``preempt`` and the
-liveness kinds ``rank_hang``, ``rank_lost`` and ``collective_timeout``
-(supervisor.py, parallel/); the other kinds belong to paths it does not
-have yet (streaming, serving, lifecycle) and are accepted in a plan but
-never fire.
+``nan_loglik``, ``singular_cov``, ``checkpoint_eio``, ``preempt``, the
+streaming kinds ``poison_block`` and ``read_slow`` (models/streaming.py,
+io/pipeline.py) and the liveness kinds ``rank_hang``, ``rank_lost`` and
+``collective_timeout`` (supervisor.py, parallel/); the other kinds belong
+to paths it does not have yet (serving, lifecycle) and are accepted in a
+plan but never fire.
 
 The reference has no way to rehearse its failure modes: a singular
 covariance or NaN event appears only when real data produces one, so the

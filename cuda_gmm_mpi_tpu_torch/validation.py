@@ -30,15 +30,12 @@ def finite_row_stats(local: np.ndarray, start: int = 0, dtype=None):
     return n_bad, first_bad
 
 
-def validate_finite(local: np.ndarray, start: int = 0, dtype=None,
-                    collective: bool = False) -> None:
-    """Reject rows that are (or will become, once cast to ``dtype``, the
-    compute dtype) non-finite: a value like 1e39 is finite in float64 but
-    overflows to Inf in float32. With ``collective`` every rank of the
-    world checks its own slice (``start`` its first global row) and all
-    reach the same verdict (one gather of the counts), so a bad row on one
-    rank never strands the others in a later collective."""
-    n_bad, first_bad = finite_row_stats(local, start, dtype=dtype)
+def raise_if_nonfinite(n_bad: int, first_bad: int,
+                       collective: bool = False) -> None:
+    """The verdict of :func:`validate_finite` from counts gathered by
+    :func:`finite_row_stats` (one slice at a time, as pipelined ingestion
+    scans them): with ``collective`` every rank of the world reaches the
+    same verdict (one gather of the counts)."""
     if collective:
         from .parallel import distributed
 
@@ -55,3 +52,15 @@ def validate_finite(local: np.ndarray, start: int = 0, dtype=None,
             "data or pass validate_input=False/--no-validate-input to "
             "proceed anyway"
         )
+
+
+def validate_finite(local: np.ndarray, start: int = 0, dtype=None,
+                    collective: bool = False) -> None:
+    """Reject rows that are (or will become, once cast to ``dtype``, the
+    compute dtype) non-finite: a value like 1e39 is finite in float64 but
+    overflows to Inf in float32. With ``collective`` every rank of the
+    world checks its own slice (``start`` its first global row) and all
+    reach the same verdict (one gather of the counts), so a bad row on one
+    rank never strands the others in a later collective."""
+    n_bad, first_bad = finite_row_stats(local, start, dtype=dtype)
+    raise_if_nonfinite(n_bad, first_bad, collective=collective)

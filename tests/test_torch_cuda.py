@@ -1313,3 +1313,82 @@ def test_observed_fit_on_the_card(dev, tmp_path, monkeypatch):
         assert 0 < w["peak_bytes"] < total, name
     assert 0 < prof["hbm_peak_bytes"] < total
     assert res.envelope["num_events"] == data.shape[0]
+
+
+# ------------------------------------------------------------- streaming
+
+def _stream_case(dev, diag, n=20000, d=24, k=100, chunk=4096, seed=31):
+    """A state at the main path's width and a host chunk grid of ``n``
+    events in ``chunk``-event blocks (the last one ragged)."""
+    from cuda_gmm_mpi_tpu_torch.models.streaming import StreamingGMMModel
+
+    rng = np.random.default_rng(seed)
+    state = state_from_numpy(_state(rng, k, d, diag, inactive=(1,)),
+                             device=dev)
+    x = rng.normal(scale=2.0, size=(n, d)).astype(np.float32)
+    chunks, wts = chunk_events(x, chunk)
+    cfg = GMMConfig(chunk_size=chunk, diag_only=diag, stream_events=True,
+                    min_iters=3, max_iters=3)
+    return StreamingGMMModel(cfg), state, chunks, wts, x
+
+
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_streamed_pass_matches_k1_on_the_whole_grid(dev, diag):
+    """One streamed pass (a K1 launch per block, the blocks added on the
+    device) against one K1 launch on the whole grid: the tests/test_pallas.py
+    class; the pass is one K1 launch per block."""
+    model, state, chunks, wts, x = _stream_case(dev, diag)
+    assert model.estep_backend == "cuda"
+    model._set_local_rows(chunks, x.shape[0])
+    before = fs.fused_stats.launches
+    got = model._estep_all(state, chunks, wts)
+    torch.cuda.synchronize()
+    assert fs.fused_stats.launches - before == chunks.shape[0]
+    ref = fs.fused_stats_cuda(state, torch.as_tensor(chunks, device=dev),
+                              torch.as_tensor(wts, device=dev), diag_only=diag,
+                              n_events=x.shape[0])
+    for name in TOL:
+        a, c = getattr(got, name), getattr(ref, name)
+        assert _within(a, c, TOL[name]), (name, _normwise(a, c))
+
+
+def test_double_buffered_copy_equals_synchronous_copy(dev):
+    """The pinned double buffer on its side stream gives the same fit, bit
+    for bit, as a plain synchronous copy per block; resident and
+    pipelined; K1 once per block per pass and K2 once per M-step."""
+    import dataclasses as dc
+
+    from cuda_gmm_mpi_tpu_torch.io import FileSource, write_bin
+    from cuda_gmm_mpi_tpu_torch.models.streaming import StreamingGMMModel
+
+    rng = np.random.default_rng(12)
+    c = rng.normal(scale=8, size=(6, 8))
+    x = (c[rng.integers(0, 6, 50000)]
+         + rng.normal(size=(50000, 8))).astype(np.float32)
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/ev.bin"
+        write_bin(path, x)
+        cfg = GMMConfig(chunk_size=8192, stream_events=True, min_iters=6,
+                        max_iters=6)
+        fits = {}
+        for ingest in ("resident", "pipelined"):
+            for sync in (True, False):
+                k1, k2 = fs.fused_stats.launches, fs.mstep.launches
+                c2 = dc.replace(cfg, ingest=ingest)
+                model = StreamingGMMModel(c2, _sync_copy=sync)
+                r = fit_gmm(FileSource(path), 8, 6, config=c2, model=model)
+                iters = sum(row[3] for row in r.sweep_log)
+                passes = iters + len(r.sweep_log)
+                assert fs.fused_stats.launches - k1 == 7 * passes
+                assert fs.mstep.launches - k2 == iters
+                fits[ingest, sync] = r
+    ref = fits["resident", True]
+    for key, r in fits.items():
+        assert r.final_loglik == ref.final_loglik, key
+        assert [row[:4] for row in r.sweep_log] == [
+            row[:4] for row in ref.sweep_log], key
+        for f in ("N", "pi", "means", "R", "Rinv"):
+            assert torch.equal(getattr(r.state, f), getattr(ref.state, f)), (
+                key, f)

@@ -11,6 +11,7 @@ import ast
 import shutil
 import subprocess
 import sys
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -43,7 +44,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert REPO / "cuda_gmm_mpi_tpu_torch" / "supervisor.py" in files
     assert (REPO / "cuda_gmm_mpi_tpu_torch" / "estimator.py") in files
     models = REPO / "cuda_gmm_mpi_tpu_torch" / "models"
-    assert {models / "fused_sweep.py", models / "em_program.py"} <= set(files)
+    assert {models / "fused_sweep.py", models / "em_program.py",
+            models / "streaming.py"} <= set(files)
+    assert REPO / "cuda_gmm_mpi_tpu_torch" / "io" / "pipeline.py" in files
     tel = REPO / "cuda_gmm_mpi_tpu_torch" / "telemetry"
     assert {tel / f"{m}.py" for m in (
         "spans", "report", "profiling", "sketch", "exporter", "diff",
@@ -72,6 +75,37 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path, capsys):
     # Asked for the CPU, the same calls run.
     cfg = GMMConfig(device="cpu", min_iters=2, max_iters=2)
     assert fit_gmm(data, 2, config=cfg).ideal_num_clusters >= 1
+
+
+def test_streaming_entry_points_raise_without_cuda(monkeypatch, tmp_path,
+                                                  capsys):
+    """The streaming model, a resident and a pipelined streaming fit and
+    the CLI's --stream-events/--ingest=pipelined raise (exit 1) without a
+    GPU, before any block is read; asked for the CPU they run."""
+    from cuda_gmm_mpi_tpu_torch.io import FileSource, write_bin
+    from cuda_gmm_mpi_tpu_torch.models.streaming import StreamingGMMModel
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    data = np.random.default_rng(0).normal(size=(64, 2)).astype(np.float32)
+    path = str(tmp_path / "e.bin")
+    write_bin(path, data)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        StreamingGMMModel(GMMConfig(stream_events=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_gmm(data, 2, config=GMMConfig(stream_events=True))
+    for mode in ("resident", "pipelined"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            fit_gmm(FileSource(path), 2, config=GMMConfig(
+                stream_events=True, ingest=mode))
+        assert torch_main(["2", path, str(tmp_path / "o"), "--stream-events",
+                           f"--ingest={mode}"]) == 1
+        assert "no CUDA device" in capsys.readouterr().err
+    assert not (tmp_path / "o.summary").exists()
+    assert not [t for t in threading.enumerate()
+                if t.name.startswith("gmm-ingest")]
+    cfg = GMMConfig(device="cpu", min_iters=2, max_iters=2,
+                    stream_events=True, ingest="pipelined")
+    assert fit_gmm(FileSource(path), 2, config=cfg).ideal_num_clusters >= 1
 
 
 def test_kernel_wrappers_do_not_fall_back_off_the_cpu():
