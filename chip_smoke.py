@@ -275,6 +275,40 @@ Phases (any failure exits non-zero, and no result line is printed):
    K2 launches, the one-process streaming fit's K and merge pairs with the
    loglik within rtol 1e-5, ms per pass per rank.
 
+17. serving at full width (serving/, ops/kernels/score.py): phase 4's full
+   fit (K 96, Kb 128) and its diag fit exported to a registry. (a) S1
+   against its plain version (the torch-ops ``posteriors`` on the same
+   card) and float64 on the same rows at blocks 1, 7, 256, 4096 and
+   65,536, full and diag: against float64 S1's error at most twice the
+   torch-ops path's (floored at 2^-20); against torch ops within max|dw|
+   1e-4 and logZ 1e-5 normwise, which it may miss only where torch ops
+   itself lies outside that class of float64 (``hold_stat``'s rule; S1
+   accumulates in double); float64 S1 within 1e-12 (logZ normwise; w on
+   the log-density scale); 'assign' equal to torch ops' argmax but on
+   near-ties (counted); repeat launches bit-identical. S1's time per
+   launch at 256 / 4,096 / 65,536 rows beside torch ops and its bound. (b)
+   The serving contracts with ``torch.equal`` on S1's route: a split
+   request (max_block 64 against 65,536, 300 and 70,000 rows), coalesced
+   against solo requests (tests/test_torch_serving.py's mix, 10x the
+   rows), the full model stacked with the diag fit's state (Kb 128)
+   against solo dispatches, a K-pad of 128 against 256, and a hot-reloaded
+   route against the version loaded fresh; the same probes on the
+   torch-ops route at 'highest' and on 'centered' are printed, not held.
+   A graph replay against the eager launch per block, each capture's
+   seconds, one warm ``infer`` on the host clock. (c) The warm path: two
+   models served in process, blocks 256-16,384 warmed, then 1,000
+   requests of 1-4,096 rows with mixed ops: no new capture, no host
+   staging, S1 launched once per dispatch (counted from 0); the executor
+   caches' device memory; the in-process server's p50/p99 latency and
+   rows/s under 8 client threads at 64- and 1,024-row requests. (d) ``gmm
+   serve --http 0 --workers 2 --device cuda`` as processes: JSON and
+   x-gmm-rows answers equal the in-process server's bits, rows/s of each
+   at 4,096-row requests, worker 0 SIGKILLed mid-stream with no failed
+   request and its slot respawned, SIGTERM drains to exit 75, every
+   child reaped. S1's bound is 2 (T+D) flops per (event, active cluster)
+   at the fp32 FMA peak against its bytes (x, the operands, w and logZ
+   once); it has no PyTorch call that computes its function.
+
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
 line ``{"ok": true, "device": {...}}``. Whatever happens, it leaves no
@@ -3956,6 +3990,561 @@ def phase_out_of_core(data, workdir: Path, card: str, seed: int) -> dict:
     print(f"  phase 16 took {out['wall_s']:.1f} s; {card}")
     return out
 
+# ---------------------------------------------------------------- phase 17
+
+P17_BLOCKS = (1, 7, 256, 4096, 65536)  # (a)'s request blocks
+P17_TIMED = (256, 4096, 65536)  # S1's timed blocks; graph vs eager
+# (a)'s float32 bars, as ``hold_stat``'s: against float64 S1 may err at
+# most P17_FP64_FACTOR x the torch-ops ``posteriors``' error on the same
+# card, floored at 2^-20 (8 float32 ulps of 1); against the torch-ops path
+# the float32 reassociation class (P17_W_BAR, P17_Z_BAR), which it may miss
+# only where the torch-ops path itself lies outside that class of float64
+# (the expanded form's |x|^2 cancellation; S1 accumulates in double).
+P17_W_BAR, P17_Z_BAR = 1e-4, 1e-5  # max |dw|; normwise dlogZ
+P17_FP64_FACTOR, P17_FP64_FLOOR = 2.0, 2.0 ** -20
+# S1 at float64 against float64 ``posteriors`` (two float64 orders): logZ
+# normwise, w on the log-density scale (w's error is logp's absolute error,
+# so the bar is 1e-12 x max(1, max |logZ|)).
+P17_F64_BAR = 1e-12
+P17_WARM_REQUESTS = 1000
+P17_WARM_BLOCKS = tuple(256 << i for i in range(7))  # 256 .. 16384
+P17_THREADS = 8
+
+
+def s1_bound(n: int, k: int, kb: int, d: int, diag: bool):
+    """S1's bound on this run's shapes: 2 (T + D) flops per (event, active
+    cluster) on the fp32 FMA units; bytes: x, the operands, w [n, Kb] and
+    logZ once each."""
+    t = d if diag else d * (d + 1) // 2
+    return bound_ms(4.0 * (n * d + (t + d + 1) * kb + n * (kb + 1)),
+                    2.0 * n * k * (t + d))
+
+
+def _p17_states(result, diag: bool):
+    """The fitted state on the card padded to its pow2 K-bucket (float32),
+    and its float64 twin."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.parallel.sharded_em import pad_state_clusters
+    from cuda_gmm_mpi_tpu_torch.serving.executor import pow2_bucket
+
+    st = result.state.to("cuda")
+    st = pad_state_clusters(st, pow2_bucket(st.num_clusters_padded))
+    f64 = st.replace(**{f: getattr(st, f).double() for f in (
+        "N", "pi", "constant", "avgvar", "means", "R", "Rinv")})
+    return st, f64
+
+
+def _normwise(a, ref) -> float:
+    return float((a.double() - ref).abs().max() / ref.abs().max())
+
+
+def p17_s1(result, x_c, diag: bool, label: str) -> dict:
+    """(a): S1 against its plain version and float64 at P17_BLOCKS; the
+    timed blocks."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.estep import posteriors
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+
+    st, st64 = _p17_states(result, diag)
+    k, kb = result.state.num_active(), st.num_clusters_padded
+    pad = ~st.active
+    worst = dict(w=0.0, z=0.0, w64=0.0, z64=0.0, plain_w64=0.0,
+                 plain_z64=0.0, f64_w=0.0, f64_z=0.0)
+    ties, outside = 0, 0
+    for n in P17_BLOCKS:
+        x = x_c[:n]
+        w, z = s1.score(st, x, diag_only=diag)
+        w2, z2 = s1.score(st, x, diag_only=diag)
+        lab, zl = s1.score(st, x, diag_only=diag, kind="assign")
+        lab2, _ = s1.score(st, x, diag_only=diag, kind="assign")
+        wp, zp = posteriors(st, x, diag_only=diag)
+        w64, z64 = posteriors(st64, x.double(), diag_only=diag)
+        wd, zd = s1.score(st64, x.double(), diag_only=diag)
+        torch.cuda.synchronize()
+        where = f"S1 {label} n={n}"
+        check(torch.equal(w, w2) and torch.equal(z, z2)
+              and torch.equal(lab, lab2) and torch.equal(z, zl),
+              f"{where}: two launches differ")
+        check(bool(torch.isfinite(w).all() and torch.isfinite(z).all()),
+              f"{where}: non-finite output")
+        check(bool((w[:, pad] == 0).all()), f"{where}: an inactive slot's w")
+        ew, ez = float((w - wp).abs().max()), _normwise(z, zp.double())
+        e64w, p64w = float((w.double() - w64).abs().max()), float(
+            (wp.double() - w64).abs().max())
+        e64z, p64z = _normwise(z, z64), _normwise(zp, z64)
+        check(e64w <= P17_FP64_FACTOR * max(p64w, P17_FP64_FLOOR)
+              and e64z <= P17_FP64_FACTOR * max(p64z, P17_FP64_FLOOR),
+              f"{where}: float64 error w {e64w:.2e} z {e64z:.2e} against the "
+              f"plain version's {p64w:.2e} / {p64z:.2e}")
+        met = ew <= P17_W_BAR and ez <= P17_Z_BAR
+        check(met or p64w > P17_W_BAR or p64z > P17_Z_BAR,
+              f"{where}: against torch ops max|dw| {ew:.2e} (bar "
+              f"{P17_W_BAR}), normwise dlogZ {ez:.2e} (bar {P17_Z_BAR}), "
+              f"the torch-ops path within the class of float64")
+        outside += not met
+        fw, fz = float((wd - w64).abs().max()), _normwise(zd, z64)
+        scale = max(1.0, float(z64.abs().max()))
+        check(fw <= P17_F64_BAR * scale and fz <= P17_F64_BAR,
+              f"{where}: float64 S1 max|dw| {fw:.2e} (bar "
+              f"{P17_F64_BAR * scale:.2e}), dlogZ {fz:.2e} (bar "
+              f"{P17_F64_BAR})")
+        top = wp.topk(2, dim=1).values if wp.shape[1] > 1 else None
+        miss = lab.long() != torch.argmax(wp, dim=1)
+        if bool(miss.any()):
+            gap = (top[:, 0] - top[:, 1])[miss]
+            # a near-tie: the top two w closer than the two versions' w
+            check(bool((gap <= max(P17_W_BAR, 2 * ew)).all()),
+                  f"{where}: 'assign' differs off a near-tie")
+            ties += int(miss.sum())
+        for key, v in (("w", ew), ("z", ez), ("w64", e64w), ("z64", e64z),
+                       ("plain_w64", p64w), ("plain_z64", p64z),
+                       ("f64_w", fw), ("f64_z", fz)):
+            worst[key] = max(worst[key], v)
+    times = {}
+    for n in P17_TIMED:
+        x = x_c[:n]
+        a_ext, g = s1.score_operands(st, diag)
+        w = torch.empty((n, kb), device="cuda")
+        z = torch.empty(n, device="cuda")
+        ms = time_ms(lambda: s1.score_launch(x, a_ext, g, z, diag=diag, w=w),
+                     reps=20)
+        plain = time_ms(lambda: posteriors(st, x, diag_only=diag), reps=20)
+        b, by = s1_bound(n, k, kb, x.shape[1], diag)
+        times[n] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+        print(f"  S1 {label} {n} rows: {ms:.4f} ms per launch, torch-ops "
+              f"posteriors {plain:.4f} ms, bound {b:.4f} ms ({by}; "
+              f"{100 * b / ms:.1f}% of it)")
+    print(f"  S1 {label} against torch ops at blocks {P17_BLOCKS}: max|dw| "
+          f"{worst['w']:.2e}, normwise dlogZ {worst['z']:.2e} (outside the "
+          f"class at {outside} of {len(P17_BLOCKS)} blocks, where torch ops "
+          f"is too); against float64 w {worst['w64']:.2e}, logZ "
+          f"{worst['z64']:.2e} (torch ops {worst['plain_w64']:.2e}, "
+          f"{worst['plain_z64']:.2e}); float64 "
+          f"S1 w {worst['f64_w']:.2e}, logZ {worst['f64_z']:.2e}; 'assign' "
+          f"differs from torch ops on {ties} near-tie rows; repeat launches "
+          f"bit-identical")
+    return dict(errors=worst, near_ties=ties, blocks_outside_class=outside,
+                times=times)
+
+
+def _no_latency(resps):
+    return [{k: v for k, v in r.items() if k != "latency_ms"} for r in resps]
+
+
+def _p17_requests(x, model: str, scale: int = 10):
+    """tests/test_torch_serving.py's request mix with ``scale`` x the
+    rows."""
+    cuts = [0, 7, 19, 22, 41, 44]
+    ops = ["score", "predict", "predict_proba", "score_samples", "score"]
+    return [{"id": i, "model": model, "op": op,
+             "x": x[cuts[i] * scale:cuts[i + 1] * scale].tolist()}
+            for i, op in enumerate(ops)]
+
+
+def p17_contracts(make_ex, reg_dir: Path, result, diag_result, x_c, raw,
+                  label: str) -> dict:
+    """(b): the four contracts on one route; returns {name: held}."""
+    import dataclasses as dc
+
+    from cuda_gmm_mpi_tpu_torch import GMMConfig
+    from cuda_gmm_mpi_tpu_torch.serving import GMMServer, ModelRegistry
+
+    out = {}
+    st, st_d = result.state, diag_result.state
+    xs = x_c.cpu().numpy()
+    small, big = make_ex(min_block=64, max_block=64), make_ex()
+    out["split"] = all(
+        all(np.array_equal(a, b) for a, b in zip(
+            small.infer(st, xs[:n]), big.infer(st, xs[:n])))
+        for n in (300, 70_000))
+    srv = GMMServer(ModelRegistry(str(reg_dir)), executor=make_ex(),
+                    warm=False, device="cuda")
+    reqs = _p17_requests(raw, "cells")
+    out["coalesced"] = (_no_latency(srv.handle_requests(reqs))
+                        == _no_latency(srv.handle_requests(reqs,
+                                                           coalesce=False)))
+    ex = make_ex()
+    (a, b), _ = ex.infer_stacked([st, st_d], [xs[:700], xs[700:1300]])
+    sa, sb = ex.infer(st, xs[:700]), ex.infer(st_d, xs[700:1300])
+    out["stacked"] = all(np.array_equal(p, q) for p, q in zip(
+        a + b, (sa[0], sa[1], sb[0][:, :b[0].shape[1]], sb[1])))
+    w1, z1 = ex.infer(st, xs[:5000])
+    kb = w1.shape[1]
+    route = ex._route_for(st, k_bucket=2 * kb)
+    [(w2, z2)] = ex._executable("proba", ex.block_for(5000), 2 * kb,
+                                xs.shape[1]).run([(route, xs[:5000])])
+    out["k_pad"] = (np.array_equal(w1, w2[:, :kb]) and np.array_equal(z1, z2)
+                    and not w2[:, kb:].any())
+    # hot reload: v2 (means + 0.5) lands while a server serves v1
+    hot = reg_dir.parent / f"hot_{label.replace(' ', '_')}"
+    reg = ModelRegistry(str(hot))
+    cfg = GMMConfig(covariance_type="full")
+    reg.save("m", result, config=cfg)
+    srv = GMMServer(reg, executor=make_ex(), warm=False, device="cuda")
+
+    def ask(server, **extra):
+        return server.handle_requests([{"id": 0, "model": "m",
+                                        "op": "score_samples",
+                                        "x": raw[:900].tolist(), **extra}])[0]
+
+    r1 = ask(srv)
+    moved = dc.replace(result, state=result.state.replace(
+        means=result.state.means + 0.5))
+    reg.save("m", moved, config=cfg)
+    swaps = srv.maybe_reload()
+    r2, r_pin = ask(srv), ask(srv, version=1)
+    fresh = ask(GMMServer(reg, executor=make_ex(), warm=False,
+                          device="cuda"), version=2)
+    out["hot_reload"] = (swaps == [{"model": "m", "from_version": 1,
+                                    "to_version": 2}]
+                         and r2["version"] == 2
+                         and r2["result"] == fresh["result"]
+                         and r_pin["result"] == r1["result"]
+                         and r1["result"] != r2["result"])
+    return out
+
+
+def p17_graphs(result, x_c) -> dict:
+    """A graph replay against the eager launch per block, device time;
+    each capture's seconds; the host wall of one warm dispatch."""
+    from cuda_gmm_mpi_tpu_torch.serving.executor import ScoringExecutor
+
+    ex = ScoringExecutor(device="cuda")
+    st = result.state
+    xs = x_c.cpu().numpy()
+    route = ex._route_for(st)
+    kb, d = route.state.num_clusters_padded, xs.shape[1]
+    out = {}
+    for n in P17_TIMED:
+        prog = ex._executable("proba", n, kb, d)
+        prog.run([(route, xs[:n])])
+        replay = time_ms(prog.captured.replay, reps=20)
+        eager = time_ms(lambda: ex._score_into(
+            prog.slots[0], prog.x_dev[0], "proba", prog.a_dev[0],
+            prog.z_dev[0]), reps=20)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            ex.infer(st, xs[:n])
+        wall = (time.perf_counter() - t0) / 20 * 1e3
+        out[n] = dict(replay_ms=replay, eager_ms=eager,
+                      capture_s=prog.capture_s, dispatch_wall_ms=wall)
+        print(f"  graph {n} rows: replay {replay:.4f} ms, eager launch "
+              f"{eager:.4f} ms (device time); capture {prog.capture_s:.3f} "
+              f"s; one warm infer() {wall:.3f} ms on the host clock")
+    return out
+
+
+def p17_latency(server, raw, rows: int, per_thread: int) -> dict:
+    """The in-process server under P17_THREADS client threads, each
+    sending ``per_thread`` requests of ``rows`` rows one after another:
+    latency p50/p99 (submit to reply) and rows/s."""
+    import threading
+
+    lat, failed = [], []
+    lock = threading.Lock()
+    total = P17_THREADS * per_thread
+
+    def client(t: int):
+        rng = np.random.default_rng(t)
+        for i in range(per_thread):
+            done = threading.Event()
+            box = {}
+
+            def reply(resp, box=box, done=done):
+                box["r"] = resp
+                done.set()
+
+            lo = int(rng.integers(0, len(raw) - rows))
+            t0 = time.perf_counter()
+            server.admit_request({"id": i, "model": "cells",
+                                  "op": "score_samples",
+                                  "x": raw[lo:lo + rows]}, reply)
+            done.wait(120)
+            with lock:
+                lat.append((time.perf_counter() - t0) * 1e3)
+                if not box.get("r", {}).get("ok"):
+                    failed.append(box.get("r"))
+
+    loop = threading.Thread(target=server.run_loop,
+                            kwargs={"max_requests": total})
+    loop.start()
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(t,))
+               for t in range(P17_THREADS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    loop.join(60)
+    check(not failed and len(lat) == total,
+          f"latency run: {len(failed)} failed of {total}")
+    lat = np.asarray(lat)
+    return dict(rows=rows, requests=total, p50_ms=float(np.percentile(lat, 50)),
+                p99_ms=float(np.percentile(lat, 99)),
+                rows_per_s=rows * total / wall)
+
+
+def _p17_wait_port(path: Path, proc, timeout: float = 180.0) -> int:
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if proc.poll() is not None:
+            raise PhaseError(f"gmm serve exited {proc.returncode} early")
+        if path.exists() and path.read_text().strip():
+            return int(path.read_text())
+        time.sleep(0.1)
+    raise PhaseError("gmm serve published no port")
+
+
+def p17_http(reg_dir: Path, workdir: Path, raw, inproc) -> dict:
+    """(d): ``gmm serve --http 0 --workers 2 --device cuda`` as processes:
+    bits equal to the in-process server's over JSON and x-gmm-rows frames,
+    a worker SIGKILLed mid-stream with zero failed requests, SIGTERM drains
+    to exit 75; every child reaped on every way out."""
+    import threading
+
+    from cuda_gmm_mpi_tpu_torch.serving import GMMClient, GMMClientError
+
+    port_file, wd = workdir / "port.txt", workdir / "workers"
+    cmd = [sys.executable, "-m", "cuda_gmm_mpi_tpu_torch.cli", "serve",
+           "--registry", str(reg_dir), "--http", "0", "--workers", "2",
+           "--device", "cuda", "--http-port-file", str(port_file),
+           "--worker-dir", str(wd), "--max-body-bytes", str(64 << 20)]
+    root = str(Path(__file__).resolve().parent)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [root] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+    log = open(workdir / "serve.log", "wb")
+    proc = subprocess.Popen(cmd, stdout=log, stderr=subprocess.STDOUT,
+                            stdin=subprocess.DEVNULL, cwd=root, env=env)
+    out = {}
+    try:
+        t0 = time.perf_counter()
+        port = _p17_wait_port(port_file, proc)
+        client = GMMClient(f"127.0.0.1:{port}", timeout_s=120.0, retries=3,
+                           backoff_base_s=0.05, retry_budget=1.0)
+        while not client.readyz():
+            check(time.perf_counter() - t0 < 180, "pool never ready")
+            time.sleep(0.1)
+        out["startup_s"] = time.perf_counter() - t0
+        same = True
+        for model in ("cells", "cells_diag"):
+            for op in ("score_samples", "predict_proba", "predict"):
+                rows = raw[:1000]
+                want = inproc.handle_requests([{"id": 0, "model": model,
+                                                "op": op,
+                                                "x": rows.tolist()}])[0]
+                for enc in ("json", "binary"):
+                    x = rows.tolist() if enc == "json" else rows.astype(
+                        np.float64)
+                    got = client.request(model, op, x, encoding=enc,
+                                         deadline_ms=60_000)
+                    same &= got["result"] == want["result"]
+        check(same, "HTTP results differ from the in-process server's bits")
+        for enc in ("json", "binary"):
+            rows = raw[:4096]
+            x = rows.tolist() if enc == "json" else rows.astype(np.float64)
+            t1 = time.perf_counter()
+            for _ in range(10):
+                client.request("cells", "score_samples", x, encoding=enc,
+                               deadline_ms=60_000)
+            out[f"{enc}_rows_per_s"] = 10 * 4096 / (time.perf_counter() - t1)
+        victim = json.loads((wd / "worker0.json").read_text())["pid"]
+        failed, done = [], []
+
+        def stream(t: int):
+            for i in range(40):
+                lo = 64 * (t * 40 + i)
+                try:
+                    client.score_samples(("cells", "cells_diag")[t % 2],
+                                         raw[lo:lo + 64].tolist(),
+                                         deadline_ms=120_000)
+                    done.append(1)
+                except GMMClientError as e:
+                    failed.append(str(e))
+
+        threads = [threading.Thread(target=stream, args=(t,))
+                   for t in range(4)]
+        for t in threads:
+            t.start()
+        while len(done) < 20 and any(t.is_alive() for t in threads):
+            time.sleep(0.01)
+        os.kill(victim, signal.SIGKILL)
+        for t in threads:
+            t.join()
+        check(not failed, f"{len(failed)} request(s) failed across the "
+              f"SIGKILL: {failed[:2]}")
+        deadline = time.monotonic() + 120
+        while True:
+            doc = json.loads((wd / "worker0.json").read_text())
+            if doc["gen"] >= 1 or time.monotonic() > deadline:
+                break
+            time.sleep(0.1)
+        check(doc["gen"] >= 1 and doc["pid"] != victim,
+              f"worker 0 was not respawned: {doc}")
+        out.update(requests_across_kill=len(done), failed=len(failed),
+                   respawned=True, worker0_gen=doc["gen"])
+        workers = [json.loads(p.read_text())["pid"]
+                   for p in wd.glob("worker*.json")]
+        proc.send_signal(signal.SIGTERM)
+        out["exit_code"] = proc.wait(timeout=120)
+        check(out["exit_code"] == 75, f"gmm serve exited {out['exit_code']} "
+              "after SIGTERM, not 75")
+        alive = [pid for pid in workers if _alive(pid)]
+        for pid in alive:
+            with contextlib.suppress(OSError):
+                os.kill(pid, signal.SIGKILL)
+        check(not alive, f"pool workers left running: {alive}")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+        log.close()
+        left = stop_children(grace_s=5.0)
+        out["left_running"] = len(left)
+    check(out["left_running"] == 0, f"processes left running: {left}")
+    print(f"  HTTP pool of 2 workers: ready in {out['startup_s']:.1f} s; JSON "
+          f"and x-gmm-rows answers equal the in-process server's bits; "
+          f"{out['json_rows_per_s']:.0f} rows/s JSON against "
+          f"{out['binary_rows_per_s']:.0f} binary (4,096-row requests); "
+          f"worker 0 SIGKILLed mid-stream: {out['requests_across_kill']} "
+          f"requests, {out['failed']} failed, respawned (gen "
+          f"{out['worker0_gen']}); SIGTERM -> exit {out['exit_code']}")
+    return out
+
+
+def s1_record(serving: dict) -> dict:
+    """S1's line of the kernels JSON: full covariance at 4,096 rows; the
+    other blocks, diag and the serving measurements beside it."""
+    full, diag = serving["a"]["full"], serving["a"]["diag"]
+    t = full["times"][4096]
+    return dict(
+        name="S1 score", route="cuda",
+        source="cuda_gmm_mpi_tpu_torch/csrc/score.cu",
+        replaces="cuda_gmm_mpi_tpu/serving/executor.py:274",
+        launches=serving["warm"]["s1_launches"],
+        max_abs_err=max(full["errors"]["w"], diag["errors"]["w"]),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None, errors=full["errors"],
+        diag_errors=diag["errors"], near_ties=full["near_ties"]
+        + diag["near_ties"], times=full["times"], diag_times=diag["times"],
+        graphs=serving["graphs"], warm=serving["warm"],
+        contracts=serving["contracts"],
+        torch_route_probes=serving["torch_route_probes"],
+        cache_bytes=serving["cache_bytes"], latency=serving["latency"],
+        http=serving["http"], phase_s=serving["wall_s"])
+
+
+def phase_serving(data, main_result, diag_result, workdir: Path,
+                  card: str) -> dict:
+    """Phase 17: serving at full width (see the module docstring)."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import GMMConfig
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+    from cuda_gmm_mpi_tpu_torch.serving import (GMMServer, ModelRegistry,
+                                                ScoringExecutor)
+
+    t_phase = time.perf_counter()
+    reg_dir = workdir / "registry"
+    reg = ModelRegistry(str(reg_dir))
+    reg.save("cells", main_result, config=GMMConfig())
+    reg.save("cells_diag", diag_result,
+             config=GMMConfig(covariance_type="diag"))
+    shift = main_result.data_shift.astype(np.float32)
+    x_c = torch.as_tensor(data[:70_000] - shift[None, :], device="cuda")
+    raw = data[:70_000]
+    print(f"  models: cells (full, K {main_result.ideal_num_clusters}), "
+          f"cells_diag (diag, K {diag_result.ideal_num_clusters}); card: "
+          f"{card}")
+
+    # (a) S1 against its plain version and float64
+    a = {"full": p17_s1(main_result, x_c, False, "full"),
+         "diag": p17_s1(diag_result, x_c, True, "diag")}
+
+    # (b) the four contracts, held on S1's route; printed on torch ops
+    def s1_ex(**kw):
+        return ScoringExecutor(device="cuda", **kw)
+
+    held = p17_contracts(s1_ex, reg_dir, main_result, diag_result, x_c, raw,
+                         "S1")
+    check(all(held.values()), f"S1 route contracts: {held}")
+    print(f"  contracts on S1's route (torch.equal): {held}")
+    probes = {}
+    for name, kw in (("torch ops 'highest'", {}),
+                     ("torch ops 'centered'", dict(quad_mode="centered"))):
+        def t_ex(**more):
+            ex = ScoringExecutor(device="cuda", **kw, **more)
+            # The yardstick beside S1: its route set to the torch-ops
+            # posteriors before the executor's first call.
+            ex.route = "torch"
+            return ex
+
+        probes[name] = p17_contracts(t_ex, reg_dir, main_result, diag_result,
+                                     x_c, raw, name)
+        print(f"  contracts on the {name} route (printed, not held): "
+              f"{probes[name]}")
+
+    graphs = p17_graphs(main_result, x_c)
+
+    # (c) the warm path: two models, every block warmed, then 1,000 requests
+    server = GMMServer(reg, device="cuda")
+    for name in ("cells", "cells_diag"):
+        m = server.resolve(name)
+        server._executor_for(m).warmup(m.state, blocks=P17_WARM_BLOCKS)
+    compiles = server.executor_stats()["compiles"]
+    rng = np.random.default_rng(17)
+    ops = ("predict", "predict_proba", "score_samples", "score")
+    reqs = []
+    for i in range(P17_WARM_REQUESTS):
+        n = int(rng.integers(1, 4097))
+        lo = int(rng.integers(0, len(raw) - n))
+        reqs.append({"id": i, "model": ("cells", "cells_diag")[i % 2],
+                     "op": ops[int(rng.integers(0, 4))],
+                     "x": raw[lo:lo + n]})
+    s1.score.launches = 0
+    t0 = time.perf_counter()
+    resps = []
+    for j in range(0, P17_WARM_REQUESTS, 4):
+        resps += server.handle_requests(reqs[j:j + 4])
+    warm_s = time.perf_counter() - t0
+    launches = s1.score.launches
+    stats = server.executor_stats()
+    check(all(r["ok"] for r in resps) and len(resps) == P17_WARM_REQUESTS,
+          "warm path: a request failed")
+    check(stats["compiles"] == compiles and stats["host_stagings"] == 0
+          and server.host_stagings == 0,
+          f"warm path built {stats['compiles'] - compiles} programs, "
+          f"{stats['host_stagings']} host stagings")
+    check(launches == server.batches,
+          f"S1 launched {launches} times for {server.batches} dispatches")
+    warm = dict(requests=P17_WARM_REQUESTS, dispatches=server.batches,
+                s1_launches=launches, wall_s=warm_s,
+                new_captures=stats["compiles"] - compiles,
+                host_stagings=stats["host_stagings"])
+    print(f"  warm path: {P17_WARM_REQUESTS} requests (1-4096 rows, mixed "
+          f"ops, two models) in {warm_s:.2f} s, {server.batches} dispatches, "
+          f"S1 launches {launches}, 0 new captures, 0 host stagings")
+    mem = sum(ex.device_bytes() for ex in server._executors.values())
+    print(f"  the executor caches hold {mem / 2 ** 20:.1f} MiB of device "
+          f"memory ({stats['live_executables']} programs)")
+    lat = [p17_latency(GMMServer(reg, device="cuda"), raw, rows, per)
+           for rows, per in ((64, 100), (1024, 25))]
+    for r in lat:
+        print(f"  in-process server, {P17_THREADS} threads x {r['rows']}-row "
+              f"requests: p50 {r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms, "
+              f"{r['rows_per_s']:.0f} rows/s")
+
+    # (d) over HTTP, as processes
+    http = p17_http(reg_dir, workdir, raw, server)
+    wall = time.perf_counter() - t_phase
+    print(f"  phase 17 took {wall:.1f} s")
+    return dict(a=a, contracts=held, torch_route_probes=probes,
+                graphs=graphs, warm=warm, cache_bytes=mem, latency=lat,
+                http=http, wall_s=wall)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4182,6 +4771,17 @@ def main() -> int:
     finally:
         shutil.rmtree(oocdir, ignore_errors=True)
 
+    print("phase 17: serving at full width: S1 against its plain version, "
+          "the serving contracts, the warm path, latency and HTTP workers")
+    servedir = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
+    shutil.rmtree(servedir, ignore_errors=True)
+    servedir.mkdir(parents=True)
+    try:
+        serving = phase_serving(data, main_result, diag_ref[0], servedir,
+                                card)
+    finally:
+        shutil.rmtree(servedir, ignore_errors=True)
+
     src = "cuda_gmm_mpi_tpu_torch/csrc/"
     pallas = "cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py:"
     kernels = [
@@ -4261,6 +4861,7 @@ def main() -> int:
              mesh_iteration_ms=mesh["em_s"] / mesh["iters"] * 1e3,
              mesh_fit_breakdown_ms=mesh["fit_breakdown_ms"],
              **shard_record(k6_diag, k6_full, instances, "stats_logz")),
+        s1_record(serving),
     ]
     for prec in BF16_PASSES:
         kernels.append(precision_record(

@@ -338,6 +338,24 @@ def main(argv=None) -> int:
         from .telemetry.timeline import timeline_main
 
         return timeline_main(argv[1:])
+    if argv and argv[0] == "export":
+        # `export`: persist a model (sweep checkpoint / .summary) into a
+        # serving registry.
+        from .serving.registry import export_main
+
+        return export_main(argv[1:])
+    if argv and argv[0] == "serve":
+        # `serve`: the micro-batched scoring loop over a registry (JSONL
+        # on stdin/file/socket, or --http [--workers N]).
+        from .serving.server import serve_main
+
+        return serve_main(argv[1:])
+    if argv and argv[0] == "drift":
+        # `drift TARGET`: a serve stream or a dataset against a registry
+        # version's training envelope (0 clean / 1 gates / 2 usage).
+        from .telemetry.drift import drift_main
+
+        return drift_main(argv[1:])
     args = build_parser().parse_args(argv)
 
     from .config import GMMConfig

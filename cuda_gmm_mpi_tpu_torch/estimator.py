@@ -3,12 +3,11 @@
 The port of the JAX package's ``estimator.py``: the reference's only "API"
 is its ``.summary``/``.results`` file pair (``gaussian.cu:1171-1178``);
 this module gives the same fits the scikit-learn surface. Every heavy path
-is ``fit_gmm`` and the fitted model's ``memberships``, so nothing here adds
-numerics. Entry points run on ``config.device``, 'cuda' by default.
-
-Not ported yet: the serving registry round trip (``to_registry``,
-``from_registry``) and the serving executor's inference branch; both wait
-for the serving slice.
+is ``fit_gmm``, the serving executor (inference on one device) or the
+fitted model's ``memberships`` (a mesh or streaming fit), so nothing here
+adds numerics. Entry points run on ``config.device``, 'cuda' by default.
+``to_registry``/``from_registry`` round-trip a fit through a serving model
+registry in the JAX package's artifact format.
 """
 
 from __future__ import annotations
@@ -177,6 +176,57 @@ class GaussianMixture:
         state = compute_constants(state, diag_only=config.diag_only)
         return cls._from_state(state, np.zeros((d,), np.float64), config)
 
+    # -- serving registry round trip ---------------------------------------
+
+    def to_registry(self, registry, name: str, *, version=None,
+                    run_id=None) -> int:
+        """Persist this fitted estimator into a serving model registry.
+
+        ``registry`` is a :class:`~cuda_gmm_mpi_tpu_torch.serving.
+        ModelRegistry` or a root directory path. Unlike the 3-decimal
+        ``.summary`` format, the artifact stores the exact state leaves,
+        so a model re-hydrated via :meth:`from_registry` (or served by
+        ``gmm serve``) scores bit-identically to this in-memory estimator.
+        Returns the assigned version.
+        """
+        from .serving.registry import ModelRegistry
+
+        if not isinstance(registry, ModelRegistry):
+            registry = ModelRegistry(registry)
+        return registry.save(name, self._fitted, config=self.config,
+                             run_id=run_id, version=version)
+
+    @classmethod
+    def from_registry(cls, registry, name: str, version=None,
+                      config: Optional[GMMConfig] = None
+                      ) -> "GaussianMixture":
+        """Rebuild a fitted estimator from a serving-registry artifact
+        (exact round trip; the manifest supplies the dtype and covariance
+        family, ``config`` the rest -- its device above all, 'cuda' by
+        default, as in :meth:`from_summary`)."""
+        from .serving.registry import ModelRegistry
+
+        if not isinstance(registry, ModelRegistry):
+            registry = ModelRegistry(registry)
+        m = registry.load(name, version)
+        config = dataclasses.replace(
+            config or GMMConfig(), dtype=m.dtype,
+            covariance_type=m.covariance_type,
+            diag_only=m.covariance_type in ("diag", "spherical"))
+        gm = cls(m.k, target_components=m.k, config=config)
+        score = m.manifest.get("score")
+        loglik = m.manifest.get("loglik")
+        gm.result_ = GMMResult(
+            state=m.state, ideal_num_clusters=m.k,
+            min_rissanen=float("nan") if score is None else float(score),
+            final_loglik=float("nan") if loglik is None else float(loglik),
+            epsilon=float("nan"),
+            num_events=int(m.manifest.get("num_events", 0)),
+            num_dimensions=m.d,
+            data_shift=np.asarray(m.data_shift, np.float64))
+        gm._model = GMMModel(config)
+        return gm
+
     @classmethod
     def _from_state(cls, state, data_shift, config: GMMConfig
                     ) -> "GaussianMixture":
@@ -234,8 +284,13 @@ class GaussianMixture:
     # -- inference --------------------------------------------------------
 
     def _posteriors_and_evidence(self, X: np.ndarray):
-        """(w [N, K], logZ [N]) for X under the fitted model, through the
-        fitted model's ``memberships`` on its device, chunk by chunk."""
+        """(w [N, K], logZ [N]) for X under the fitted model.
+
+        A fit on one device scores through the serving executor
+        (serving/executor.py): one executable per (N-bucket, K-bucket, D),
+        on the card a CUDA graph of S1, so calls with varying row counts
+        reuse one program per pow2 bucket. A mesh or streaming fit keeps
+        the fitted model's ``memberships``, chunk by chunk."""
         from .validation import validate_finite
 
         res = self._fitted
@@ -243,6 +298,15 @@ class GaussianMixture:
         X = np.asarray(X, dtype)
         validate_finite(X)
         X = X - res.data_shift[None, :].astype(dtype)
+        if (getattr(self._model, "mesh", None) is None
+                and not self.config.stream_events):
+            from .serving.executor import executor_for_config
+
+            w, logz = executor_for_config(self.config).infer(
+                res.state, X, want="proba")
+            # The executor pads K to its pow2 bucket; inactive pad slots
+            # carry exactly-zero responsibility -- slice them off.
+            return w[:, :res.state.num_clusters_padded], logz
         chunks, _ = chunk_events(X, self.config.chunk_size)
         w, logz = self._model.memberships(res.state.to(self._model.device),
                                           chunks, return_logz=True)

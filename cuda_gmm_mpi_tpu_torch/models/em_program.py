@@ -47,6 +47,7 @@ import numpy as np
 import torch
 
 from .. import health
+from ..ops.kernels.counts import held_launches
 from ..ops.mstep import SuffStats
 from ..state import GMMState
 from ..telemetry import profiling as tl_profiling
@@ -228,18 +229,10 @@ def em_step(c: EMCarry, estep: Callable, mstep: Callable, count: Callable,
 def _launch_counters():
     """The kernel wrappers whose launch counters a replay must advance."""
     from ..ops.kernels import fused_stats as fs
+    from ..ops.kernels.score import score
 
     return (fs.fused_stats, fs.mstep, fs.fused_stats_batched,
-            fs.mstep_batched, fs.local_lse, fs.stats_logz)
-
-
-def launch_counts() -> tuple:
-    return tuple(fn.launches for fn in _launch_counters())
-
-
-def set_launch_counts(counts: tuple) -> None:
-    for fn, n in zip(_launch_counters(), counts):
-        fn.launches = n
+            fs.mstep_batched, fs.local_lse, fs.stats_logz, score)
 
 
 def add_launches(delta: tuple) -> None:
@@ -247,27 +240,26 @@ def add_launches(delta: tuple) -> None:
         fn.launches += n
 
 
-def _delta(after: tuple, before: tuple) -> tuple:
-    return tuple(a - b for a, b in zip(after, before))
-
-
 class Captured:
     """A function of static device buffers captured as one CUDA graph.
 
     ``warm`` runs it once eagerly on a side stream (library loading,
     solver handles, the allocator), then ``capture`` records it into the
-    shared ``pool``. Each wrapper counts its launch where it runs, so the
-    counters moved by warming up and by capturing (which launches nothing)
-    are set back, and every :meth:`replay` adds the launches the graph
-    holds."""
+    shared ``pool``. Each wrapper counts its launch where it runs; warming
+    up and capturing (which launches nothing) hold this thread's counts
+    aside (``ops.kernels.counts.held_launches``), and every :meth:`replay`
+    adds the launches the graph holds. ``capture_error_mode`` is
+    ``torch.cuda.graph``'s: 'thread_local' lets other threads use the card,
+    and count their launches, while this one captures."""
 
-    def __init__(self, fn: Callable, pool) -> None:
+    def __init__(self, fn: Callable, pool,
+                 capture_error_mode: str = "global") -> None:
         self.graph = torch.cuda.CUDAGraph()
-        before = launch_counts()
-        with torch.cuda.graph(self.graph, pool=pool):
+        with held_launches() as tally, torch.cuda.graph(
+                self.graph, pool=pool,
+                capture_error_mode=capture_error_mode):
             fn()
-        self.launches = _delta(launch_counts(), before)
-        set_launch_counts(before)
+        self.launches = tuple(tally.get(w, 0) for w in _launch_counters())
 
     def replay(self) -> None:
         self.graph.replay()
@@ -282,15 +274,14 @@ def pool_bytes(pool) -> int:
 
 
 def warm_up(fn: Callable):
-    """``fn()`` once on a side stream, as CUDA graph capture needs; the
-    launch counters are set back. Returns ``fn``'s result."""
-    before = launch_counts()
+    """``fn()`` once on a side stream, as CUDA graph capture needs; this
+    thread's launches are held aside, not counted. Returns ``fn``'s
+    result."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
+    with held_launches(), torch.cuda.stream(side):
         out = fn()
     torch.cuda.current_stream().wait_stream(side)
-    set_launch_counts(before)
     return out
 
 

@@ -2,9 +2,10 @@
 
 Each source becomes its own shared library with a plain C interface, bound
 with ctypes; a source may export several entry points (K1, K3, K5 and K6
-share fused_stats.cu, K2 and K4 share mstep.cu). Libraries are built on first use into the package's ``build/``
-directory (git-ignored), named by a hash of the source and the flags so an
-edited source is rebuilt; all sources are compiled by parallel nvcc
+share fused_stats.cu, K2 and K4 share mstep.cu, S1 is score.cu's).
+Libraries are built on first use into the package's ``build/`` directory
+(git-ignored), named by a hash of the source and the flags so an edited
+source is rebuilt; all sources are compiled by parallel nvcc
 processes. Nothing here runs at import time.
 """
 
@@ -39,6 +40,7 @@ SIGNATURES = {
                        ("gmm_stats_logz", [_P] * 11 + [_I] * 8 + [_P]),
                        ("gmm_shard_occupancy", [_I] * 3 + [_P])],
     "mstep.cu": [("gmm_mstep", [_P] * 12 + [_I] * 4 + [_P])],
+    "score.cu": [("gmm_score", [_P] * 6 + [_I] * 6 + [_P])],
 }
 
 _lock = threading.Lock()

@@ -63,6 +63,7 @@ from ...state import lane
 from ..constants import constants
 from ..estep import expand_features, kdot
 from ..mstep import SuffStats
+from .counts import note_launch
 
 NEG_LARGE = -1e30  # stand-in for -inf: exp() underflows to 0, avoids inf-inf
 
@@ -321,7 +322,7 @@ def fused_stats(x, wt, A, h, g, *, diag: bool, block_b: int = 512,
              int(diag), bt, grid, PRECISIONS[precision],
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "K1 (fused_stats)")
-    fused_stats.launches += 1
+    note_launch(fused_stats)
     return ll, nk, m1, m2
 
 
@@ -404,7 +405,7 @@ def fused_stats_batched(x, wt, lanes, A, h, g, *, diag: bool,
              k, k_pad, int(diag), bt, grid, r, PRECISIONS[precision],
              torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "K3 (fused_stats_batched)")
-    fused_stats_batched.launches += 1
+    note_launch(fused_stats_batched)
     return ll, nk, m1, m2
 
 
@@ -503,7 +504,7 @@ def _local_lse_launch(x, ops, k: int, diag: bool, block_b: int,
              PRECISIONS[precision],
              torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "K5 (local_lse)")
-    local_lse.launches += 1
+    note_launch(local_lse)
     local_lse.precision_launches[precision] += 1
     return m, s
 
@@ -538,7 +539,7 @@ def _stats_logz_launch(x, wt, logz, ops, k: int, diag: bool, block_b: int,
              k, tile.k_pad, int(diag), tile.bt, grid, PRECISIONS[precision],
              torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(err, "K6 (stats_logz)")
-    stats_logz.launches += 1
+    note_launch(stats_logz)
     stats_logz.precision_launches[precision] += 1
     return ll, nk, m1, m2
 
@@ -697,7 +698,7 @@ def mstep(nk, m1, m2, av, act, *, diag: bool):
     if m1.device.type == "cpu":
         return mstep_plain(nk, m1, m2, av, act, diag=diag)
     outs = _mstep_launch("K2 (mstep)", nk, m1, m2, av, act, diag)
-    mstep.launches += 1
+    note_launch(mstep)
     return outs
 
 
@@ -744,7 +745,7 @@ def mstep_batched(nk, m1, m2, av, act, *, diag: bool):
     if m1.device.type == "cpu":
         return mstep_batched_plain(nk, m1, m2, av, act, diag=diag)
     outs = _mstep_launch("K4 (mstep_batched)", nk, m1, m2, av, act, diag)
-    mstep_batched.launches += 1
+    note_launch(mstep_batched)
     return outs
 
 

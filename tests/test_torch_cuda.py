@@ -1392,3 +1392,164 @@ def test_double_buffered_copy_equals_synchronous_copy(dev):
         for f in ("N", "pi", "means", "R", "Rinv"):
             assert torch.equal(getattr(r.state, f), getattr(ref.state, f)), (
                 key, f)
+
+
+# ---------------------------------------------------------------- S1
+
+S1_W_BAR, S1_Z_BAR = 1e-4, 1e-5  # float32: max|dw|, normwise dlogZ
+
+
+def _s1_state(rng, k, d, diag, dtype, dev, inactive=(1,)):
+    s = _state(rng, k, d, diag, inactive=inactive)
+    st = state_from_numpy(s, device=dev)
+    return st.replace(**{f: getattr(st, f).to(dtype) for f in (
+        "N", "pi", "constant", "avgvar", "means", "R", "Rinv")})
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_s1_matches_plain_and_repeats_bit_for_bit(dev, diag, dtype):
+    """S1 against ``posteriors`` on the card: float32 in the reassociation
+    class (max|dw| 1e-4, logZ 1e-5 normwise), float64 to 1e-12; 'assign'
+    labels equal off near-ties; inactive and padded slots exactly 0; two
+    launches bit-identical."""
+    from cuda_gmm_mpi_tpu_torch.ops.estep import posteriors
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+    from cuda_gmm_mpi_tpu_torch.parallel.sharded_em import pad_state_clusters
+
+    rng = np.random.default_rng(15)
+    st = pad_state_clusters(_s1_state(rng, 70, 24, diag, dtype, dev), 128)
+    for n in (1, 7, 300, 5000):
+        x = torch.as_tensor(rng.normal(scale=2.0, size=(n, 24)), dtype=dtype,
+                            device=dev)
+        before = s1.score.launches
+        w, z = s1.score(st, x, diag_only=diag)
+        w2, z2 = s1.score(st, x, diag_only=diag)
+        lab, zl = s1.score(st, x, diag_only=diag, kind="assign")
+        assert s1.score.launches == before + 3
+        wp, zp = posteriors(st, x, diag_only=diag)
+        torch.cuda.synchronize()
+        assert torch.equal(w, w2) and torch.equal(z, z2) and torch.equal(z, zl)
+        assert bool((w[:, ~st.active] == 0).all())
+        ew = float((w - wp).abs().max())
+        ez = float((z - zp).abs().max() / zp.abs().max())
+        if dtype == torch.float64:
+            assert ew <= 1e-12 and ez <= 1e-12
+        else:
+            assert ew <= S1_W_BAR and ez <= S1_Z_BAR
+        top = wp.topk(2, dim=1).values
+        miss = lab.long() != torch.argmax(wp, dim=1)
+        assert bool(((top[:, 0] - top[:, 1])[miss] <= S1_W_BAR).all())
+
+
+def _served_registry(tmp_path, dev, rng, k=9, d=6, diag=False):
+    """A registry holding one model 'm' made from a seeded state (its
+    parameters exactly, through ``GaussianMixture._from_state``)."""
+    from cuda_gmm_mpi_tpu_torch import GaussianMixture
+    from cuda_gmm_mpi_tpu_torch.serving import ModelRegistry
+
+    s = _state(rng, k, d, diag)
+    gm = GaussianMixture._from_state(
+        state_from_numpy(s), rng.normal(size=d),
+        GMMConfig(diag_only=diag, device="cuda"))
+    reg = ModelRegistry(str(tmp_path / "reg"))
+    gm.to_registry(reg, "m")
+    return reg, gm
+
+
+def test_serving_contracts_hold_bit_for_bit_on_s1(dev, tmp_path):
+    """The four serving contracts with torch.equal on S1's route: a split
+    request, coalesced against solo requests, a stacked dispatch against
+    solo dispatches with the K-pad of the wider model, a K-pad of 16
+    against 32, and a hot-reloaded route against the version loaded
+    fresh."""
+    from cuda_gmm_mpi_tpu_torch.serving import GMMServer, ScoringExecutor
+
+    rng = np.random.default_rng(16)
+    reg, gm = _served_registry(tmp_path, dev, rng)
+    st = gm.result_.state
+    x = rng.normal(scale=2.0, size=(3000, 6)).astype(np.float32)
+    small = ScoringExecutor(min_block=64, max_block=64, device="cuda")
+    big = ScoringExecutor(device="cuda")
+    assert big.route == "S1"
+    for n in (300, 3000):
+        for a, b in zip(small.infer(st, x[:n]), big.infer(st, x[:n])):
+            assert np.array_equal(a, b)
+    srv = GMMServer(reg, device="cuda")
+    reqs = [{"id": i, "model": "m", "op": op, "x": x[a:b].tolist()}
+            for i, (op, a, b) in enumerate((
+                ("score", 0, 70), ("predict", 70, 190),
+                ("predict_proba", 190, 220), ("score_samples", 220, 410)))]
+    drop = lambda rs: [{k: v for k, v in r.items() if k != "latency_ms"}
+                       for r in rs]
+    assert drop(srv.handle_requests(reqs)) == drop(
+        srv.handle_requests(reqs, coalesce=False))
+    other = _s1_state(rng, 20, 6, False, torch.float32, dev, inactive=())
+    outs, _ = big.infer_stacked([st, other], [x[:500], x[500:900]])
+    for (w, z), s, rows in ((outs[0], st, x[:500]), (outs[1], other,
+                                                     x[500:900])):
+        ws, zs = big.infer(s, rows)
+        assert np.array_equal(w, ws) and np.array_equal(z, zs)
+    route = big._route_for(st, k_bucket=32)
+    [(w32, z32)] = big._executable("proba", 512, 32, 6).run(
+        [(route, x[:500])])
+    w16, z16 = big.infer(st, x[:500])
+    assert np.array_equal(w16, w32[:, :16]) and np.array_equal(z16, z32)
+    ask = lambda s, **e: s.handle_requests([{
+        "id": 0, "model": "m", "op": "score_samples",
+        "x": x[:50].tolist(), **e}])[0]
+    r1 = ask(srv)
+    moved = dataclasses.replace(gm.result_, state=st.replace(
+        means=st.means + 0.5))
+    reg.save("m", moved, config=gm.config)
+    assert srv.maybe_reload() == [{"model": "m", "from_version": 1,
+                                   "to_version": 2}]
+    fresh = GMMServer(reg, device="cuda")
+    assert ask(srv)["result"] == ask(fresh, version=2)["result"]
+    assert ask(srv, version=1)["result"] == r1["result"]
+
+
+def test_warm_executor_never_recaptures_and_launches_s1(dev, tmp_path):
+    """After warmup, varied request sizes and ops build nothing, stage
+    nothing from the host, and launch S1 once per dispatch."""
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+    from cuda_gmm_mpi_tpu_torch.serving import GMMServer
+
+    rng = np.random.default_rng(17)
+    reg, _ = _served_registry(tmp_path, dev, rng, diag=True)
+    srv = GMMServer(reg, device="cuda")
+    m = srv.resolve("m")
+    srv._executor_for(m).warmup(m.state, blocks=(256, 512, 1024, 2048))
+    compiles = srv.executor_stats()["compiles"]
+    x = rng.normal(size=(2000, 6))
+    ops = ("predict", "predict_proba", "score_samples", "score")
+    before = s1.score.launches
+    for i in range(60):
+        n = int(rng.integers(1, 2001))
+        r = srv.handle_requests([{"id": i, "model": "m", "op": ops[i % 4],
+                                  "x": x[:n].tolist()}])[0]
+        assert r["ok"]
+    stats = srv.executor_stats()
+    assert stats["compiles"] == compiles and stats["host_stagings"] == 0
+    assert s1.score.launches - before == srv.batches == 60
+
+
+def test_evicted_graph_frees_its_device_memory(dev):
+    """LRU eviction drops the graph and its static buffers: the memory a
+    65,536-row program holds comes back when a small program evicts it."""
+    from cuda_gmm_mpi_tpu_torch.serving import ScoringExecutor
+
+    rng = np.random.default_rng(18)
+    st = _s1_state(rng, 100, 24, False, torch.float32, dev)
+    x = rng.normal(size=(65536, 24)).astype(np.float32)
+    ex = ScoringExecutor(max_executables=1, device="cuda")
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    ex.infer(st, x)
+    held = torch.cuda.memory_allocated() - base
+    assert held >= 65536 * 128 * 4  # the static w block at least
+    ex.infer(st, x[:10])
+    assert ex.evictions == 1 and ex.cache_size == 1
+    gc.collect()
+    assert torch.cuda.memory_allocated() - base < held / 4

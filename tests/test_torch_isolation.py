@@ -52,6 +52,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "spans", "report", "profiling", "sketch", "exporter", "diff",
         "timeline")} <= set(files)
     assert REPO / "cuda_gmm_mpi_tpu_torch" / "utils" / "profiling.py" in files
+    serving = REPO / "cuda_gmm_mpi_tpu_torch" / "serving"
+    assert {serving / f"{m}.py" for m in (
+        "wire", "registry", "executor", "breaker", "server", "http",
+        "client", "pool")} | {tel / "drift.py"} <= set(files)
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -106,6 +110,74 @@ def test_streaming_entry_points_raise_without_cuda(monkeypatch, tmp_path,
     cfg = GMMConfig(device="cpu", min_iters=2, max_iters=2,
                     stream_events=True, ingest="pipelined")
     assert fit_gmm(FileSource(path), 2, config=cfg).ideal_num_clusters >= 1
+
+
+def test_serving_entry_points_raise_without_cuda(monkeypatch, tmp_path,
+                                                capsys):
+    """``gmm serve``, ``gmm export --checkpoint``, ``gmm drift`` and
+    ``GaussianMixture.from_registry(...).predict`` raise (the CLIs exit
+    non-zero naming the missing device) without a GPU; asked for the CPU
+    they run."""
+    from cuda_gmm_mpi_tpu_torch.io import write_bin
+
+    data = np.random.default_rng(0).normal(size=(64, 2)).astype(np.float32)
+    ck, reg = str(tmp_path / "ck"), str(tmp_path / "reg")
+    cpu = GMMConfig(device="cpu", min_iters=2, max_iters=2,
+                    checkpoint_dir=ck)
+    fit_gmm(data, 3, config=cpu)
+    GaussianMixture(2, **{"device": "cpu", "min_iters": 2,
+                          "max_iters": 2}).fit(data).to_registry(reg, "m")
+    path = str(tmp_path / "e.bin")
+    write_bin(path, data)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GaussianMixture.from_registry(reg, "m").predict(data)
+    assert torch_main(["serve", "--registry", reg, "--input", path]) == 1
+    assert torch_main(["export", "--registry", reg, "--name", "a",
+                       "--checkpoint", ck]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert torch_main(["drift", path, "--registry", reg, "--model",
+                       "m"]) == 2
+    assert "no CUDA device" in capsys.readouterr().out
+    from cuda_gmm_mpi_tpu_torch.serving import GMMServer, ModelRegistry
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GMMServer(ModelRegistry(reg))
+    assert not (tmp_path / "reg" / "a").exists()
+    # Asked for the CPU, the same calls run.
+    cpu_gm = GaussianMixture.from_registry(reg, "m",
+                                           config=GMMConfig(device="cpu"))
+    assert cpu_gm.predict(data).shape == (64,)
+    assert torch_main(["export", "--registry", reg, "--name", "a",
+                       "--checkpoint", ck, "--device", "cpu"]) == 0
+
+
+def test_s1_takes_its_plain_version_only_on_the_cpu():
+    """S1 on CPU tensors is ``posteriors``; off the CPU the launch path
+    refuses what it cannot launch, and no launch is counted."""
+    from cuda_gmm_mpi_tpu_torch.ops.estep import posteriors
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+    from cuda_gmm_mpi_tpu_torch.state import zeros_state
+
+    st = zeros_state(4, 3, dtype=torch.float64)
+    st = st.replace(pi=torch.full((4,), 0.25, dtype=torch.float64),
+                    Rinv=torch.eye(3, dtype=torch.float64).repeat(4, 1, 1),
+                    active=torch.tensor([True, True, False, True]))
+    x = torch.randn(10, 3, dtype=torch.float64)
+    before = s1.score.launches
+    w, z = s1.score(st, x, diag_only=False)
+    wp, zp = posteriors(st, x)
+    assert torch.equal(w, wp) and torch.equal(z, zp)
+    lab, _ = s1.score(st, x, diag_only=False, kind="assign")
+    assert torch.equal(lab, torch.argmax(wp, dim=1).to(torch.int32))
+    meta = lambda *s: torch.empty(s, device="meta", dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        s1.score(st.to("meta"), meta(10, 3), diag_only=False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        s1.score_launch(x, *s1.score_operands(st, False),
+                        torch.empty(10, dtype=torch.float64), diag=False,
+                        w=torch.empty(10, 4, dtype=torch.float64))
+    assert s1.score.launches == before
 
 
 def test_kernel_wrappers_do_not_fall_back_off_the_cpu():

@@ -227,3 +227,31 @@ def test_mstep_batched_plain_matches_pallas(rng, diag):
         one = fs.mstep_plain(*(o[r] for o in ops), diag=diag)
         for a, b in zip(out, one):
             assert torch.equal(a[r], b)
+
+
+def test_held_launches_hold_only_this_threads_counts():
+    """A graph's warm-up and capture hold their own thread's launches
+    aside; another thread's launches meanwhile reach the counter."""
+    import threading
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels.counts import (
+        held_launches, note_launch,
+    )
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+    with held_launches() as outer:
+        note_launch(wrapper)
+        with held_launches() as inner:
+            note_launch(wrapper)
+            note_launch(wrapper)
+            other = threading.Thread(target=note_launch, args=(wrapper,))
+            other.start()
+            other.join()
+        note_launch(wrapper)
+    note_launch(wrapper)
+    assert inner == {wrapper: 2}
+    assert outer == {wrapper: 2}
+    assert wrapper.launches == 2
