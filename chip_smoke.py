@@ -286,14 +286,22 @@ Phases (any failure exits non-zero, and no result line is printed):
    accumulates in double); float64 S1 within 1e-12 (logZ normwise; w on
    the log-density scale); 'assign' equal to torch ops' argmax but on
    near-ties (counted); repeat launches bit-identical. S1's time per
-   launch at 256 / 4,096 / 65,536 rows beside torch ops and its bound. (b)
-   The serving contracts with ``torch.equal`` on S1's route: a split
-   request (max_block 64 against 65,536, 300 and 70,000 rows), coalesced
-   against solo requests (tests/test_torch_serving.py's mix, 10x the
-   rows), the full model stacked with the diag fit's state (Kb 128)
-   against solo dispatches, a K-pad of 128 against 256, and a hot-reloaded
-   route against the version loaded fresh; the same probes on the
-   torch-ops route at 'highest' and on 'centered' are printed, not held.
+   launch at 256 / 4,096 / 65,536 rows beside torch ops and its bound. The
+   same for S1's centered form (the 'centered' quad mode) against its
+   plain version (``posteriors`` in that mode) and the float64 centered
+   quadratic form (with the full Rinv: the diag ``posteriors`` expands
+   x^2 in every mode). (b) The serving contracts with ``torch.equal`` on
+   S1's route, at 'highest', 'high' and 'default' (S1 computes at
+   'highest', inside both classes) and under 'centered' (its centered
+   form), for the full and the diag model each: a split request
+   (max_block 64 against 65,536, 300 and 70,000 rows), coalesced against
+   solo requests (tests/test_torch_serving.py's mix, 10x the rows), the
+   model stacked with a second state of its family against solo
+   dispatches, a K-pad of Kb against 2 Kb, and a hot-reloaded route
+   against the version loaded fresh; every executor's route must be S1,
+   and the centered form's launches there are counted from 0; the same
+   probes on the torch-ops route at 'highest' and on 'centered' are
+   printed, not held.
    A graph replay against the eager launch per block, each capture's
    seconds, one warm ``infer`` on the host clock. (c) The warm path: two
    models served in process, blocks 256-16,384 warmed, then 1,000
@@ -306,8 +314,32 @@ Phases (any failure exits non-zero, and no result line is printed):
    at 4,096-row requests, worker 0 SIGKILLed mid-stream with no failed
    request and its slot respawned, SIGTERM drains to exit 75, every
    child reaped. S1's bound is 2 (T+D) flops per (event, active cluster)
-   at the fp32 FMA peak against its bytes (x, the operands, w and logZ
-   once); it has no PyTorch call that computes its function.
+   (its centered form's 3 T + D: its products depend on the cluster) at
+   the fp32 FMA peak against its bytes (x, the operands, w and logZ
+   once); it has no PyTorch call that computes its function;
+18. tuning and the lifecycle at full width (tuning/, lifecycle/), on
+   phase 4's events written to a BIN and its K 96 full model. (a) ``gmm
+   tune`` on the BIN at K = 100 (3 probe iterations): it must write a
+   ``gpu|<card>|...`` row whose estep_backend candidates are torch and
+   cuda, each timed by its fits' own EM walls (no fit resolves
+   chunk_size on the card). (b) A fit with
+   ``autotune='db'`` (K 100 -> 96, 20 iterations) must resolve
+   estep_backend from that row and emit its ``tune`` records; its K and
+   merge pairs must equal those of an untuned fit with the resolved knobs;
+   an ``autotune='off'`` fit naming the DB must equal a fit without the
+   fields, result and stream (clocks, heartbeats and compile events
+   aside). (c) Serving block bounds measured into the DB (a 100-row
+   request at min_block 32 and 64, a 65,536-row one at max_block 8,192 and
+   16,384), then ``gmm serve --autotune db`` must reply byte for byte as
+   ``--autotune off`` (six requests up to 30,000 rows). (d) The K 96 model
+   served in process with a ``LifecycleController`` read from a policy
+   file (retrain.data the BIN, max_rows 65,536, one 65,536-row block per
+   stepwise step): shifted rows raise the drift alarm, and the arc runs
+   retrain (K1, K2 and the holdout gates' S1 launches counted from 0
+   around that tick), canary with a 2-tick shadow window (S1 counted),
+   promote, watch, cooldown; the promoted version loads from the registry
+   and scores; then ``canary_regression`` quarantines the next candidate
+   with every reply unchanged byte for byte.
 
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
@@ -4009,15 +4041,25 @@ P17_F64_BAR = 1e-12
 P17_WARM_REQUESTS = 1000
 P17_WARM_BLOCKS = tuple(256 << i for i in range(7))  # 256 .. 16384
 P17_THREADS = 8
+# (b)'s serving families: S1 at each precision in the expanded form, and
+# its centered form
+P17_FAMILIES = (("highest", dict(matmul_precision="highest")),
+                ("high", dict(matmul_precision="high")),
+                ("default", dict(matmul_precision="default")),
+                ("centered", dict(quad_mode="centered")))
 
 
-def s1_bound(n: int, k: int, kb: int, d: int, diag: bool):
+def s1_bound(n: int, k: int, kb: int, d: int, diag: bool,
+             centered: bool = False):
     """S1's bound on this run's shapes: 2 (T + D) flops per (event, active
-    cluster) on the fp32 FMA units; bytes: x, the operands, w [n, Kb] and
-    logZ once each."""
+    cluster) on the fp32 FMA units, 3 T + D in the centered form (its
+    products depend on the cluster: D differences, then a product and an
+    fma per term); bytes: x, the operands, w [n, Kb] and logZ once
+    each."""
     t = d if diag else d * (d + 1) // 2
+    flops = (3 * t + d) if centered else 2 * (t + d)
     return bound_ms(4.0 * (n * d + (t + d + 1) * kb + n * (kb + 1)),
-                    2.0 * n * k * (t + d))
+                    float(n) * k * flops)
 
 
 def _p17_states(result, diag: bool):
@@ -4039,14 +4081,22 @@ def _normwise(a, ref) -> float:
     return float((a.double() - ref).abs().max() / ref.abs().max())
 
 
-def p17_s1(result, x_c, diag: bool, label: str) -> dict:
-    """(a): S1 against its plain version and float64 at P17_BLOCKS; the
-    timed blocks."""
+def p17_s1(result, x_c, diag: bool, label: str,
+           quad_mode: str = "expanded") -> dict:
+    """(a): S1 (its centered form under 'centered') against its plain
+    version and float64 at P17_BLOCKS; the timed blocks. The float64
+    reference of the centered form is the centered quadratic form with the
+    full Rinv (a diag fit's Rinv is diagonal; the diag ``posteriors``
+    expands x^2 whatever the quad mode)."""
     import torch
 
     from cuda_gmm_mpi_tpu_torch.ops.estep import posteriors
     from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
 
+    centered = quad_mode == "centered"
+    plain = functools.partial(posteriors, diag_only=diag, quad_mode=quad_mode)
+    ref64 = functools.partial(posteriors, diag_only=diag and not centered,
+                              quad_mode=quad_mode)
     st, st64 = _p17_states(result, diag)
     k, kb = result.state.num_active(), st.num_clusters_padded
     pad = ~st.active
@@ -4055,13 +4105,16 @@ def p17_s1(result, x_c, diag: bool, label: str) -> dict:
     ties, outside = 0, 0
     for n in P17_BLOCKS:
         x = x_c[:n]
-        w, z = s1.score(st, x, diag_only=diag)
-        w2, z2 = s1.score(st, x, diag_only=diag)
-        lab, zl = s1.score(st, x, diag_only=diag, kind="assign")
-        lab2, _ = s1.score(st, x, diag_only=diag, kind="assign")
-        wp, zp = posteriors(st, x, diag_only=diag)
-        w64, z64 = posteriors(st64, x.double(), diag_only=diag)
-        wd, zd = s1.score(st64, x.double(), diag_only=diag)
+        w, z = s1.score(st, x, diag_only=diag, quad_mode=quad_mode)
+        w2, z2 = s1.score(st, x, diag_only=diag, quad_mode=quad_mode)
+        lab, zl = s1.score(st, x, diag_only=diag, quad_mode=quad_mode,
+                           kind="assign")
+        lab2, _ = s1.score(st, x, diag_only=diag, quad_mode=quad_mode,
+                           kind="assign")
+        wp, zp = plain(st, x)
+        w64, z64 = ref64(st64, x.double())
+        wd, zd = s1.score(st64, x.double(), diag_only=diag,
+                          quad_mode=quad_mode)
         torch.cuda.synchronize()
         where = f"S1 {label} n={n}"
         check(torch.equal(w, w2) and torch.equal(z, z2)
@@ -4105,16 +4158,16 @@ def p17_s1(result, x_c, diag: bool, label: str) -> dict:
     times = {}
     for n in P17_TIMED:
         x = x_c[:n]
-        a_ext, g = s1.score_operands(st, diag)
+        a_ext, g = s1.score_operands(st, diag, centered)
         w = torch.empty((n, kb), device="cuda")
         z = torch.empty(n, device="cuda")
-        ms = time_ms(lambda: s1.score_launch(x, a_ext, g, z, diag=diag, w=w),
-                     reps=20)
-        plain = time_ms(lambda: posteriors(st, x, diag_only=diag), reps=20)
-        b, by = s1_bound(n, k, kb, x.shape[1], diag)
-        times[n] = dict(ms=ms, plain_ms=plain, bound_ms=b, bound_by=by)
+        ms = time_ms(lambda: s1.score_launch(x, a_ext, g, z, diag=diag, w=w,
+                                             centered=centered), reps=20)
+        plain_ms = time_ms(lambda: plain(st, x), reps=20)
+        b, by = s1_bound(n, k, kb, x.shape[1], diag, centered)
+        times[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
         print(f"  S1 {label} {n} rows: {ms:.4f} ms per launch, torch-ops "
-              f"posteriors {plain:.4f} ms, bound {b:.4f} ms ({by}; "
+              f"posteriors {plain_ms:.4f} ms, bound {b:.4f} ms ({by}; "
               f"{100 * b / ms:.1f}% of it)")
     print(f"  S1 {label} against torch ops at blocks {P17_BLOCKS}: max|dw| "
           f"{worst['w']:.2e}, normwise dlogZ {worst['z']:.2e} (outside the "
@@ -4143,16 +4196,19 @@ def _p17_requests(x, model: str, scale: int = 10):
             for i, op in enumerate(ops)]
 
 
-def p17_contracts(make_ex, reg_dir: Path, result, diag_result, x_c, raw,
-                  label: str) -> dict:
-    """(b): the four contracts on one route; returns {name: held}."""
+def p17_contracts(make_ex, reg_dir: Path, result, other, x_c, raw,
+                  label: str, model: str = "cells",
+                  cov: str = "full") -> dict:
+    """(b): the four contracts on one route for ``model`` (``result``'s
+    fit, of covariance ``cov``); the stacked dispatch pairs it with the
+    state ``other``. Returns {name: held}."""
     import dataclasses as dc
 
     from cuda_gmm_mpi_tpu_torch import GMMConfig
     from cuda_gmm_mpi_tpu_torch.serving import GMMServer, ModelRegistry
 
     out = {}
-    st, st_d = result.state, diag_result.state
+    st = result.state
     xs = x_c.cpu().numpy()
     small, big = make_ex(min_block=64, max_block=64), make_ex()
     out["split"] = all(
@@ -4161,13 +4217,13 @@ def p17_contracts(make_ex, reg_dir: Path, result, diag_result, x_c, raw,
         for n in (300, 70_000))
     srv = GMMServer(ModelRegistry(str(reg_dir)), executor=make_ex(),
                     warm=False, device="cuda")
-    reqs = _p17_requests(raw, "cells")
+    reqs = _p17_requests(raw, model)
     out["coalesced"] = (_no_latency(srv.handle_requests(reqs))
                         == _no_latency(srv.handle_requests(reqs,
                                                            coalesce=False)))
     ex = make_ex()
-    (a, b), _ = ex.infer_stacked([st, st_d], [xs[:700], xs[700:1300]])
-    sa, sb = ex.infer(st, xs[:700]), ex.infer(st_d, xs[700:1300])
+    (a, b), _ = ex.infer_stacked([st, other], [xs[:700], xs[700:1300]])
+    sa, sb = ex.infer(st, xs[:700]), ex.infer(other, xs[700:1300])
     out["stacked"] = all(np.array_equal(p, q) for p, q in zip(
         a + b, (sa[0], sa[1], sb[0][:, :b[0].shape[1]], sb[1])))
     w1, z1 = ex.infer(st, xs[:5000])
@@ -4180,7 +4236,7 @@ def p17_contracts(make_ex, reg_dir: Path, result, diag_result, x_c, raw,
     # hot reload: v2 (means + 0.5) lands while a server serves v1
     hot = reg_dir.parent / f"hot_{label.replace(' ', '_')}"
     reg = ModelRegistry(str(hot))
-    cfg = GMMConfig(covariance_type="full")
+    cfg = GMMConfig(covariance_type=cov)
     reg.save("m", result, config=cfg)
     srv = GMMServer(reg, executor=make_ex(), warm=False, device="cuda")
 
@@ -4203,6 +4259,7 @@ def p17_contracts(make_ex, reg_dir: Path, result, diag_result, x_c, raw,
                          and r2["result"] == fresh["result"]
                          and r_pin["result"] == r1["result"]
                          and r1["result"] != r2["result"])
+    shutil.rmtree(hot, ignore_errors=True)
     return out
 
 
@@ -4414,6 +4471,25 @@ def p17_http(reg_dir: Path, workdir: Path, raw, inproc) -> dict:
     return out
 
 
+def s1_centered_record(serving: dict) -> dict:
+    """The centered S1's line: full covariance at 4,096 rows, its launches
+    those of phase 17 (b)'s 'centered' serving routes (counted from 0
+    around them)."""
+    full, diag = (serving["a"]["centered full"],
+                  serving["a"]["centered diag"])
+    t = full["times"][4096]
+    return dict(
+        name="S1 score centered", route="cuda",
+        source="cuda_gmm_mpi_tpu_torch/csrc/score.cu",
+        replaces="cuda_gmm_mpi_tpu/serving/executor.py:274",
+        launches=serving["centered_launches"],
+        max_abs_err=max(full["errors"]["w"], diag["errors"]["w"]),
+        ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
+        bound_by=t["bound_by"], library_ms=None, errors=full["errors"],
+        diag_errors=diag["errors"], times=full["times"],
+        diag_times=diag["times"])
+
+
 def s1_record(serving: dict) -> dict:
     """S1's line of the kernels JSON: full covariance at 4,096 rows; the
     other blocks, diag and the serving measurements beside it."""
@@ -4459,18 +4535,40 @@ def phase_serving(data, main_result, diag_result, workdir: Path,
           f"cells_diag (diag, K {diag_result.ideal_num_clusters}); card: "
           f"{card}")
 
-    # (a) S1 against its plain version and float64
+    # (a) S1 against its plain version and float64, both forms
     a = {"full": p17_s1(main_result, x_c, False, "full"),
-         "diag": p17_s1(diag_result, x_c, True, "diag")}
+         "diag": p17_s1(diag_result, x_c, True, "diag"),
+         "centered full": p17_s1(main_result, x_c, False, "centered full",
+                                 "centered"),
+         "centered diag": p17_s1(diag_result, x_c, True, "centered diag",
+                                 "centered")}
 
-    # (b) the four contracts, held on S1's route; printed on torch ops
-    def s1_ex(**kw):
-        return ScoringExecutor(device="cuda", **kw)
+    # (b) the four contracts, held on S1's route at every precision and
+    # quad mode, full and diag; printed on torch ops
+    held, centered_launches = {}, 0
+    for fam_name, fam in P17_FAMILIES:
+        for cov, res, other, model in (
+                ("full", main_result, diag_result.state, "cells"),
+                ("diag", diag_result, diag_result.state.replace(
+                    means=diag_result.state.means + 0.5), "cells_diag")):
+            def s1_ex(**kw):
+                ex = ScoringExecutor(device="cuda", diag_only=cov == "diag",
+                                     **fam, **kw)
+                check(ex.route == "S1", f"{fam_name} {cov}: route "
+                      f"{ex.route!r}")
+                return ex
 
-    held = p17_contracts(s1_ex, reg_dir, main_result, diag_result, x_c, raw,
-                         "S1")
-    check(all(held.values()), f"S1 route contracts: {held}")
-    print(f"  contracts on S1's route (torch.equal): {held}")
+            label = f"S1 {fam_name} {cov}"
+            before = s1.centered_form.launches
+            held[fam_name, cov] = p17_contracts(
+                s1_ex, reg_dir, res, other, x_c, raw, label, model, cov)
+            centered_launches += s1.centered_form.launches - before
+            check(all(held[fam_name, cov].values()),
+                  f"{label} route contracts: {held[fam_name, cov]}")
+            print(f"  contracts on {label}'s route (torch.equal): "
+                  f"{held[fam_name, cov]}")
+    check(centered_launches > 0, "the 'centered' routes never launched S1's "
+          "centered form")
     probes = {}
     for name, kw in (("torch ops 'highest'", {}),
                      ("torch ops 'centered'", dict(quad_mode="centered"))):
@@ -4481,8 +4579,8 @@ def phase_serving(data, main_result, diag_result, workdir: Path,
             ex.route = "torch"
             return ex
 
-        probes[name] = p17_contracts(t_ex, reg_dir, main_result, diag_result,
-                                     x_c, raw, name)
+        probes[name] = p17_contracts(t_ex, reg_dir, main_result,
+                                     diag_result.state, x_c, raw, name)
         print(f"  contracts on the {name} route (printed, not held): "
               f"{probes[name]}")
 
@@ -4492,7 +4590,9 @@ def phase_serving(data, main_result, diag_result, workdir: Path,
     server = GMMServer(reg, device="cuda")
     for name in ("cells", "cells_diag"):
         m = server.resolve(name)
-        server._executor_for(m).warmup(m.state, blocks=P17_WARM_BLOCKS)
+        ex = server._executor_for(m)
+        check(ex.route == "S1", f"{name} is served on {ex.route!r}")
+        ex.warmup(m.state, blocks=P17_WARM_BLOCKS)
     compiles = server.executor_stats()["compiles"]
     rng = np.random.default_rng(17)
     ops = ("predict", "predict_proba", "score_samples", "score")
@@ -4540,9 +4640,294 @@ def phase_serving(data, main_result, diag_result, workdir: Path,
     http = p17_http(reg_dir, workdir, raw, server)
     wall = time.perf_counter() - t_phase
     print(f"  phase 17 took {wall:.1f} s")
-    return dict(a=a, contracts=held, torch_route_probes=probes,
-                graphs=graphs, warm=warm, cache_bytes=mem, latency=lat,
-                http=http, wall_s=wall)
+    return dict(a=a, contracts={f"{f} {c}": v for (f, c), v in held.items()},
+                centered_launches=centered_launches,
+                torch_route_probes=probes, graphs=graphs, warm=warm,
+                cache_bytes=mem, latency=lat, http=http, wall_s=wall)
+
+
+P18_PROBE_K, P18_PROBE_ITERS = 100, 3  # (a): `gmm tune --k 100`
+P18_SERVE_MIN, P18_SERVE_MAX = (32, 64), (8192, 16384)  # (c)'s candidates
+P18_SHIFT = 0.5  # (d): drifted rows are the events + 0.5 x their std
+# (d)'s policy: the defaults but for an arc that closes in a few ticks and
+# a refit whose every step sees the 65,536 rows (max_rows) as one block, so
+# that no step estimates a cluster's covariance from a handful of rows
+P18_RETRAIN_CHUNK = 65536
+P18_POLICY = {"debounce_alarms": 1, "cooldown_s": 0.0,
+              "canary": {"max_psi": 100.0, "max_ks": 1.0, "shadow_ticks": 2},
+              "watch": {"probation_ticks": 2, "probation_s": 0.0,
+                        "min_rows": 32}}
+# stream fields that carry a clock, a run identity or an allocator's state
+P18_CLOCK_FIELDS = {"ts", "seconds", "run_id", "clock", "clock0", "metrics",
+                    "compile", "phase_profile", "profile", "memory_stats"}
+
+
+def _p18_stream(path) -> list:
+    """A fit's stream without its clocks, heartbeats and compile events."""
+    out = []
+    with open(path) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["event"] in ("heartbeat", "compile", "run_summary"):
+                continue
+            out.append({k: v for k, v in r.items()
+                        if k not in P18_CLOCK_FIELDS and not k.endswith("_s")})
+    return out
+
+
+def _p18_replies(server, raw, shift, requests=8, rows=512, start=0):
+    """``requests`` score_samples replies of ``rows`` rows (raw + shift),
+    latency scrubbed."""
+    out = []
+    for i in range(requests):
+        lo = ((start + i) * 7919) % (len(raw) - rows)
+        x = raw[lo:lo + rows] + np.float32(shift)
+        r = server.handle_requests([{"id": i, "model": "cells",
+                                     "op": "score_samples", "x": x}])[0]
+        check(r["ok"], f"lifecycle traffic: {r}")
+        out.append(json.dumps({k: v for k, v in r.items()
+                               if k != "latency_ms"}, sort_keys=True))
+    return out
+
+
+def phase_tuning_lifecycle(data, main_result, workdir: Path, card: str
+                           ) -> dict:
+    """Phase 18: tuning and the lifecycle at full width (see the module
+    docstring)."""
+    from cuda_gmm_mpi_tpu_torch import GMMConfig
+    from cuda_gmm_mpi_tpu_torch.cli import main as gmm_main
+    from cuda_gmm_mpi_tpu_torch.io import write_bin
+    from cuda_gmm_mpi_tpu_torch.lifecycle import (LifecycleController,
+                                                  LifecyclePolicy)
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+    from cuda_gmm_mpi_tpu_torch.serving import (GMMServer, ModelRegistry,
+                                                ScoringExecutor)
+    from cuda_gmm_mpi_tpu_torch.serving.server import serve_main
+    from cuda_gmm_mpi_tpu_torch.testing import faults
+    from cuda_gmm_mpi_tpu_torch.tuning import TuningDB, TuningKey
+    from cuda_gmm_mpi_tpu_torch.tuning.autotune import device_key
+
+    t_phase = time.perf_counter()
+    out = {}
+    infile = workdir / "events.bin"
+    write_bin(str(infile), data)
+    db_path = str(workdir / "tuning.json")
+
+    # (a) `gmm tune` probes estep_backend at K = 100 on the card
+    t0 = time.perf_counter()
+    rc = gmm_main(["tune", str(infile), "--k", str(P18_PROBE_K),
+                   "--probe-iters", str(P18_PROBE_ITERS), "--tuning-db",
+                   db_path, "--device", "cuda"])
+    tune_s = time.perf_counter() - t0
+    check(rc == 0, f"gmm tune exited {rc}")
+    platform, kind = device_key("cuda")
+    key = TuningKey.for_shape(platform, kind, N_EVENTS, DIMS, P18_PROBE_K,
+                              "full", "float32")
+    db = TuningDB.open(db_path)
+    row = db.lookup(key, "estep_backend")
+    check(row is not None and set(row["candidates"]) == {"torch", "cuda"}
+          and row["source"] == "probe",
+          f"gmm tune wrote no estep_backend row at {key.as_str()}: {row}")
+    walls = {c: p["wall_per_iter_s"] for c, p in row["candidates"].items()}
+    out["a"] = dict(key=key.as_str(), chosen=row["chosen"], walls=walls,
+                    wall_s=tune_s)
+    print(f"  (a) gmm tune: row {key.as_str()}: estep_backend torch "
+          f"{walls['torch']:.6f} s/iter, cuda {walls['cuda']:.6f} s/iter -> "
+          f"{row['chosen']!r} (EM walls; {tune_s:.1f} s; no fit resolves "
+          f"chunk_size on the card)")
+
+    # (b) a tuned fit, the untuned fit with its knobs, 'off' against plain
+    streams = {}
+
+    def run(name, **cfg):
+        path = workdir / f"{name}.jsonl"
+        r = fit(data, K0, K_TARGET, ITERS, metrics_file=str(path), **cfg)[0]
+        streams[name] = path
+        return r
+
+    tuned = run("tuned", autotune="db", tuning_db=db_path)
+    tune = {}
+    with open(streams["tuned"]) as f:
+        for line in f:
+            r = json.loads(line)
+            if r["event"] == "tune":
+                tune[r["knob"]] = r
+    check(tune.get("estep_backend", {}).get("source") == "db"
+          and tune["estep_backend"]["chosen"] == row["chosen"],
+          f"the tuned fit did not resolve estep_backend from the row: {tune}")
+    check("chunk_size" not in tune,
+          f"the tuned fit resolved chunk_size on the card: {tune}")
+    knobs = {k: r["chosen"] for k, r in tune.items()}
+    untuned = run("untuned", **knobs)
+    pairs = lambda r: [m[1] for m in r.merges]
+    check(tuned.ideal_num_clusters == untuned.ideal_num_clusters
+          and pairs(tuned) == pairs(untuned),
+          f"tuned fit K {tuned.ideal_num_clusters} pairs {pairs(tuned)}, "
+          f"untuned {untuned.ideal_num_clusters} {pairs(untuned)}")
+    off = run("off", autotune="off", tuning_db=db_path)
+    plain = run("plain")
+    same_off = (_equal_fits(off, plain)
+                and _p18_stream(streams["off"]) == _p18_stream(
+                    streams["plain"]))
+    check(same_off, "an --autotune off fit differs from a fit without the "
+          "fields (result or stream)")
+    out["b"] = dict(decisions={k: dict(chosen=r["chosen"], source=r["source"])
+                               for k, r in tune.items()},
+                    k=tuned.ideal_num_clusters, merge_pairs=pairs(tuned),
+                    same_as_untuned=_equal_fits(tuned, untuned),
+                    off_equals_plain=same_off)
+    print(f"  (b) --autotune db fit: " + ", ".join(
+        f"{k}={r['chosen']} ({r['source']})" for k, r in tune.items())
+        + f"; K {tuned.ideal_num_clusters} and merge pairs equal the untuned "
+        f"fit's with those knobs (bit-identical: "
+        f"{out['b']['same_as_untuned']}); 'off' equals a fit without the "
+        f"fields, result and stream")
+
+    # (c) serving blocks measured into the DB; `gmm serve --autotune db`
+    reg_dir = workdir / "registry"
+    reg = ModelRegistry(str(reg_dir))
+    reg.save("cells", main_result, config=GMMConfig())
+    shift = main_result.data_shift.astype(np.float32)
+    raw = data[:70_000]
+    st = main_result.state
+    skey = TuningKey.for_shape(platform, kind, 65536, DIMS,
+                               main_result.ideal_num_clusters, "full",
+                               "float32")
+    serve_walls = {}
+    for knob, cands, rows in (("serve_min_block", P18_SERVE_MIN, 100),
+                              ("serve_max_block", P18_SERVE_MAX, 65_536)):
+        xs = raw[:rows] - shift[None, :]
+        for c in cands:
+            kw = ({"min_block": c} if knob == "serve_min_block"
+                  else {"max_block": c, "min_block": 256})
+            ex = ScoringExecutor(device="cuda", **kw)
+            ex.infer(st, xs)  # capture
+            t0 = time.perf_counter()
+            for _ in range(5):
+                ex.infer(st, xs)
+            wall = (time.perf_counter() - t0) / 5
+            serve_walls[knob, c] = wall
+            db.record(skey, knob, c, {"wall_per_iter_s": round(wall, 6),
+                                      "rows": rows}, source="probe")
+    db.save()
+    req_path = workdir / "requests.jsonl"
+    reqs = _p17_requests(raw, "cells") + [
+        {"id": 5, "model": "cells", "op": "predict_proba",
+         "x": raw[:30_000].tolist()}]
+    req_path.write_text("\n".join(json.dumps(r) for r in reqs) + "\n")
+    replies = {}
+    for mode in ("off", "db"):
+        resp = workdir / f"serve_{mode}.jsonl"
+        met = workdir / f"serve_{mode}_stream.jsonl"
+        rc = serve_main(["--registry", str(reg_dir), "--input",
+                         str(req_path), "--output", str(resp), "--device",
+                         "cuda", "--autotune", mode, "--tuning-db", db_path,
+                         "--metrics-file", str(met)])
+        check(rc == 0, f"gmm serve --autotune {mode} exited {rc}")
+        replies[mode] = [json.loads(ln) for ln in resp.read_text().splitlines()]
+        replies[mode] = [{k: v for k, v in r.items() if k != "latency_ms"}
+                         for r in replies[mode]]
+        check(all(r["ok"] for r in replies[mode])
+              and len(replies[mode]) == len(reqs), f"serve {mode} replies")
+        if mode == "db":
+            serve_tune = {r["knob"]: r["chosen"] for r in map(
+                json.loads, met.read_text().splitlines())
+                if r["event"] == "tune"}
+    check(replies["db"] == replies["off"],
+          "gmm serve --autotune db replied other bits than 'off'")
+    check(set(serve_tune) == {"serve_min_block", "serve_max_block"},
+          f"serve tune records: {serve_tune}")
+    out["c"] = dict(walls={f"{k}={c}": w for (k, c), w in serve_walls.items()},
+                    resolved=serve_tune, identical=True)
+    print(f"  (c) serve blocks measured: " + ", ".join(
+        f"{k}={c} {w * 1e3:.3f} ms" for (k, c), w in serve_walls.items())
+        + f"; gmm serve --autotune db resolved {serve_tune} and replied "
+        f"byte for byte as 'off' ({len(reqs)} requests, up to 30,000 rows)")
+
+    # (d) the lifecycle arc on the K 96 model, then a rejected canary
+    policy_path = workdir / "policy.json"
+    policy_path.write_text(json.dumps(dict(
+        P18_POLICY, retrain={"data": str(infile),
+                             "chunk_size": P18_RETRAIN_CHUNK})))
+    ctl = LifecycleController(reg, LifecyclePolicy.from_file(
+        str(policy_path)), device="cuda")
+    server = GMMServer(reg, device="cuda", drift_interval_s=3600.0,
+                       drift_psi_threshold=0.2, lifecycle=ctl)
+    drift = P18_SHIFT * float(data[:70_000].std())
+    edges = []
+
+    def tick(what):
+        ctl.on_tick()
+        state = ctl.stats()["routes"].get("cells")
+        edges.append((what, state))
+        return state
+
+    t0 = time.perf_counter()
+    _p18_replies(server, raw, drift)
+    alarm = server.flush_drift()
+    check(any(a.get("alarm") for a in alarm), f"no drift alarm: {alarm}")
+    check(ctl.stats()["routes"]["cells"] == "retrain",
+          f"the alarm did not schedule a retrain: {ctl.stats()}")
+    fs.fused_stats.launches = fs.mstep.launches = s1.score.launches = 0
+    t1 = time.perf_counter()
+    state = tick("retrain + holdout gates")
+    retrain_s = time.perf_counter() - t1
+    refit = dict(K1=fs.fused_stats.launches, K2=fs.mstep.launches,
+                 S1=s1.score.launches)
+    check(state == "canary", f"retrain tick ended in {state!r}: "
+          f"{ctl.stats()}")
+    check(refit["K1"] > 0 and refit["K2"] > 0 and refit["S1"] > 0,
+          f"the refit and gates launched {refit}")
+    s1.score.launches = 0
+    _p18_replies(server, raw, drift, requests=2, start=50)  # shadow window
+    shadow_s1 = s1.score.launches
+    check(shadow_s1 > 0, "the shadow window launched no S1")
+    check(tick("canary -> promote") == "watch" and
+          server.resolve("cells").version == 2,
+          f"no promotion: {ctl.stats()}")
+    _p18_replies(server, raw, drift, requests=3, start=80)
+    check(tick("watch") == "cooldown", f"watch: {ctl.stats()}")
+    check(tick("cooldown") == "idle", f"cooldown: {ctl.stats()}")
+    promoted = ModelRegistry(str(reg_dir)).load("cells", 2)
+    check(promoted.manifest["source"] == "lifecycle"
+          and promoted.manifest["retrain_of"] == 1,
+          f"promoted manifest {promoted.manifest}")
+    xs = raw[:4096] - promoted.data_shift.astype(np.float32)[None, :]
+    w, z = ScoringExecutor(device="cuda").infer(promoted.state, xs)
+    check(np.isfinite(z).all() and np.allclose(w.sum(axis=1), 1.0,
+                                               atol=1e-4),
+        "the promoted version does not score in the registry")
+    # a rejected canary: every reply byte unchanged
+    before = _p18_replies(server, raw, drift, start=200)
+    server.flush_drift()
+    with faults.use({"canary_regression": {"model": "cells",
+                                           "times": 1}}) as plan:
+        state = tick("retrain + canary_regression")
+        check(plan.fired.get("canary_regression") == 1,
+              "the canary_regression fault did not fire")
+    after = _p18_replies(server, raw, drift, start=200)
+    check(state == "cooldown" and after == before
+          and server.resolve("cells").version == 2
+          and reg.stage("cells", 3) == "quarantined",
+          f"rejected canary: state {state!r}, replies unchanged "
+          f"{after == before}, stages {reg.versions('cells')}")
+    arc_s = time.perf_counter() - t0
+    out["d"] = dict(edges=edges, counts=dict(ctl.counts),
+                    refit_launches=refit, shadow_s1_launches=shadow_s1,
+                    retrain_tick_s=retrain_s, wall_s=arc_s,
+                    versions=reg.versions("cells", include_candidates=True))
+    print(f"  (d) lifecycle arc: {' -> '.join(s for _, s in edges)}; the "
+          f"retrain tick (stepwise EM on {min(len(data), 65536)} rows of the "
+          f"BIN, K {main_result.ideal_num_clusters}, then the holdout gates) "
+          f"{retrain_s:.2f} s with K1 {refit['K1']}, K2 "
+          f"{refit['K2']}, S1 {refit['S1']} launches; shadow window S1 "
+          f"{shadow_s1}; counts {ctl.counts}; v2 promoted and loaded, v3 "
+          f"quarantined by canary_regression with every reply unchanged "
+          f"({arc_s:.1f} s)")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 18 took {out['wall_s']:.1f} s; card: {card}")
+    return out
 
 
 def main() -> int:
@@ -4782,6 +5167,17 @@ def main() -> int:
     finally:
         shutil.rmtree(servedir, ignore_errors=True)
 
+    print("phase 18: tuning and the lifecycle at full width: gmm tune, an "
+          "--autotune db fit and serve, the drift -> retrain -> canary -> "
+          "promote -> watch arc and a rejected canary")
+    tunedir = Path(__file__).resolve().parent / "build" / "chip_smoke_tune"
+    shutil.rmtree(tunedir, ignore_errors=True)
+    tunedir.mkdir(parents=True)
+    try:
+        tuning = phase_tuning_lifecycle(data, main_result, tunedir, card)
+    finally:
+        shutil.rmtree(tunedir, ignore_errors=True)
+
     src = "cuda_gmm_mpi_tpu_torch/csrc/"
     pallas = "cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py:"
     kernels = [
@@ -4862,6 +5258,7 @@ def main() -> int:
              mesh_fit_breakdown_ms=mesh["fit_breakdown_ms"],
              **shard_record(k6_diag, k6_full, instances, "stats_logz")),
         s1_record(serving),
+        s1_centered_record(serving),
     ]
     for prec in BF16_PASSES:
         kernels.append(precision_record(
@@ -4902,6 +5299,15 @@ def main() -> int:
                     for r in ooc["e"]["ranks"]])
     kernels[1]["streaming"] = {a: r["launches"]["K2"]
                                for a, r in ooc["arms"].items()}
+    # Phase 18's lifecycle refit (stepwise EM) and its canary, counted
+    # from 0 around the retrain tick.
+    kernels[0]["lifecycle_refit"] = tuning["d"]["refit_launches"]["K1"]
+    kernels[1]["lifecycle_refit"] = tuning["d"]["refit_launches"]["K2"]
+    kernels[6]["lifecycle"] = dict(
+        canary=tuning["d"]["refit_launches"]["S1"],
+        shadow=tuning["d"]["shadow_s1_launches"])
+    kernels[6]["tuning"] = dict(probe=tuning["a"], fit=tuning["b"],
+                                serve=tuning["c"])
     kernels[0]["estimator"] = estimator
     kernels[0]["containment"] = containment
     kernels[0]["capture"] = capture

@@ -169,6 +169,18 @@ def build_parser() -> argparse.ArgumentParser:
                    "fixed width. The fused sweep is fixed-width by design")
     p.add_argument("--no-validate-input", action="store_true",
                    help="skip the NaN/Inf input-row check at load")
+    p.add_argument("--autotune", default="off",
+                   choices=["off", "db", "probe"],
+                   help="profile-guided knob resolution (tuning/): 'db' "
+                   "resolves unset tunable knobs (chunk size, E-step "
+                   "backend, sweep bucketing, restart batch) from the "
+                   "nearest recorded profile in the tuning database, "
+                   "'probe' measures missing rows first (2-3 real EM "
+                   "iterations per candidate). Explicitly-passed knobs are "
+                   "never touched. Default off (byte-identical streams)")
+    p.add_argument("--tuning-db", default=None, metavar="PATH",
+                   help="tuning database path (default GMM_TUNING_DB or "
+                   "~/.cache/gmm/tuning.json); `gmm tune` writes it")
     o = p.add_argument_group("out of core (models/streaming.py)")
     o.add_argument("--stream-events", action="store_true",
                    help="stream the event chunks through the device block "
@@ -356,6 +368,20 @@ def main(argv=None) -> int:
         from .telemetry.drift import drift_main
 
         return drift_main(argv[1:])
+    if argv and argv[0] == "lifecycle":
+        # `lifecycle STREAM`: the drift -> retrain -> canary -> promote
+        # loop, offline, from a recorded serve stream against a registry;
+        # the live form is `serve --lifecycle policy.json`.
+        from .lifecycle.cli import lifecycle_main
+
+        return lifecycle_main(argv[1:])
+    if argv and argv[0] == "tune":
+        # `tune`: probe candidate knob settings at a shape, write the
+        # tuning database, print the decision table a later --autotune db
+        # run resolves from.
+        from .tuning.cli import tune_main
+
+        return tune_main(argv[1:])
     args = build_parser().parse_args(argv)
 
     from .config import GMMConfig
@@ -399,7 +425,8 @@ def main(argv=None) -> int:
             ingest=args.ingest, ingest_queue_depth=args.ingest_queue_depth,
             em_mode=args.em_mode, minibatch_size=args.minibatch_size,
             minibatch_t0=args.minibatch_t0,
-            minibatch_alpha=args.minibatch_alpha)
+            minibatch_alpha=args.minibatch_alpha,
+            autotune=args.autotune, tuning_db=args.tuning_db)
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1
@@ -427,6 +454,7 @@ def main(argv=None) -> int:
             ("--stream-events", args.stream_events),
             ("--ingest", args.ingest != "resident"),
             ("--em-mode", args.em_mode != "full"),
+            ("--autotune", args.autotune != "off"),
         ]
         for flag, present in fit_only:
             if present:

@@ -236,6 +236,23 @@ class GMMConfig:
     # ``run_summary.envelope``. Observational: a failure logs and leaves
     # None. False skips the pass.
     envelope: bool = True
+    # Profile-guided autotuning (tuning/):
+    #   'off' (default): every knob runs exactly as set -- streams and
+    #     results stay byte-identical to an untuned run.
+    #   'db': resolve unset tunable knobs (chunk_size, estep_backend,
+    #     sweep_k_buckets, restart_batch_size) from the nearest recorded
+    #     profile in the tuning database, falling back to the static cost
+    #     model; knobs whose value differs from the dataclass default are
+    #     treated as user-pinned and never touched.
+    #   'probe': like 'db', but missing rows are measured first by a
+    #     bounded microprobe (2-3 real EM iterations per candidate) and
+    #     written back to the database.
+    # Every resolved decision is a `tune` telemetry event when a recorder
+    # is active.
+    autotune: str = "off"
+    # Tuning database path. None = GMM_TUNING_DB or
+    # ~/.cache/gmm/tuning.json (tuning.db.default_db_path).
+    tuning_db: Optional[str] = None
 
     def __post_init__(self):
         if self.min_iters > self.max_iters:
@@ -268,6 +285,10 @@ class GMMConfig:
         if self.matmul_precision not in ("highest", "high", "default"):
             raise ValueError(
                 f"unknown matmul_precision: {self.matmul_precision!r}")
+        if self.autotune not in ("off", "db", "probe"):
+            raise ValueError(
+                f"unknown autotune mode: {self.autotune!r} "
+                "(expected 'off', 'db' or 'probe')")
         if self.quad_mode not in ("expanded", "packed", "centered"):
             raise ValueError(f"unknown quad_mode: {self.quad_mode!r}")
         if self.estep_backend not in ("auto", "cuda", "torch"):

@@ -20,8 +20,20 @@
 // double for both types: the x and A of a float32 model are widened
 // exactly, so its logp carries one float32 rounding instead of the
 // expanded form's |x|^2 cancellation error (a float32 library product, and
-// the torch-ops ``posteriors``, lose several digits there). Then, per event
-// and in slot-index order, in the model's dtype:
+// the torch-ops ``posteriors``, lose several digits there).
+//
+// The centered form (the 'centered' quad mode, ops/estep.py's branch that
+// stages x - mu) takes the same A rows for the triangle but mu itself in
+// the last D rows, and g = constant + ln pi:
+//
+//   logp[k] = -0.5 * sum_{i <= j} (x_i - mu_ki)(x_j - mu_kj) A[t(i,j), k]
+//             + g[k]
+//
+// (diag: sum_d (x_d - mu_kd)^2 A[d, k]), the differences and products in
+// double, the terms in the same fixed (i, j) order. It never forms |x|^2,
+// so a far blob loses nothing to cancellation. An inactive slot's logp is
+// -inf in both forms, whatever its operands hold. Then, per event and in
+// slot-index order, in the model's dtype:
 //
 //   m = max_k logp[k]  (NaN propagates; a non-finite m becomes 0, as
 //                       `posteriors` sanitizes it)
@@ -46,7 +58,9 @@
 // accumulation runs at the fp64 rate, half of it). This first version is
 // simple rather than fast (~17x the bound at 4096 x 96, chip_smoke.py phase
 // 17): each lane loads its slots' A columns through L1 once per EV events,
-// and the serial scans are 3 Kb dependent steps per event.
+// and the serial scans are 3 Kb dependent steps per event. The centered
+// form does 3 T + D flops per (event, cluster) -- its products depend on
+// the cluster -- and loads a mu element beside each A element.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -64,7 +78,7 @@ __device__ __forceinline__ double exp_t(double v) { return exp(v); }
 __device__ __forceinline__ float log_t(float v) { return logf(v); }
 __device__ __forceinline__ double log_t(double v) { return log(v); }
 
-template <typename T, bool DIAG, bool ASSIGN>
+template <typename T, bool DIAG, bool ASSIGN, bool CENTERED>
 __global__ void __launch_bounds__(WARPS * 32)
 score_kernel(const T* __restrict__ x, const T* __restrict__ a,
              const T* __restrict__ g, T* __restrict__ w, T* __restrict__ logz,
@@ -107,28 +121,69 @@ score_kernel(const T* __restrict__ x, const T* __restrict__ a,
 #pragma unroll
           for (int v = 0; v < EV; ++v) acc[s][v] = fma(p[v], av[s], acc[s][v]);
       };
-      int t = 0;
-      double p[EV];
-      for (int i = 0; i < d; ++i) {
-        if (DIAG) {
+      if (CENTERED) {
+        // Each slot's own differences: xc = x - mu_k per (slot, event), the
+        // products xc_i xc_j, one fma per term against A's triangle row.
+        auto mu_at = [&](int i, double* m) {
 #pragma unroll
-          for (int v = 0; v < EV; ++v)
-            p[v] = __dmul_rn(xs[v * d + i], xs[v * d + i]);
-          term(i, p);
-        } else {
-#pragma unroll 8
-          for (int j = i; j < d; ++j, ++t) {
+          for (int s = 0; s < SPL; ++s) {
+            const int k = k0 + 32 * s;
+            m[s] = k < kb ? (double)a[(size_t)(t_rows + i) * kb + k] : 0.0;
+          }
+        };
+        int t = 0;
+        for (int i = 0; i < d; ++i) {
+          double mi[SPL], ci[SPL][EV];
+          mu_at(i, mi);
 #pragma unroll
-            for (int v = 0; v < EV; ++v)
-              p[v] = __dmul_rn(xs[v * d + i], xs[v * d + j]);
-            term(t, p);
+          for (int s = 0; s < SPL; ++s)
+#pragma unroll
+            for (int v = 0; v < EV; ++v) ci[s][v] = xs[v * d + i] - mi[s];
+          for (int j = i; j < (DIAG ? i + 1 : d); ++j, ++t) {
+            double mj[SPL], av[SPL];
+            if (j == i) {
+#pragma unroll
+              for (int s = 0; s < SPL; ++s) mj[s] = mi[s];
+            } else {
+              mu_at(j, mj);
+            }
+#pragma unroll
+            for (int s = 0; s < SPL; ++s) {
+              const int k = k0 + 32 * s;
+              av[s] = k < kb ? (double)a[(size_t)t * kb + k] : 0.0;
+            }
+#pragma unroll
+            for (int s = 0; s < SPL; ++s)
+#pragma unroll
+              for (int v = 0; v < EV; ++v)
+                acc[s][v] = fma(__dmul_rn(ci[s][v], xs[v * d + j] - mj[s]),
+                                av[s], acc[s][v]);
           }
         }
-      }
-      for (int i = 0; i < d; ++i) {
+      } else {
+        int t = 0;
+        double p[EV];
+        for (int i = 0; i < d; ++i) {
+          if (DIAG) {
 #pragma unroll
-        for (int v = 0; v < EV; ++v) p[v] = xs[v * d + i];
-        term(t_rows + i, p);
+            for (int v = 0; v < EV; ++v)
+              p[v] = __dmul_rn(xs[v * d + i], xs[v * d + i]);
+            term(i, p);
+          } else {
+#pragma unroll 8
+            for (int j = i; j < d; ++j, ++t) {
+#pragma unroll
+              for (int v = 0; v < EV; ++v)
+                p[v] = __dmul_rn(xs[v * d + i], xs[v * d + j]);
+              term(t, p);
+            }
+          }
+        }
+        for (int i = 0; i < d; ++i) {
+#pragma unroll
+          for (int v = 0; v < EV; ++v) p[v] = xs[v * d + i];
+          term(t_rows + i, p);
+        }
       }
 #pragma unroll
       for (int s = 0; s < SPL; ++s) {
@@ -137,7 +192,9 @@ score_kernel(const T* __restrict__ x, const T* __restrict__ a,
           const double gk = g[k];
 #pragma unroll
           for (int v = 0; v < EV; ++v)
-            lp[v * kb + k] = (T)fma(-0.5, acc[s][v], gk);
+            lp[v * kb + k] = gk == -INFINITY
+                                 ? (T)-INFINITY
+                                 : (T)fma(-0.5, acc[s][v], gk);
         }
       }
     }
@@ -198,11 +255,11 @@ score_kernel(const T* __restrict__ x, const T* __restrict__ a,
   }
 }
 
-template <typename T, bool DIAG, bool ASSIGN>
+template <typename T, bool DIAG, bool ASSIGN, bool CENTERED>
 cudaError_t launch(const void* x, const void* a, const void* g, void* w,
                    void* logz, int* labels, long long n, int d, int kb,
                    cudaStream_t s) {
-  auto kern = score_kernel<T, DIAG, ASSIGN>;
+  auto kern = score_kernel<T, DIAG, ASSIGN, CENTERED>;
   const size_t smem =
       WARPS * EV * (sizeof(double) * (size_t)d + sizeof(T) * (size_t)kb);
   cudaError_t err = cudaFuncSetAttribute(
@@ -219,15 +276,29 @@ cudaError_t launch(const void* x, const void* a, const void* g, void* w,
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_t(const void* x, const void* a, const void* g, void* w,
+template <typename T, bool CENTERED>
+cudaError_t launch_c(const void* x, const void* a, const void* g, void* w,
                      void* logz, int* labels, long long n, int d, int kb,
                      int diag, int assign, cudaStream_t s) {
   if (diag)
-    return assign ? launch<T, true, true>(x, a, g, w, logz, labels, n, d, kb, s)
-                  : launch<T, true, false>(x, a, g, w, logz, labels, n, d, kb, s);
-  return assign ? launch<T, false, true>(x, a, g, w, logz, labels, n, d, kb, s)
-                : launch<T, false, false>(x, a, g, w, logz, labels, n, d, kb, s);
+    return assign ? launch<T, true, true, CENTERED>(x, a, g, w, logz, labels,
+                                                    n, d, kb, s)
+                  : launch<T, true, false, CENTERED>(x, a, g, w, logz, labels,
+                                                     n, d, kb, s);
+  return assign ? launch<T, false, true, CENTERED>(x, a, g, w, logz, labels, n,
+                                                   d, kb, s)
+                : launch<T, false, false, CENTERED>(x, a, g, w, logz, labels,
+                                                    n, d, kb, s);
+}
+
+template <typename T>
+cudaError_t launch_t(const void* x, const void* a, const void* g, void* w,
+                     void* logz, int* labels, long long n, int d, int kb,
+                     int diag, int assign, int centered, cudaStream_t s) {
+  return centered ? launch_c<T, true>(x, a, g, w, logz, labels, n, d, kb,
+                                      diag, assign, s)
+                  : launch_c<T, false>(x, a, g, w, logz, labels, n, d, kb,
+                                       diag, assign, s);
 }
 
 }  // namespace
@@ -235,15 +306,18 @@ cudaError_t launch_t(const void* x, const void* a, const void* g, void* w,
 // Launches S1 on `stream`; returns cudaGetLastError(). Shapes: x [n, d],
 // a [t + d, kb] (t = d(d+1)/2, or d in diag mode), g [kb], logz [n]; with
 // assign = 0 w [n, kb] (labels unused), with assign = 1 labels [n] int32 (w
-// unused). is_double: 1 for float64 operands, 0 for float32.
+// unused). centered: 1 for the centered form (a's last d rows hold mu, g
+// holds constant + ln pi), 0 for the expanded one. is_double: 1 for float64
+// operands, 0 for float32.
 extern "C" int gmm_score(const void* x, const void* a, const void* g, void* w,
                          void* logz, int* labels, int n, int d, int kb,
-                         int diag, int assign, int is_double, void* stream) {
+                         int diag, int assign, int centered, int is_double,
+                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0) return (int)cudaGetLastError();
   return (int)(is_double
                    ? launch_t<double>(x, a, g, w, logz, labels, n, d, kb, diag,
-                                      assign, s)
+                                      assign, centered, s)
                    : launch_t<float>(x, a, g, w, logz, labels, n, d, kb, diag,
-                                     assign, s));
+                                     assign, centered, s));
 }

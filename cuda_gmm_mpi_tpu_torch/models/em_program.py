@@ -229,10 +229,11 @@ def em_step(c: EMCarry, estep: Callable, mstep: Callable, count: Callable,
 def _launch_counters():
     """The kernel wrappers whose launch counters a replay must advance."""
     from ..ops.kernels import fused_stats as fs
-    from ..ops.kernels.score import score
+    from ..ops.kernels import score as s1
 
     return (fs.fused_stats, fs.mstep, fs.fused_stats_batched,
-            fs.mstep_batched, fs.local_lse, fs.stats_logz, score)
+            fs.mstep_batched, fs.local_lse, fs.stats_logz, s1.score,
+            s1.centered_form)
 
 
 def add_launches(delta: tuple) -> None:

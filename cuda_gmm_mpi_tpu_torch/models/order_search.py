@@ -789,6 +789,16 @@ def fit_gmm(data: np.ndarray, num_clusters: int, target_num_clusters: int = 0,
             # builds and graph captures as ``compile`` events, the memory
             # watermarks, and ``run_summary.profile``.
             stack.enter_context(tl_profiling.watch(device=config.device))
+        if config.autotune != "off":
+            # Profile-guided knob resolution (tuning/): once per fit, under
+            # the ambient recorder, so the per-knob `tune` events ride this
+            # stream. The resolved config comes back with autotune='off':
+            # restart and elastic re-entries ride the decisions instead of
+            # resolving (and emitting) again per sub-fit.
+            from ..tuning import resolve_fit_config
+
+            config = resolve_fit_config(config, data, num_clusters,
+                                        log=get_logger(config))
         result = None
         # The pipelined block source this fit makes (io/pipeline.py), kept
         # across an elastic refit and closed on every way out.

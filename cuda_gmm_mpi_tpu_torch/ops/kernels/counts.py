@@ -17,6 +17,14 @@ import threading
 _held = threading.local()
 
 
+class LaunchCount:
+    """The ``launches`` counter of a kernel's second form, which has no
+    wrapper of its own: :func:`note_launch` counts on it as on a wrapper."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+
+
 def note_launch(wrapper) -> None:
     """Count one launch of ``wrapper``'s kernel: on the wrapper, or on the
     current thread's tally inside :func:`held_launches`."""

@@ -15,12 +15,16 @@ surface and counters. What it bounds is the same:
   K-bucket, D) is one ``torch.cuda.CUDAGraph`` over static device buffers,
   captured once (``capture_error_mode='thread_local'``, under the
   executor's lock, so the HTTP threads, the metrics sampler and the drift
-  plane may use the card meanwhile). At 'highest' in the 'expanded' or
-  'packed' form (or diag) the graph holds one launch of S1
-  (ops/kernels/score.py); under 'centered', 'high' or 'default' it holds
-  the torch-ops ``posteriors`` and a copy into static outputs. On the CPU a
-  key is an eager callable over ``posteriors``. A build counts one compile
-  on either device, under ``site_compile('serve', ...)``.
+  plane may use the card meanwhile). The graph holds one launch of S1
+  (ops/kernels/score.py) at every precision: its expanded form under
+  'expanded' or 'packed', its centered form under 'centered'. S1 computes
+  at 'highest', whose class is inside the 'high' and 'default' classes, and
+  keeps a row's bits whatever block, batch or K-pad carries it, which a
+  library product does not. On the CPU a key is an eager callable over
+  ``posteriors``. A build counts one compile on either device, under
+  ``site_compile('serve', ...)``. Setting ``route = "torch"`` before the
+  first call puts the torch-ops ``posteriors`` in the graphs instead: the
+  yardstick a measurement holds S1 against, never a fallback.
 - **Static buffers instead of donation**: each dispatch writes the request
   block into a pinned host staging buffer, copies it into the graph's
   static input, copies the route's operands (device to device) into the
@@ -202,15 +206,14 @@ class ScoringExecutor:
         self.torch_dtype = getattr(torch, self._dtype.name)
         self._diag_only = bool(diag_only)
         self._quad_mode = quad_mode
+        self._centered = quad_mode == "centered"
         self._precision = matmul_precision
         self._min_block = int(min_block)
         self._max_block = int(max_block)
         self._max_execs = int(max_executables)
         self.device = device_or_raise(device)
-        # S1 on the card at 'highest' in the expanded form; torch ops else.
-        self.route = ("cpu" if self.device.type == "cpu" else
-                      "S1" if (matmul_precision == "highest"
-                               and quad_mode != "centered") else "torch")
+        # S1 on the card for every precision and quad mode.
+        self.route = "cpu" if self.device.type == "cpu" else "S1"
         self._lock = threading.RLock()
         self._graph_pool = None
         # key -> program, LRU order (oldest first).
@@ -312,7 +315,8 @@ class ScoringExecutor:
             # Formed at the model's own K, then padded: the same bits at
             # every K-bucket.
             operands = s1.pad_operands(
-                *s1.score_operands(cast, self._diag_only), kb)
+                *s1.score_operands(cast, self._diag_only, self._centered),
+                kb)
         elif self.route == "torch":
             operands = tuple(getattr(padded, f) for f in _LEAVES)
         else:
@@ -421,7 +425,7 @@ class ScoringExecutor:
             Rinv=torch.eye(d, dtype=dt, device=dev).repeat(kb, 1, 1),
             active=torch.zeros(kb, dtype=torch.bool, device=dev))
         if self.route == "S1":
-            return s1.score_operands(inert, self._diag_only)
+            return s1.score_operands(inert, self._diag_only, self._centered)
         return tuple(getattr(inert, f) for f in _LEAVES)
 
     def _score_into(self, slot, x, kind: str, a_out, z_out) -> None:
@@ -431,10 +435,10 @@ class ScoringExecutor:
             a_ext, g = slot
             if kind == "assign":
                 s1.score_launch(x, a_ext, g, z_out, diag=self._diag_only,
-                                labels=a_out)
+                                labels=a_out, centered=self._centered)
             else:
                 s1.score_launch(x, a_ext, g, z_out, diag=self._diag_only,
-                                w=a_out)
+                                w=a_out, centered=self._centered)
             return
         a, z = self._score(GMMState(*slot), x, kind)
         a_out.copy_(a)

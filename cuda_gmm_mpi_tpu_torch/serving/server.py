@@ -183,11 +183,28 @@ class GMMServer:
                  trace_requests: bool = False,
                  drift_interval_s: Optional[float] = None,
                  drift_psi_threshold: Optional[float] = 0.2,
+                 autotune: str = "off",
+                 tuning_db: Optional[str] = None,
+                 lifecycle=None,
                  device: str = "cuda"):
+        if autotune not in ("off", "db"):
+            raise ValueError(
+                f"serving autotune must be 'off' or 'db', got {autotune!r}"
+                " (the probe rung belongs to `gmm tune`, not a live "
+                "scoring loop)")
         # The executors' torch device: 'cuda' by default, 'cpu' when
         # asked; without a GPU 'cuda' raises here, not at the first
         # request.
         self._device = str(device_or_raise(device))
+        # Profile-guided executor geometry (tuning/): 'db' resolves each
+        # served family's min/max event-block bounds from the tuning
+        # database (the nearest recorded serve row of this device; static
+        # defaults otherwise) and emits one `tune` event per decision on
+        # the serve stream. S1 keeps a row's bits whatever its block, so
+        # replies are byte-identical to 'off'. 'off' keeps the hand-set
+        # defaults and a byte-identical stream.
+        self._autotune = autotune
+        self._tuning_db = tuning_db
         self._registry = registry
         self._max_batch_rows = max(1, int(max_batch_rows))
         self._tick_s = max(0.0, float(tick_s))
@@ -302,6 +319,20 @@ class GMMServer:
         self._drift_last: Dict[str, dict] = {}  # "name@v" -> last stats
         self.drift_events = 0
         self.drift_alarms = 0
+        # Closed-loop lifecycle (--lifecycle policy.json,
+        # lifecycle/controller.py): drift alarms feed its debounce,
+        # answered dispatches feed its spool / canary shadow window /
+        # watch gate, and run_loop ticks its state machine between
+        # coalesced dispatches -- all on the tick-loop thread. None (the
+        # default) keeps responses, streams, and /metrics byte-identical.
+        self._lifecycle = lifecycle
+        if lifecycle is not None:
+            lifecycle.bind(self)
+
+    @property
+    def device(self) -> str:
+        """The torch device the executors score on."""
+        return self._device
 
     # -- model / executor resolution ------------------------------------
 
@@ -390,8 +421,16 @@ class GMMServer:
         key = (m.dtype, m.diag_only)
         ex = self._executors.get(key)
         if ex is None:
+            kw = {}
+            if self._autotune == "db":
+                from ..tuning import resolve_serving_blocks
+
+                blocks, _ = resolve_serving_blocks(
+                    m.dtype, m.diag_only, m.d, m.k,
+                    tuning_db=self._tuning_db, device=self._device)
+                kw.update(blocks)
             ex = self._executors[key] = executor_for_model(
-                m, device=self._device)
+                m, device=self._device, **kw)
             self._adopt_executor(ex)
         return ex
 
@@ -943,6 +982,12 @@ class GMMServer:
         self.breaker.record_success((name, version))
         if self._drift_interval_s is not None:
             self._drift_observe(name, m, w, logz)
+        if self._lifecycle is not None and version is None:
+            # Lifecycle feed: spools request rows and -- in a canary/watch
+            # window -- shadow-scores THIS block under the candidate.
+            # Replies are already computed from (w, logz) slices; the hook
+            # reads, never mutates.
+            self._lifecycle.observe_dispatch(name, m, rows, logz)
         wall_ms = (time.perf_counter() - t0) * 1e3
         self.batches += 1
         self.rows += int(rows.shape[0])
@@ -1071,6 +1116,12 @@ class GMMServer:
                              window_rows=stats["window_rows"],
                              flag_names=["drift_psi"])
                     rec.metrics.count("drift_alarms")
+                if self._lifecycle is not None:
+                    # The closed loop's trigger feed: the controller
+                    # debounces and reacts on later ticks; this call never
+                    # touches the serving path.
+                    self._lifecycle.observe_alarm(name, int(version),
+                                                  stats)
             win["sketch"] = tl_sketch.StreamSketch(sk.bounds)
             win["occ"] = np.zeros_like(win["occ"])
         return out
@@ -1389,6 +1440,12 @@ class GMMServer:
                     and time.perf_counter() >= next_drift):
                 self.flush_drift()
                 next_drift = time.perf_counter() + self._drift_interval_s
+            if self._lifecycle is not None:
+                # The lifecycle state machine: same thread as drift windows
+                # and hot-reload, so retrain / canary / promote / rollback
+                # transitions interleave between coalesced dispatches
+                # without locks. Cheap when nothing is scheduled.
+                self._lifecycle.on_tick()
             # Bounded wait so signals/deadline/reload stay responsive
             # even on an idle queue.
             wait = 0.1 if idle_timeout_s is None else min(
@@ -1666,6 +1723,10 @@ def _worker_argv(args, worker_sock: str) -> List[str]:
     if args.no_warmup:
         cmd.append("--no-warmup")
     cmd += ["--device", args.device]
+    if args.autotune != "off":
+        cmd += ["--autotune", args.autotune]
+    if args.tuning_db:
+        cmd += ["--tuning-db", args.tuning_db]
     if args.max_queue_rows is not None:
         cmd += ["--max-queue-rows", str(args.max_queue_rows)]
     if args.default_deadline_ms is not None:
@@ -1675,6 +1736,8 @@ def _worker_argv(args, worker_sock: str) -> List[str]:
     if args.drift_interval_s is not None:
         cmd += ["--drift-interval-s", str(args.drift_interval_s),
                 "--drift-psi-threshold", str(args.drift_psi_threshold)]
+    if args.lifecycle:
+        cmd += ["--lifecycle", args.lifecycle]
     if args.stack_models:
         cmd.append("--stack-models")
     return cmd
@@ -2005,12 +2068,9 @@ def serve_main(argv=None) -> int:
                 "it requires --http")
     if args.workers < 0:
         p.error("--workers must be >= 0")
-    if args.autotune != "off" or args.tuning_db:
-        p.error("--autotune db / --tuning-db need the tuning package, "
-                "which this package does not have yet")
-    if args.lifecycle:
-        p.error("--lifecycle needs the closed-loop lifecycle controller, "
-                "which this package does not have yet")
+    if args.lifecycle and args.drift_interval_s is None:
+        p.error("--lifecycle consumes drift alarms; it requires "
+                "--drift-interval-s")
     try:
         device_or_raise(args.device)
     except RuntimeError as e:
@@ -2025,6 +2085,17 @@ def serve_main(argv=None) -> int:
         return _serve_pool_main(args)
 
     registry = ModelRegistry(args.registry)
+    lifecycle = None
+    if args.lifecycle:
+        from ..lifecycle import LifecycleController, LifecycleError
+        from ..lifecycle import LifecyclePolicy
+
+        try:
+            lifecycle = LifecycleController(
+                registry, LifecyclePolicy.from_file(args.lifecycle),
+                device=args.device)
+        except LifecycleError as e:
+            p.error(str(e))
     server = GMMServer(registry,
                        max_batch_rows=args.max_batch_rows,
                        tick_s=args.tick_ms / 1e3,
@@ -2043,6 +2114,9 @@ def serve_main(argv=None) -> int:
                        trace_requests=args.metrics_port is not None,
                        drift_interval_s=args.drift_interval_s,
                        drift_psi_threshold=args.drift_psi_threshold,
+                       autotune=args.autotune,
+                       tuning_db=args.tuning_db,
+                       lifecycle=lifecycle,
                        device=args.device)
 
     rec = (telemetry.RunRecorder(args.metrics_file)

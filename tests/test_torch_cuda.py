@@ -1394,6 +1394,35 @@ def test_double_buffered_copy_equals_synchronous_copy(dev):
                 key, f)
 
 
+def test_streamed_autotune_db_fit_equals_off(dev, tmp_path):
+    """On the card a fit resolves no chunk_size, even from a row that holds
+    one: a streamed stepwise-EM fit (K1 per block) under 'db' equals the
+    'off' fit bit for bit, and it ran the kernels."""
+    from cuda_gmm_mpi_tpu_torch.tuning import TuningDB
+    from cuda_gmm_mpi_tpu_torch.tuning.autotune import _platform_key
+
+    rng = np.random.default_rng(17)
+    c = rng.normal(scale=8, size=(6, 8))
+    x = (c[rng.integers(0, 6, 50000)]
+         + rng.normal(size=(50000, 8))).astype(np.float32)
+    dbp = str(tmp_path / "t.json")
+    cfg = GMMConfig(stream_events=True, em_mode="minibatch", min_iters=4,
+                    max_iters=4, autotune="db", tuning_db=dbp)
+    key = _platform_key(cfg, *x.shape, 6)
+    assert key.platform == "gpu"
+    db = TuningDB(dbp)
+    db.record(key, "chunk_size", 8192, {"wall_per_iter_s": 0.001})
+    db.record(key, "estep_backend", "cuda", {"wall_per_iter_s": 0.001})
+    db.save()
+    before = fs.fused_stats.launches
+    tuned = fit_gmm(x, 6, 6, cfg)
+    assert fs.fused_stats.launches > before
+    off = fit_gmm(x, 6, 6, dataclasses.replace(cfg, autotune="off"))
+    assert tuned.final_loglik == off.final_loglik
+    for f in ("N", "pi", "means", "R"):
+        assert torch.equal(getattr(tuned.state, f), getattr(off.state, f)), f
+
+
 # ---------------------------------------------------------------- S1
 
 S1_W_BAR, S1_Z_BAR = 1e-4, 1e-5  # float32: max|dw|, normwise dlogZ
@@ -1443,6 +1472,71 @@ def test_s1_matches_plain_and_repeats_bit_for_bit(dev, diag, dtype):
         assert bool(((top[:, 0] - top[:, 1])[miss] <= S1_W_BAR).all())
 
 
+@pytest.mark.parametrize("far", [False, True], ids=["near", "far"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_s1_centered_matches_plain_and_float64(dev, diag, dtype, far):
+    """S1's centered form against its plain version (``posteriors`` in the
+    'centered' mode at 'highest') and float64: float32 in the 'highest'
+    class of the plain version wherever that version is within the class
+    of float64 itself, and against float64 at most twice the plain
+    version's error (floored at 2^-20); float64 to 1e-12; on blobs at
+    |x| ~ 170 too (no |x|^2 is ever formed). Inactive and padded slots are
+    exactly 0, two launches bit-identical, and the centered operands
+    formed at K keep their bits at a wider K-bucket."""
+    from cuda_gmm_mpi_tpu_torch.ops.estep import posteriors
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+    from cuda_gmm_mpi_tpu_torch.parallel.sharded_em import pad_state_clusters
+
+    rng = np.random.default_rng(19 + far)
+    raw = _s1_state(rng, 70, 24, diag, dtype, dev)
+    shift = 170.0 if far else 0.0
+    raw = raw.replace(means=raw.means + shift)
+    st = pad_state_clusters(raw, 128)
+    st64 = st.replace(**{f: getattr(st, f).double() for f in (
+        "N", "pi", "constant", "avgvar", "means", "R", "Rinv")})
+    for n in (1, 7, 300, 5000):
+        x = torch.as_tensor(shift + rng.normal(scale=2.0, size=(n, 24)),
+                            dtype=dtype, device=dev)
+        w, z = s1.score(st, x, diag_only=diag, quad_mode="centered")
+        w2, z2 = s1.score(st, x, diag_only=diag, quad_mode="centered")
+        lab, zl = s1.score(st, x, diag_only=diag, quad_mode="centered",
+                           kind="assign")
+        wp, zp = s1.score_plain(st, x, diag_only=diag, quad_mode="centered")
+        # float64 reference: the centered form with the full Rinv (a diag
+        # state's Rinv is diagonal; the diag 'posteriors' expands x^2)
+        w64, z64 = posteriors(st64, x.double(), diag_only=False,
+                              quad_mode="centered")
+        torch.cuda.synchronize()
+        assert torch.equal(w, w2) and torch.equal(z, z2) and torch.equal(z, zl)
+        assert bool((w[:, ~st.active] == 0).all())
+        nz = lambda a, b: float((a.double() - b).abs().max() / b.abs().max())
+        if dtype == torch.float64:
+            assert float((w - w64).abs().max()) <= 1e-12
+            assert nz(z, z64) <= 1e-12
+            continue
+        e64w, p64w = (float((w.double() - w64).abs().max()),
+                      float((wp.double() - w64).abs().max()))
+        assert e64w <= 2 * max(p64w, 2 ** -20)
+        assert nz(z, z64) <= 2 * max(nz(zp, z64), 2 ** -20)
+        if p64w <= S1_W_BAR and nz(zp, z64) <= S1_Z_BAR:
+            assert float((w - wp).abs().max()) <= S1_W_BAR
+            assert nz(z, zp.double()) <= S1_Z_BAR
+    a, g = s1.score_operands(raw, diag, centered=True)
+    x = torch.as_tensor(shift + rng.normal(scale=2.0, size=(999, 24)),
+                        dtype=dtype, device=dev)
+    for kb in (128, 256):
+        pa, pg = s1.pad_operands(a, g, kb)
+        zk = torch.empty(999, dtype=dtype, device=dev)
+        wk = torch.empty((999, kb), dtype=dtype, device=dev)
+        s1.score_launch(x, pa, pg, zk, diag=diag, w=wk, centered=True)
+        if kb == 128:
+            w128, z128 = wk, zk
+        else:
+            assert torch.equal(wk[:, :128], w128) and torch.equal(zk, z128)
+
+
 def _served_registry(tmp_path, dev, rng, k=9, d=6, diag=False):
     """A registry holding one model 'm' made from a seeded state (its
     parameters exactly, through ``GaussianMixture._from_state``)."""
@@ -1464,19 +1558,46 @@ def test_serving_contracts_hold_bit_for_bit_on_s1(dev, tmp_path):
     solo dispatches with the K-pad of the wider model, a K-pad of 16
     against 32, and a hot-reloaded route against the version loaded
     fresh."""
+    _hold_serving_contracts(dev, tmp_path, False, {})
+
+
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+@pytest.mark.parametrize("family", [
+    dict(matmul_precision="highest"), dict(matmul_precision="high"),
+    dict(matmul_precision="default"), dict(quad_mode="centered"),
+    dict(quad_mode="centered", matmul_precision="default")],
+    ids=["highest", "high", "default", "centered", "centered-default"])
+def test_serving_contracts_hold_at_every_precision_and_quad_mode(
+        dev, tmp_path, diag, family):
+    """The same four contracts, torch.equal, on S1 at 'high' and 'default'
+    (S1 computes at 'highest', inside both classes) and under 'centered'
+    (S1's centered form), full and diag: no route of the card hands a
+    request to torch ops."""
+    _hold_serving_contracts(dev, tmp_path, diag, family)
+
+
+def _hold_serving_contracts(dev, tmp_path, diag, family):
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
     from cuda_gmm_mpi_tpu_torch.serving import GMMServer, ScoringExecutor
 
     rng = np.random.default_rng(16)
-    reg, gm = _served_registry(tmp_path, dev, rng)
+    reg, gm = _served_registry(tmp_path, dev, rng, diag=diag)
     st = gm.result_.state
     x = rng.normal(scale=2.0, size=(3000, 6)).astype(np.float32)
-    small = ScoringExecutor(min_block=64, max_block=64, device="cuda")
-    big = ScoringExecutor(device="cuda")
+    small = ScoringExecutor(min_block=64, max_block=64, device="cuda",
+                            diag_only=diag, **family)
+    big = ScoringExecutor(device="cuda", diag_only=diag, **family)
     assert big.route == "S1"
+    counter = (s1.centered_form if family.get("quad_mode") == "centered"
+               else s1.score)
+    before = counter.launches
     for n in (300, 3000):
         for a, b in zip(small.infer(st, x[:n]), big.infer(st, x[:n])):
             assert np.array_equal(a, b)
-    srv = GMMServer(reg, device="cuda")
+    assert counter.launches > before
+    srv = GMMServer(reg, device="cuda",
+                    executor=ScoringExecutor(device="cuda", diag_only=diag,
+                                             **family))
     reqs = [{"id": i, "model": "m", "op": op, "x": x[a:b].tolist()}
             for i, (op, a, b) in enumerate((
                 ("score", 0, 70), ("predict", 70, 190),
@@ -1485,7 +1606,7 @@ def test_serving_contracts_hold_bit_for_bit_on_s1(dev, tmp_path):
                        for r in rs]
     assert drop(srv.handle_requests(reqs)) == drop(
         srv.handle_requests(reqs, coalesce=False))
-    other = _s1_state(rng, 20, 6, False, torch.float32, dev, inactive=())
+    other = _s1_state(rng, 20, 6, diag, torch.float32, dev, inactive=())
     outs, _ = big.infer_stacked([st, other], [x[:500], x[500:900]])
     for (w, z), s, rows in ((outs[0], st, x[:500]), (outs[1], other,
                                                      x[500:900])):
@@ -1505,7 +1626,9 @@ def test_serving_contracts_hold_bit_for_bit_on_s1(dev, tmp_path):
     reg.save("m", moved, config=gm.config)
     assert srv.maybe_reload() == [{"model": "m", "from_version": 1,
                                    "to_version": 2}]
-    fresh = GMMServer(reg, device="cuda")
+    fresh = GMMServer(reg, device="cuda",
+                      executor=ScoringExecutor(device="cuda", diag_only=diag,
+                                               **family))
     assert ask(srv)["result"] == ask(fresh, version=2)["result"]
     assert ask(srv, version=1)["result"] == r1["result"]
 

@@ -56,6 +56,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert {serving / f"{m}.py" for m in (
         "wire", "registry", "executor", "breaker", "server", "http",
         "client", "pool")} | {tel / "drift.py"} <= set(files)
+    tuning = REPO / "cuda_gmm_mpi_tpu_torch" / "tuning"
+    lifecycle = REPO / "cuda_gmm_mpi_tpu_torch" / "lifecycle"
+    assert {tuning / f"{m}.py" for m in (
+        "__init__", "db", "cost", "probe", "autotune", "cli")} | {
+        lifecycle / f"{m}.py" for m in ("__init__", "controller", "cli")
+    } <= set(files)
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -178,6 +184,86 @@ def test_s1_takes_its_plain_version_only_on_the_cpu():
                         torch.empty(10, dtype=torch.float64), diag=False,
                         w=torch.empty(10, 4, dtype=torch.float64))
     assert s1.score.launches == before
+
+
+def test_s1_centered_form_takes_its_plain_version_only_on_the_cpu():
+    """Under 'centered' S1 on CPU tensors is ``posteriors(quad_mode=
+    'centered')``, full and diag; off the CPU its operands (mu in A_ext's
+    last D rows, g = constant + ln pi) go to the launch path, which refuses
+    what it cannot launch."""
+    from cuda_gmm_mpi_tpu_torch.ops.estep import posteriors
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+    from cuda_gmm_mpi_tpu_torch.state import zeros_state
+
+    st = zeros_state(4, 3, dtype=torch.float64)
+    st = st.replace(pi=torch.full((4,), 0.25, dtype=torch.float64),
+                    means=torch.arange(12, dtype=torch.float64).reshape(4, 3),
+                    Rinv=torch.eye(3, dtype=torch.float64).repeat(4, 1, 1),
+                    active=torch.tensor([True, True, False, True]))
+    x = torch.randn(10, 3, dtype=torch.float64)
+    before = s1.score.launches
+    for diag in (False, True):
+        w, z = s1.score(st, x, diag_only=diag, quad_mode="centered")
+        wp, zp = posteriors(st, x, diag_only=diag, quad_mode="centered")
+        assert torch.equal(w, wp) and torch.equal(z, zp)
+        a, g = s1.score_operands(st, diag, centered=True)
+        assert torch.equal(a[-3:], st.means.T)
+        assert torch.equal(g[st.active], torch.log(st.pi)[st.active])
+        assert bool(torch.isneginf(g[~st.active]).all())
+    meta = lambda *s: torch.empty(s, device="meta", dtype=torch.float64)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        s1.score(st.to("meta"), meta(10, 3), diag_only=False,
+                 quad_mode="centered")
+    with pytest.raises(ValueError, match="quad_mode"):
+        s1.score(st, x, diag_only=False, quad_mode="tiled")
+    assert s1.score.launches == before
+
+
+@pytest.mark.parametrize("quad_mode", ["expanded", "packed", "centered"])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_executor_routes_every_precision_to_s1_on_the_card(
+        monkeypatch, precision, quad_mode):
+    """On a CUDA device the executor's route is S1 at every precision and
+    quad mode (the torch-ops route is a yardstick a caller sets, never a
+    fallback); on the CPU it is the eager plain version."""
+    from cuda_gmm_mpi_tpu_torch.serving import ScoringExecutor
+
+    assert ScoringExecutor(device="cpu", matmul_precision=precision,
+                           quad_mode=quad_mode).route == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    ex = ScoringExecutor(device="cuda", matmul_precision=precision,
+                         quad_mode=quad_mode)
+    assert ex.route == "S1"
+    assert ex._centered == (quad_mode == "centered")
+
+
+def test_tuning_and_lifecycle_entry_points_need_the_card_or_the_cpu(
+        monkeypatch, tmp_path, capsys):
+    """Without a GPU `gmm tune` exits 1 and `gmm lifecycle` 2, naming the
+    missing device, and an offline controller's executor raises; asked for
+    the CPU, `gmm tune` runs."""
+    from cuda_gmm_mpi_tpu_torch.lifecycle import (LifecycleController,
+                                                  LifecyclePolicy)
+    from cuda_gmm_mpi_tpu_torch.serving import ModelRegistry
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    db = str(tmp_path / "t.json")
+    assert torch_main(["tune", "--n", "64", "--d", "2", "--k", "2",
+                       "--tuning-db", db]) == 1
+    stream = tmp_path / "s.jsonl"
+    stream.write_text("")
+    pol = tmp_path / "p.json"
+    pol.write_text("{}")
+    assert torch_main(["lifecycle", str(stream), "--registry",
+                       str(tmp_path / "reg"), "--policy", str(pol)]) == 2
+    assert capsys.readouterr().err.count("no CUDA device") == 2
+    ctl = LifecycleController(ModelRegistry(str(tmp_path / "reg")),
+                              LifecyclePolicy())
+    assert ctl.device == "cuda"
+    assert torch_main(["tune", "--n", "64", "--d", "2", "--k", "2",
+                       "--probe-iters", "1", "--tuning-db", db,
+                       "--device", "cpu"]) == 0
+    capsys.readouterr()
 
 
 def test_kernel_wrappers_do_not_fall_back_off_the_cpu():

@@ -16,7 +16,8 @@ from cuda_gmm_mpi_tpu_torch.io import (
 )
 from cuda_gmm_mpi_tpu_torch.io import native
 
-from .test_torch_cli import _args, blob_csv  # noqa: F401 (fixture)
+from .test_torch_cli import (_args, blob_csv,  # noqa: F401 (fixtures)
+                             native_library)
 
 
 def _csv(path, data):
@@ -173,9 +174,16 @@ NEW_FLAGS = {
 @pytest.mark.parametrize("flags", list(NEW_FLAGS.values()),
                          ids=list(NEW_FLAGS))
 def test_cli_new_flags_byte_identical_to_jax(blob_csv, tmp_path, capsys,  # noqa: F811
-                                             flags):
+                                             native_library, flags):  # noqa: F811
     """The float64 CLIs with the new flags: byte-identical .summary and
-    .results (both written through the native writer)."""
+    .results, both written through the native writer. The two writers
+    differ in the last digit of a tie, so a JAX loader that an earlier test
+    file in this worker latched to 'unavailable' (it met the library
+    half-built by another process) would compare the Python writer's bytes
+    with the native one's: ``native_library`` builds the library under the
+    port's lock and clears such a latch, and both loaders must load it
+    before any byte is compared."""
+    assert j_native.available() and native.available()
     assert jax_main(_args(blob_csv, str(tmp_path / "j"), flags)) == 0
     assert torch_main(_args(blob_csv, str(tmp_path / "t"), flags)) == 0
     capsys.readouterr()

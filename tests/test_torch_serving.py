@@ -510,10 +510,19 @@ def test_export_and_serve_clis_match_the_jax_clis(fits, tmp_path, capsys):
 
 
 def test_serve_cli_refuses_what_this_package_lacks(tmp_path, capsys):
+    """The serve CLI takes the tuning and lifecycle flags now; what it
+    refuses, with a usage error, is what no serving loop has: the probe
+    rung of --autotune, --lifecycle without the drift alarms it consumes,
+    and a policy it cannot read."""
     base = ["serve", "--registry", str(tmp_path), "--device", "cpu"]
-    for extra in (["--autotune", "db"], ["--tuning-db", "x.json"],
-                  ["--lifecycle", "p.json", "--drift-interval-s", "1"]):
+    for extra in (["--autotune", "probe"],
+                  ["--lifecycle", "p.json"],
+                  ["--lifecycle", str(tmp_path / "missing.json"),
+                   "--drift-interval-s", "1"]):
         with pytest.raises(SystemExit) as e:
             tmain(base + extra)
         assert e.value.code == 2
-    assert "does not have yet" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "invalid choice: 'probe'" in err
+    assert "requires --drift-interval-s" in err
+    assert "cannot read lifecycle policy" in err
