@@ -276,7 +276,13 @@ Phases (any failure exits non-zero, and no result line is printed):
    loglik within rtol 1e-5, ms per pass per rank.
 
 17. serving at full width (serving/, ops/kernels/score.py): phase 4's full
-   fit (K 96, Kb 128) and its diag fit exported to a registry. (a) S1
+   fit (K 96, Kb 128) and its diag fit exported to a registry. (a) S1's
+   bits: on a synthetic model (12 slots, 3 inactive; numpy, no fit) at Kb
+   16 and 128, D 5 and 24, 1, 37, 4,096 and 20,000 rows (every register
+   tile of csrc/score.cu), both forms, full and
+   diag, float32 and float64, 'proba' and 'assign', the SHA-256 digest of
+   its outputs' bytes must equal the first version's (``P17_BITS``, taken
+   from commit 477d8c7 on the card). Then S1
    against its plain version (the torch-ops ``posteriors`` on the same
    card) and float64 on the same rows at blocks 1, 7, 256, 4096 and
    65,536, full and diag: against float64 S1's error at most twice the
@@ -286,7 +292,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    accumulates in double); float64 S1 within 1e-12 (logZ normwise; w on
    the log-density scale); 'assign' equal to torch ops' argmax but on
    near-ties (counted); repeat launches bit-identical. S1's time per
-   launch at 256 / 4,096 / 65,536 rows beside torch ops and its bound. The
+   launch at 64 / 256 / 4,096 / 65,536 rows (the device time of 20
+   launches replayed as one CUDA graph) beside torch ops and its bound. The
    same for S1's centered form (the 'centered' quad mode) against its
    plain version (``posteriors`` in that mode) and the float64 centered
    quadratic form (with the full Rinv: the diag ``posteriors`` expands
@@ -316,7 +323,9 @@ Phases (any failure exits non-zero, and no result line is printed):
    child reaped. S1's bound is 2 (T+D) flops per (event, active cluster)
    (its centered form's 3 T + D: its products depend on the cluster) at
    the fp32 FMA peak against its bytes (x, the operands, w and logZ
-   once); it has no PyTorch call that computes its function;
+   once), printed beside the same flops at the FP64 FMA rate (33.5
+   TFLOP/s), the ceiling of its double chains; it has no PyTorch call
+   that computes its function;
 18. tuning and the lifecycle at full width (tuning/, lifecycle/), on
    phase 4's events written to a BIN and its K 96 full model. (a) ``gmm
    tune`` on the BIN at K = 100 (3 probe iterations): it must write a
@@ -392,6 +401,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
+FP64_FLOPS_PER_S = 33.5e12  # the FP64 FMA units (no tensor cores), H100 SXM
 TF32_FLOPS_PER_S = 495e12
 BF16_FLOPS_PER_S = 989e12
 TF32_PASSES = 3  # K1's kernel: small*big + big*small + big*big
@@ -478,6 +488,36 @@ def time_ms(fn, reps: int = 5) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def graph_ms(fn, reps: int = 20, replays: int = 5) -> float:
+    """Device time of one ``fn`` call: ``reps`` calls captured in one CUDA
+    graph (their launches held off the counters), the graph's replays
+    timed with CUDA events, so no host launch cost is in the figure."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels.counts import held_launches
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with held_launches():
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (replays * reps)
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -4025,7 +4065,7 @@ def phase_out_of_core(data, workdir: Path, card: str, seed: int) -> dict:
 # ---------------------------------------------------------------- phase 17
 
 P17_BLOCKS = (1, 7, 256, 4096, 65536)  # (a)'s request blocks
-P17_TIMED = (256, 4096, 65536)  # S1's timed blocks; graph vs eager
+P17_TIMED = (64, 256, 4096, 65536)  # S1's timed blocks; graph vs eager
 # (a)'s float32 bars, as ``hold_stat``'s: against float64 S1 may err at
 # most P17_FP64_FACTOR x the torch-ops ``posteriors``' error on the same
 # card, floored at 2^-20 (8 float32 ulps of 1); against the torch-ops path
@@ -4047,6 +4087,230 @@ P17_FAMILIES = (("highest", dict(matmul_precision="highest")),
                 ("high", dict(matmul_precision="high")),
                 ("default", dict(matmul_precision="default")),
                 ("centered", dict(quad_mode="centered")))
+# (a)'s bit check: S1 on a synthetic model of P17_BITS_K slots, those in
+# P17_BITS_OFF inactive, at every (Kb, D, rows) below, both forms, full and
+# diag, float32 and float64, 'proba' and 'assign'. The model and rows are
+# made from uniform draws with + - * only (no libm, no BLAS), so they have
+# the same bits on every host.
+P17_BITS_K, P17_BITS_OFF = 12, (3, 7, 10)
+# 20,000 rows at Kb 128 take the expanded form's wide register tile
+P17_BITS_KB, P17_BITS_D = (16, 128), (5, 24)
+P17_BITS_ROWS = (1, 37, 4096, 20000)
+# The digests of the first version of csrc/score.cu (commit 477d8c7),
+# taken on an NVIDIA H100 80GB HBM3 (700 W) by ``p17_bits_digests``.
+P17_BITS = {
+    "expanded full float32 proba kb16 d5":
+        "4b8d7338add67a436ea7d19d0c2d2f03d4ac94c3fd2de277517a8d72c020f602",
+    "expanded full float32 proba kb16 d24":
+        "8656083d112c6fd11216709ac2de64999ba2df884cbea10cc8e97ec7d4dee5d8",
+    "expanded full float32 proba kb128 d5":
+        "6b766d5ae7db92eb417cabe33572fe84c0cecf4bd488eebff080c54a09ae791d",
+    "expanded full float32 proba kb128 d24":
+        "92a44a1ec55b373c44e91e1428500692d78e4d9ca34d8161937c74d378a1728e",
+    "expanded full float32 assign kb16 d5":
+        "32f9edbf9e34bb8f18454666750a7a4c8207f46bc1c3f88cb67fad9279ffbf82",
+    "expanded full float32 assign kb16 d24":
+        "7eea5be4a897915f76bf67d71801b2fe9ce8e4452d153b420aed529055218648",
+    "expanded full float32 assign kb128 d5":
+        "32f9edbf9e34bb8f18454666750a7a4c8207f46bc1c3f88cb67fad9279ffbf82",
+    "expanded full float32 assign kb128 d24":
+        "7eea5be4a897915f76bf67d71801b2fe9ce8e4452d153b420aed529055218648",
+    "expanded full float64 proba kb16 d5":
+        "a791ae856c8afad744648e0c373ebac434e3bf935739df0713caf7e8eb2e2900",
+    "expanded full float64 proba kb16 d24":
+        "b8b08c58395c23172d203d7e0974a9027a3240615554deae49bf6204713b748a",
+    "expanded full float64 proba kb128 d5":
+        "b1f046a068c46ffc06727716650451af34861f760ce87b8b4df569ee55ba4969",
+    "expanded full float64 proba kb128 d24":
+        "352c6f67444803aa4afc1d8cdca43206b66d8be53e0799272ffbfb722b375e1f",
+    "expanded full float64 assign kb16 d5":
+        "0ff7aa19c3276cab83c307c275cccaaa51fc9d78ab2a72e73bfeee0ceb3030dd",
+    "expanded full float64 assign kb16 d24":
+        "2773b549a726b8273ad3e5b4e63be3c9df21ac934a0f064fcd9d599be49fa31a",
+    "expanded full float64 assign kb128 d5":
+        "0ff7aa19c3276cab83c307c275cccaaa51fc9d78ab2a72e73bfeee0ceb3030dd",
+    "expanded full float64 assign kb128 d24":
+        "2773b549a726b8273ad3e5b4e63be3c9df21ac934a0f064fcd9d599be49fa31a",
+    "expanded diag float32 proba kb16 d5":
+        "7a0e489054244fc4e08983e1b438b5d55bfae8b9e07c67617332ef3ef6fc91f9",
+    "expanded diag float32 proba kb16 d24":
+        "867a1d366e14f2a9a95538b251285c7e1c268638efdc5158ff0ef1e2d6ced7ce",
+    "expanded diag float32 proba kb128 d5":
+        "eca2391fc4e9d02297e9d13ffb8b9ab4fa8b51a85ca638c3cfb79eceb2bcb297",
+    "expanded diag float32 proba kb128 d24":
+        "87dc99fe0ab815b7d7a77a5b9d7b23bb59f7ca6c07ff93ef3bf533f3d84c1abf",
+    "expanded diag float32 assign kb16 d5":
+        "07317248628f40b6ab4e9cf3f5a2f72902eaaa5400af9b641ea2a6fb41048ece",
+    "expanded diag float32 assign kb16 d24":
+        "da071da79067128512dd95fb97515577191de26b08055ff8dcff67db9fda5937",
+    "expanded diag float32 assign kb128 d5":
+        "07317248628f40b6ab4e9cf3f5a2f72902eaaa5400af9b641ea2a6fb41048ece",
+    "expanded diag float32 assign kb128 d24":
+        "da071da79067128512dd95fb97515577191de26b08055ff8dcff67db9fda5937",
+    "expanded diag float64 proba kb16 d5":
+        "df3b229e60d66aab0a5243ecab613011f936c726a7ecf8b09376e5fa488d161c",
+    "expanded diag float64 proba kb16 d24":
+        "78a67bad314e20c1225ef187c3722626cac630c43d3e6b995df2d7f3db98d454",
+    "expanded diag float64 proba kb128 d5":
+        "11ecaecf6ee7df1516d4a9f551b2b672d551509ea93baaa8e267c64059343b61",
+    "expanded diag float64 proba kb128 d24":
+        "82ef3312064f84c0b5bd4348d7302cf64dd367922ea94b36316772b657ba681d",
+    "expanded diag float64 assign kb16 d5":
+        "c7affff54144f3572c5fbdffffa77c54fab6c87d88272a721626d0326a01a5d7",
+    "expanded diag float64 assign kb16 d24":
+        "dcb9988a449fd18e2fc2292d4470aa5be1c74739a604788786f5c83ab7abd0d4",
+    "expanded diag float64 assign kb128 d5":
+        "c7affff54144f3572c5fbdffffa77c54fab6c87d88272a721626d0326a01a5d7",
+    "expanded diag float64 assign kb128 d24":
+        "dcb9988a449fd18e2fc2292d4470aa5be1c74739a604788786f5c83ab7abd0d4",
+    "centered full float32 proba kb16 d5":
+        "30f8a027b089d6c28dd2a4db4bd458694e11ddcf72118f7ee59d7c527b2c15ff",
+    "centered full float32 proba kb16 d24":
+        "8ca1114295ee66628bdacac66aa759142e6caabd2a922b06b3e70420f4ad5fef",
+    "centered full float32 proba kb128 d5":
+        "d346d0ac18dd6351118673331af4d38cee91379175d7606df8421e79a7b55798",
+    "centered full float32 proba kb128 d24":
+        "c3d25b134a8ce1ee1cfe7bfcc765c9422d3a659da031d0326d7d7508775cb66b",
+    "centered full float32 assign kb16 d5":
+        "5319cb47f131d4a9aaac4ed876ee46c32a4b4ea79a6f01844870495776174d7c",
+    "centered full float32 assign kb16 d24":
+        "7998e4650f1718c34be0ff11015793dc116d9ec09c3bf77909d8e7bcddc53340",
+    "centered full float32 assign kb128 d5":
+        "5319cb47f131d4a9aaac4ed876ee46c32a4b4ea79a6f01844870495776174d7c",
+    "centered full float32 assign kb128 d24":
+        "7998e4650f1718c34be0ff11015793dc116d9ec09c3bf77909d8e7bcddc53340",
+    "centered full float64 proba kb16 d5":
+        "4b6f1e9f50143a45346953bf8f8083c64d61a7e7a357f25414c20cdba34fd715",
+    "centered full float64 proba kb16 d24":
+        "153f3fe56a3d1c47c8b598d693160cef129782050d306b2f466944676991fa31",
+    "centered full float64 proba kb128 d5":
+        "ecfec7be2de8cf922edc1eca9d2caab19a976ee252038875aa6992f820a757d1",
+    "centered full float64 proba kb128 d24":
+        "2b2bcaa9732c99ada7dbcb9d18fac5a409ca873111cbc892b66ab93cb154c45f",
+    "centered full float64 assign kb16 d5":
+        "b5e142851ce3b2a32839ff635b265e8ae41303ea618860fddd0d6c3eb62fa165",
+    "centered full float64 assign kb16 d24":
+        "e450d7645ba9e548404e4d1f18c534c6c3b02ee7171ef396b528f76a3c4edba3",
+    "centered full float64 assign kb128 d5":
+        "b5e142851ce3b2a32839ff635b265e8ae41303ea618860fddd0d6c3eb62fa165",
+    "centered full float64 assign kb128 d24":
+        "e450d7645ba9e548404e4d1f18c534c6c3b02ee7171ef396b528f76a3c4edba3",
+    "centered diag float32 proba kb16 d5":
+        "e38b1d55b259844acdf1d039921ca1e2fd36256b8209a13d5f2cd7af51316f22",
+    "centered diag float32 proba kb16 d24":
+        "d2bbba919ecccda5d3c73c98fe56d2b13fd97debb32f6f23dceab911496dea96",
+    "centered diag float32 proba kb128 d5":
+        "d1de54ea93891d1e7ef442ae0127c39fb1047c16b4fa2f4186995134d1634705",
+    "centered diag float32 proba kb128 d24":
+        "86205196d4889f90bd62b1815e69cec785b70d2cd19d437da05b648aad94f3f2",
+    "centered diag float32 assign kb16 d5":
+        "a7b2d9c6dcc3fbc6e9098a3d07ddb7868d7d68dc0e34372197b84612b13071b2",
+    "centered diag float32 assign kb16 d24":
+        "aec3bd33f067fde2f18311a200fe8b881d2c3c3403ede15d48573f841994eba1",
+    "centered diag float32 assign kb128 d5":
+        "a7b2d9c6dcc3fbc6e9098a3d07ddb7868d7d68dc0e34372197b84612b13071b2",
+    "centered diag float32 assign kb128 d24":
+        "aec3bd33f067fde2f18311a200fe8b881d2c3c3403ede15d48573f841994eba1",
+    "centered diag float64 proba kb16 d5":
+        "0efeee139fcc76a290716402cc9f3f4a0b23fefb83bf39d4e2708ea64a10b8b3",
+    "centered diag float64 proba kb16 d24":
+        "1d82b6dbed5ae6f6cf9181a63cb0f66b1a3bcc0baa261550450cc7ebf533557f",
+    "centered diag float64 proba kb128 d5":
+        "9750e18dd2e3e0bd076fe84dead5fe45faf4dae45d3a3284b1d22e71508bc8fa",
+    "centered diag float64 proba kb128 d24":
+        "f4c8d7b5637017139b719e5f6e4c8d032d0dc80b8c2fae6dca68df355dcdfef1",
+    "centered diag float64 assign kb16 d5":
+        "a937eaa4a9d0723a8ba110f174b049f474861b14b2d7cd27018f74e5eaed95eb",
+    "centered diag float64 assign kb16 d24":
+        "889261a11a8b84f3312cbd9d0679d16507a9dc4f842cf7f1179bee9b9b31cf67",
+    "centered diag float64 assign kb128 d5":
+        "a937eaa4a9d0723a8ba110f174b049f474861b14b2d7cd27018f74e5eaed95eb",
+    "centered diag float64 assign kb128 d24":
+        "889261a11a8b84f3312cbd9d0679d16507a9dc4f842cf7f1179bee9b9b31cf67",
+}
+
+
+def p17_bits_model(d: int, diag: bool, centered: bool, kb: int):
+    """(x [20000, D], A_ext [T + D, Kb], g [Kb]) in float64: a seeded SPD
+    precision L L^T (its diagonal in diag mode), means, and g; the
+    expanded form's -2 Rinv mu and -0.5 mu^T Rinv mu summed in a fixed
+    order; zero A columns and -inf g past the model's slots."""
+    rng = np.random.default_rng([18, d, int(diag)])
+    k = P17_BITS_K
+    mu = rng.uniform(-4.0, 4.0, size=(k, d))
+    low = np.tril(rng.uniform(-0.4, 0.4, size=(k, d, d)), -1)
+    low[:, np.arange(d), np.arange(d)] = rng.uniform(0.6, 1.4, size=(k, d))
+    rinv = np.zeros((k, d, d))
+    for i in range(d):
+        for j in range(d):
+            for m in range(d):
+                rinv[:, i, j] = rinv[:, i, j] + low[:, i, m] * low[:, j, m]
+    if diag:
+        rinv = rinv * np.eye(d)[None]
+    base = rng.uniform(-40.0, -30.0, size=k)  # constant + ln pi
+    m = max(P17_BITS_ROWS)
+    rows = rng.integers(0, k, size=m)
+    x = mu[rows] + rng.uniform(-1.5, 1.5, size=(m, d))
+    # every fifth row halfway between two means: two slots share its w
+    x[::5] = 0.5 * (mu[rows[::5]] + mu[(rows[::5] + 1) % k])
+    if diag:
+        tri = rinv[:, np.arange(d), np.arange(d)]
+    else:
+        i, j = np.triu_indices(d)
+        tri = rinv[:, i, j] * np.where(i == j, 1.0, 2.0)
+    if centered:
+        tail, g = mu, base
+    else:
+        h = np.zeros((k, d))
+        for j in range(d):
+            h = h + rinv[:, :, j] * mu[:, j:j + 1]
+        c = np.zeros(k)
+        for j in range(d):
+            c = c + h[:, j] * mu[:, j]
+        tail, g = -2.0 * h, -0.5 * c + base
+    g = g.copy()
+    g[list(P17_BITS_OFF)] = -np.inf
+    a_ext = np.zeros((tri.shape[1] + d, kb))
+    a_ext[:, :k] = np.concatenate([tri, tail], axis=1).T
+    g_pad = np.full(kb, -np.inf)
+    g_pad[:k] = g
+    return x, a_ext, g_pad
+
+
+def p17_bits_digests() -> dict:
+    """{case: SHA-256 of S1's outputs' bytes (w or labels, then logZ) at
+    each of P17_BITS_ROWS in turn}, one case per form, covariance, dtype,
+    kind, Kb and D."""
+    import hashlib
+
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+
+    out = {}
+    for centered, diag, dt, kind, kb, d in itertools.product(
+            (False, True), (False, True), (torch.float32, torch.float64),
+            ("proba", "assign"), P17_BITS_KB, P17_BITS_D):
+        x, a_ext, g = (torch.as_tensor(v, dtype=dt, device="cuda")
+                       for v in p17_bits_model(d, diag, centered, kb))
+        h = hashlib.sha256()
+        for n in P17_BITS_ROWS:
+            z = torch.empty(n, dtype=dt, device="cuda")
+            if kind == "proba":
+                o = torch.empty((n, kb), dtype=dt, device="cuda")
+                s1.score_launch(x[:n].contiguous(), a_ext, g, z, diag=diag,
+                                w=o, centered=centered)
+            else:
+                o = torch.empty(n, dtype=torch.int32, device="cuda")
+                s1.score_launch(x[:n].contiguous(), a_ext, g, z, diag=diag,
+                                labels=o, centered=centered)
+            h.update(o.cpu().numpy().tobytes())
+            h.update(z.cpu().numpy().tobytes())
+        key = (f"{'centered' if centered else 'expanded'} "
+               f"{'diag' if diag else 'full'} {str(dt)[6:]} {kind} kb{kb} "
+               f"d{d}")
+        out[key] = h.hexdigest()
+    return out
 
 
 def s1_bound(n: int, k: int, kb: int, d: int, diag: bool,
@@ -4060,6 +4324,15 @@ def s1_bound(n: int, k: int, kb: int, d: int, diag: bool,
     flops = (3 * t + d) if centered else 2 * (t + d)
     return bound_ms(4.0 * (n * d + (t + d + 1) * kb + n * (kb + 1)),
                     float(n) * k * flops)
+
+
+def s1_fp64_ms(n: int, k: int, d: int, diag: bool,
+               centered: bool = False) -> float:
+    """S1's flops (as ``s1_bound`` counts them) at the FP64 FMA rate, where
+    its chains run: the ceiling of a kernel that keeps them in double."""
+    t = d if diag else d * (d + 1) // 2
+    flops = (3 * t + d) if centered else 2 * (t + d)
+    return float(n) * k * flops / FP64_FLOPS_PER_S * 1e3
 
 
 def _p17_states(result, diag: bool):
@@ -4161,14 +4434,17 @@ def p17_s1(result, x_c, diag: bool, label: str,
         a_ext, g = s1.score_operands(st, diag, centered)
         w = torch.empty((n, kb), device="cuda")
         z = torch.empty(n, device="cuda")
-        ms = time_ms(lambda: s1.score_launch(x, a_ext, g, z, diag=diag, w=w,
-                                             centered=centered), reps=20)
+        ms = graph_ms(lambda: s1.score_launch(x, a_ext, g, z, diag=diag,
+                                              w=w, centered=centered))
         plain_ms = time_ms(lambda: plain(st, x), reps=20)
         b, by = s1_bound(n, k, kb, x.shape[1], diag, centered)
-        times[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by)
-        print(f"  S1 {label} {n} rows: {ms:.4f} ms per launch, torch-ops "
+        f64 = s1_fp64_ms(n, k, x.shape[1], diag, centered)
+        times[n] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b, bound_by=by,
+                        fp64_ceiling_ms=f64)
+        print(f"  S1 {label} {n} rows: {ms:.4f} ms per launch (device time of"
+              f" graph replays), torch-ops "
               f"posteriors {plain_ms:.4f} ms, bound {b:.4f} ms ({by}; "
-              f"{100 * b / ms:.1f}% of it)")
+              f"{100 * b / ms:.1f}% of it), FP64 FMA ceiling {f64:.4f} ms")
     print(f"  S1 {label} against torch ops at blocks {P17_BLOCKS}: max|dw| "
           f"{worst['w']:.2e}, normwise dlogZ {worst['z']:.2e} (outside the "
           f"class at {outside} of {len(P17_BLOCKS)} blocks, where torch ops "
@@ -4485,7 +4761,8 @@ def s1_centered_record(serving: dict) -> dict:
         launches=serving["centered_launches"],
         max_abs_err=max(full["errors"]["w"], diag["errors"]["w"]),
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-        bound_by=t["bound_by"], library_ms=None, errors=full["errors"],
+        bound_by=t["bound_by"], library_ms=None,
+        fp64_ceiling_ms=t["fp64_ceiling_ms"], errors=full["errors"],
         diag_errors=diag["errors"], times=full["times"],
         diag_times=diag["times"])
 
@@ -4502,7 +4779,9 @@ def s1_record(serving: dict) -> dict:
         launches=serving["warm"]["s1_launches"],
         max_abs_err=max(full["errors"]["w"], diag["errors"]["w"]),
         ms=t["ms"], plain_ms=t["plain_ms"], bound_ms=t["bound_ms"],
-        bound_by=t["bound_by"], library_ms=None, errors=full["errors"],
+        bound_by=t["bound_by"], library_ms=None,
+        fp64_ceiling_ms=t["fp64_ceiling_ms"], bits=serving["bits"],
+        errors=full["errors"],
         diag_errors=diag["errors"], near_ties=full["near_ties"]
         + diag["near_ties"], times=full["times"], diag_times=diag["times"],
         graphs=serving["graphs"], warm=serving["warm"],
@@ -4535,7 +4814,17 @@ def phase_serving(data, main_result, diag_result, workdir: Path,
           f"cells_diag (diag, K {diag_result.ideal_num_clusters}); card: "
           f"{card}")
 
-    # (a) S1 against its plain version and float64, both forms
+    # (a) S1's bits against the first version's, then S1 against its
+    # plain version and float64, both forms
+    bits = p17_bits_digests()
+    differ = sorted(k for k in P17_BITS if bits.get(k) != P17_BITS[k])
+    check(not differ and len(bits) == len(P17_BITS),
+          f"S1's outputs differ from the first version's digests in "
+          f"{len(differ)} of {len(P17_BITS)} cases: {differ[:4]}")
+    print(f"  S1 bits: {len(bits)} cases (both forms, full and diag, float32 "
+          f"and float64, 'proba' and 'assign', Kb {P17_BITS_KB}, D "
+          f"{P17_BITS_D}, rows {P17_BITS_ROWS}) equal to the first "
+          f"version's SHA-256 digests (commit 477d8c7)")
     a = {"full": p17_s1(main_result, x_c, False, "full"),
          "diag": p17_s1(diag_result, x_c, True, "diag"),
          "centered full": p17_s1(main_result, x_c, False, "centered full",
@@ -4640,7 +4929,8 @@ def phase_serving(data, main_result, diag_result, workdir: Path,
     http = p17_http(reg_dir, workdir, raw, server)
     wall = time.perf_counter() - t_phase
     print(f"  phase 17 took {wall:.1f} s")
-    return dict(a=a, contracts={f"{f} {c}": v for (f, c), v in held.items()},
+    return dict(a=a, bits=len(bits),
+                contracts={f"{f} {c}": v for (f, c), v in held.items()},
                 centered_launches=centered_launches,
                 torch_route_probes=probes, graphs=graphs, warm=warm,
                 cache_bytes=mem, latency=lat, http=http, wall_s=wall)

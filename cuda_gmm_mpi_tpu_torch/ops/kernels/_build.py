@@ -40,7 +40,7 @@ SIGNATURES = {
                        ("gmm_stats_logz", [_P] * 11 + [_I] * 8 + [_P]),
                        ("gmm_shard_occupancy", [_I] * 3 + [_P])],
     "mstep.cu": [("gmm_mstep", [_P] * 12 + [_I] * 4 + [_P])],
-    "score.cu": [("gmm_score", [_P] * 6 + [_I] * 7 + [_P])],
+    "score.cu": [("gmm_score", [_P] * 6 + [_I] * 14 + [_P])],
 }
 
 _lock = threading.Lock()

@@ -25,15 +25,23 @@ which is tighter than the 'high' (2^-17) and 'default' (2^-9) classes.
   widens them to a K-bucket; forming them at the model's own K and then
   padding keeps their bits independent of the bucket (a reduction on the
   card may order its sums by the tensor's shape).
+- :func:`score_geometry`: the launch geometry from the shapes alone (a
+  thread's register tile, events and slots per CTA, the ring's rows per
+  stage and stages, shared bytes, grids, events per scan CTA), on the
+  kernel's constants, which csrc/score.cu states.
 - :func:`score_launch`: one launch on prepared operands into given outputs
-  (CUDA tensors only), counted on ``score.launches`` for the expanded form
-  and on ``centered_form.launches`` for the centered one.
+  (CUDA tensors only; two kernels, the logp tiles and the per-event scans,
+  with an [N, Kb] scratch for 'assign'), counted once on ``score.launches``
+  for the expanded form and on ``centered_form.launches`` for the centered
+  one.
 - :func:`score`: the function on a state: CPU tensors take the plain
   version, CUDA tensors launch the kernel (no fallback: a failed build or
   launch raises).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -42,8 +50,82 @@ from .counts import LaunchCount, note_launch
 
 KINDS = ("proba", "assign")
 QUAD_MODES = ("expanded", "packed", "centered")
-MAX_KB = 1024  # widest K-bucket one launch takes (its logp rows are in smem)
+MAX_KB = 1024  # widest K-bucket one launch takes (3 Kb serial scan steps)
 MAX_D = 255
+
+# csrc/score.cu's constants
+TILES = (2, 4, 8)  # a thread's register tile's side (events x slots)
+MAX_EV, MAX_KT = 128, 32  # events, slots per CTA, at most
+RING_ROWS, STAGES = 32, 3  # A_ext rows per ring stage; stages, at most
+SCAN_EV = 32  # events per scan CTA, at most (a lane per event)
+SCAN_SMEM = 49152  # a scan CTA's staged logp rows, at most
+SMEM_MAX = 232448  # shared memory one CTA may use on an H100
+# The wrapper's choice. The expanded form with a full covariance takes the
+# widest tile (8 x 8: half the shared-memory bytes per fma of 4 x 4) on
+# 128-event CTAs when they number WIDE_CTAS (four per SM of the H100's 132)
+# or more; a diagonal one has too few rows to gain from it. A request of at
+# most SMALL_ROWS rows (the expanded form's, the centered form's) takes 2 x
+# 2 tiles: a thread's chain of rows is then a quarter as long, and the card
+# holds enough threads for them. Otherwise 4 x 4. The grid is then grown towards TARGET_CTAS (two per SM) by
+# halving the event tile down to MIN_EV, then the slot tile down to MIN_KT:
+# each thread issues 16 rows / ev of the ring's copies per fma row and loads
+# 16 D / kt x values before its first fma, so neither shrinks further.
+TARGET_CTAS, WIDE_CTAS, MIN_EV, MIN_KT = 264, 528, 16, 16
+SMALL_ROWS = (1024, 8192)
+
+
+class Geometry(NamedTuple):
+    tile: int  # the register tile's side
+    ev: int  # events per CTA
+    kt: int  # slots per CTA
+    rows: int  # A_ext rows per ring stage
+    stages: int
+    threads: int  # per CTA: (ev / tile) x (kt / tile)
+    smem: int  # dynamic shared bytes per CTA
+    grid: tuple  # (event tiles, slot tiles)
+    scan_ev: int  # events per scan CTA
+    scan_grid: int  # scan CTAs
+
+
+def _smem(d: int, ev: int, kt: int, rows: int, stages: int, centered: bool,
+          itemsize: int) -> int:
+    """The x tile and (centered) mu's rows in double, the ring in the
+    model's type."""
+    return 8 * (d * ev + (d * kt if centered else 0)) + (
+        itemsize * stages * rows * kt)
+
+
+def score_geometry(n: int, d: int, kb: int, diag: bool, centered: bool,
+                   itemsize: int) -> Geometry:
+    """S1's launch geometry for ``n`` events of ``d`` features at ``kb``
+    slots (``itemsize`` 4 or 8 bytes), from the shapes alone."""
+    t = d if diag else d * (d + 1) // 2
+    nrows = t if centered else t + d  # A_ext rows through the ring
+    rows = min(RING_ROWS, nrows)
+    stages = STAGES if nrows > rows else 2
+    smem = lambda: _smem(d, ev, kt, rows, stages, centered, itemsize)
+    ctas = lambda: -(-n // ev) * -(-kb // kt)
+    tile, ev = TILES[2], MAX_EV
+    kt = min(MAX_KT, -(-kb // tile) * tile)
+    if centered or diag or ctas() < WIDE_CTAS or smem() > SMEM_MAX:
+        tile = TILES[0] if n <= SMALL_ROWS[centered] else TILES[1]
+        kt = min(MAX_KT, -(-kb // tile) * tile)
+        while smem() > SMEM_MAX:
+            ev //= 2
+        while ctas() < TARGET_CTAS:
+            if ev > MIN_EV:
+                ev //= 2
+            elif kt > MIN_KT:
+                kt = max(MIN_KT, kt // 2 // tile * tile)
+            else:
+                break
+    # a small request's scan CTAs hold fewer events each, so that more
+    # threads share the elementwise passes
+    scan_ev = min(SCAN_EV, SCAN_SMEM // ((kb + 1) * itemsize),
+                  max(1, -(-n // TARGET_CTAS)))
+    return Geometry(tile, ev, kt, rows, stages, (ev // tile) * (kt // tile),
+                    smem(), (-(-n // ev), -(-kb // kt)), scan_ev,
+                    -(-n // scan_ev))
 
 
 def score_operands(state, diag_only: bool, centered: bool = False):
@@ -135,12 +217,16 @@ def score_launch(x, a_ext, g, logz, *, diag: bool, w=None, labels=None,
                          "int32, and logz [N], contiguous on the card")
     from ._build import library
 
+    geo = score_geometry(n, d, kb, diag, centered, x.element_size())
+    # the logp rows: w itself, or for 'assign' a scratch (under a graph's
+    # capture it comes from the graph's pool)
+    lp = torch.empty((n, kb), dtype=x.dtype, device=x.device) if assign else w
     err = library("score.cu").gmm_score(
-        x.data_ptr(), a_ext.data_ptr(), g.data_ptr(),
-        0 if assign else w.data_ptr(), logz.data_ptr(),
-        labels.data_ptr() if assign else 0, n, d, kb, int(diag), int(assign),
-        int(centered), int(x.dtype == torch.float64),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        x.data_ptr(), a_ext.data_ptr(), g.data_ptr(), lp.data_ptr(),
+        logz.data_ptr(), labels.data_ptr() if assign else 0, n, d, kb,
+        int(diag), int(assign), int(centered), int(x.dtype == torch.float64),
+        geo.tile, geo.ev, geo.kt, geo.rows, geo.stages, geo.smem,
+        geo.scan_ev, torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"S1 (score): CUDA error {err} at launch")
     note_launch(centered_form if centered else score)

@@ -1537,6 +1537,121 @@ def test_s1_centered_matches_plain_and_float64(dev, diag, dtype, far):
             assert torch.equal(wk[:, :128], w128) and torch.equal(zk, z128)
 
 
+@pytest.mark.parametrize("quad_mode", ["expanded", "centered"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("k,kb,d,rows,inactive", [
+    (12, 16, 255, (300,), (1,)),      # D = 255 full: 32,640 triangle rows
+    (700, 1024, 24, (300,), (1, 600)),  # the widest K-bucket
+    (70, 128, 24, (1, 4097), (1,)),   # one row; a ragged last event tile
+    (96, 128, 24, (300, 4097), tuple(range(32, 64))),  # whole tiles off
+], ids=["d255", "kb1024", "n1-n4097", "tile-inactive"])
+def test_s1_at_the_geometrys_edges(dev, k, kb, d, rows, inactive, dtype,
+                                   quad_mode):
+    """S1 where its geometry is at an edge, against its plain version at
+    ``test_s1_centered_matches_plain_and_float64``'s bars (float32 against
+    float64 at most twice the plain version's error, floored at 2^-20, and
+    in the plain version's class wherever that version is in the class of
+    float64; float64 to 1e-12), both kinds, two launches torch.equal,
+    inactive and padded slots exactly 0."""
+    from cuda_gmm_mpi_tpu_torch.ops.estep import posteriors
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+    from cuda_gmm_mpi_tpu_torch.parallel.sharded_em import pad_state_clusters
+
+    rng = np.random.default_rng(kb + d)
+    st = pad_state_clusters(
+        _s1_state(rng, k, d, False, dtype, dev, inactive=inactive), kb)
+    st64 = st.replace(**{f: getattr(st, f).double() for f in (
+        "N", "pi", "constant", "avgvar", "means", "R", "Rinv")})
+    nz = lambda a, b: float((a.double() - b).abs().max() / b.abs().max())
+    for n in rows:
+        x = torch.as_tensor(rng.normal(scale=2.0, size=(n, d)), dtype=dtype,
+                            device=dev)
+        before = s1.score.launches + s1.centered_form.launches
+        w, z = s1.score(st, x, diag_only=False, quad_mode=quad_mode)
+        w2, z2 = s1.score(st, x, diag_only=False, quad_mode=quad_mode)
+        lab, zl = s1.score(st, x, diag_only=False, quad_mode=quad_mode,
+                           kind="assign")
+        lab2, _ = s1.score(st, x, diag_only=False, quad_mode=quad_mode,
+                           kind="assign")
+        assert s1.score.launches + s1.centered_form.launches == before + 4
+        wp, zp = s1.score_plain(st, x, diag_only=False, quad_mode=quad_mode)
+        w64, z64 = posteriors(st64, x.double(), diag_only=False,
+                              quad_mode=quad_mode)
+        torch.cuda.synchronize()
+        assert torch.equal(w, w2) and torch.equal(z, z2)
+        assert torch.equal(lab, lab2) and torch.equal(z, zl)
+        assert bool((w[:, ~st.active] == 0).all())
+        assert bool(torch.isfinite(w).all() and torch.isfinite(z).all())
+        if dtype == torch.float64:
+            assert float((w - w64).abs().max()) <= 1e-12
+            assert nz(z, z64) <= 1e-12
+        else:
+            e64w, p64w = (float((w.double() - w64).abs().max()),
+                          float((wp.double() - w64).abs().max()))
+            assert e64w <= 2 * max(p64w, 2 ** -20)
+            assert nz(z, z64) <= 2 * max(nz(zp, z64), 2 ** -20)
+            if p64w <= S1_W_BAR and nz(zp, z64) <= S1_Z_BAR:
+                assert float((w - wp).abs().max()) <= S1_W_BAR
+                assert nz(z, zp.double()) <= S1_Z_BAR
+        top = w64.topk(2, dim=1).values
+        miss = lab.long() != torch.argmax(w64, dim=1)
+        assert bool(((top[:, 0] - top[:, 1])[miss] <= S1_W_BAR).all())
+
+
+@pytest.mark.parametrize("kind", ["proba", "assign"])
+@pytest.mark.parametrize("centered", [False, True],
+                         ids=["expanded", "centered"])
+def test_s1_captured_in_a_cuda_graph_replays_on_new_inputs(dev, centered,
+                                                           kind):
+    """S1 captured in a CUDA graph (its 'assign' scratch from the graph's
+    pool, as under the executor's capture), replayed on new rows and new
+    operands copied into the static buffers: each replay torch.equal to an
+    eager launch on the same inputs; one count per eager launch."""
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import score as s1
+    from cuda_gmm_mpi_tpu_torch.parallel.sharded_em import pad_state_clusters
+
+    rng = np.random.default_rng(20 + centered)
+    n, d, kb = 777, 24, 128
+    states = [pad_state_clusters(_s1_state(
+        rng, 90, d, False, torch.float32, dev, inactive=(i,)), kb)
+        for i in range(3)]
+    ops = [s1.score_operands(st, False, centered) for st in states]
+    xs = [torch.as_tensor(rng.normal(scale=2.0, size=(n, d)),
+                          dtype=torch.float32, device=dev) for _ in ops]
+    x = xs[0].clone()
+    a, g = (t.clone() for t in ops[0])
+    z = torch.empty(n, device=dev)
+    out = (torch.empty((n, kb), device=dev) if kind == "proba"
+           else torch.empty(n, dtype=torch.int32, device=dev))
+
+    def launch(x, a, g, z, out):
+        s1.score_launch(x, a, g, z, diag=False, centered=centered,
+                        **(dict(w=out) if kind == "proba"
+                           else dict(labels=out)))
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        launch(x, a, g, z, out)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        launch(x, a, g, z, out)
+    counter = s1.centered_form if centered else s1.score
+    for xi, (ai, gi) in zip(xs[1:] + xs[:1], ops[1:] + ops[:1]):
+        x.copy_(xi)
+        a.copy_(ai)
+        g.copy_(gi)
+        graph.replay()
+        z_e, out_e = torch.empty_like(z), torch.empty_like(out)
+        before = counter.launches
+        launch(xi, ai, gi, z_e, out_e)
+        assert counter.launches == before + 1
+        torch.cuda.synchronize()
+        assert torch.equal(z, z_e) and torch.equal(out, out_e)
+
+
 def _served_registry(tmp_path, dev, rng, k=9, d=6, diag=False):
     """A registry holding one model 'm' made from a seeded state (its
     parameters exactly, through ``GaussianMixture._from_state``)."""
