@@ -349,6 +349,31 @@ Phases (any failure exits non-zero, and no result line is printed):
    promote, watch, cooldown; the promoted version loads from the registry
    and scores; then ``canary_regression`` quarantines the next candidate
    with every reply unchanged byte for byte.
+19. multi-tenant fleet fits (tenancy/): 48 tenants at D = 24, float32,
+   20 iterations per K, in two packed groups (32 of 33,000-65,536 events at
+   K = 16, 16 of 9,000-16,384 at K = 8; four with a target K), blobs from
+   the seed. (a) K3's per-lane-events form on the first group's 32 lanes
+   (one frozen), full and diag: every live lane torch.equal to K1 on its
+   own rows, the frozen lane zeros, two launches equal, the plain
+   version's class and twice its float64 error, also at 'high' and
+   'default'; one launch timed beside K1 on each lane's rows, the plain
+   version and the bound. (b) ``fit_fleet`` in 'scan' (one captured
+   program per lane): every tenant torch.equal to its solo ``fit_gmm`` at
+   ``sweep_k_buckets='off'``; K1 = the lanes' iterations + initial
+   E-steps, K2 = the iterations; the fleet's wall beside the 48 solo fits'
+   and the capture seconds; the second group again on the host loop
+   (``_eager_em``), torch.equal, its wall beside the captured group's. (c) 'vmap': one launch of K3's per-lane form
+   and one K4 launch per group iteration, no K1/K2, the solo fits' K and
+   merge pairs, loglik within 1e-5, and how many lanes came out
+   torch.equal to (b). (d) On the second group alone: ``nan_loglik`` on
+   lane 1 drops that tenant and the others equal (b); a preempt at step 2,
+   then its resume, equals (b). (e) ``gmm fleet`` on 4 BIN files with
+   ``--registry``: each .summary byte-identical to the solo CLI's (at
+   ``--sweep-k-buckets off``), ``gmm export --fleet`` 4/4. (f) A (2, 1)
+   mesh of 2 ranks on the card (gloo): 4 tenants in 'scan', each
+   torch.equal to the sharded solo fit, K1/K2 counted per rank. The kernels
+   line gains a "K3 fused_stats_fleet (per-lane events)" record and a
+   ``fleet`` sub-record on K1-K4.
 
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
@@ -386,6 +411,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import io
 import itertools
 import json
 import os
@@ -5220,6 +5246,492 @@ def phase_tuning_lifecycle(data, main_result, workdir: Path, card: str
     return out
 
 
+# ---------------------------------------------------------------- phase 19
+
+# The fleet: two packed groups at D = 24 (float32, 20 iterations per K):
+# 32 tenants of 33,000-65,536 events at K = 16 and 16 of 9,000-16,384 at
+# K = 8, each a blob mixture from the seed; four tenants have a target K.
+P19_GROUPS = ((32, 33_000, 65_536, 16), (16, 9_000, 16_384, 8))
+P19_TARGETS = {3: 6, 17: 6, 34: 4, 41: 4}  # tenant index -> target K
+P19_ITERS, P19_CHUNK = 20, 16_384
+P19_FROZEN = 5  # the lane (a) freezes through the lane mask
+P19_CLI, P19_MESH = 4, 4  # tenants of (e) and (f), from the second group
+P19_MESH_CHUNK = 1024  # (f): the solo layout's pad chunks interleave
+P19_TIMEOUT_S = 300
+
+
+def p19_tenants(seed: int) -> list:
+    """The fleet's tenants: per tenant its event count, true cluster count
+    (8-12, or 4-6 in the second group) and blobs, all from ``seed``."""
+    from cuda_gmm_mpi_tpu_torch.tenancy import TenantSpec
+
+    rng = np.random.default_rng(seed + 19)
+    out = []
+    for count, lo, hi, k in P19_GROUPS:
+        for _ in range(count):
+            i = len(out)
+            n = int(rng.integers(lo, hi + 1))
+            true_k = int(rng.integers(k // 2, k - k // 4 + 1))
+            out.append(TenantSpec(
+                f"p{i:02d}", make_blobs(seed + 1000 + i, n, DIMS, true_k), k,
+                target_num_clusters=P19_TARGETS.get(i, 0)))
+    return out
+
+
+def p19_config(**kw):
+    from cuda_gmm_mpi_tpu_torch import GMMConfig
+
+    return GMMConfig(**{**dict(min_iters=P19_ITERS, max_iters=P19_ITERS,
+                               chunk_size=P19_CHUNK, sweep_k_buckets="off"),
+                        **kw})
+
+
+def _same_result(a, b) -> bool:
+    """Two fits' models bit for bit: K, scores, merges, the per-K
+    trajectory (seconds aside) and every state field."""
+    import torch
+
+    return (a.ideal_num_clusters == b.ideal_num_clusters
+            and a.final_loglik == b.final_loglik
+            and a.min_rissanen == b.min_rissanen and a.merges == b.merges
+            and [r[:4] for r in a.sweep_log] == [r[:4] for r in b.sweep_log]
+            and all(torch.equal(getattr(a.state, f), getattr(b.state, f))
+                    for f in ("N", "pi", "constant", "avgvar", "means", "R",
+                              "Rinv", "active")))
+
+
+def _zero_fleet_counts():
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    for w in (fs.fused_stats, fs.mstep, fs.fused_stats_batched,
+              fs.mstep_batched, fs.fused_stats_fleet):
+        w.launches = 0
+
+
+def _fleet_counts() -> dict:
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    return {"K1": fs.fused_stats.launches, "K2": fs.mstep.launches,
+            "K3": fs.fused_stats_batched.launches,
+            "K4": fs.mstep_batched.launches,
+            "K3 fleet": fs.fused_stats_fleet.launches}
+
+
+def p19_k3_form(tenants, diag: bool, precision: str = "highest",
+                timed: bool = True) -> dict:
+    """(a): K3's per-lane-events form on the first group's lanes (their
+    packed grids, states after one torch-ops M-step on each lane's events,
+    lane P19_FROZEN frozen) against K1 on each lane's rows, its plain
+    version and float64."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.ops.mstep import accumulate_stats, apply_mstep
+    from cuda_gmm_mpi_tpu_torch.tenancy import pack_group, plan_fleet
+
+    cfg = p19_config(diag_only=diag)
+    group = plan_fleet(tenants, cfg)[-1]  # the 65,536-event bucket
+    check(group.n_bucket == 65_536 and len(group.indices) == 32,
+          f"phase 19 (a): unexpected first group {group}")
+    packed = pack_group(group, tenants, cfg, device="cuda")
+    R, C, B, d = packed.chunks.shape
+    chunks = torch.as_tensor(packed.chunks, device="cuda")
+    wts = torch.as_tensor(packed.wts, device="cuda")
+    n_np = packed.n_events
+    params = []
+    for r, s in enumerate(packed.states):
+        c = int(packed.solo_chunks[r])
+        s = apply_mstep(s, accumulate_stats(s, chunks[r, :c], wts[r, :c],
+                                            diag_only=diag), diag_only=diag)
+        params.append(fs._prep_params(s, d, diag))
+    A, h, g = (torch.stack(p) for p in zip(*params))
+    x = chunks.reshape(R, C * B, d)
+    wt = wts.reshape(R, C * B)
+    n = torch.as_tensor(n_np, dtype=torch.int32, device="cuda")
+    lanes = torch.ones(R, dtype=torch.float32, device="cuda")
+    lanes[P19_FROZEN] = 0.0
+    live = [r for r in range(R) if r != P19_FROZEN]
+    args = (x, wt, n, lanes, A, h, g)
+    kw = dict(diag=diag, precision=precision)
+    most = int(n_np.max())
+    out = fs.fused_stats_fleet(*args, max_events=most, **kw)
+    out2 = fs.fused_stats_fleet(*args, max_events=most, **kw)
+    ref = fs.fused_stats_fleet_plain(*args, **kw)
+    torch.cuda.synchronize()
+    label = f"K3 per-lane events {'diag' if diag else 'full'} {precision}"
+    check(all(torch.equal(a, b) for a, b in zip(out, out2)),
+          f"{label}: two launches differ")
+    for r in live:
+        m = int(n_np[r])
+        one = fs.fused_stats(x[r, :m], wt[r, :m], *params[r], **kw)
+        check(all(torch.equal(a[r], b) for a, b in zip(out, one)),
+              f"{label}: lane {r} differs from K1 on its {m} rows")
+    check(not any(bool(o[P19_FROZEN].any()) for o in out),
+          f"{label}: frozen lane {P19_FROZEN} is not all zeros")
+    worst = worst64 = worst64_plain = 0.0
+    for name, a, b in zip(("ll", "nk", "m1", "m2"), out, ref):
+        a, b = a[live], b[live]
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite {name}")
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        rtol, atol = TOL[name]
+        check(err <= atol + rtol * scale,
+              f"{label}: {name} max|err| {err:.3e} > {atol} + {rtol} x "
+              f"{scale:.3e}")
+        worst = max(worst, err)
+    # Against float64, normwise over the live lanes together as phase 5
+    # holds K3 (each lane's float64 statistics computed on its own, one
+    # lane's [n, D^2] float64 features at a time).
+    err64 = {k: [0.0, 0.0, 0.0] for k in ("ll", "nk", "m1", "m2")}
+    for r in live:
+        m = int(n_np[r])
+        c64 = fs.fused_stats_plain(x[r, :m].double(), wt[r, :m].double(),
+                                   *(p.double() for p in params[r]),
+                                   diag=diag)
+        for name, a, b, c in zip(("ll", "nk", "m1", "m2"), out, ref, c64):
+            e = err64[name]
+            e[0] = max(e[0], float((a[r].double() - c).abs().max()))
+            e[1] = max(e[1], float((b[r].double() - c).abs().max()))
+            e[2] = max(e[2], float(c.abs().max()))
+        del c64
+    for name, (ea, eb, scale) in err64.items():
+        e64, p64 = ea / max(scale, 1e-300), eb / max(scale, 1e-300)
+        check(e64 <= 2.0 * max(p64, FP32_EPS),
+              f"{label}: {name} float64 error {e64:.2e} > 2 x the plain "
+              f"version's {p64:.2e}")
+        worst64, worst64_plain = max(worst64, e64), max(worst64_plain, p64)
+    rec = {"max_abs_err": worst, "fp64_err": worst64,
+           "plain_fp64_err": worst64_plain, "lanes": R, "live_lanes":
+           len(live), "events": int(n_np.sum()), "library_ms": None}
+    print(f"  {label}: {len(live)} live lanes torch.equal to K1 on their "
+          f"own rows, frozen lane zeros, two launches equal; max|form - "
+          f"plain| {worst:.3e}; normwise vs float64 {worst64:.2e} (plain "
+          f"{worst64_plain:.2e})")
+    if not timed:
+        return rec
+    k = int(packed.k0.max())
+    t = d if diag else d * (d + 1) // 2
+    f = A.shape[1]
+    m_live = float(sum(int(n_np[r]) for r in live))
+    nbytes = 4 * (m_live * (d + 1) + R + A.numel() + h.numel() + g.numel()
+                  + len(live) * (1 + k + k * d + k * f)) + 4 * R
+    rec["ms"] = time_ms(lambda: fs.fused_stats_fleet(
+        *args, max_events=most, **kw))
+    rec["k1_sum_ms"] = sum(time_ms(
+        lambda r=r: fs.fused_stats(x[r, :int(n_np[r])], wt[r, :int(n_np[r])],
+                                   *params[r], **kw)) for r in live)
+    rec["plain_ms"] = time_ms(lambda: fs.fused_stats_fleet_plain(*args, **kw),
+                              reps=2)
+    rec.update(route_bound(nbytes, 2.0 * m_live * k * (t + d),
+                           2.0 * m_live * k * (t + d + 1), precision))
+    print(f"  {label}: one launch {rec['ms']:.3f} ms against K1 on each live "
+          f"lane's rows {rec['k1_sum_ms']:.3f} ms in all, plain "
+          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}; K = {k} of the kernel's 128 columns); no "
+          f"single PyTorch call computes it")
+    return rec
+
+
+def _p19_rank(rank, world, workdir):
+    """(f): one rank of a (2, 1) mesh on the card: the fleet of the saved
+    tenants in 'scan', then each tenant's sharded solo fit; writes
+    p19_rank<r>.json."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import fit_gmm
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+    from cuda_gmm_mpi_tpu_torch.parallel import distributed
+    from cuda_gmm_mpi_tpu_torch.tenancy import TenantSpec, fit_fleet
+
+    workdir = Path(workdir)
+    distributed.initialize("cuda", coordinator=f"file://{workdir}/store19",
+                           num_processes=world, process_id=rank,
+                           timeout_s=P19_TIMEOUT_S)
+    try:
+        saved = np.load(workdir / "p19_mesh.npz")
+        tenants = [TenantSpec(f"m{i}", saved[f"x{i}"], int(saved["k"][i]),
+                              int(saved["target"][i]))
+                   for i in range(len(saved["k"]))]
+        cfg = p19_config(mesh_shape=(2, 1), chunk_size=P19_MESH_CHUNK)
+        _zero_fleet_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fleet = fit_fleet(tenants, cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = _fleet_counts()
+        same = [_same_result(fleet[t.name].result, fit_gmm(
+            t.data, t.num_clusters, t.target_num_clusters, config=cfg))
+            for t in tenants]
+        rec = dict(rank=rank, same=same, launches=counts, wall_s=wall,
+                   backend=fleet.tenants[0].result.model.estep_backend,
+                   iters=sum(r[3] for t in fleet.tenants
+                             for r in t.result.sweep_log),
+                   ks=sum(len(t.result.sweep_log) for t in fleet.tenants),
+                   collective=fleet.tenants[0].result.model.collective_backend)
+        (workdir / f"p19_rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        distributed.shutdown()
+
+
+def _p19_mesh(workdir: Path) -> list:
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(_p19_rank, args=(2, str(workdir)), nprocs=2,
+                             join=False, start_method="spawn")
+    t0 = time.perf_counter()
+    try:
+        while not ctx.join(timeout=5):
+            if time.perf_counter() - t0 > P19_TIMEOUT_S:
+                raise PhaseError(f"phase 19 ranks still running after "
+                                 f"{P19_TIMEOUT_S} s")
+    except mp.ProcessRaisedException as e:
+        raise PhaseError(f"a phase 19 rank failed: {e}") from None
+    except mp.ProcessExitedException as e:
+        raise PhaseError(f"a phase 19 rank died: {e}") from None
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(10)
+            if proc.is_alive():
+                proc.kill()
+                proc.join()
+        stop_resource_tracker()
+    return [json.loads((workdir / f"p19_rank{r}.json").read_text())
+            for r in range(2)]
+
+
+def phase_fleet(workdir: Path, seed: int, card: str) -> dict:
+    """Phase 19: multi-tenant fleet fits on the card (see the module
+    docstring)."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import GMMModel, fit_gmm, supervisor
+    from cuda_gmm_mpi_tpu_torch.cli import main as cli_main
+    from cuda_gmm_mpi_tpu_torch.io import write_bin
+    from cuda_gmm_mpi_tpu_torch.tenancy import fit_fleet
+    from cuda_gmm_mpi_tpu_torch.testing import faults
+
+    t_phase = time.perf_counter()
+    tenants = p19_tenants(seed)
+    packed_mb = (P19_GROUPS[0][0] * P19_GROUPS[0][2]
+                 + P19_GROUPS[1][0] * P19_GROUPS[1][2]) * DIMS * 4 / 1e6
+    print(f"  {len(tenants)} tenants (D = {DIMS}, float32): "
+          f"{P19_GROUPS[0][0]} of {P19_GROUPS[0][1]}-{P19_GROUPS[0][2]} "
+          f"events at K = {P19_GROUPS[0][3]}, {P19_GROUPS[1][0]} of "
+          f"{P19_GROUPS[1][1]}-{P19_GROUPS[1][2]} at K = {P19_GROUPS[1][3]}; "
+          f"{packed_mb:.1f} MB of packed events; {card}")
+    out = {}
+
+    # (a) K3's per-lane-events form.
+    out["a"] = {"full": p19_k3_form(tenants, False),
+                "diag": p19_k3_form(tenants, True)}
+    for prec in BF16_PASSES:
+        p19_k3_form(tenants, False, prec, timed=False)
+        p19_k3_form(tenants, True, prec, timed=False)
+
+    # (b) 'scan' against the sequential solo fits.
+    cfg = p19_config()
+    model = GMMModel(cfg)
+    _zero_fleet_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scan = fit_fleet(tenants, cfg, model=model)
+    torch.cuda.synchronize()
+    scan_wall = time.perf_counter() - t0
+    counts = _fleet_counts()
+    check(not scan.dropped, "phase 19 (b): a tenant was dropped")
+    iters = sum(r[3] for t in scan.tenants for r in t.result.sweep_log)
+    ks = sum(len(t.result.sweep_log) for t in scan.tenants)
+    check(counts["K1"] == iters + ks and counts["K2"] == iters,
+          f"phase 19 (b): K1/K2 launches {counts['K1']}/{counts['K2']}, "
+          f"the lanes' iterations {iters} + initial E-steps {ks}")
+    check(counts["K3"] == counts["K4"] == counts["K3 fleet"] == 0,
+          f"phase 19 (b): batched launches in 'scan': {counts}")
+    captures = [s for _, s in model.capture_log]
+    check(len(captures) == len(tenants),
+          f"phase 19 (b): {len(captures)} captures for {len(tenants)} lanes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    solos = {t.name: fit_gmm(t.data, t.num_clusters, t.target_num_clusters,
+                             config=cfg) for t in tenants}
+    torch.cuda.synchronize()
+    solo_wall = time.perf_counter() - t0
+    for t in tenants:
+        check(_same_result(scan[t.name].result, solos[t.name]),
+              f"phase 19 (b): tenant {t.name} differs from its solo fit")
+    # The design's alternative, the host loop on each lane, on the second
+    # group (the same packed group as in the fleet above).
+    second = [t for t in tenants if len(t.data) <= P19_GROUPS[1][2]]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eager = fit_fleet(second, cfg, model=GMMModel(cfg, _eager_em=True))
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    for t in second:
+        check(_same_result(eager[t.name].result, scan[t.name].result),
+              f"phase 19 (b): tenant {t.name}'s eager lane differs from its "
+              f"captured one")
+    g2 = next(g for g in scan.groups if g["n_bucket"] == P19_GROUPS[1][2])
+    iters2 = sum(r[3] for t in second for r in scan[t.name].result.sweep_log)
+    out["b"] = dict(launches=counts, wall_s=scan_wall, solo_wall_s=solo_wall,
+                    second_group_s=g2["seconds"],
+                    second_group_eager_s=eager_wall,
+                    second_group_iterations=iters2,
+                    lane_iterations=iters, ks=ks,
+                    lane_iterations_per_s=iters / scan_wall,
+                    solo_iterations_per_s=iters / solo_wall,
+                    capture_s_total=sum(captures),
+                    capture_s_per_lane=sum(captures) / max(len(captures), 1),
+                    groups=scan.groups)
+    print(f"  (b) 'scan': {len(tenants)} tenants torch.equal to their solo "
+          f"fits (K, merges, sweep log, loglik, every state field); K1 "
+          f"{counts['K1']} = {iters} lane iterations + {ks} initial E-steps, "
+          f"K2 {counts['K2']}; fleet {scan_wall:.2f} s against {solo_wall:.2f}"
+          f" s for the {len(tenants)} solo fits one after another "
+          f"({iters / scan_wall:.0f} against {iters / solo_wall:.0f} lane "
+          f"iterations/s); {len(captures)} captured programs, "
+          f"{sum(captures):.2f} s of capture "
+          f"({out['b']['capture_s_per_lane']:.3f} s per lane); the second "
+          f"group's {len(second)} lanes {g2['seconds']:.2f} s captured against "
+          f"{eager_wall:.2f} s on the host loop ({iters2 / g2['seconds']:.0f} "
+          f"against {iters2 / eager_wall:.0f} lane iterations/s), torch.equal")
+
+    # (c) 'vmap'.
+    vcfg = p19_config(fleet_mode="vmap")
+    _zero_fleet_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vmap = fit_fleet(tenants, vcfg)
+    torch.cuda.synchronize()
+    vmap_wall = time.perf_counter() - t0
+    vcounts = _fleet_counts()
+    steps = sum(max(len(t.result.sweep_log) for t in vmap.tenants
+                    if t.group == g) for g in range(len(vmap.groups)))
+    check(vcounts["K3 fleet"] == steps * (P19_ITERS + 1)
+          and vcounts["K4"] == steps * P19_ITERS,
+          f"phase 19 (c): K3 (per-lane events)/K4 launches "
+          f"{vcounts['K3 fleet']}/{vcounts['K4']} for {steps} group steps")
+    check(vcounts["K1"] == vcounts["K2"] == vcounts["K3"] == 0,
+          f"phase 19 (c): K1/K2/K3 launched in 'vmap': {vcounts}")
+    equal_b = 0
+    for t in tenants:
+        r, s = vmap[t.name].result, solos[t.name]
+        check(r is not None and r.ideal_num_clusters == s.ideal_num_clusters
+              and [m[1] for m in r.merges] == [m[1] for m in s.merges],
+              f"phase 19 (c): tenant {t.name}'s K or merge pairs differ "
+              f"from its solo fit")
+        check(abs(r.final_loglik - s.final_loglik)
+              <= 1e-5 * abs(s.final_loglik),
+              f"phase 19 (c): tenant {t.name} loglik {r.final_loglik} vs "
+              f"solo {s.final_loglik}")
+        equal_b += _same_result(r, scan[t.name].result)
+    viters = sum(r[3] for t in vmap.tenants for r in t.result.sweep_log)
+    out["c"] = dict(launches=vcounts, wall_s=vmap_wall, group_steps=steps,
+                    lane_iterations_per_s=viters / vmap_wall,
+                    torch_equal_to_scan=equal_b)
+    print(f"  (c) 'vmap': every tenant's K and merge pairs those of its solo "
+          f"fit, loglik within 1e-5; K3 (per-lane events) {vcounts['K3 fleet']}"
+          f" and K4 {vcounts['K4']} launches for {steps} group steps, no "
+          f"K1/K2; {equal_b} of {len(tenants)} tenants torch.equal to 'scan';"
+          f" {vmap_wall:.2f} s ({viters / vmap_wall:.0f} lane iterations/s)")
+
+    # (d) Drop-one and preempt/resume on the second group alone (the same
+    # packed group as in (b)).
+    with faults.use({"nan_loglik": {"iter": 2, "restart": 1}}):
+        dropped = fit_fleet(second, cfg)
+    check([t.name for t in dropped.dropped] == [second[1].name],
+          f"phase 19 (d): dropped {[t.name for t in dropped.dropped]}, "
+          f"not lane 1 ({second[1].name})")
+    for t in second[:1] + second[2:]:
+        check(_same_result(dropped[t.name].result, scan[t.name].result),
+              f"phase 19 (d): survivor {t.name} differs from the clean run")
+    ck = workdir / "p19_ck"
+    ccfg = p19_config(checkpoint_dir=str(ck))
+    try:
+        with faults.use({"preempt": {"iter": 2}}), supervisor.use(
+                supervisor.RunSupervisor(install_signals=False)):
+            fit_fleet(second, ccfg)
+        raise PhaseError("phase 19 (d): the preempt did not stop the fleet")
+    except supervisor.PreemptedError:
+        pass
+    resumed = fit_fleet(second, ccfg)
+    for t in second:
+        check(_same_result(resumed[t.name].result, scan[t.name].result),
+              f"phase 19 (d): resumed tenant {t.name} differs from the "
+              f"clean run")
+    print(f"  (d) nan_loglik on lane 1 dropped {second[1].name}, the other "
+          f"{len(second) - 1} == the clean run; a preempt at step 2 then its "
+          f"resume == the clean run for all {len(second)}")
+
+    # (e) gmm fleet on BIN files, against the solo CLI, and export --fleet.
+    cli_t = second[:P19_CLI]
+    entries = []
+    for t in cli_t:
+        path = workdir / f"{t.name}.bin"
+        write_bin(str(path), t.data)
+        entries.append({"name": t.name, "infile": str(path),
+                        "num_clusters": t.num_clusters,
+                        "target_num_clusters": t.target_num_clusters})
+    (workdir / "manifest.json").write_text(json.dumps(entries))
+    flags = ["--min-iters", str(P19_ITERS), "--max-iters", str(P19_ITERS),
+             "--chunk-size", str(P19_CHUNK)]
+    rc = cli_main(["fleet", str(workdir / "manifest.json"), "--out-dir",
+                   str(workdir / "fleet_out"), "--registry",
+                   str(workdir / "reg")] + flags)
+    check(rc == 0, f"phase 19 (e): gmm fleet exited {rc}")
+    for e in entries:
+        rc = cli_main([str(e["num_clusters"]), e["infile"],
+                       str(workdir / f"solo_{e['name']}"),
+                       str(e["target_num_clusters"]), "--sweep-k-buckets",
+                       "off"] + flags)
+        check(rc == 0, f"phase 19 (e): the solo CLI exited {rc}")
+        a = (workdir / "fleet_out" / f"{e['name']}.summary").read_bytes()
+        b = (workdir / f"solo_{e['name']}.summary").read_bytes()
+        check(a == b, f"phase 19 (e): {e['name']}.summary differs from the "
+              f"solo CLI's")
+    manifest = json.loads((workdir / "fleet_out" / "fleet.json").read_text())
+    check(all(r.get("registry_version") == 1 for r in manifest["tenants"]),
+          "phase 19 (e): gmm fleet --registry did not export every tenant")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli_main(["export", "--registry", str(workdir / "reg2"),
+                       "--fleet", str(workdir / "fleet_out")])
+    check(rc == 0 and f"{P19_CLI}/{P19_CLI} tenants exported" in buf.getvalue(),
+          f"phase 19 (e): gmm export --fleet: rc {rc}, {buf.getvalue()!r}")
+    print(f"  (e) gmm fleet on {P19_CLI} BIN files: each .summary byte-"
+          f"identical to the solo CLI's (--sweep-k-buckets off, the fleet's "
+          f"fixed width), {P19_CLI} registry versions, gmm export --fleet "
+          f"{P19_CLI}/{P19_CLI}")
+
+    # (f) A (2, 1) mesh of 2 ranks on the card.
+    mesh_t = second[:P19_MESH]
+    np.savez(workdir / "p19_mesh.npz",
+             k=np.asarray([t.num_clusters for t in mesh_t]),
+             target=np.asarray([t.target_num_clusters for t in mesh_t]),
+             **{f"x{i}": t.data for i, t in enumerate(mesh_t)})
+    ranks = _p19_mesh(workdir)
+    for r in ranks:
+        check(all(r["same"]), f"phase 19 (f): rank {r['rank']}: tenants "
+              f"{[i for i, s in enumerate(r['same']) if not s]} differ from "
+              f"the sharded solo fits")
+        check(r["launches"]["K1"] == r["iters"] + r["ks"]
+              and r["launches"]["K2"] == r["iters"],
+              f"phase 19 (f): rank {r['rank']} launches {r['launches']}")
+    out["f"] = [dict(rank=r["rank"], launches=r["launches"],
+                     wall_s=r["wall_s"], collective=r["collective"])
+                for r in ranks]
+    print(f"  (f) (2, 1) mesh ({ranks[0]['collective']}, 2 ranks on the "
+          f"card): {P19_MESH} tenants in 'scan' torch.equal to the sharded "
+          f"solo fits on both ranks; K1/K2 per rank "
+          f"{[r['launches']['K1'] for r in ranks]}/"
+          f"{[r['launches']['K2'] for r in ranks]}; fleet "
+          f"{max(r['wall_s'] for r in ranks):.2f} s")
+    out["wall_s"] = time.perf_counter() - t_phase
+    print(f"  phase 19: {out['wall_s']:.1f} s")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5468,6 +5980,17 @@ def main() -> int:
     finally:
         shutil.rmtree(tunedir, ignore_errors=True)
 
+    print("phase 19: multi-tenant fleet fits: K3's per-lane-events form, "
+          "'scan' against the solo fits, 'vmap', drop-one and resume, gmm "
+          "fleet and a (2, 1) mesh")
+    fleetdir = Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"
+    shutil.rmtree(fleetdir, ignore_errors=True)
+    fleetdir.mkdir(parents=True)
+    try:
+        fleet = phase_fleet(fleetdir, args.seed, card)
+    finally:
+        shutil.rmtree(fleetdir, ignore_errors=True)
+
     src = "cuda_gmm_mpi_tpu_torch/csrc/"
     pallas = "cuda_gmm_mpi_tpu/ops/pallas/fused_stats.py:"
     kernels = [
@@ -5598,6 +6121,35 @@ def main() -> int:
         shadow=tuning["d"]["shadow_s1_launches"])
     kernels[6]["tuning"] = dict(probe=tuning["a"], fit=tuning["b"],
                                 serve=tuning["c"])
+    # Phase 19's fleet: K1/K2 counted from 0 around the 'scan' fleet, K3's
+    # per-lane-events form and K4 around the 'vmap' one.
+    fa = fleet["a"]
+    kernels.append(dict(
+        name="K3 fused_stats_fleet (per-lane events)", route="cuda",
+        source=src + "fused_stats.cu", replaces=pallas + "475",
+        launches=fleet["c"]["launches"]["K3 fleet"],
+        max_abs_err=max(fa["full"]["max_abs_err"], fa["diag"]["max_abs_err"]),
+        fp64_err=fa["full"]["fp64_err"],
+        plain_fp64_err=fa["full"]["plain_fp64_err"], ms=fa["full"]["ms"],
+        plain_ms=fa["full"]["plain_ms"], bound_ms=fa["full"]["bound_ms"],
+        bound_by=fa["full"]["bound_by"],
+        fp32_bound_ms=fa["full"]["fp32_bound_ms"], library_ms=None,
+        k1_sum_ms=fa["full"]["k1_sum_ms"], lanes=fa["full"]["lanes"],
+        live_lanes=fa["full"]["live_lanes"], events=fa["full"]["events"],
+        diag_ms=fa["diag"]["ms"], diag_plain_ms=fa["diag"]["plain_ms"],
+        diag_bound_ms=fa["diag"]["bound_ms"],
+        diag_k1_sum_ms=fa["diag"]["k1_sum_ms"]))
+    scan_rec = {k: v for k, v in fleet["b"].items() if k != "launches"}
+    vmap_rec = {k: v for k, v in fleet["c"].items() if k != "launches"}
+    kernels[0]["fleet"] = dict(scan=fleet["b"]["launches"]["K1"],
+                               mesh_ranks=[r["launches"]["K1"]
+                                           for r in fleet["f"]], **scan_rec)
+    kernels[1]["fleet"] = dict(scan=fleet["b"]["launches"]["K2"],
+                               mesh_ranks=[r["launches"]["K2"]
+                                           for r in fleet["f"]])
+    kernels[2]["fleet"] = dict(per_lane_events=fleet["c"]["launches"][
+        "K3 fleet"], shared_events=fleet["c"]["launches"]["K3"], **vmap_rec)
+    kernels[3]["fleet"] = dict(vmap=fleet["c"]["launches"]["K4"])
     kernels[0]["estimator"] = estimator
     kernels[0]["containment"] = containment
     kernels[0]["capture"] = capture

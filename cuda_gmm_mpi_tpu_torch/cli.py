@@ -53,6 +53,9 @@ streams and touch no device:
     python -m cuda_gmm_mpi_tpu_torch.cli diff A B [--fail-on SPEC]
     python -m cuda_gmm_mpi_tpu_torch.cli runs DIR
     python -m cuda_gmm_mpi_tpu_torch.cli timeline RUN [RUN ...] [--validate]
+
+``fleet MANIFEST [--out-dir DIR] [--registry DIR]`` fits a manifest of
+per-tenant input files as packed multi-tenant groups (tenancy/cli.py).
 """
 
 from __future__ import annotations
@@ -375,6 +378,12 @@ def main(argv=None) -> int:
         from .lifecycle.cli import lifecycle_main
 
         return lifecycle_main(argv[1:])
+    if argv and argv[0] == "fleet":
+        # `fleet MANIFEST`: fit a manifest of per-tenant input files as
+        # packed multi-tenant groups (tenancy/).
+        from .tenancy.cli import fleet_main
+
+        return fleet_main(argv[1:])
     if argv and argv[0] == "tune":
         # `tune`: probe candidate knob settings at a shape, write the
         # tuning database, print the decision table a later --autotune db

@@ -149,6 +149,23 @@ class GMMConfig:
     # a memory budget (GMM_RESTART_MEM_BYTES overrides the budget); 1 = the
     # sequential path, which selects the same winner at the same seeds.
     restart_batch_size: Optional[int] = None
+    # --- multi-tenancy fleet fits (tenancy/) ---
+    # Per-group EM dispatch mode for `fit_fleet` / `gmm fleet`:
+    #   'scan' (default): every tenant lane of one packed group runs its
+    #     own solo EM loop (``GMMModel.run_em`` on the lane's events: K1/K2
+    #     on the card, one captured program per lane), so per-tenant
+    #     results are BIT-IDENTICAL to solo fits of the same tenants at
+    #     ``sweep_k_buckets='off'`` (the fleet parity contract).
+    #   'vmap': the lanes run as one batched loop over a leading tenant
+    #     axis -- one K3 launch (its per-lane-events form) and one K4
+    #     launch per EM iteration of the whole group -- at reduction-order
+    #     tolerance instead of bit-parity.
+    fleet_mode: str = "scan"
+    # Tenants per packed-group EM dispatch. None = every tenant of a
+    # (N-bucket, K-bucket) group rides one dispatch; smaller values split
+    # groups (memory bound: one group holds T x the padded chunk grid on
+    # device).
+    fleet_group_size: Optional[int] = None
     # (data, cluster) mesh over the ranks of a torch.distributed world
     # (parallel/mesh.py): events sharded over the data axis, clusters over
     # the cluster axis. None = every rank on the data axis.
@@ -309,6 +326,13 @@ class GMMConfig:
         if self.restart_batch_size is not None and self.restart_batch_size < 1:
             raise ValueError("restart_batch_size must be >= 1 (or None for "
                              "the memory-sized default)")
+        if self.fleet_mode not in ("scan", "vmap"):
+            raise ValueError(
+                f"unknown fleet_mode: {self.fleet_mode!r} "
+                "(expected 'scan' or 'vmap')")
+        if self.fleet_group_size is not None and self.fleet_group_size < 1:
+            raise ValueError("fleet_group_size must be >= 1 (or None for "
+                             "whole-group dispatches)")
         if self.sweep_k_buckets not in ("pow2", "off"):
             raise ValueError(
                 f"unknown sweep_k_buckets: {self.sweep_k_buckets!r} "

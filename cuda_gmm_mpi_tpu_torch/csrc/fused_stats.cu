@@ -106,6 +106,16 @@
 // re-read the event tiles from device memory (the L2 serves most of it);
 // sharing one tile across lanes in shared memory is later work.
 //
+// K3's per-lane-events form (a fleet of tenants, tenancy/ in the package):
+// lane r reads its own events, x + r * x_lane [n_r, d] and wt + r * wt_lane,
+// where n_r = lane_n[r] is read on the device. Lane r takes K1's grid on
+// its own rows, G_r = min(ceil(n_r / bt), grid_cap) on the tile bt (which
+// depends on K and D only): its CTAs with blockIdx.x >= G_r exit at once,
+// the others stride its tiles by G_r, and the reduction sums its first G_r
+// slices of the [R, G, K_pad, T+D+1] partial buffer in index order. So
+// lane r is bit-identical to K1 on lane r's first n_r rows. With lane_n
+// null (every restart launch) the strides are 0 and nothing changes.
+//
 // K5 and K6, the cluster-sharded pair: they replace `_local_lse_kernel` and
 // `_stats_logz_kernel` (launched by `_local_lse_call` and `_stats_logz_call`)
 // of the same file. A rank of a (data, cluster) mesh holds K_s = K / C
@@ -195,8 +205,17 @@ struct Params {
   float* s_out;        // [n] local shifted sum (K5)
   float* partial;      // [r, grid, kp, t+d+1]
   double* ll_part;     // [r, grid]
+  const int* lane_n;   // [r] per-lane real events (K3's per-lane form)
+  int64_t x_lane, wt_lane;  // lane strides of x and wt, in floats (0: shared)
   int n, d, k, kp, bt, xstride;
+  int grid_cap;        // the per-lane grid's bound (K1's grid), lane_n set
 };
+
+// The grid lane r of the per-lane form takes: K1's grid on its n rows.
+__device__ __forceinline__ int lane_grid(int n, int bt, int cap) {
+  const int g = (n + bt - 1) / bt;
+  return g < cap ? g : cap;
+}
 
 // Column c of the augmented feature row [x2 packed | x | 1] is
 // xa[ia] * xa[ib] with xa = [x_0, ..., x_{D-1}, 1]; pairs[c] = ia | ib << 8,
@@ -466,8 +485,7 @@ __device__ __forceinline__ void put_nk(float (&acc)[4][NJ][4], float (&nk)[4][2]
 template <int MODE, bool DIAG, int MR, int PREC>
 __global__ void __launch_bounds__(THREADS, 1)
 fused_stats_kernel(const Params p) {
-  const int n = p.n, d = p.d, kp = p.kp, bt = p.bt, xstride = p.xstride;
-  const float* __restrict__ x = p.x;
+  const int d = p.d, kp = p.kp, bt = p.bt, xstride = p.xstride;
   const int t = DIAG ? d : d * (d + 1) / 2;
   const int fd = t + d;                      // rows of A_ext
   const int fe = fd + 1;                     // columns of [x2 | x | 1]
@@ -480,6 +498,12 @@ fused_stats_kernel(const Params p) {
   const int lane_r = blockIdx.y;
   const float lane_w = p.lanes ? p.lanes[lane_r] : 1.f;
   if (lane_w == 0.f) return;  // frozen lane: the reduction writes zeros
+  // The per-lane form: this lane's events and its own grid (K1's on them).
+  const int n = p.lane_n ? p.lane_n[lane_r] : p.n;
+  const int grid = p.lane_n ? lane_grid(n, bt, p.grid_cap) : (int)gridDim.x;
+  if ((int)blockIdx.x >= grid) return;
+  const float* __restrict__ x = p.x + lane_r * p.x_lane;
+  const float* __restrict__ wt = p.wt ? p.wt + lane_r * p.wt_lane : nullptr;
   const float* __restrict__ a_ext = p.a_ext + (size_t)lane_r * fd * kp;
   const float* __restrict__ g = p.g + (size_t)lane_r * kp;
 
@@ -506,7 +530,7 @@ fused_stats_kernel(const Params p) {
   build_pairs<DIAG>(pairs, d, fe, fe_pad);
   PHASE_CLOCK_START
 
-  for (int tile = blockIdx.x; tile < num_tiles; tile += gridDim.x) {
+  for (int tile = blockIdx.x; tile < num_tiles; tile += grid) {
     const int64_t base = (int64_t)tile * bt;
     const int64_t left = n - base;
     const int rows = left < bt ? (int)left : bt;
@@ -641,7 +665,7 @@ fused_stats_kernel(const Params p) {
         }
       } else if (MODE == MODE_STATS_LOGZ) {
         const float lz = p.logz[base + r];
-        const float w_ev = p.wt[base + r];
+        const float w_ev = wt[base + r];
         for (int k = lane; k < kp; k += 32) row[k] = expf(row[k] - lz) * w_ev;
         warp_ll += (double)(lz * w_ev);
       } else {
@@ -651,7 +675,7 @@ fused_stats_kernel(const Params p) {
         float s = 0.f;
         for (int k = lane; k < kp; k += 32) s += expf(row[k] - m);
         s = warp_sum(s);
-        const float w_ev = p.wt[base + r] * lane_w;
+        const float w_ev = wt[base + r] * lane_w;
         for (int k = lane; k < kp; k += 32) row[k] = (expf(row[k] - m) / s) * w_ev;
         warp_ll += (double)((m + logf(s)) * w_ev);
       }
@@ -757,8 +781,10 @@ fused_stats_kernel(const Params p) {
 // [K, D*D] output. blockIdx.y is the restart lane; a frozen lane gets zeros.
 __global__ void reduce_partials(const float* __restrict__ partial,
                                 const double* __restrict__ ll_part,
-                                const float* __restrict__ lanes, int grid,
-                                int k, int kp, int d, int diag,
+                                const float* __restrict__ lanes,
+                                const int* __restrict__ lane_n, int bt,
+                                int grid_cap, int grid, int k, int kp, int d,
+                                int diag,
                                 float* __restrict__ ll, float* __restrict__ nk,
                                 float* __restrict__ m1, float* __restrict__ m2) {
   const int f = diag ? d : d * d;
@@ -768,6 +794,8 @@ __global__ void reduce_partials(const float* __restrict__ partial,
   const bool frozen = lanes && lanes[lane_r] == 0.f;
   partial += (size_t)lane_r * grid * kp * fe;
   ll_part += (size_t)lane_r * grid;
+  // The slices lane r wrote: its own grid in the per-lane form.
+  const int used = lane_n ? lane_grid(lane_n[lane_r], bt, grid_cap) : grid;
   ll += lane_r;
   nk += (size_t)lane_r * k;
   m1 += (size_t)lane_r * k * d;
@@ -776,7 +804,7 @@ __global__ void reduce_partials(const float* __restrict__ partial,
   if (idx == 0) {
     double s = 0.0;
     if (!frozen)
-      for (int b = 0; b < grid; ++b) s += ll_part[b];
+      for (int b = 0; b < used; ++b) s += ll_part[b];
     *ll = (float)s;
   }
   if (idx >= (int64_t)k * (f + d + 1)) return;
@@ -792,7 +820,7 @@ __global__ void reduce_partials(const float* __restrict__ partial,
   }
   double s = 0.0;
   if (!frozen)
-    for (int b = 0; b < grid; ++b) s += partial[((size_t)b * kp + kk) * fe + src];
+    for (int b = 0; b < used; ++b) s += partial[((size_t)b * kp + kk) * fe + src];
   if (c < f) m2[(size_t)kk * f + c] = (float)s;
   else if (c < f + d) m1[(size_t)kk * d + c - f] = (float)s;
   else nk[kk] = (float)s;
@@ -1081,7 +1109,8 @@ int launch_reduce(const Params& p, float* ll, float* nk, float* m1, float* m2,
   const int f = diag ? d : d * d;
   const int64_t outs = (int64_t)p.k * (f + d + 1);
   reduce_partials<<<dim3((unsigned)((outs + 255) / 256), r), 256, 0, s>>>(
-      p.partial, p.ll_part, p.lanes, grid, p.k, p.kp, d, diag, ll, nk, m1, m2);
+      p.partial, p.ll_part, p.lanes, p.lane_n, p.bt, p.grid_cap, grid, p.k, p.kp,
+      d, diag, ll, nk, m1, m2);
   return (int)cudaGetLastError();
 }
 
@@ -1178,6 +1207,7 @@ Params params(const float* x, const float* wt, const float* lanes,
   p.x = x; p.wt = wt; p.lanes = lanes; p.logz = logz; p.a_ext = a_ext; p.g = g;
   p.m_out = m_out; p.s_out = s_out; p.partial = partial; p.ll_part = ll_part;
   p.n = n; p.d = d; p.k = k; p.kp = kp; p.bt = bt; p.xstride = 0;
+  p.lane_n = nullptr; p.x_lane = 0; p.wt_lane = 0; p.grid_cap = 0;
   return p;
 }
 
@@ -1217,6 +1247,32 @@ extern "C" int gmm_fused_stats_batched(const float* x, const float* wt,
              params(x, wt, lanes, nullptr, a_ext, g, nullptr, nullptr, partial,
                     ll_part, n, d, k, kp, bt),
              ll, nk, m1, m2, diag, grid, r, static_cast<cudaStream_t>(stream), prec);
+}
+
+// Launches K3's per-lane-events form (both kernels) on `stream`; returns
+// cudaGetLastError(). K3's shapes, but lane r reads its own events:
+// x [r, n_pad, d] and wt [r, n_pad] (lane r's flattened chunk grid), of
+// which its first lane_n[r] rows (int32 [r], on the device, 1 <= n_r <=
+// n_pad) are real. grid must be at least every lane's grid min(ceil(n_r /
+// bt), grid_cap); partial [r, grid, kp, t+d+1], ll_part [r, grid]. grid_cap
+// is K1's grid bound (132), so lane r reduces exactly as K1 on its n_r rows.
+extern "C" int gmm_fused_stats_fleet(const float* x, const float* wt,
+                                     const int* lane_n, const float* lanes,
+                                     const float* a_ext, const float* g,
+                                     float* partial, double* ll_part, float* ll,
+                                     float* nk, float* m1, float* m2, int n_pad,
+                                     int d, int k, int kp, int diag, int bt,
+                                     int grid, int grid_cap, int r, int prec,
+                                     void* stream) {
+  if (grid_cap < 1 || grid < 1) return (int)cudaErrorInvalidValue;
+  Params p = params(x, wt, lanes, nullptr, a_ext, g, nullptr, nullptr, partial,
+                    ll_part, n_pad, d, k, kp, bt);
+  p.lane_n = lane_n;
+  p.x_lane = (int64_t)n_pad * d;
+  p.wt_lane = n_pad;
+  p.grid_cap = grid_cap;
+  return run(MODE_STATS, p, ll, nk, m1, m2, diag, grid, r,
+             static_cast<cudaStream_t>(stream), prec);
 }
 
 #ifdef GMM_PHASE_CLOCKS

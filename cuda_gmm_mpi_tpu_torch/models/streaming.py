@@ -152,6 +152,9 @@ class StreamingGMMModel(GMMModel):
     supports_fused_emit = False
     make_fused_sweep = None  # the sweep's data is not on the device
     supports_batched_restarts = False
+    # No single EM program to map a fleet's tenants over (the JAX package's
+    # StreamingGMMModel.supports_fleet).
+    supports_fleet = False
     streams = True
 
     def __init__(self, config: GMMConfig = GMMConfig(), mesh=None, *,

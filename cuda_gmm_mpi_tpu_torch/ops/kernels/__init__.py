@@ -5,7 +5,9 @@ and the Cholesky constants) plug into the EM loop's ``stats_fn``/
 ``mstep_fn`` hooks, so with backend 'cuda' one EM iteration is one K1
 launch and one K2 launch. K3 and K4 are their restart-batched forms on the
 hooks of ``em_while_loop_batched``: one EM iteration of a whole restart
-batch is one K3 launch and one K4 launch. On a mesh whose
+batch is one K3 launch and one K4 launch, and of a 'vmap' fleet group
+(tenancy/) one launch of K3's per-lane-events form, each lane over its own
+events, and one K4 launch. On a mesh whose
 cluster axis is sharded (parallel/), K5 and K6 take K1's place: the
 statistics of one EM iteration are one K5 launch, two all_reduce calls of
 [N] per-event scalars over the cluster axis and one K6 launch, and the
@@ -47,7 +49,7 @@ import functools
 
 from .fused_stats import (
     fused_mstep_cuda, fused_mstep_cuda_batched, fused_stats_cuda,
-    fused_stats_cuda_batched, fused_stats_cuda_sharded,
+    fused_stats_cuda_batched, fused_stats_cuda_fleet, fused_stats_cuda_sharded,
 )
 
 
@@ -111,6 +113,19 @@ def make_batched_stats_fn(config, cluster_sharded: bool = False):
         block_b=config.pallas_block_b, precision=config.matmul_precision)
 
 
+def make_fleet_stats_fn(config, cluster_sharded: bool = False):
+    """The fleet's batched stats_fn hook ('vmap' groups: K3's per-lane-events
+    form, each lane over its own events), or None where
+    :func:`make_batched_stats_fn` gives None: the caller runs the lanes'
+    statistics one by one."""
+    backend, _ = resolve_estep_backend(config, cluster_sharded)
+    if backend != "cuda" or cluster_sharded:
+        return None
+    return functools.partial(
+        fused_stats_cuda_fleet, diag_only=config.diag_only,
+        block_b=config.pallas_block_b, precision=config.matmul_precision)
+
+
 def make_mstep_fn(config, batched: bool = False,
                   cluster_sharded: bool = False):
     """mstep_fn hook (K2, or K4 with ``batched``: one launch per M-step),
@@ -129,6 +144,7 @@ def make_mstep_fn(config, batched: bool = False,
 
 
 __all__ = ["fused_stats_cuda", "fused_stats_cuda_batched",
-           "fused_stats_cuda_sharded", "fused_mstep_cuda",
-           "fused_mstep_cuda_batched", "make_batched_stats_fn",
-           "make_stats_fn", "make_mstep_fn", "resolve_estep_backend"]
+           "fused_stats_cuda_fleet", "fused_stats_cuda_sharded",
+           "fused_mstep_cuda", "fused_mstep_cuda_batched",
+           "make_batched_stats_fn", "make_fleet_stats_fn", "make_stats_fn",
+           "make_mstep_fn", "resolve_estep_backend"]

@@ -1,12 +1,12 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu) with nvcc.
 
 Each source becomes its own shared library with a plain C interface, bound
-with ctypes; a source may export several entry points (K1, K3, K5 and K6
-share fused_stats.cu, K2 and K4 share mstep.cu, S1 is score.cu's).
-Libraries are built on first use into the package's ``build/`` directory
-(git-ignored), named by a hash of the source and the flags so an edited
-source is rebuilt; all sources are compiled by parallel nvcc
-processes. Nothing here runs at import time.
+with ctypes; a source may export several entry points (K1, K3 in both
+forms, K5 and K6 share fused_stats.cu, K2 and K4 share mstep.cu, S1 is
+score.cu's). Libraries are built on first use into the package's
+``build/`` directory (git-ignored), named by a hash of the source and the
+flags so an edited source is rebuilt; all sources are compiled by parallel
+nvcc processes. Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -38,7 +38,8 @@ SIGNATURES = {
                        ("gmm_fused_stats_batched", [_P] * 11 + [_I] * 9 + [_P]),
                        ("gmm_local_lse", [_P] * 5 + [_I] * 8 + [_P]),
                        ("gmm_stats_logz", [_P] * 11 + [_I] * 8 + [_P]),
-                       ("gmm_shard_occupancy", [_I] * 3 + [_P])],
+                       ("gmm_shard_occupancy", [_I] * 3 + [_P]),
+                       ("gmm_fused_stats_fleet", [_P] * 12 + [_I] * 10 + [_P])],
     "mstep.cu": [("gmm_mstep", [_P] * 12 + [_I] * 4 + [_P])],
     "score.cu": [("gmm_score", [_P] * 6 + [_I] * 14 + [_P])],
 }

@@ -10,9 +10,12 @@ K4 (``mstep_batched``) replace ``_fused_stats_batched_kernel`` and
 ``_mstep_batched_kernel``: the same two functions for R restarts at once,
 with a leading restart axis on every per-restart operand. K3 shares K1's
 kernel and K4 shares K2's, so each lane is bit-identical to the unbatched
-kernel on that lane's operands. K5 (``local_lse``) and K6 (``stats_logz``)
-replace ``_local_lse_kernel`` and ``_stats_logz_kernel``, the two passes of
-the cluster-sharded statistics (``fused_stats_cuda_sharded``): K5 gives
+kernel on that lane's operands. K3's per-lane-events form
+(``fused_stats_fleet``) reads each lane's own events, a tenant of a
+fleet: lane r is bit-identical to K1 on its own rows. K5 (``local_lse``)
+and K6 (``stats_logz``) replace ``_local_lse_kernel`` and
+``_stats_logz_kernel``, the two passes of the cluster-sharded statistics
+(``fused_stats_cuda_sharded``): K5 gives
 each event's max and shifted sum over this rank's clusters, two all_reduce
 calls over the cluster axis combine them into the global log-evidence, and
 K6 accumulates this rank's statistics from it. A shard of at most 64
@@ -37,8 +40,9 @@ Each wrapper takes its plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Each counts its kernel launches
 on a plain integer attribute (``fused_stats.launches``, ``mstep.launches``,
 ``fused_stats_batched.launches``, ``mstep_batched.launches``,
-``local_lse.launches``, ``stats_logz.launches``) so a run can show that it
-went through the kernels; K5 and K6 also count per precision
+``local_lse.launches``, ``stats_logz.launches``, and
+``fused_stats_fleet.launches`` for K3's per-lane-events form) so a run can
+show that it went through the kernels; K5 and K6 also count per precision
 (``local_lse.precision_launches``, ``stats_logz.precision_launches``,
 ``collections.Counter`` keyed by the precision's name).
 
@@ -438,6 +442,110 @@ def fused_stats_cuda_batched(states, data_chunks, wts_chunks, lane_mask=None,
     return SuffStats(loglik=ll[:, 0, 0].to(dt), Nk=nk[:, 0].to(dt),
                      M1=m1.to(dt),
                      M2=(m2 if diag_only else m2.reshape(R, K, d, d)).to(dt))
+
+
+# ------------------------------------------------- K3, per-lane events
+
+def fused_stats_fleet_plain(x, wt, n, lanes, A, h, g, *, diag: bool,
+                            precision: str = "highest"):
+    """K3's per-lane-events form in plain torch: K1's plain version on
+    each lane r's own first ``n[r]`` rows, x [R, N_pad, D] and wt [R,
+    N_pad], the weights scaled by ``lanes[r]``; A, h, g and the outputs as
+    in :func:`fused_stats_batched_plain`."""
+    outs = []
+    for r in range(A.shape[0]):
+        m = int(n[r])
+        outs.append(fused_stats_plain(x[r, :m], wt[r, :m] * lanes[r], A[r],
+                                      h[r], g[r], diag=diag,
+                                      precision=precision))
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def fused_stats_fleet(x, wt, n, lanes, A, h, g, *, diag: bool,
+                      block_b: int = 512, precision: str = "highest",
+                      max_events=None):
+    """K3's per-lane-events form: the statistics of R lanes in one launch,
+    lane r over its own events x[r, :n[r]] (a tenant of a fleet, each with
+    its own chunk grid), as in :func:`fused_stats_fleet_plain`. ``n`` is
+    int32 [R] on the lanes' device; ``max_events`` (the largest n[r], known
+    to the caller) bounds the launch grid, else N_pad does. Lane r takes
+    K1's tile and grid on its n[r] rows, so it is bit-identical to K1 on
+    them; a lane whose ``lanes`` entry is 0 comes out exactly zero. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return fused_stats_fleet_plain(x, wt, n, lanes, A, h, g, diag=diag,
+                                       precision=precision)
+    _check_cuda(x, wt, lanes, A, h, g)
+    _check_cuda(n, dtype=torch.int32)
+    r, n_pad, d = x.shape
+    f, k = A.shape[1:]
+    if (A.shape[0] != r or wt.shape != (r, n_pad) or n.shape != (r,)
+            or lanes.shape != (r,) or f != (d if diag else d * d)
+            or h.shape != (r, d, k) or g.shape != (r, 1, k)):
+        raise ValueError(
+            f"K3 (per-lane events) shapes: x {tuple(x.shape)}, wt "
+            f"{tuple(wt.shape)}, n {tuple(n.shape)}, lanes "
+            f"{tuple(lanes.shape)}, A {tuple(A.shape)}, h {tuple(h.shape)}, "
+            f"g {tuple(g.shape)}")
+    from ._build import library
+
+    a_ext, g_pad, t = _ext_operands(A, h, g, d, diag)
+    k_pad = g_pad.shape[-1]
+    bt = k1_tile(k_pad, d, block_b, diag)
+    most = n_pad if max_events is None else min(int(max_events), n_pad)
+    grid = min(-(-most // bt), K1_GRID)
+    dev = x.device
+    partial = torch.empty((r, grid, k_pad, t + d + 1), dtype=torch.float32,
+                          device=dev)
+    ll_part = torch.empty((r, grid), dtype=torch.float64, device=dev)
+    ll = torch.empty((r, 1, 1), dtype=torch.float32, device=dev)
+    nk = torch.empty((r, 1, k), dtype=torch.float32, device=dev)
+    m1 = torch.empty((r, k, d), dtype=torch.float32, device=dev)
+    m2 = torch.empty((r, k, f), dtype=torch.float32, device=dev)
+    fn = library("fused_stats.cu").gmm_fused_stats_fleet
+    err = fn(x.data_ptr(), wt.data_ptr(), n.data_ptr(), lanes.data_ptr(),
+             a_ext.data_ptr(), g_pad.data_ptr(), partial.data_ptr(),
+             ll_part.data_ptr(), ll.data_ptr(), nk.data_ptr(), m1.data_ptr(),
+             m2.data_ptr(), n_pad, d, k, k_pad, int(diag), bt, grid, K1_GRID,
+             r, PRECISIONS[precision],
+             torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "K3 (fused_stats_fleet)")
+    note_launch(fused_stats_fleet)
+    return ll, nk, m1, m2
+
+
+fused_stats_fleet.launches = 0
+
+
+def fused_stats_cuda_fleet(states, data_chunks, wts_chunks, lane_mask=None,
+                           *, diag_only=False, block_b: int = 512,
+                           precision: str = "highest", n_events=None,
+                           max_events=None) -> SuffStats:
+    """SuffStats of a fleet group through K3's per-lane-events form: the
+    batched ``stats_fn`` hook of a 'vmap' fleet (``GMMModel.run_em_fleet``).
+    ``data_chunks`` [T, C, B, D] and ``wts_chunks`` [T, C, B] hold each
+    lane's own chunk grid; ``n_events`` (int32 [T] on the device, None = the
+    whole grids) its real events, ``max_events`` their largest.
+    ``lane_mask`` and the outputs as in :func:`fused_stats_cuda_batched`."""
+    T, C, B, d = data_chunks.shape
+    K = states.means.shape[1]
+    x = data_chunks.reshape(T, C * B, d).to(torch.float32)
+    wt = wts_chunks.reshape(T, C * B).to(torch.float32)
+    if n_events is None:
+        n_events = torch.full((T,), C * B, dtype=torch.int32,
+                              device=x.device)
+    A, h, g = (torch.stack(p) for p in zip(*(
+        _prep_params(lane(states, r), d, diag_only) for r in range(T))))
+    lanes = (torch.ones(T, dtype=torch.float32, device=x.device)
+             if lane_mask is None else lane_mask.to(torch.float32))
+    ll, nk, m1, m2 = fused_stats_fleet(x, wt, n_events, lanes, A, h, g,
+                                       diag=diag_only, block_b=block_b,
+                                       precision=precision,
+                                       max_events=max_events)
+    dt = data_chunks.dtype
+    return SuffStats(loglik=ll[:, 0, 0].to(dt), Nk=nk[:, 0].to(dt),
+                     M1=m1.to(dt),
+                     M2=(m2 if diag_only else m2.reshape(T, K, d, d)).to(dt))
 
 
 # ---------------------------------------------------------------- K5 / K6

@@ -75,14 +75,17 @@ def kmeanspp_indices(data, num_clusters: int, seed: int = 0,
 
 def seed_state_from_parts(means_rows, n_events: int, data_var_mean: float,
                           num_clusters: int, covariance_dynamic_range=1e3,
-                          dtype=None, device="cpu") -> GMMState:
+                          dtype=None, device="cpu",
+                          num_clusters_padded: int | None = None) -> GMMState:
     """Initial state from the K seed rows (already in fit coordinates) and
-    the global per-dimension variance mean."""
+    the global per-dimension variance mean, padded to
+    ``num_clusters_padded`` slots (extra slots inactive; a fleet group's
+    shared width)."""
     means_rows = np.ascontiguousarray(means_rows)
     dtype = np.dtype(dtype or means_rows.dtype)
     return _build_seed_state(
         torch.as_tensor(means_rows.astype(dtype), device=device), n_events,
-        num_clusters, num_clusters,
+        num_clusters, num_clusters_padded or num_clusters,
         float(np.asarray(data_var_mean / covariance_dynamic_range, dtype)))
 
 

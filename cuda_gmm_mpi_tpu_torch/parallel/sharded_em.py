@@ -99,8 +99,8 @@ class ShardedGMMModel:
     def __init__(self, config: GMMConfig = GMMConfig(), mesh=None,
                  stats_fn=None):
         from ..ops.kernels import (
-            make_batched_stats_fn, make_mstep_fn, make_stats_fn,
-            resolve_estep_backend,
+            make_batched_stats_fn, make_fleet_stats_fn, make_mstep_fn,
+            make_stats_fn, resolve_estep_backend,
         )
 
         self.config = config
@@ -119,11 +119,14 @@ class ShardedGMMModel:
                 config, cluster_sharded=sharded)
             self.batched_mstep_fn = make_mstep_fn(
                 config, cluster_sharded=sharded, batched=True)
+            self.fleet_stats_fn = make_fleet_stats_fn(
+                config, cluster_sharded=sharded)
         else:
             self.estep_backend = "custom"
             self.estep_backend_reason = "caller-supplied stats_fn"
             self.mstep_fn = None
             self.batched_stats_fn = self.batched_mstep_fn = None
+            self.fleet_stats_fn = None
         self.stats_fn = stats_fn
         self.collective_backend = distributed.backend() or "none"
         # Buckets must stay evenly partitionable over the cluster axis.
@@ -135,6 +138,7 @@ class ShardedGMMModel:
         self._armed_faults = {}
 
     armed_fault = GMMModel.armed_fault
+    armed_fleet_fault = GMMModel.armed_fleet_fault
 
     @property
     def data_size(self) -> int:
@@ -194,19 +198,35 @@ class ShardedGMMModel:
                          should_stop=None, resume: Optional[dict] = None):
         """:meth:`GMMModel.run_em_resumable` on this rank's shard."""
         cfg = self.config
+        inj = self.armed_fault(state, data_chunks, sweep=sweep)
+        lo = cfg.min_iters if min_iters is None else min_iters
+        hi = cfg.max_iters if max_iters is None else max_iters
+        run = self._run_em(state, data_chunks, wts_chunks, epsilon, lo, hi,
+                           n_events, None if inj is None else int(inj["iter"]),
+                           should_stop=should_stop, poll_iters=poll_iters,
+                           resume=resume)
+        self.last_health, self.last_lls = run.health, run.lls
+        return (run.state, run.loglik, run.iters, run.lls, run.stopped,
+                run.extra)
+
+    def _run_em(self, state, data_chunks, wts_chunks, epsilon, lo: int,
+                hi: int, n_events: Optional[int], nan_iter: Optional[int], *,
+                should_stop=None, poll_iters: int = 25,
+                resume: Optional[dict] = None):
+        """One EM run on this rank's shard at bounds (lo, hi) with
+        ``nan_iter`` as the armed fault (:meth:`GMMModel._run_em`); the
+        kernels get this rank's share of the ``n_events`` real events."""
+        cfg = self.config
         stats_fn = self.stats_fn
         if n_events is not None and self.estep_backend == "cuda":
             stats_fn = functools.partial(
                 stats_fn, n_events=self.local_events(n_events, data_chunks))
-        inj = self.armed_fault(state, data_chunks, sweep=sweep)
-        lo = cfg.min_iters if min_iters is None else min_iters
-        hi = cfg.max_iters if max_iters is None else max_iters
         # The device-controlled loop, run eagerly: its collectives (the
         # statistics' all_reduce, the counts over the cluster group) go
         # through the host every iteration, as each rank steps in lockstep.
-        run = em_program_run(
+        return em_program_run(
             state, data_chunks, wts_chunks, epsilon, lo, hi,
-            nan_iter=None if inj is None else int(inj["iter"]),
+            nan_iter=nan_iter,
             regression_scale=cfg.health_regression_scale,
             should_stop=should_stop, poll_iters=poll_iters, resume=resume,
             diag_only=cfg.diag_only, quad_mode=cfg.quad_mode,
@@ -216,9 +236,6 @@ class ShardedGMMModel:
             cluster_group=self.mesh.cluster_group,
             covariance_type=cfg.covariance_type,
             dynamic_range=cfg.covariance_dynamic_range)
-        self.last_health, self.last_lls = run.health, run.lls
-        return (run.state, run.loglik, run.iters, run.lls, run.stopped,
-                run.extra)
 
     # -- restart batches on the mesh (the JAX package's sharded_em.py:
     # 453-528): the lane axis is replicated over the mesh and the clusters
@@ -314,6 +331,61 @@ class ShardedGMMModel:
         self.last_health, self.last_lls = run.health, run.lls
         self.last_stop = (run.stopped, run.extra)
         return run.state, run.loglik, run.iters
+
+    # -- fleet fits on the mesh (tenancy/; the JAX package's sharded_em.py:
+    # 521-604). The port's mesh is one process per rank: every rank runs
+    # ``fit_fleet`` on every tenant's whole data, packs the whole group and
+    # places only its own data shard of each lane's chunk grid
+    # (:meth:`prepare_fleet`). The pad chunks interleave per data shard
+    # (tenancy/packing.py), so the leading chunks of rank s's block of a
+    # lane are exactly the solo fit's block s. 'scan' runs each lane
+    # through this rank's solo EM run on that block (K1/K2 on a data mesh,
+    # K5/K6 on a cluster-sharded diag mesh), with the solo fit's per-rank
+    # real events, so a sharded fleet tenant is bit-identical to its
+    # sharded solo fit; 'vmap' runs the group as one batched loop (K3's
+    # per-lane-events form, one all_reduce of the [T, ...] statistics and
+    # K4 on a data mesh; the lanes one by one on a cluster-sharded one).
+    # Lanes pad to the cluster-axis multiple (``prepare_states_batched``).
+    supports_fleet = True
+    run_em_fleet = GMMModel.run_em_fleet
+
+    def prepare_fleet(self, data_chunks, wts_chunks):
+        """This rank's data shard of every lane of one packed group's [T,
+        C, B, D] chunk grid and [T, C, B] weights, on the device (C is a
+        multiple of the data axis)."""
+        per = int(np.shape(data_chunks)[1]) // self.data_size
+        s = slice(self.mesh.data_index * per, (self.mesh.data_index + 1) * per)
+        return (self.place(np.asarray(data_chunks)[:, s]),
+                self.place(np.asarray(wts_chunks)[:, s]))
+
+    def _fleet_batched_hooks(self, local_events):
+        """:meth:`GMMModel._fleet_batched_hooks` on this rank: the lanes'
+        statistics summed over the data axis, the M-step the mesh's."""
+        cfg = self.config
+        group = self.mesh.cluster_group
+        stats_fn = self.fleet_stats_fn
+        if stats_fn is not None:
+            stats_fn = functools.partial(
+                stats_fn, max_events=int(local_events.max()),
+                n_events=torch.as_tensor(local_events, dtype=torch.int32,
+                                         device=self.device))
+        else:
+            stats_fn = lane_loop_stats(
+                self.stats_fn or functools.partial(
+                    accumulate_stats, cluster_group=group,
+                    diag_only=cfg.diag_only, quad_mode=cfg.quad_mode,
+                    matmul_precision=cfg.matmul_precision),
+                diag_only=cfg.diag_only, per_lane_events=True)
+        reduce = self._reduce
+
+        def batched_stats(s, c, w, lane_mask=None):
+            return reduce(stats_fn(s, c, w, lane_mask=lane_mask))
+
+        mstep_fn = self.batched_mstep_fn or lane_loop_mstep(
+            self.mstep_fn or functools.partial(
+                apply_mstep, diag_only=cfg.diag_only, cluster_group=group,
+                covariance_type=cfg.covariance_type))
+        return batched_stats, mstep_fn, group
 
     def gather_state(self, state):
         """The full state of this rank's mesh row, with the cluster padding

@@ -7,8 +7,8 @@ CUDA device (``"gpu"`` is the key of ``cost.py``'s tables) and ``("cpu",
 packages. The E-step backends are the port's (``auto``, ``cuda``,
 ``torch``): a JAX row that chose ``pallas`` or ``jnp`` is a bad row here and
 counts as absent. On the card a fit leaves ``chunk_size`` as it is
-(:func:`fit_knobs`). The fleet resolver waits for the tenancy package, which
-brings ``fleet_mode``.
+(:func:`fit_knobs`). A fleet fit resolves ``fleet_mode`` alone
+(:func:`resolve_fleet_config_ex`).
 
 ``GMMConfig.autotune`` gates everything: ``'off'`` (the default) makes
 this module unreachable — every stream and result stays byte-identical
@@ -49,6 +49,7 @@ FIT_KNOBS = ("chunk_size", "estep_backend", "sweep_k_buckets",
 
 _BACKENDS = ("auto", "cuda", "torch")
 _BUCKET_POLICIES = ("pow2", "off")
+_FLEET_MODES = ("scan", "vmap")
 
 
 def fit_knobs(platform: str) -> Tuple[str, ...]:
@@ -96,7 +97,8 @@ def _typed(knob: str, chosen: Any) -> Any:
         return v
     chosen = str(chosen)
     allowed = {"estep_backend": _BACKENDS,
-               "sweep_k_buckets": _BUCKET_POLICIES}.get(knob)
+               "sweep_k_buckets": _BUCKET_POLICIES,
+               "fleet_mode": _FLEET_MODES}.get(knob)
     if allowed is not None and chosen not in allowed:
         raise ValueError(f"bad recorded {knob} choice {chosen!r}")
     return chosen
@@ -151,6 +153,8 @@ def _static_decision(knob: str, key: TuningKey, config,
         return "pow2", None, {}  # the config's default
     if knob == "restart_batch_size":
         return None, None, {}  # keep the host-memory auto cap
+    if knob == "fleet_mode":
+        return "scan", None, {}  # bit-parity default; vmap needs a row
     if knob == "serve_min_block":
         return 256, None, {}
     if knob == "serve_max_block":
@@ -283,6 +287,39 @@ def resolve_fit_config_ex(config, data, num_clusters: int, log=None
 def resolve_fit_config(config, data, num_clusters: int, log=None):
     """The fit-path entry: resolved config only."""
     return resolve_fit_config_ex(config, data, num_clusters, log=log)[0]
+
+
+def resolve_fleet_config_ex(config, n_events: int, n_dims: int,
+                            num_clusters: int, log=None
+                            ) -> Tuple[Any, List[Dict[str, Any]]]:
+    """Fleet-path resolution: ``fleet_mode`` at the fleet's largest packed
+    shape, db > static (a fleet fit is the wrong place to burn tenant wall
+    on a probe). The JAX package resolves ``chunk_size`` here too; the port
+    resolves it for no fit (:func:`fit_knobs`): on the card K1 reads each
+    tenant's whole chunk grid in one launch, so the chunk size only pads
+    the last chunk, and it sets the packed groups' event buckets, which a
+    recorded solo-fit row knows nothing of. The returned config has
+    ``autotune='off'``."""
+    mode = config.autotune
+    if mode == "off":
+        return config, []
+    key = _platform_key(config, n_events, n_dims, num_clusters)
+    db = TuningDB.open(config.tuning_db)
+    if db.load_error and log is not None:
+        log.warning("%s", db.load_error)
+    decisions: List[Dict[str, Any]] = []
+    updates: Dict[str, Any] = {}
+    if "fleet_mode" not in explicit_knobs(config, knobs=("fleet_mode",)):
+        d = _resolve_knob("fleet_mode", config, key, db, "db",
+                          n_events=n_events, log=log)
+        if d is not None:
+            d["default"] = config.fleet_mode
+            decisions.append(d)
+            if d["chosen"] != config.fleet_mode:
+                updates["fleet_mode"] = d["chosen"]
+    resolved = dataclasses.replace(config, autotune="off", **updates)
+    emit_decisions(decisions, surface="fleet")
+    return resolved, decisions
 
 
 def resolve_serving_blocks(dtype: str, diag_only: bool, n_dims: int,

@@ -1791,3 +1791,122 @@ def test_evicted_graph_frees_its_device_memory(dev):
     assert ex.evictions == 1 and ex.cache_size == 1
     gc.collect()
     assert torch.cuda.memory_allocated() - base < held / 4
+
+
+@pytest.mark.parametrize("d,k,n_list", [
+    (6, 70, (4099, 1, 3000, 2500)),
+    # more tiles than K1's grid (132 CTAs of 256 events): lanes stride
+    (24, 16, (65536, 33000, 40001, 47000)),
+    (6, 400, (3001, 900, 2048, 77)),  # K_pad = 512: 64-event tiles
+])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+@pytest.mark.parametrize("precision", ["highest", "high", "default"])
+def test_k3_per_lane_events_equal_k1_on_each_lanes_rows(dev, d, k, n_list,
+                                                        diag, precision):
+    """K3's per-lane-events form: lane r over its own events x[r, :n_r] is
+    torch.equal to K1 on those rows, a frozen lane is all zeros, two
+    launches agree bit for bit, and the lanes sit in the plain version's
+    class (the batched K3 test's tolerances)."""
+    rng = np.random.default_rng(d * k + len(n_list))
+    R, n_pad = len(n_list), max(n_list) + 37
+    states = [state_from_numpy(_state(rng, k, d, diag, inactive=inact),
+                               device=dev)
+              for inact in ((1,), (), (0, 3), (2,))]
+    x = torch.as_tensor(rng.normal(scale=2.0, size=(R, n_pad, d)),
+                        dtype=torch.float32, device=dev)
+    wt = torch.as_tensor(rng.uniform(0.0, 2.0, size=(R, n_pad)),
+                         dtype=torch.float32, device=dev)
+    n = torch.as_tensor(n_list, dtype=torch.int32, device=dev)
+    params = [fs._prep_params(s, d, diag) for s in states]
+    A, h, g = (torch.stack(p) for p in zip(*params))
+    lanes = torch.tensor([1.0, 1.0, 0.0, 1.0], device=dev)
+    before = fs.fused_stats_fleet.launches
+    kw = dict(diag=diag, precision=precision)
+    out = fs.fused_stats_fleet(x, wt, n, lanes, A, h, g,
+                               max_events=max(n_list), **kw)
+    again = fs.fused_stats_fleet(x, wt, n, lanes, A, h, g, **kw)
+    ref = fs.fused_stats_fleet_plain(x, wt, n, lanes, A, h, g, **kw)
+    torch.cuda.synchronize()
+    assert fs.fused_stats_fleet.launches == before + 2
+    for a, b in zip(out, again):
+        assert torch.equal(a, b)
+    for r in (0, 1, 3):
+        m = n_list[r]
+        one = fs.fused_stats(x[r, :m].contiguous(), wt[r, :m].contiguous(),
+                             *params[r], **kw)
+        for a, b in zip(out, one):
+            assert torch.equal(a[r], b)
+    for a, c, name in zip(out, ref, TOL):
+        assert not a[2].any(), name
+        if precision == "highest":
+            rtol, atol = TOL[name]
+            err = float((a - c).abs().max())
+            assert err <= atol + rtol * float(c.abs().max()), (name, err)
+
+
+def _fleet_tenants(d=5, seed=19):
+    from cuda_gmm_mpi_tpu_torch.tenancy import TenantSpec
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i, (n, k) in enumerate([(3000, 4), (2100, 4), (3900, 4), (1500, 2)]):
+        c = rng.normal(scale=5, size=(k, d))
+        x = (c[rng.integers(0, k, n)] + rng.normal(size=(n, d))).astype(
+            np.float32)
+        out.append(TenantSpec(f"t{i}", x, k, target_num_clusters=2 * (i == 1)))
+    return out
+
+
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_fleet_scan_tenants_equal_their_solo_fits_on_the_card(dev, diag):
+    """'scan': every tenant torch.equal to its solo fit at
+    sweep_k_buckets='off' on the card (K1/K2, one captured program per
+    lane); K1/K2 launches are the lanes' iterations plus initial E-steps."""
+    from cuda_gmm_mpi_tpu_torch.tenancy import fit_fleet
+
+    tenants = _fleet_tenants()
+    cfg = GMMConfig(min_iters=6, max_iters=6, chunk_size=1024, diag_only=diag,
+                    sweep_k_buckets="off")
+    k1, k2 = fs.fused_stats.launches, fs.mstep.launches
+    fleet = fit_fleet(tenants, cfg)
+    rows = [row for t in fleet.tenants for row in t.result.sweep_log]
+    assert fs.mstep.launches - k2 == sum(r[3] for r in rows)
+    assert fs.fused_stats.launches - k1 == sum(r[3] for r in rows) + len(rows)
+    for spec in tenants:
+        solo = fit_gmm(spec.data, spec.num_clusters, spec.target_num_clusters,
+                       config=cfg)
+        r = fleet[spec.name].result
+        assert r.ideal_num_clusters == solo.ideal_num_clusters
+        assert r.final_loglik == solo.final_loglik
+        assert [row[:4] for row in r.sweep_log] == [
+            row[:4] for row in solo.sweep_log]
+        assert r.merges == solo.merges
+        for f in ("means", "R", "N", "pi"):
+            assert torch.equal(getattr(r.state, f), getattr(solo.state, f))
+
+
+def test_fleet_vmap_runs_k3_per_lane_events_and_k4(dev):
+    """'vmap': one launch of K3's per-lane-events form and one K4 launch
+    per EM iteration of the group, no K1/K2; the same K and merge pairs as
+    the solo fits, loglik rtol 1e-5."""
+    from cuda_gmm_mpi_tpu_torch.tenancy import fit_fleet
+
+    tenants = _fleet_tenants()
+    cfg = GMMConfig(min_iters=6, max_iters=6, chunk_size=1024,
+                    sweep_k_buckets="off", fleet_mode="vmap")
+    counts = (fs.fused_stats_fleet.launches, fs.mstep_batched.launches,
+              fs.fused_stats.launches, fs.mstep.launches)
+    fleet = fit_fleet(tenants, cfg)
+    steps = sum(max(len(t.result.sweep_log) for t in fleet.tenants
+                    if t.group == g) for g in range(len(fleet.groups)))
+    assert fs.mstep_batched.launches - counts[1] == 6 * steps
+    assert fs.fused_stats_fleet.launches - counts[0] == 7 * steps
+    assert (fs.fused_stats.launches, fs.mstep.launches) == counts[2:]
+    for spec in tenants:
+        solo = fit_gmm(spec.data, spec.num_clusters, spec.target_num_clusters,
+                       config=cfg)
+        r = fleet[spec.name].result
+        assert r.ideal_num_clusters == solo.ideal_num_clusters
+        assert [m[1] for m in r.merges] == [m[1] for m in solo.merges]
+        np.testing.assert_allclose(r.final_loglik, solo.final_loglik,
+                                   rtol=1e-5)

@@ -62,6 +62,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "__init__", "db", "cost", "probe", "autotune", "cli")} | {
         lifecycle / f"{m}.py" for m in ("__init__", "controller", "cli")
     } <= set(files)
+    tenancy = REPO / "cuda_gmm_mpi_tpu_torch" / "tenancy"
+    assert {tenancy / f"{m}.py" for m in (
+        "__init__", "packing", "fleet", "cli")} <= set(files)
     for path in files:
         bad = FORBIDDEN.intersection(_imported_roots(path))
         assert not bad, f"{path.relative_to(REPO)} imports {sorted(bad)}"
@@ -82,9 +85,22 @@ def test_entry_points_raise_without_cuda(monkeypatch, tmp_path, capsys):
     assert torch_main(["2", str(csv), str(tmp_path / "o")]) == 1
     assert "no CUDA device" in capsys.readouterr().err
     assert not (tmp_path / "o.summary").exists()
+    # A fleet fit and `gmm fleet` (tenancy/) too.
+    from cuda_gmm_mpi_tpu_torch.tenancy import TenantSpec, fit_fleet
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit_fleet([TenantSpec("a", data, 2)])
+    manifest = tmp_path / "fleet.json"
+    manifest.write_text(
+        f'[{{"name": "a", "infile": "{csv}", "num_clusters": 2}}]')
+    assert torch_main(["fleet", str(manifest), "--out-dir",
+                       str(tmp_path / "f")]) == 1
+    assert "no CUDA device" in capsys.readouterr().err
+    assert not (tmp_path / "f").exists()
     # Asked for the CPU, the same calls run.
     cfg = GMMConfig(device="cpu", min_iters=2, max_iters=2)
     assert fit_gmm(data, 2, config=cfg).ideal_num_clusters >= 1
+    assert not fit_fleet([TenantSpec("a", data, 2)], cfg).dropped
 
 
 def test_streaming_entry_points_raise_without_cuda(monkeypatch, tmp_path,
@@ -296,6 +312,15 @@ def test_batched_kernel_wrappers_do_not_fall_back_off_the_cpu():
                          meta(2, 4), meta(2, 4), diag=False)
     assert (fs.fused_stats_batched.launches,
             fs.mstep_batched.launches) == before
+    # K3's per-lane-events form (a fleet group's 'vmap' statistics).
+    lanes_x = (meta(2, 128, 3), meta(2, 128), meta(2), meta(2))
+    before = fs.fused_stats_fleet.launches
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fs.fused_stats_fleet(*lanes_x, *args[3:], diag=False)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        fs.fused_stats_fleet(*lanes_x, *args[3:], diag=False,
+                             precision="default")
+    assert fs.fused_stats_fleet.launches == before
 
 
 def test_sharded_kernel_wrappers_do_not_fall_back_off_the_cpu():
@@ -361,11 +386,16 @@ def test_batched_hooks_follow_the_routing():
     unbatched functions over the lanes."""
     from cuda_gmm_mpi_tpu_torch.ops.kernels import make_batched_stats_fn, make_mstep_fn
 
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import make_fleet_stats_fn
+
     cuda = GMMConfig(device="cuda")
     assert make_batched_stats_fn(cuda).func is fs.fused_stats_cuda_batched
+    assert make_fleet_stats_fn(cuda).func is fs.fused_stats_cuda_fleet
+    assert make_fleet_stats_fn(cuda, cluster_sharded=True) is None
     assert make_mstep_fn(cuda, batched=True) is not None
     cpu = GMMConfig(device="cpu")
     assert make_batched_stats_fn(cpu) is None
+    assert make_fleet_stats_fn(cpu) is None
     model = GMMModel(cpu)
     assert model.batched_stats_fn.__qualname__.startswith("lane_loop_stats")
     assert model.batched_mstep_fn.__qualname__.startswith("lane_loop_mstep")

@@ -18,7 +18,13 @@ Ported from tests/test_parallel.py and tests/test_pallas.py:
   explicit stats_fn, against JAX's unsharded EM (test_pallas.py's
   ``test_sharded_kernel_*`` tolerances);
 - the CLI under ``torch.distributed.run`` on a (2, 2) mesh against the JAX
-  CLI on the same mesh: the same K, .summary and .results within 1e-6.
+  CLI on the same mesh: the same K, .summary and .results within 1e-6;
+- fleet fits (tenancy/) in 'scan' on (4, 1) and (2, 2): each rank's
+  tenants bit-identical to their sharded solo ``fit_gmm`` on that mesh, and
+  within 1e-12 of the JAX package's sharded fleet on (2, 2) (the fleets on
+  both meshes compute the same function; the (2, 2) one interleaves the
+  pad chunks per data shard, tests/test_tenancy.py's sharded case). A
+  (2, 1) mesh needs a world of 2 ranks; this world has 4.
 """
 
 import json
@@ -69,13 +75,27 @@ def _inputs():
     pad = make_blobs(rng, n=512, d=3, k=3)[0]
     uneven = make_blobs(rng, n=700, d=2, k=2)[0]
     fit = make_blobs(rng, n=512, d=2, k=3)[0]
+    fleet = [("alpha", _blob(700, 4, 1), 4, 0, None),
+             ("beta", _blob(600, 4, 2), 4, 0, 3)]
     k32 = make_blobs(rng, n=1024, d=3, k=5, dtype=np.float32)[0]
     pad32 = make_blobs(rng, n=512, d=3, k=3, dtype=np.float32)[0]
     return dict(
         # 700 events in 8 chunks of 128 over 4 data shards: the last shard
         # holds no real event.
         em=(em, 4, 5, 128), pad=(pad, 3, 4, 128), uneven=(uneven, 2, 3, 128),
-        fit=fit, k32=(k32, 5, 4, 128), pad32=(pad32, 3, 3, 128))
+        fit=fit, k32=(k32, 5, 4, 128), pad32=(pad32, 3, 3, 128),
+        fleet=fleet)
+
+
+def _blob(n, k, seed, d=3):
+    """tests/test_tenancy.py's tenant data."""
+    r = np.random.default_rng(seed)
+    centers = r.normal(scale=8.0, size=(k, d))
+    return centers[r.integers(0, k, n)] + r.normal(size=(n, d))
+
+
+FLEET_CFG = dict(min_iters=4, max_iters=4, chunk_size=128, dtype="float64",
+                 sweep_k_buckets="off")
 
 
 INPUTS = _inputs()
@@ -102,6 +122,9 @@ CASES = {
        for m, diag in SHARDED32},
     ("pad32", (1, 4)): _em_case("pad32", (1, 4), diag=True, stats="sharded"),
     ("collectives",): ("collectives_case", {}),
+    **{("fleet", m): ("fleet_case", dict(
+        tenants=INPUTS["fleet"], mesh_shape=m, **FLEET_CFG))
+       for m in [(4, 1), (2, 2)]},
     ("restarts", (2, 2)): ("fit_case", dict(
         data=INPUTS["fit"], k0=5, target=2, min_iters=3, max_iters=3,
         chunk_size=128, dtype="float64", mesh_shape=(2, 2), n_init=3,
@@ -259,6 +282,28 @@ def test_allgather_host_and_barrier(world):
             out["floats"], np.arange(WORLD)[:, None, None] + np.full((2, 2), 0.5))
         assert out["objs"] == [{"rank": i, "x": [0.5] * i}
                                for i in range(WORLD)]
+
+
+def test_fleet_on_a_mesh_is_solo_bit_identical_and_matches_jax(world):
+    from cuda_gmm_mpi_tpu.tenancy import TenantSpec as JTenant
+    from cuda_gmm_mpi_tpu.tenancy import fit_fleet as j_fit_fleet
+
+    ref = j_fit_fleet([JTenant(*t) for t in INPUTS["fleet"]],
+                      JConfig(mesh_shape=(2, 2), **FLEET_CFG))
+    for mesh in [(4, 1), (2, 2)]:
+        for rank, out in enumerate(world[("fleet", mesh)]):
+            for name, *_ in INPUTS["fleet"]:
+                r, j = out[name], ref[name].result
+                assert r["bit_identical"], (mesh, rank, name)
+                assert r["k"] == j.ideal_num_clusters
+                assert [row[0] for row in r["sweep"]] == [
+                    row[0] for row in j.sweep_log]
+                for a, b in ((r["final_loglik"], j.final_loglik),
+                             (r["min_rissanen"], j.min_rissanen),
+                             (r["means"], j.means), (r["R"], j.state.R)):
+                    b = np.asarray(b)
+                    assert (np.abs(np.asarray(a) - b).max()
+                            <= 1e-12 * np.abs(b).max()), (mesh, name)
 
 
 # ------------------------------------------------------- in one process

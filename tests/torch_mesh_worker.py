@@ -132,6 +132,35 @@ def supervised_fit_case(data, k0, target, faults_spec=None, only_rank=None,
     return _summary(r)
 
 
+def fleet_case(tenants, **cfg):
+    """``fit_fleet`` ('scan') on every rank, then each tenant's sharded solo
+    ``fit_gmm`` on the same mesh; returns per tenant the fleet's summary
+    and whether the two are the same bit for bit (state, scores, the per-K
+    trajectory and the merges)."""
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm
+    from cuda_gmm_mpi_tpu_torch.tenancy import TenantSpec, fit_fleet
+
+    config = GMMConfig(device="cpu", **cfg)
+    fleet = fit_fleet([TenantSpec(*t) for t in tenants], config)
+    out = {}
+    for name, data, k0, target, seed in tenants:
+        r = fleet[name].result
+        solo = fit_gmm(data, k0, target, config=dataclasses.replace(
+            config, seed=config.seed if seed is None else seed))
+        same = (r.ideal_num_clusters == solo.ideal_num_clusters
+                and r.final_loglik == solo.final_loglik
+                and r.min_rissanen == solo.min_rissanen
+                and r.merges == solo.merges
+                and [x[:4] for x in r.sweep_log]
+                == [x[:4] for x in solo.sweep_log]
+                and all(torch.equal(getattr(r.state, f),
+                                    getattr(solo.state, f))
+                        for f in ("N", "pi", "constant", "means", "R",
+                                  "Rinv", "active")))
+        out[name] = dict(_summary(r), R=r.state.R.numpy(), bit_identical=same)
+    return out
+
+
 def moments_case(data, chunk, data_axis):
     """This rank's ``host_chunk_bounds`` slice of ``data`` and the global
     moments from every rank's slice (one all_reduce)."""
