@@ -14,12 +14,14 @@ Phases (any failure exits non-zero, and no result line is printed):
    ones of K1/K3 and K5/K6 among them) and ``shard_kernel`` instance's
    registers, static shared memory and spills and, where the toolkit has
    cuobjdump, the HMMA (tensor-core) instructions in its SASS, and for the
-   shard kernel (K5/K6 on a shard of at most 64 clusters) the CTAs per SM
-   that its registers and its shared memory at D=24 allow, beside the
-   card's occupancy calculator (which must fit the tile's CTAs per SM, and
-   more than one); and with -DGMM_PHASE_CLOCKS, a library whose kernels
-   count the cycles of their phases (phases 2 and 8 print each phase's
-   share of one K1, K5 and K6 launch);
+   shard kernel (K5/K6 on a shard of at most 64 clusters) and the narrow
+   route's instances (K1/K3 at 'highest' with K <= 64, K_pad 16, 32 or 64)
+   the CTAs per SM that its registers and its shared memory at D=24 allow,
+   beside the card's occupancy calculator (which must fit the tile's CTAs
+   per SM, for the shard kernel more than one); and with
+   -DGMM_PHASE_CLOCKS, a library whose kernels count the cycles of their
+   phases (phases 2 and 8 print each phase's share of one K1, K5 and K6
+   launch); each phase's title line gives the seconds since the start;
 2. K1 (fused E+M statistics) against its plain PyTorch version at the main
    path's shapes (the N=1,000,000 real events of the 65536-event chunk
    grid, D=24, K=100; full and diag covariance) and on a ragged N with
@@ -32,7 +34,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    (floored at the float32 epsilon 2^-23). On blobs centred far from the
    global mean (|x| ~ 170), where two float32 evaluations of the expanded
    quadratic form differ by more than the class, only this float64 check
-   applies;
+   applies. Then the narrow route on the same events: K1 at K = 16 and 64
+   and K3 at K = 16 (4 lanes, one frozen), full and diag, through their
+   wrappers (K_pad 16 or 64) torch.equal to the same library's C entry at
+   K_pad 128 on the operands padded to 128, in the plain version's class;
+   both routes timed in turns on prebuilt operands, the bound at the real
+   K, the plain time, and K1's phase shares at K = 16;
 3. K2 (the whole M-step: the guarded update and the Cholesky constants,
    one launch) on the main path's state and K1's statistics, on the same
    with the guard cases forced (an empty cluster, a dead-zone one, an M2
@@ -146,7 +153,10 @@ Phases (any failure exits non-zero, and no result line is printed):
    and final loglik (rtol 1e-4) of the same fit on torch ops, its EM
    iterations/s, fit wall and one M-step's share of an iteration; a BIC
    search K 16 -> 1 on 200,000 events of 8 blobs (the torch-ops search's
-   K); integer sample weights in {1, 2} against the replicated rows (same
+   K; every K1 launch on the narrow route; both walls); 3 restarts in one
+   batch at K 16 -> 12 on the same events (K3 on its narrow route and K4)
+   against the sequential driver (the same init, K and merge pairs, loglik
+   rtol 1e-5; both walls); integer sample weights in {1, 2} against the replicated rows (same
    K and merge pairs, loglik rtol 1e-4, init pinned, no avgvar loading);
    predict_proba rows summing to 1 within 1e-5 and the sum of
    score_samples equal to loglik_ (rtol 1e-4) on the 1M events; the
@@ -357,13 +367,17 @@ Phases (any failure exits non-zero, and no result line is printed):
    own rows, the frozen lane zeros, two launches equal, the plain
    version's class and twice its float64 error, also at 'high' and
    'default'; one launch timed beside K1 on each lane's rows, the plain
-   version and the bound. (b) ``fit_fleet`` in 'scan' (one captured
+   version and the bound; at 'highest' its narrow route (K_pad 16) against
+   the same C entry at K_pad 32, 64 and 128 on prebuilt operands,
+   torch.equal, the four timed in turns. (b) ``fit_fleet`` in 'scan' (one captured
    program per lane): every tenant torch.equal to its solo ``fit_gmm`` at
    ``sweep_k_buckets='off'``; K1 = the lanes' iterations + initial
-   E-steps, K2 = the iterations; the fleet's wall beside the 48 solo fits'
+   E-steps (every K1 launch on the narrow route), K2 = the iterations;
+   the fleet's wall beside the 48 solo fits'
    and the capture seconds; the second group again on the host loop
-   (``_eager_em``), torch.equal, its wall beside the captured group's. (c) 'vmap': one launch of K3's per-lane form
-   and one K4 launch per group iteration, no K1/K2, the solo fits' K and
+   (``_eager_em``), torch.equal, its wall beside the captured group's.
+   (c) 'vmap': one launch of K3's per-lane form (on its narrow route) and
+   one K4 launch per group iteration, no K1/K2, the solo fits' K and
    merge pairs, loglik within 1e-5, and how many lanes came out
    torch.equal to (b). (d) On the second group alone: ``nan_loglik`` on
    lane 1 drops that tenant and the others equal (b); a preempt at step 2,
@@ -373,7 +387,8 @@ Phases (any failure exits non-zero, and no result line is printed):
    mesh of 2 ranks on the card (gloo): 4 tenants in 'scan', each
    torch.equal to the sharded solo fit, K1/K2 counted per rank. The kernels
    line gains a "K3 fused_stats_fleet (per-lane events)" record and a
-   ``fleet`` sub-record on K1-K4.
+   ``fleet`` sub-record on K1-K4, and three records of the narrow route
+   (K1 from (b), K3 from phase 11's restarts, the per-lane form from (c)).
 
 It prints a ``kernels:`` summary line, one JSON object with each kernel's
 launches, error and times, the card's name and power limit, and as its last
@@ -486,6 +501,14 @@ NEAR, FAR = 10.0, 60.0  # blob centres uniform in +-spread: |x| ~ 30 or ~ 170
 
 class PhaseError(RuntimeError):
     pass
+
+
+_T0 = time.perf_counter()
+
+
+def phase_start(title: str) -> None:
+    """A phase's title line, with the seconds since the script started."""
+    print(f"{title} [{time.perf_counter() - _T0:.0f} s in]")
 
 
 def check(cond: bool, what: str) -> None:
@@ -658,9 +681,10 @@ def kernel_report(cubin, procs) -> list:
     """Waits for :func:`start_extra_builds`; returns the registers, static
     shared memory and spills of each fused_stats_kernel and shard_kernel
     instance, and its HMMA instructions where the toolkit has cuobjdump
-    (else None); for the shard kernel also the CTAs per SM that its
-    registers, its shared memory at D=DIMS (the mesh cell's) and the card's
-    occupancy calculator allow. Call after the libraries are built."""
+    (else None); for the shard kernel and the narrow route's instances
+    also the CTAs per SM that its registers, its shared memory at D=DIMS
+    (the mesh cell's and the fleet's) and the card's occupancy calculator
+    allow. Call after the libraries are built."""
     import ctypes
     import re
 
@@ -706,8 +730,8 @@ def kernel_report(cubin, procs) -> list:
     out = []
     lib = _build.library("fused_stats.cu")
     for name, rec in sorted(props.items()):
-        m = (re.search(r"fused_stats_kernelILi(\d)ELb([01])ELi(\d+)ELi(\d)E",
-                       name)
+        m = (re.search(r"fused_stats_kernelILi(\d)ELb([01])ELi(\d+)ELi(\d)"
+                       r"ELi(\d+)E", name)
              or re.search(r"shard_kernelILi(\d)ELb([01])EE", name))
         check(m is not None and "registers" in rec,
               f"unparsed ptxas report for {name}: {rec}")
@@ -715,8 +739,27 @@ def kernel_report(cubin, procs) -> list:
         width = "diag" if diag else "full"
         if "shard_kernel" not in name:
             prec = ("", " high", " default")[int(m.group(4))]
+            w = int(m.group(5))
+            if w < fs.TILE:  # the narrow route: its CTAs per SM at D=DIMS
+                tile = fs.stats_tile(w, DIMS, diag)
+                regs = -(-rec["registers"] // REG_UNIT) * REG_UNIT
+                card = ctypes.c_int(0)
+                check(lib.gmm_stats_occupancy(w, DIMS, int(diag), tile.bt,
+                                              ctypes.addressof(card)) == 0,
+                      "gmm_stats_occupancy failed")
+                rec.update(
+                    ctas_by_registers=SM_REGISTERS // (regs * THREADS),
+                    ctas_by_smem=fs.SM_SMEM_BYTES // (
+                        tile.smem + rec["static_smem"]
+                        + fs.CTA_RESERVED_SMEM),
+                    ctas_card=card.value, ctas_tile=tile.ctas_per_sm,
+                    smem=tile.smem)
+                check(card.value >= tile.ctas_per_sm,
+                      f"narrow instance {name}: {card.value} CTAs per SM fit "
+                      f"on the card, the tile counts on {tile.ctas_per_sm}")
             out.append(dict(instance=f"{KERNEL_MODES[mode]} {width} "
-                            f"{m.group(3)}-row tiles{prec}",
+                            f"{m.group(3)}-row tiles{prec}"
+                            + (f" narrow W={w}" if w < fs.TILE else ""),
                             hmma=hmma.get(name), **rec))
             continue
         tile = fs.shard_tile(RANK_CLUSTERS, DIMS, diag, stats=mode == "2")
@@ -737,9 +780,10 @@ def kernel_report(cubin, procs) -> list:
         out.append(dict(instance=f"{KERNEL_MODES[mode]} {width} 64-wide shard "
                         f"tile", hmma=hmma.get(name), **rec))
     # 12 'highest' instances of K1's kernel (3 modes x full/diag x 64/128-row
-    # tiles), 24 in 'high'/'default' (K1/K3, K5 and K6 alike), 4 of the
-    # shard kernel.
-    check(len(out) == 40, f"{len(out)} kernel instances reported")
+    # tiles), 24 in 'high'/'default' (K1/K3, K5 and K6 alike), 6 on the
+    # narrow route (K1/K3 at W = 16, 32, 64 x full/diag, 128-row chunks), 4
+    # of the shard kernel.
+    check(len(out) == 46, f"{len(out)} kernel instances reported")
     return out
 
 
@@ -864,6 +908,151 @@ def phase_k1(x_np, diag, inactive, label, timed, near=True, clocks=None,
             print(f"  K1 {label} phases (thread-0 cycles of every CTA): "
                   + shares_line(rec["phase_shares"]))
     return rec, (state, out)
+
+
+NARROW_KS = (16, 64)  # phase 2's narrow-route case: K1 at these K (W = K)
+
+
+def in_turns(*fns, reps: int = 10) -> tuple:
+    """The CUDA-event times of routes of one function, in turns (a, b, ...,
+    then back: ..., b, a); each the mean of its two turns."""
+    times = [time_ms(f, reps) for f in fns + fns[::-1]]
+    return tuple((a + b) / 2 for a, b in zip(times, times[::-1]))[:len(fns)]
+
+
+def narrow_routes(A, h, g, k, d, diag):
+    """The narrow route's tile and operands (K_pad W) and the 128-wide
+    route's for the same parameters."""
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    tile = fs.stats_tile(k, d, diag)
+    check(tile.k_pad < fs.TILE, f"K = {k}: K_pad {tile.k_pad}, not narrow")
+    return ((tile, fs._ext_operands(A, h, g, d, diag, tile.k_pad)[:2]),
+            (fs.wide_tile(k, d, diag),
+             fs._ext_operands(A, h, g, d, diag, fs.TILE)[:2]))
+
+
+def hold_class(label, out, ref) -> float:
+    """Each output within the phase-2 class of its plain version; returns
+    the largest |out - ref|."""
+    import torch
+
+    worst = 0.0
+    for name, a, b in zip(("ll", "nk", "m1", "m2"), out, ref):
+        check(bool(torch.isfinite(a).all()), f"{label}: non-finite {name}")
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        rtol, atol = TOL[name]
+        check(err <= atol + rtol * scale,
+              f"{label}: {name} max|err| {err:.3e} > {atol} + {rtol} x "
+              f"{scale:.3e}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_k1_narrow(x_np, diag, k, label, clocks=None) -> dict:
+    """K1 at K <= 64 on the main path's events: the wrapper (the narrow
+    route, K_pad W) against the same library's C entry at K_pad 128 on the
+    operands padded to 128, torch.equal; its plain version's class; both
+    routes timed in turns on prebuilt operands, the bound at the real K,
+    and (with the ``clocks`` library) the narrow route's phase shares."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    _, _, _, args = stats_inputs(x_np, k, diag, (k // 2,))
+    x, wt, A, h, g = args
+    n, d = x.shape
+    (tile, ops_n), (wide, ops_w) = narrow_routes(A, h, g, k, d, diag)
+    run_n = lambda: fs._launch_k1(x, wt, *ops_n, k, diag, tile, "highest")
+    run_w = lambda: fs._launch_k1(x, wt, *ops_w, k, diag, wide, "highest")
+    before = (fs.fused_stats.launches, fs.fused_stats_narrow.launches)
+    out = fs.fused_stats(*args, diag=diag)
+    check((fs.fused_stats.launches, fs.fused_stats_narrow.launches)
+          == (before[0] + 1, before[1] + 1),
+          f"K1 {label}: the wrapper did not take the narrow route")
+    ref_w = run_w()
+    plain = functools.partial(fs.fused_stats_plain, *args, diag=diag)
+    ref = plain()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, ref_w)),
+          f"K1 {label}: K_pad {tile.k_pad} differs from K_pad 128")
+    rec = {"k": k, "k_pad": tile.k_pad, "max_abs_err": hold_class(
+        f"K1 {label}", out, ref), "equal_to_wide": True, "library_ms": None}
+    rec["ms"], rec["wide_ms"] = in_turns(run_n, run_w)
+    rec["plain_ms"] = time_ms(plain, reps=2)
+    f, t = A.shape[0], d if diag else d * (d + 1) // 2
+    nbytes = 4 * (n * d + n + A.numel() + h.numel() + g.numel()
+                  + 1 + k + k * d + k * f)
+    rec.update(route_bound(nbytes, 2.0 * n * k * (t + d),
+                           2.0 * n * k * (t + d + 1)))
+    print(f"  K1 {label}: K_pad {tile.k_pad} torch.equal to K_pad 128; "
+          f"max|K1 - plain| {rec['max_abs_err']:.3e}; {rec['ms']:.3f} ms "
+          f"against the 128-wide route's {rec['wide_ms']:.3f} ms (in turns),"
+          f" plain {rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
+    if clocks is not None:
+        rec["phase_shares"] = phase_shares(clocks, run_n)
+        print(f"  K1 {label} phases (thread-0 cycles of every CTA): "
+              + shares_line(rec["phase_shares"]))
+    return rec
+
+
+def phase_k3_narrow(x_np, diag, k, label) -> dict:
+    """K3 at K <= 64 on the main path's events: LANES lanes (the state of
+    :func:`phase_k1_narrow` with one more cluster inactive per lane, lane
+    FROZEN frozen) through the wrapper against the C entry at K_pad 128,
+    torch.equal; the plain class; both routes timed in turns; the bound
+    over the live lanes."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    state, _, _, (x, wt, _, _, _) = stats_inputs(x_np, k, diag, (k // 2,))
+    n, d = x.shape
+    params = []
+    for r in range(LANES):
+        active = state.active.clone()
+        active[r % k] = r == 0
+        params.append(fs._prep_params(state.replace(active=active), d, diag))
+    A, h, g = (torch.stack(p) for p in zip(*params))
+    lanes = torch.ones(LANES, dtype=torch.float32, device="cuda")
+    lanes[FROZEN] = 0.0
+    (tile, ops_n), (wide, ops_w) = narrow_routes(A, h, g, k, d, diag)
+    run_n = lambda: fs._launch_k3(x, wt, lanes, *ops_n, k, diag, tile,
+                                  "highest")
+    run_w = lambda: fs._launch_k3(x, wt, lanes, *ops_w, k, diag, wide,
+                                  "highest")
+    before = fs.fused_stats_batched_narrow.launches
+    out = fs.fused_stats_batched(x, wt, lanes, A, h, g, diag=diag)
+    check(fs.fused_stats_batched_narrow.launches == before + 1,
+          f"K3 {label}: the wrapper did not take the narrow route")
+    ref_w = run_w()
+    plain = functools.partial(fs.fused_stats_batched_plain, x, wt, lanes, A,
+                              h, g, diag=diag)
+    ref = plain()
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(out, ref_w)),
+          f"K3 {label}: K_pad {tile.k_pad} differs from K_pad 128")
+    check(not any(bool(o[FROZEN].any()) for o in out),
+          f"K3 {label}: frozen lane {FROZEN} is not all zeros")
+    rec = {"k": k, "k_pad": tile.k_pad, "lanes": LANES, "max_abs_err":
+           hold_class(f"K3 {label}", out, ref), "equal_to_wide": True,
+           "library_ms": None}
+    rec["ms"], rec["wide_ms"] = in_turns(run_n, run_w)
+    rec["plain_ms"] = time_ms(plain, reps=2)
+    live = LANES - 1
+    f, t = A.shape[1], d if diag else d * (d + 1) // 2
+    nbytes = 4 * (n * d + n + LANES + A.numel() + h.numel() + g.numel()
+                  + live * (1 + k + k * d + k * f))
+    rec.update(route_bound(nbytes, 2.0 * live * n * k * (t + d),
+                           2.0 * live * n * k * (t + d + 1)))
+    print(f"  K3 {label}: {LANES} lanes (lane {FROZEN} frozen, zeros) at "
+          f"K_pad {tile.k_pad} torch.equal to K_pad 128; max|K3 - plain| "
+          f"{rec['max_abs_err']:.3e}; {rec['ms']:.3f} ms against the 128-wide "
+          f"route's {rec['wide_ms']:.3f} ms (in turns), plain "
+          f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
+    return rec
 
 
 def guard_stats(stats, diag, rng):
@@ -2210,6 +2399,7 @@ def phase_mesh(data, diag_ref, workdir: Path):
 
 FAMILIES = ("full", "diag", "spherical", "tied")
 CLI_EVENTS = 65_536  # phase 11's CLI slice (formatting 1M rows takes ~18 s)
+RESTART_INITS = 3  # phase 11's restart fit at K 16 (K3's narrow route)
 
 
 def _gm_fit(data, family, sample_weight=None, **cfg):
@@ -2323,19 +2513,72 @@ def phase_estimator(data, workdir: Path, seed: int) -> dict:
               f"({'K2' if lc['K2'] else 'torch ops'}) {mstep:.3f} ms = "
               f"{100 * rec['mstep_share']:.1f}% of an iteration")
 
-    # --- the criterion: a BIC search down to K = 1 on 8 seeded blobs
+    # --- the criterion: a BIC search down to K = 1 on 8 seeded blobs (K1
+    # on its narrow route: K <= 16)
     small = make_blobs(seed + 2, 200_000, DIMS, 8)
-    picks = []
+    picks, walls = [], []
+    narrow = fs.fused_stats_narrow.launches
     for backend in ("auto", "torch"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         gm = GaussianMixture(16, criterion="bic", min_iters=10, max_iters=10,
                              estep_backend=backend).fit(small)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
         picks.append(gm)
+        if backend == "auto":
+            narrow = fs.fused_stats_narrow.launches - narrow
     _same_fit(picks[0], picks[1], "bic search kernels vs torch ops",
               pairs=False)
+    iters = sum(r[3] for r in picks[0].result_.sweep_log)
+    n_k = len(picks[0].result_.sweep_log)
+    check(narrow == iters + n_k,
+          f"bic search: {narrow} narrow K1 launches for {iters} iterations "
+          f"+ {n_k} initial E-steps")
     out["bic_k"] = picks[0].n_components_
+    out["bic"] = dict(fit_s=walls[0], torch_ops_fit_s=walls[1],
+                      narrow_k1_launches=narrow)
     print(f"  criterion bic, K 16 -> 1 on 200,000 events of 8 blobs: K "
-          f"{picks[0].n_components_} on the kernels and on torch ops")
-    del small, picks
+          f"{picks[0].n_components_} on the kernels and on torch ops; "
+          f"{narrow} K1 launches, all on the narrow route; fit "
+          f"{walls[0]:.2f} s (torch ops {walls[1]:.2f} s)")
+    del picks
+
+    # --- restarts at K <= 64: 3 inits in one batch (K3 on its narrow
+    # route, K4) against the sequential driver (K1, K2), K 16 -> 12
+    rfits, walls, counts = [], [], []
+    for batch in (RESTART_INITS, 1):
+        before = (fs.fused_stats_batched_narrow.launches,
+                  fs.fused_stats_narrow.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rfits.append(GaussianMixture(16, 12, min_iters=10, max_iters=10,
+                                    n_init=RESTART_INITS,
+                                    restart_batch_size=batch).fit(small))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        counts.append((fs.fused_stats_batched_narrow.launches - before[0],
+                       fs.fused_stats_narrow.launches - before[1]))
+    bat, seq = (f.result_ for f in rfits)
+    steps = len(bat.sweep_log)
+    check(counts[0][0] == 11 * steps and counts[1][0] == 0,
+          f"restarts at K 16: narrow K3 launches {counts} for {steps} Ks")
+    check(bat.init_index == seq.init_index
+          and [m[1] for m in bat.merges] == [m[1] for m in seq.merges]
+          and abs(bat.final_loglik - seq.final_loglik)
+          <= 1e-5 * abs(seq.final_loglik),
+          f"restarts at K 16: batched init {bat.init_index}, K "
+          f"{bat.ideal_num_clusters}, loglik {bat.final_loglik} against the "
+          f"sequential driver's {seq.init_index}, {seq.ideal_num_clusters}, "
+          f"{seq.final_loglik}")
+    out["restarts_k16"] = dict(fit_s=walls[0], sequential_fit_s=walls[1],
+                               narrow_k3_launches=counts[0][0],
+                               sequential_narrow_k1_launches=counts[1][1])
+    print(f"  restarts at K 16 -> 12 ({RESTART_INITS} inits, one batch): "
+          f"{counts[0][0]} K3 launches on the narrow route; the sequential "
+          f"driver's init {seq.init_index}, K and merge pairs, loglik within "
+          f"1e-5; fit {walls[0]:.2f} s against {walls[1]:.2f} s sequential")
+    del small, rfits
 
     # --- sample weights: integers in {1, 2} against replicated rows
     w = np.random.default_rng(seed + 3).integers(1, 3, size=len(data))
@@ -5304,7 +5547,8 @@ def _zero_fleet_counts():
     from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
 
     for w in (fs.fused_stats, fs.mstep, fs.fused_stats_batched,
-              fs.mstep_batched, fs.fused_stats_fleet):
+              fs.mstep_batched, fs.fused_stats_fleet, fs.fused_stats_narrow,
+              fs.fused_stats_fleet_narrow):
         w.launches = 0
 
 
@@ -5314,15 +5558,16 @@ def _fleet_counts() -> dict:
     return {"K1": fs.fused_stats.launches, "K2": fs.mstep.launches,
             "K3": fs.fused_stats_batched.launches,
             "K4": fs.mstep_batched.launches,
-            "K3 fleet": fs.fused_stats_fleet.launches}
+            "K3 fleet": fs.fused_stats_fleet.launches,
+            "K1 narrow": fs.fused_stats_narrow.launches,
+            "K3 fleet narrow": fs.fused_stats_fleet_narrow.launches}
 
 
-def p19_k3_form(tenants, diag: bool, precision: str = "highest",
-                timed: bool = True) -> dict:
-    """(a): K3's per-lane-events form on the first group's lanes (their
+def p19_form_operands(tenants, diag: bool):
+    """The per-lane form's operands on the first group's lanes (their
     packed grids, states after one torch-ops M-step on each lane's events,
-    lane P19_FROZEN frozen) against K1 on each lane's rows, its plain
-    version and float64."""
+    lane P19_FROZEN frozen): (x, wt, n, lanes, A, h, g), each lane's
+    (A, h, g), the event counts and the live lanes."""
     import torch
 
     from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
@@ -5351,7 +5596,20 @@ def p19_k3_form(tenants, diag: bool, precision: str = "highest",
     lanes = torch.ones(R, dtype=torch.float32, device="cuda")
     lanes[P19_FROZEN] = 0.0
     live = [r for r in range(R) if r != P19_FROZEN]
-    args = (x, wt, n, lanes, A, h, g)
+    return (x, wt, n, lanes, A, h, g), params, n_np, live
+
+
+def p19_k3_form(tenants, diag: bool, precision: str = "highest",
+                timed: bool = True) -> dict:
+    """(a): K3's per-lane-events form (:func:`p19_form_operands`) against
+    K1 on each lane's rows, its plain version and float64."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
+
+    args, params, n_np, live = p19_form_operands(tenants, diag)
+    x, wt, n, lanes, A, h, g = args
+    R, d = x.shape[0], x.shape[-1]
     kw = dict(diag=diag, precision=precision)
     most = int(n_np.max())
     out = fs.fused_stats_fleet(*args, max_events=most, **kw)
@@ -5408,7 +5666,7 @@ def p19_k3_form(tenants, diag: bool, precision: str = "highest",
           f"{worst64_plain:.2e})")
     if not timed:
         return rec
-    k = int(packed.k0.max())
+    k = A.shape[-1]
     t = d if diag else d * (d + 1) // 2
     f = A.shape[1]
     m_live = float(sum(int(n_np[r]) for r in live))
@@ -5416,6 +5674,27 @@ def p19_k3_form(tenants, diag: bool, precision: str = "highest",
                   + len(live) * (1 + k + k * d + k * f)) + 4 * R
     rec["ms"] = time_ms(lambda: fs.fused_stats_fleet(
         *args, max_events=most, **kw))
+    if precision == "highest":
+        # The narrow route (the wrapper's, K_pad W) against the C entry at
+        # K_pad 128 on prebuilt operands: torch.equal, timed in turns
+        # (stats_ab.py times every width).
+        (tile, ops), (wide, ops_w) = narrow_routes(A, h, g, k, d, diag)
+        routes = {tile.k_pad: (tile, ops), fs.TILE: (wide, ops_w)}
+        runs = {w: functools.partial(fs._launch_fleet, x, wt, n, lanes,
+                                     *o, k, diag, tl, precision, most)
+                for w, (tl, o) in routes.items()}
+        for w, run in runs.items():
+            check(all(torch.equal(a, b) for a, b in zip(run(), out)),
+                  f"{label}: K_pad {w} differs from the wrapper's "
+                  f"K_pad {tile.k_pad}")
+        rec["width_ms"] = dict(zip(runs, in_turns(*runs.values())))
+        rec["k_pad"], rec["equal_to_wide"] = tile.k_pad, True
+        rec["wide_ms"] = rec["width_ms"][fs.TILE]
+        print(f"  {label}: K_pad {tile.k_pad} torch.equal to K_pad "
+              f"{', '.join(str(w) for w in runs if w != tile.k_pad)} on "
+              f"prebuilt operands; one launch (in turns) "
+              + ", ".join(f"K_pad {w} {v:.3f} ms"
+                          for w, v in rec["width_ms"].items()))
     rec["k1_sum_ms"] = sum(time_ms(
         lambda r=r: fs.fused_stats(x[r, :int(n_np[r])], wt[r, :int(n_np[r])],
                                    *params[r], **kw)) for r in live)
@@ -5426,8 +5705,8 @@ def p19_k3_form(tenants, diag: bool, precision: str = "highest",
     print(f"  {label}: one launch {rec['ms']:.3f} ms against K1 on each live "
           f"lane's rows {rec['k1_sum_ms']:.3f} ms in all, plain "
           f"{rec['plain_ms']:.3f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']}; K = {k} of the kernel's 128 columns); no "
-          f"single PyTorch call computes it")
+          f"({rec['bound_by']}; K = {k}); no single PyTorch call computes "
+          f"it")
     return rec
 
 
@@ -5548,6 +5827,9 @@ def phase_fleet(workdir: Path, seed: int, card: str) -> dict:
           f"the lanes' iterations {iters} + initial E-steps {ks}")
     check(counts["K3"] == counts["K4"] == counts["K3 fleet"] == 0,
           f"phase 19 (b): batched launches in 'scan': {counts}")
+    check(counts["K1 narrow"] == counts["K1"],
+          f"phase 19 (b): {counts['K1 narrow']} of {counts['K1']} K1 "
+          f"launches on the narrow route (every tenant has K <= 16)")
     captures = [s for _, s in model.capture_log]
     check(len(captures) == len(tenants),
           f"phase 19 (b): {len(captures)} captures for {len(tenants)} lanes")
@@ -5614,6 +5896,10 @@ def phase_fleet(workdir: Path, seed: int, card: str) -> dict:
           f"{vcounts['K3 fleet']}/{vcounts['K4']} for {steps} group steps")
     check(vcounts["K1"] == vcounts["K2"] == vcounts["K3"] == 0,
           f"phase 19 (c): K1/K2/K3 launched in 'vmap': {vcounts}")
+    check(vcounts["K3 fleet narrow"] == vcounts["K3 fleet"],
+          f"phase 19 (c): {vcounts['K3 fleet narrow']} of "
+          f"{vcounts['K3 fleet']} launches of the per-lane form on the "
+          f"narrow route")
     equal_b = 0
     for t in tenants:
         r, s = vmap[t.name].result, solos[t.name]
@@ -5769,7 +6055,7 @@ def main() -> int:
     card = card_line()
     t_start = time.perf_counter()
 
-    print("phase 1: build")
+    phase_start("phase 1: build")
     t0 = time.perf_counter()
     cubin, clocks, extra = start_extra_builds()
     _build.build_all()
@@ -5789,7 +6075,7 @@ def main() -> int:
               f"spills {r.get('spill_stores', 0)} / {r.get('spill_loads', 0)} "
               f"bytes (stores / loads), {hmma}{ctas}")
 
-    print("phase 2: K1 against its plain version")
+    phase_start("phase 2: K1 against its plain version")
     data = make_blobs(args.seed, N_EVENTS, DIMS, K_TARGET)
     k1_full, (state_full, out_full) = phase_k1(data, False, (7, 50), "full",
                                                True, clocks=clocks)
@@ -5801,12 +6087,20 @@ def main() -> int:
     k1_far_diag, _ = phase_k1(far, True, (7,), "diag |x|~170", False,
                               near=False)
     del far
+    # The narrow route at K <= 64: K1 at K = 16 and 64, K3 at K = 16.
+    k1_narrow = {(k, diag): phase_k1_narrow(
+        data, diag, k, f"{'diag' if diag else 'full'} K={k} (narrow)",
+        clocks if k == NARROW_KS[0] else None)
+        for k in NARROW_KS for diag in (False, True)}
+    k3_narrow = {diag: phase_k3_narrow(
+        data, diag, NARROW_KS[0], f"{'diag' if diag else 'full'} "
+        f"K={NARROW_KS[0]} (narrow)") for diag in (False, True)}
 
-    print("phase 3: K2 against its plain version and the torch-ops M-step")
+    phase_start("phase 3: K2 against its plain version and the torch-ops M-step")
     k2_full = phase_k2(state_full, out_full, False, "full", args.seed)
     k2_diag = phase_k2(state_diag, out_diag, True, "diag", args.seed)
 
-    print("phase 4: the main path")
+    phase_start("phase 4: the main path")
     workdir = Path(__file__).resolve().parent / "build" / "chip_smoke"
     workdir.mkdir(parents=True, exist_ok=True)
     try:
@@ -5817,7 +6111,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    print("phase 5: K3 against K1 and its plain version; the batched EM loop")
+    phase_start("phase 5: K3 against K1 and its plain version; the batched EM loop")
     x_c, rows = restart_rows(data, args.seed)
     lanes_full = restart_lanes(x_c, rows, False)
     k3_full, k3_out = phase_k3(lanes_full, False, "full")
@@ -5825,16 +6119,16 @@ def main() -> int:
     lanes_diag = restart_lanes(x_c, rows, True)
     k3_diag, k3_out_diag = phase_k3(lanes_diag, True, "diag")
 
-    print("phase 6: K4 against its plain version, K2 and the torch-ops M-step")
+    phase_start("phase 6: K4 against its plain version, K2 and the torch-ops M-step")
     k4_full = phase_k4(lanes_full[0], k3_out, False, "full", args.seed)
     k4_diag = phase_k4(lanes_diag[0], k3_out_diag, True, "diag", args.seed)
     del lanes_full, lanes_diag, k3_out, k3_out_diag, x_c
 
-    print("phase 7: the restart path")
+    phase_start("phase 7: the restart path")
     restart_launches = phase_restarts(data)
     launches.update(K3=restart_launches["K3"], K4=restart_launches["K4"])
 
-    print("phase 8: K5 and K6 against their plain versions and K1")
+    phase_start("phase 8: K5 and K6 against their plain versions and K1")
     k56 = {}
     for shards in (2, 4):
         for diag, name in ((False, "full"), (True, "diag")):
@@ -5862,7 +6156,7 @@ def main() -> int:
           f"its per-chunk collectives left out) {k6_full['torch_ops_ms']:.3f} "
           f"ms against K5 + K6 {k5_full['ms'] + k6_full['ms']:.3f} ms")
 
-    print("phase 9: the mesh path on the one card")
+    phase_start("phase 9: the mesh path on the one card")
     meshdir = Path(__file__).resolve().parent / "build" / "chip_smoke_mesh"
     shutil.rmtree(meshdir, ignore_errors=True)
     meshdir.mkdir(parents=True)
@@ -5872,7 +6166,7 @@ def main() -> int:
         shutil.rmtree(meshdir, ignore_errors=True)
     launches.update(K5=mesh["launches"]["K5"], K6=mesh["launches"]["K6"])
 
-    print("phase 10: K1 and K3 in 'high' and 'default'; the main and restart "
+    phase_start("phase 10: K1 and K3 in 'high' and 'default'; the main and restart "
           "paths at those precisions")
     prec_k1, prec_k3, prec_paths = {}, {}, {}
     for prec in BF16_PASSES:
@@ -5897,7 +6191,7 @@ def main() -> int:
     k5_err = max(v["k5_err"] for v in k56.values())
     k6_err = max(v["k6_err"] for v in k56.values())
 
-    print("phase 11: GaussianMixture at the north-star shape: the four "
+    phase_start("phase 11: GaussianMixture at the north-star shape: the four "
           "families, a BIC search, sample weights, inference and the CLI")
     estdir = Path(__file__).resolve().parent / "build" / "chip_smoke_estimator"
     shutil.rmtree(estdir, ignore_errors=True)
@@ -5907,7 +6201,7 @@ def main() -> int:
     finally:
         shutil.rmtree(estdir, ignore_errors=True)
 
-    print("phase 12: containment and resume on the card")
+    phase_start("phase 12: containment and resume on the card")
     condir = Path(__file__).resolve().parent / "build" / "chip_smoke_contain"
     shutil.rmtree(condir, ignore_errors=True)
     condir.mkdir(parents=True)
@@ -5918,7 +6212,7 @@ def main() -> int:
     finally:
         shutil.rmtree(condir, ignore_errors=True)
 
-    print("phase 13: the captured EM loop and the fused sweep")
+    phase_start("phase 13: the captured EM loop and the fused sweep")
     capdir = Path(__file__).resolve().parent / "build" / "chip_smoke_capture"
     shutil.rmtree(capdir, ignore_errors=True)
     capdir.mkdir(parents=True)
@@ -5927,7 +6221,7 @@ def main() -> int:
     finally:
         shutil.rmtree(capdir, ignore_errors=True)
 
-    print("phase 14: the fit's observability: the observed fit, its costs, "
+    phase_start("phase 14: the fit's observability: the observed fit, its costs, "
           "--trace-dir and the port's stream tools")
     obsdir = Path(__file__).resolve().parent / "build" / "chip_smoke_observe"
     shutil.rmtree(obsdir, ignore_errors=True)
@@ -5937,7 +6231,7 @@ def main() -> int:
     finally:
         shutil.rmtree(obsdir, ignore_errors=True)
 
-    print("phase 15: the mesh made whole: restarts on a mesh, preempt and "
+    phase_start("phase 15: the mesh made whole: restarts on a mesh, preempt and "
           "resume, peer loss, per-rank reading and output")
     wholedir = Path(__file__).resolve().parent / "build" / "chip_smoke_whole"
     shutil.rmtree(wholedir, ignore_errors=True)
@@ -5947,7 +6241,7 @@ def main() -> int:
     finally:
         shutil.rmtree(wholedir, ignore_errors=True)
 
-    print("phase 16: out-of-core EM: in-memory, resident and pipelined "
+    phase_start("phase 16: out-of-core EM: in-memory, resident and pipelined "
           "streaming at 10M events, one pass profiled, stepwise EM, stop "
           "and resume, a data mesh")
     oocdir = Path(__file__).resolve().parent / "build" / "chip_smoke_ooc"
@@ -5958,7 +6252,7 @@ def main() -> int:
     finally:
         shutil.rmtree(oocdir, ignore_errors=True)
 
-    print("phase 17: serving at full width: S1 against its plain version, "
+    phase_start("phase 17: serving at full width: S1 against its plain version, "
           "the serving contracts, the warm path, latency and HTTP workers")
     servedir = Path(__file__).resolve().parent / "build" / "chip_smoke_serve"
     shutil.rmtree(servedir, ignore_errors=True)
@@ -5969,7 +6263,7 @@ def main() -> int:
     finally:
         shutil.rmtree(servedir, ignore_errors=True)
 
-    print("phase 18: tuning and the lifecycle at full width: gmm tune, an "
+    phase_start("phase 18: tuning and the lifecycle at full width: gmm tune, an "
           "--autotune db fit and serve, the drift -> retrain -> canary -> "
           "promote -> watch arc and a rejected canary")
     tunedir = Path(__file__).resolve().parent / "build" / "chip_smoke_tune"
@@ -5980,7 +6274,7 @@ def main() -> int:
     finally:
         shutil.rmtree(tunedir, ignore_errors=True)
 
-    print("phase 19: multi-tenant fleet fits: K3's per-lane-events form, "
+    phase_start("phase 19: multi-tenant fleet fits: K3's per-lane-events form, "
           "'scan' against the solo fits, 'vmap', drop-one and resume, gmm "
           "fleet and a (2, 1) mesh")
     fleetdir = Path(__file__).resolve().parent / "build" / "chip_smoke_fleet"
@@ -6139,6 +6433,41 @@ def main() -> int:
         diag_ms=fa["diag"]["ms"], diag_plain_ms=fa["diag"]["plain_ms"],
         diag_bound_ms=fa["diag"]["bound_ms"],
         diag_k1_sum_ms=fa["diag"]["k1_sum_ms"]))
+    # The narrow route (K_pad 16, 32 or 64 at 'highest'): K1's launches
+    # counted from 0 around phase 19 (b)'s 'scan' fleet, K3's around phase
+    # 11's restart fit at K 16, the per-lane form's around phase 19 (c).
+    k1n = k1_narrow[NARROW_KS[0], False]
+    kernels.append(dict(
+        name="K1 fused_stats narrow (K <= 64)", route="cuda",
+        source=src + "fused_stats.cu", replaces=pallas + "94",
+        launches=fleet["b"]["launches"]["K1 narrow"],
+        bic_launches=estimator["bic"]["narrow_k1_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in k1_narrow.values()),
+        ms=k1n["ms"], plain_ms=k1n["plain_ms"], bound_ms=k1n["bound_ms"],
+        bound_by=k1n["bound_by"], fp32_bound_ms=k1n["fp32_bound_ms"],
+        library_ms=None, wide_ms=k1n["wide_ms"],
+        phase_shares=k1n.get("phase_shares"),
+        cases={f"{'diag' if dg else 'full'} K={k}": r
+               for (k, dg), r in k1_narrow.items()}))
+    k3n = k3_narrow[False]
+    kernels.append(dict(
+        name="K3 fused_stats_batched narrow (K <= 64)", route="cuda",
+        source=src + "fused_stats.cu", replaces=pallas + "475",
+        launches=estimator["restarts_k16"]["narrow_k3_launches"],
+        max_abs_err=max(r["max_abs_err"] for r in k3_narrow.values()),
+        ms=k3n["ms"], plain_ms=k3n["plain_ms"], bound_ms=k3n["bound_ms"],
+        bound_by=k3n["bound_by"], fp32_bound_ms=k3n["fp32_bound_ms"],
+        library_ms=None, wide_ms=k3n["wide_ms"], diag=k3_narrow[True]))
+    kernels.append(dict(
+        name="K3 fused_stats_fleet narrow (per-lane events, K <= 64)",
+        route="cuda", source=src + "fused_stats.cu", replaces=pallas + "475",
+        launches=fleet["c"]["launches"]["K3 fleet narrow"],
+        max_abs_err=max(fa["full"]["max_abs_err"], fa["diag"]["max_abs_err"]),
+        ms=fa["full"]["ms"], plain_ms=fa["full"]["plain_ms"],
+        bound_ms=fa["full"]["bound_ms"], bound_by=fa["full"]["bound_by"],
+        fp32_bound_ms=fa["full"]["fp32_bound_ms"], library_ms=None,
+        width_ms=fa["full"]["width_ms"],
+        diag_width_ms=fa["diag"]["width_ms"]))
     scan_rec = {k: v for k, v in fleet["b"].items() if k != "launches"}
     vmap_rec = {k: v for k, v in fleet["c"].items() if k != "launches"}
     kernels[0]["fleet"] = dict(scan=fleet["b"]["launches"]["K1"],

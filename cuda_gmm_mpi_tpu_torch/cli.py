@@ -261,7 +261,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run-scoped telemetry stream: the JAX CLI's "
                    "schema-versioned JSONL records (run_start, em_iter, "
                    "em_done, merge, health, recovery, run_summary, ...); "
-                   "`python -m cuda_gmm_mpi_tpu.cli report FILE` renders it")
+                   "`python -m cuda_gmm_mpi_tpu_torch.cli report FILE` "
+                   "renders it")
     t.add_argument("--metrics-port", type=int, default=None,
                    metavar="PORT",
                    help="live observability plane: serve Prometheus/"

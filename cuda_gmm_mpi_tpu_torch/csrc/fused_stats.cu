@@ -61,10 +61,11 @@
 //    cp.async, its feature stages are computed from the event tile (a
 //    shared table maps each feature column to its pair of event
 //    coordinates, so no integer division runs per feature) and staged
-//    through registers. Phase 3 splits the 128 x 128 tile over the 8 warps
-//    as 2 x 4 warp tiles of 64 x 32 outputs (4 x 4 m16n8 tiles, 64
-//    accumulators per thread) and reads its operands depth-major: w^T in
-//    place from the posteriors, the features from their stage. Every
+//    through registers; the tile's events arrive by 4-byte cp.async.
+//    Phase 3 splits the 128 x 128 tile over the 8 warps as 2 x 4 warp
+//    tiles of 64 x 32 outputs (4 x 4 m16n8 tiles, 64 accumulators per
+//    thread) and reads its operands depth-major: w^T in place from the
+//    posteriors, the features from their stage. Every
 //    posterior row and phase-3 stage row is padded to a stride of 8
 //    (mod 32) floats, so the 32 lanes of a fragment load (row lane/4 +
 //    0..7, depth lane%4) hit 32 distinct banks.
@@ -116,6 +117,60 @@
 // lane r is bit-identical to K1 on lane r's first n_r rows. With lane_n
 // null (every restart launch) the strides are 0 and nothing changes.
 //
+// The narrow route: K1, K3 and K3's per-lane form at PREC = HIGHEST with
+// K <= 64 (a fleet's tenants, a BIC search, a sweep's low Ks, small-K
+// restarts) run this kernel on a W-column tile, W = 16, 32 or 64, the
+// smallest >= K (K_pad = W, from K and the precision alone: `stats_tile` in
+// ops/kernels/fused_stats.py), where the 128-wide route computes 128
+// columns of which K are real:
+//  * The tile's weights are copied beside its events (4-byte cp.async)
+//    and phase 2 reads them from shared memory. The 128-wide route reads
+//    them from device memory: another bt floats of its shared memory
+//    would change which shapes its tile fits. The asynchronous loads
+//    (the events' on both routes) take 11-35 % off K1 at K = 16 to 64 on
+//    1M x 24 events, and 5 % (full) and 9 % (diag) off K1 at K = 100,
+//    against loads through registers (stats_ab.py; PERF.md section 6).
+//  * Phase 1 moves its thread layout from columns to rows (Fma1): 4 x 4
+//    outputs per thread at W = 16 (256-row passes over 8-deep stages) and
+//    32 (128-row passes), 8 x 4 at 64, so each float4 of rows and of
+//    columns still feeds 16-32 FMAs.
+//  * Phase 2 reads the event weights from shared memory; at W = 16 each
+//    warp takes two of its rows at once, one per half-warp, which halves
+//    its serial chain of shuffles: K1 at K = 16 takes 17 % (full) and 34 %
+//    (diag) less time than through the general loop with lanes 16-31 idle
+//    (stats_ab.py).
+//  * Phase 3 takes the shard kernel's layout: every warp holds all W rows
+//    (W / 16 m16 tiles), the 8 warps side by side across the 128-wide
+//    feature tile. Each feature of the tile is then one lane's B element,
+//    so the lane forms it from the event tile in its registers: no feature
+//    stage and no barrier in phase 3.
+//  * The partial buffer is [R, G, W, T+D+1], so each tile's
+//    read-modify-write and the reduction's reads shrink by 128 / W; the
+//    posteriors take bt x (W + 8) floats instead of bt x 136, the A_ext
+//    stages KC x W. The instances are compiled for W16_CTAS / W32_CTAS /
+//    W64_CTAS CTAs per SM, which their shared memory at D = 24 fits, so
+//    the (G, R) grid of K3 and its per-lane form fills the SMs; K1 alone
+//    keeps its G = 132 CTAs (the bits fix G).
+// What bounds it at W: operations, 2 N K (T+D) flops on the FMA units and
+// 3 x 2 N K (T+D+1) on the tensor cores, against ~4 N (D+2) bytes of
+// events (K the real clusters; 0.16 ms on the FMA units at N = 1M, K = 16,
+// D = 24). Why its outputs are the 128-wide route's bit for bit on the
+// same operands: it keeps K1's event tile (the tile at K_pad 128), grid,
+// tile walk, per-CTA partial slices and float64 index-order reduction, and
+// every per-element chain: phase 1's over the depth (a thread layout or a
+// stage depth changes which thread adds, not what or in which order; the
+// zero rows past the depth add exact zeros),
+// phase 3's over the events in KC stages of 8-deep 3xTF32 steps with each
+// partial added on the FMA units (an m16n8k8 output depends on its own row
+// and column only; each feature is the same product of two event
+// coordinates, formed in a register or in a stage), and phase 2's tree:
+// lane l holds columns l and l + 32, then warp_max / warp_sum (at W = 16
+// the half-warp's, whose bits are the same), and warp_ll adds each warp's
+// rows in order; the 128-wide route adds exact zeros for its other columns
+// (g = NEG_LARGE: exp(NEG_LARGE - m) = 0, and the max never moves). The one exception is an event for which every cluster of the
+// lane is inactive (m = NEG_LARGE): each route then divides by its own
+// K_pad (the plain version by K); an EM state always has a live cluster.
+//
 // K5 and K6, the cluster-sharded pair: they replace `_local_lse_kernel` and
 // `_stats_logz_kernel` (launched by `_local_lse_call` and `_stats_logz_call`)
 // of the same file. A rank of a (data, cluster) mesh holds K_s = K / C
@@ -159,6 +214,13 @@ constexpr int BPAD = 4;       // for bf16 fragment loads (pairs along the depth)
 constexpr int SROW = NT + PAD;    // row stride of a phase-3 stage
 constexpr int STAGE = KC * SROW;  // floats of one stage buffer
 constexpr float NEG_LARGE = -1e30f;
+// The narrow route (K1/K3 at 'highest', K <= 64): K_pad = W, the column
+// tile, 16, 32 or 64; and the CTAs per SM each W's instances are compiled
+// for (__launch_bounds__), which their shared memory at D = 24 fits.
+constexpr int W16_CTAS = 3, W32_CTAS = 2, W64_CTAS = 1;
+constexpr int stats_ctas(int w) {
+  return w == 16 ? W16_CTAS : w == 32 ? W32_CTAS : w == 64 ? W64_CTAS : 1;
+}
 
 enum { MODE_STATS = 0, MODE_LOCAL_LSE = 1, MODE_STATS_LOGZ = 2 };
 // matmul_precision: 'highest', 'high' (bf16_3x), 'default' (one bf16 pass).
@@ -192,8 +254,8 @@ __device__ unsigned long long phase_cycles[PHASES];
 
 // Operands of one launch. Pointers a mode does not use are null: K1/K3 have
 // no logz/m/s, K5 no wt/lanes/partial/ll_part, K1/K5/K6 no lanes. kp is a
-// multiple of 128 on K1's kernel and 64 on the shard kernel (K5/K6 with
-// k <= 64), whose bt is 128.
+// multiple of 128 on K1's kernel (16, 32 or 64 on its narrow route) and 64
+// on the shard kernel (K5/K6 with k <= 64), whose bt is 128.
 struct Params {
   const float* x;      // [n, d] events
   const float* wt;     // [n] event weights
@@ -258,6 +320,17 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// The same inside each half-warp (lanes 0-15 and 16-31).
+__device__ __forceinline__ float half_max(float v) {
+  for (int m = 8; m > 0; m >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
+  return v;
+}
+
+__device__ __forceinline__ float half_sum(float v) {
+  for (int m = 8; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
+  return v;
+}
+
 // v = big + small, both TF32 (round to nearest, ties away from zero).
 __device__ __forceinline__ void split_tf32(float v, uint32_t& big, uint32_t& small) {
   asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(big) : "f"(v));
@@ -282,6 +355,13 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool va
                "r"(valid ? 16 : 0));
 }
 
+// 4 bytes global -> shared, asynchronously; zero-filled where !valid.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -290,36 +370,63 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Rows (or columns) owned by a thread of phase 1's SIMT product inside a
-// macro tile: two groups of four, 64 apart, so the float4 shared-memory
-// reads of a warp never conflict.
-__device__ __forceinline__ int own(int t, int i) { return (i >> 2) * 64 + t * 4 + (i & 3); }
+// Rows (or columns) owned by thread t of a group of TN threads in phase 1's
+// SIMT product inside a macro tile: groups of four, 4 TN apart (64 in K1's
+// 16 x 16 layout), so the float4 shared-memory reads of a warp never
+// conflict.
+template <int TN = 16>
+__device__ __forceinline__ int own(int t, int i) {
+  return (i >> 2) * (TN * 4) + t * 4 + (i & 3);
+}
+
+// Phase 1's thread layout for an MR-row, W-column pass: TX x TY threads,
+// each with MR / TY rows (own<TY>) and NC columns (own<TX>), over stages
+// DEPTH deep. K1's 128-wide tile:
+// 16 x 16 threads of 8 x 8 (4 x 8 for 64-row passes), 16 deep. The narrow
+// route holds more rows and fewer columns, so each shared-memory read
+// still feeds several FMAs: 4 x 4 at W = 16 (256-row passes, 8-deep
+// stages, so that the feature stage keeps its size), 4 x 4 at 32 and 8 x 4
+// at 64 (128-row passes).
+template <int MR, int W>
+struct Fma1 {
+  static constexpr int OUT = MR * W / THREADS;  // outputs per thread
+  static constexpr int NC = W == NT ? 8 : 4;
+  static constexpr int TX = W / NC, TY = THREADS / TX;
+  static constexpr int DEPTH = MR > 128 ? KC / 2 : KC;
+  static_assert(TX * TY == THREADS && MR % (4 * TY) == 0 && DEPTH * MR <= STAGE,
+                "phase 1 layout");
+};
+
+// The rows of a narrow route's phase-1 pass at W (MR of its instances).
+constexpr int stats_rows(int w) { return w == 16 ? 256 : 128; }
 
 // Phase 1: acc[i][j] += a[i] * b[j] over one stage on the fp32 FMA units;
-// a from a [KC][MR] block (MR rows of the output), b from a [KC][16 NC]
+// a from a [KC][MR] block (MR rows of the output), b from a [KC][TX NC]
 // block: NC = 8 columns per thread in a 128-wide tile (K1's), 4 in the
-// 64-wide shard tile (columns tx*4 .. tx*4+3).
-template <int MR, int NC = 8>
-__device__ __forceinline__ void fma_stage(float (&acc)[MR / 16][NC],
+// 64-wide shard tile and on the narrow route (columns tx*4 .. tx*4+3);
+// TY threads share the rows (own<TY>).
+template <int MR, int NC = 8, int TY = 16, int DEPTH = KC>
+__device__ __forceinline__ void fma_stage(float (&acc)[MR / TY][NC],
                                           const float* a_blk, const float* b_blk,
                                           int tx, int ty) {
+  constexpr int TX = THREADS / TY;
 #pragma unroll
-  for (int r = 0; r < KC; ++r) {
-    float a[MR / 16], b[NC];
+  for (int r = 0; r < DEPTH; ++r) {
+    float a[MR / TY], b[NC];
     const float4* ar = reinterpret_cast<const float4*>(a_blk + r * MR);
-    const float4* br = reinterpret_cast<const float4*>(b_blk + r * (16 * NC));
+    const float4* br = reinterpret_cast<const float4*>(b_blk + r * (TX * NC));
 #pragma unroll
-    for (int h = 0; h < MR / 64; ++h) {
-      const float4 v = ar[h * 16 + ty];
+    for (int h = 0; h < MR / (4 * TY); ++h) {
+      const float4 v = ar[h * TY + ty];
       a[h * 4] = v.x; a[h * 4 + 1] = v.y; a[h * 4 + 2] = v.z; a[h * 4 + 3] = v.w;
     }
 #pragma unroll
     for (int h = 0; h < NC / 4; ++h) {
-      const float4 v = br[h * 16 + tx];
+      const float4 v = br[h * TX + tx];
       b[h * 4] = v.x; b[h * 4 + 1] = v.y; b[h * 4 + 2] = v.z; b[h * 4 + 3] = v.w;
     }
 #pragma unroll
-    for (int i = 0; i < MR / 16; ++i)
+    for (int i = 0; i < MR / TY; ++i)
 #pragma unroll
       for (int j = 0; j < NC; ++j) acc[i][j] += a[i] * b[j];
   }
@@ -327,9 +434,10 @@ __device__ __forceinline__ void fma_stage(float (&acc)[MR / 16][NC],
 
 // Phase 3: acc += A * B over one KC-deep stage on the tensor cores, in
 // three TF32 passes. Both operands are depth-major blocks: a_blk[depth *
-// a_stride + row] holds this warp's 64 output rows, b_blk[depth * b_stride
+// a_stride + row] holds this warp's 16 MI output rows (64 in K1's and the
+// shard kernel's; W on the narrow route), b_blk[depth * b_stride
 // + col] its 8 NJ output columns (32 in K1's 2 x 4 warp layout, 16 in the
-// shard kernel's 1 x 8). Lane (g = lane / 4, t = lane % 4) loads
+// shard kernel's and the narrow route's 1 x 8). Lane (g = lane / 4, t = lane % 4) loads
 // fragment elements (row g (+8), depth t (+4)) of A and (depth t (+4),
 // column g) of B: with strides of 8 (mod 32) floats the warp's 32 loads hit
 // 32 banks. The tensor cores truncate their fp32 sums (toward zero, after
@@ -337,23 +445,25 @@ __device__ __forceinline__ void fma_stage(float (&acc)[MR / 16][NC],
 // passes go into a partial that starts from zero, and the partials are
 // added to acc on the FMA units, rounding to nearest: the truncation then
 // never acts on the running sum.
-template <int NJ = 4>
-__device__ __forceinline__ void mma_stage(float (&acc)[4][NJ][4],
-                                          const float* a_blk, int a_stride,
-                                          const float* b_blk, int b_stride,
-                                          int lane) {
+//
+// mma_core takes B as b_at(depth, j) = B[depth][j * 8 + g], g = lane / 4:
+// mma_stage reads it from a shared-memory block, the narrow route's phase
+// 3 forms each feature where its fragment needs it.
+template <int NJ, int MI, class BAt>
+__device__ __forceinline__ void mma_core(float (&acc)[MI][NJ][4],
+                                         const float* a_blk, int a_stride,
+                                         BAt b_at, int lane) {
   const int g = lane >> 2, t = lane & 3;
   uint32_t b_big[2][NJ][2], b_small[2][NJ][2];
 #pragma unroll
   for (int k = 0; k < 2; ++k)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      const float* q = b_blk + (k * 8 + t) * b_stride + j * 8 + g;
-      split_tf32(q[0], b_big[k][j][0], b_small[k][j][0]);
-      split_tf32(q[4 * b_stride], b_big[k][j][1], b_small[k][j][1]);
+      split_tf32(b_at(k * 8 + t, j), b_big[k][j][0], b_small[k][j][0]);
+      split_tf32(b_at(k * 8 + t + 4, j), b_big[k][j][1], b_small[k][j][1]);
     }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < MI; ++i) {
     uint32_t a_big[2][4], a_small[2][4];
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
@@ -379,6 +489,16 @@ __device__ __forceinline__ void mma_stage(float (&acc)[4][NJ][4],
         for (int h = 0; h < 4; ++h) acc[i][j][h] += part[j][h];
     }
   }
+}
+
+template <int NJ = 4, int MI = 4>
+__device__ __forceinline__ void mma_stage(float (&acc)[MI][NJ][4],
+                                          const float* a_blk, int a_stride,
+                                          const float* b_blk, int b_stride,
+                                          int lane) {
+  const float* b = b_blk + (lane >> 2);
+  mma_core<NJ, MI>(acc, a_blk, a_stride,
+                   [=](int depth, int j) { return b[depth * b_stride + j * 8]; }, lane);
 }
 
 // (v0, v1) = big + small as packed bf16 pairs (round to nearest even;
@@ -482,10 +602,16 @@ __device__ __forceinline__ void put_nk(float (&acc)[4][NJ][4], float (&nk)[4][2]
       }
 }
 
-template <int MODE, bool DIAG, int MR, int PREC>
-__global__ void __launch_bounds__(THREADS, 1)
+// W is the column tile: NT (K_pad a multiple of 128, every mode and
+// precision) or the narrow route's 16, 32 or 64 (K_pad = W; MODE_STATS at
+// 'highest' only).
+template <int MODE, bool DIAG, int MR, int PREC, int W = NT>
+__global__ void __launch_bounds__(THREADS, stats_ctas(W))
 fused_stats_kernel(const Params p) {
-  const int d = p.d, kp = p.kp, bt = p.bt, xstride = p.xstride;
+  constexpr bool NARROW = W < NT;
+  static_assert(!NARROW || (MODE == MODE_STATS && PREC == P_HIGHEST),
+                "the narrow route is K1/K3 at 'highest'");
+  const int d = p.d, kp = NARROW ? W : p.kp, bt = p.bt, xstride = p.xstride;
   const int t = DIAG ? d : d * (d + 1) / 2;
   const int fd = t + d;                      // rows of A_ext
   const int fe = fd + 1;                     // columns of [x2 | x | 1]
@@ -493,6 +619,7 @@ fused_stats_kernel(const Params p) {
   constexpr bool BF = PREC != P_HIGHEST;     // bf16 passes on the tensor cores
   constexpr int RP = BF ? BPAD : PAD;        // fragment-row padding
   const int kps = kp + RP;                   // posterior row stride
+  constexpr int AST = NARROW ? KC * W : STAGE;  // floats of one A_ext stage
 
   // Restart lane: its parameters and its slices of the partial buffers.
   const int lane_r = blockIdx.y;
@@ -507,17 +634,22 @@ fused_stats_kernel(const Params p) {
   const float* __restrict__ a_ext = p.a_ext + (size_t)lane_r * fd * kp;
   const float* __restrict__ g = p.g + (size_t)lane_r * kp;
 
+  // The narrow route runs MR-row passes only: a smaller event tile takes
+  // one, its last rows padding.
+  const int brows = NARROW && bt < MR ? MR : bt;  // rows of ws and xs
   extern __shared__ float4 smem4[];
-  float* ws = reinterpret_cast<float*>(smem4);  // [bt][kps] logp, then w
-  float* as = ws + (size_t)bt * kps;            // [2][STAGE] A_ext stages [KC][AR]
-  float* fs = as + 2 * STAGE;                   // [2][STAGE] feature stages:
+  float* ws = reinterpret_cast<float*>(smem4);  // [brows][kps] logp, then w
+  float* as = ws + (size_t)brows * kps;         // [2][AST] A_ext stages [KC][AR]
+  float* fs = as + 2 * AST;                     // [2][STAGE] feature stages:
                                                 // [KC][FR] (phase 1), [KC][SR3] (3)
-  float* xs = fs + 2 * STAGE;                   // [bt][xstride], col d = 1
-  int* pairs = reinterpret_cast<int*>(xs + (size_t)bt * xstride);  // [fe_pad]
+  float* xs = fs + 2 * STAGE;                   // [brows][xstride], col d = 1
+  float* wts = xs + (size_t)brows * xstride;    // [bt] event weights (narrow)
+  int* pairs = reinterpret_cast<int*>(wts + (NARROW ? bt : 0));  // [fe_pad]
 
+  using L1 = Fma1<MR, W>;
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
-  const int tx = tid & 15, ty = tid >> 4;     // phase 1: 16 x 16 threads
+  const int tx = tid % L1::TX, ty = tid / L1::TX;  // phase 1: 16 x 16 threads (K1)
   const int wr = warp >> 2, wc = warp & 3;    // phase 3: this warp's tile
   const int lr = lane >> 2, lc = 2 * (lane & 3);  // its accumulators' row, column
   const int num_tiles = (n + bt - 1) / bt;
@@ -537,48 +669,57 @@ fused_stats_kernel(const Params p) {
     const int rows_r = (rows + MR - 1) / MR * MR;
 
     // Events of the tile, plus the constant-1 column; rows past n are 0.
-    for (int e = tid; e < rows_r * (d + 1); e += THREADS) {
-      const int r = e / (d + 1), c = e % (d + 1);
-      float v = 1.f;
-      if (c < d) v = r < rows ? x[(base + r) * d + c] : 0.f;
-      xs[r * xstride + c] = v;
+    // They arrive asynchronously, all in flight at once; the narrow route
+    // copies the weights too (its phase 2 reads them from shared memory).
+    for (int e = tid; e < rows_r * d; e += THREADS) {
+      const int r = e / d, c = e - r * d;
+      cp_async4(xs + r * xstride + c, x + (base + (r < rows ? r : 0)) * d + c, r < rows);
     }
+    if constexpr (NARROW)
+      for (int r = tid; r < rows; r += THREADS) cp_async4(wts + r, wt + base + r, true);
+    cp_async_commit();
+    for (int r = tid; r < rows_r; r += THREADS) xs[r * xstride + d] = 1.f;
+    cp_async_wait_all();
     __syncthreads();
     PHASE_CLOCK(0)
 
     // Phase 1: logp[r][k] = -0.5 * sum_c feat[r][c] * A_ext[c][k] + g[k].
     // HIGHEST: on the FMA units (8 x 8 outputs per thread, 4 x 8 for 64-row
-    // tiles). HIGH/DEFAULT: on the tensor cores in bf16 (phase 3's 2 x 4
-    // warp tiles of 64 x 32 outputs; 1 x 8 of 64 x 16 for 64-row tiles).
-    // The A_ext stage [KC][NT] arrives by 16-byte cp.async; the feature
-    // stage [KC][MR] is computed from the event tile, through registers.
-    constexpr int LA = KC * NT / 4 / THREADS, LF = KC * MR / THREADS;
-    constexpr int AR = BF ? NT + BPAD : NT;  // A_ext stage row stride
+    // tiles; the narrow route's layout is Fma1's). HIGH/DEFAULT: on the
+    // tensor cores in bf16 (phase 3's 2 x 4 warp tiles of 64 x 32 outputs;
+    // 1 x 8 of 64 x 16 for 64-row tiles). The A_ext stage [KC][W] arrives
+    // by 16-byte cp.async; the feature stage [KC][MR] is computed from the
+    // event tile, through registers.
+    constexpr int DP = L1::DEPTH;            // rows of an A_ext and a feature stage
+    constexpr int AQ = DP * W / 4;           // 16-byte copies of an A_ext stage
+    constexpr int LA = (AQ + THREADS - 1) / THREADS, LF = DP * MR / THREADS;
+    constexpr int AR = BF ? NT + BPAD : W;   // A_ext stage row stride
     constexpr int FR = BF ? MR + BPAD : MR;  // feature stage row stride
     constexpr int NJ1 = MR == 128 ? 4 : 2;   // bf16: m8 column tiles per warp
-    const int s1 = (fd + KC - 1) / KC;
+    const int s1 = (fd + DP - 1) / DP;
     for (int n0 = 0; n0 < rows_r; n0 += MR) {
       for (int k0 = 0; k0 < kp; k0 += NT) {
-        float acc[MR / 16][8] = {};       // FMA route
+        float acc[MR / L1::TY][L1::NC] = {};  // FMA route
         float acc1[4][NJ1][4] = {};       // tensor-core route
         float no_nk[4][2] = {};           // phase 1 has no Nk column
         float rf[LF];
-        // A_ext rows s*KC.. of columns k0.. into stage buf, 16 bytes per
+        // A_ext rows s*DP.. of columns k0.. into stage buf, 16 bytes per
         // copy; rows past fd are zero-filled.
         auto copy_a = [&](int s, int buf) {
 #pragma unroll
           for (int it = 0; it < LA; ++it) {
-            const int e = tid + it * THREADS, r = e / (NT / 4), q = e % (NT / 4);
-            const int c = s * KC + r;
-            cp_async16(as + buf * STAGE + r * AR + q * 4,
-                       a_ext + (size_t)(c < fd ? c : 0) * kp + k0 + q * 4, c < fd);
+            const int e = tid + it * THREADS, r = e / (W / 4), q = e % (W / 4);
+            const int c = s * DP + r;
+            if (AQ % THREADS == 0 || e < AQ)
+              cp_async16(as + buf * AST + r * AR + q * 4,
+                         a_ext + (size_t)(c < fd ? c : 0) * kp + k0 + q * 4, c < fd);
           }
           cp_async_commit();
         };
         auto load_f = [&](int s) {
 #pragma unroll
           for (int it = 0; it < LF; ++it) {
-            const int e = tid + it * THREADS, c = s * KC + e / MR;
+            const int e = tid + it * THREADS, c = s * DP + e / MR;
             rf[it] = c < fd ? feature(xs + (n0 + e % MR) * xstride, pairs[c]) : 0.f;
           }
         };
@@ -601,13 +742,13 @@ fused_stats_kernel(const Params p) {
             load_f(s + 1);
           }
           if constexpr (!BF)
-            fma_stage<MR>(acc, fs + buf * STAGE, as + buf * STAGE, tx, ty);
+            fma_stage<MR, L1::NC, L1::TY, DP>(acc, fs + buf * STAGE, as + buf * AST, tx, ty);
           else if constexpr (MR == 128)
             mma_stage_bf16<NJ1, PREC>(acc1, fs + buf * STAGE + wr * 64, FR,
-                                      as + buf * STAGE + wc * 32, AR, lane, false, no_nk);
+                                      as + buf * AST + wc * 32, AR, lane, false, no_nk);
           else
             mma_stage_bf16<NJ1, PREC>(acc1, fs + buf * STAGE, FR,
-                                      as + buf * STAGE + warp * 16, AR, lane, false, no_nk);
+                                      as + buf * AST + warp * 16, AR, lane, false, no_nk);
           if (s + 1 < s1) store_f(buf ^ 1);
           cp_async_wait_all();
           __syncthreads();
@@ -629,11 +770,11 @@ fused_stats_kernel(const Params p) {
               }
         } else {
 #pragma unroll
-          for (int i = 0; i < MR / 16; ++i)
+          for (int i = 0; i < MR / L1::TY; ++i)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
-              const int k = k0 + own(tx, j);
-              ws[(size_t)(n0 + own(ty, i)) * kps + k] = -0.5f * acc[i][j] + g[k];
+            for (int j = 0; j < L1::NC; ++j) {
+              const int k = k0 + own<L1::TX>(tx, j);
+              ws[(size_t)(n0 + own<L1::TY>(ty, i)) * kps + k] = -0.5f * acc[i][j] + g[k];
             }
         }
       }
@@ -645,6 +786,29 @@ fused_stats_kernel(const Params p) {
     // lane holds the same bits). K1/K3: log-sum-exp over all K, w = e/s *
     // wt in place. K5: this shard's max and shifted sum over its k real
     // columns, written out. K6: w = exp(logp - logZ) * wt in place.
+    // At W = 16 a warp takes two of its rows at once, r0 and r0 + 8, one
+    // per half-warp (lane l holds column l % 16): the warp's tree over 16
+    // columns first adds the idle half's exact zeros (its max: NEG_LARGE),
+    // so the half-warp's tree gives the same bits, and warp_ll still adds
+    // the warp's rows in order.
+    if constexpr (W == 16) {
+      const int half = lane >> 4, hl = lane & 15;
+      for (int r0 = warp; r0 < rows_r; r0 += 2 * (THREADS / 32)) {
+        const int r = r0 + 8 * half;
+        float* row = ws + (size_t)r * kps;
+        const float v = row[hl];
+        const float m = half_max(fmaxf(NEG_LARGE, v));
+        const float e = expf(v - m);
+        const float s = half_sum(0.f + e);
+        const float w_ev = (r < rows ? wts[r] : 0.f) * lane_w;
+        row[hl] = r < rows ? (e / s) * w_ev : 0.f;
+        const float ll = (m + logf(s)) * w_ev;
+        const float ll0 = __shfl_sync(0xffffffffu, ll, 0);
+        const float ll1 = __shfl_sync(0xffffffffu, ll, 16);
+        if (r0 < rows) warp_ll += (double)ll0;
+        if (r0 + 8 < rows) warp_ll += (double)ll1;
+      }
+    } else
     for (int r = warp; r < rows_r; r += THREADS / 32) {
       float* row = ws + (size_t)r * kps;
       if (r >= rows) {
@@ -675,7 +839,7 @@ fused_stats_kernel(const Params p) {
         float s = 0.f;
         for (int k = lane; k < kp; k += 32) s += expf(row[k] - m);
         s = warp_sum(s);
-        const float w_ev = wt[base + r] * lane_w;
+        const float w_ev = (NARROW ? wts[r] : wt[base + r]) * lane_w;
         for (int k = lane; k < kp; k += 32) row[k] = (expf(row[k] - m) / s) * w_ev;
         warp_ll += (double)((m + logf(s)) * w_ev);
       }
@@ -687,45 +851,64 @@ fused_stats_kernel(const Params p) {
     // Phase 3: out[k][c] += sum_r w[r][k] * feat[r][c], this CTA's slice.
     // A = w^T, read in place from the posteriors [B_t][kps] (depth =
     // event), B = the feature stage [KC][SR3] (column = feature); a warp
-    // owns 64 x 32 outputs. In bf16 the Nk column (fe - 1) is the fp32 sum
-    // of the w values, taken by the warps that hold it.
+    // owns 64 x 32 outputs (2 x 4 warps), on the narrow route W x 16 (1 x
+    // 8, the shard kernel's layout: MI3 m16 tiles of W rows). In bf16 the
+    // Nk column (fe - 1) is the fp32 sum of the w values, taken by the
+    // warps that hold it.
     constexpr int L3 = KC * NT / THREADS;
     constexpr int SR3 = BF ? NT + BPAD : SROW;
+    constexpr int MI3 = NARROW ? W / 16 : 4, NJ3 = NARROW ? 2 : 4;
+    const int row3 = NARROW ? 0 : wr * 64, col3 = NARROW ? warp * 16 : wc * 32;
     const int s3 = (rows + KC - 1) / KC;
     const int nk_c = fe - 1;
     for (int k0 = 0; k0 < kp; k0 += NT) {
       for (int c0 = 0; c0 < fe_pad; c0 += NT) {
-        float acc[4][4][4] = {};
+        float acc[MI3][NJ3][4] = {};
         float nk[4][2] = {};
         const bool nk_on = BF && c0 == nk_c / NT * NT && wc == nk_c % NT / 32;
-        float rf[L3];
-        auto load = [&](int s) {
-#pragma unroll
-          for (int it = 0; it < L3; ++it) {
-            const int e = tid + it * THREADS;
-            rf[it] = feature(xs + (s * KC + e / NT) * xstride, pairs[c0 + e % NT]);
+        if constexpr (NARROW) {
+          // Each feature of the tile is one lane's B element: the lane forms
+          // it from the event tile where its fragment needs it (no stage,
+          // no barrier).
+          const int pr0 = pairs[c0 + col3 + lr], pr1 = pairs[c0 + col3 + 8 + lr];
+          for (int s = 0; s < s3; ++s) {
+            const float* xrow = xs + (size_t)s * KC * xstride;
+            mma_core<NJ3, MI3>(acc, ws + (size_t)s * KC * kps, kps,
+                               [=](int depth, int j) {
+                                 return feature(xrow + depth * xstride, j ? pr1 : pr0);
+                               },
+                               lane);
           }
-        };
-        auto store = [&](int buf) {
+        } else {
+          float rf[L3];
+          auto load = [&](int s) {
 #pragma unroll
-          for (int it = 0; it < L3; ++it) {
-            const int e = tid + it * THREADS;
-            fs[buf * STAGE + (e / NT) * SR3 + e % NT] = rf[it];
-          }
-        };
-        load(0);
-        store(0);
-        __syncthreads();
-        for (int s = 0; s < s3; ++s) {
-          if (s + 1 < s3) load(s + 1);
-          if constexpr (BF)
-            mma_stage_bf16<4, PREC>(acc, ws + (size_t)s * KC * kps + k0 + wr * 64, kps,
-                                    fs + (s & 1) * STAGE + wc * 32, SR3, lane, nk_on, nk);
-          else
-            mma_stage(acc, ws + (size_t)s * KC * kps + k0 + wr * 64, kps,
-                      fs + (s & 1) * STAGE + wc * 32, SROW, lane);
-          if (s + 1 < s3) store((s + 1) & 1);
+            for (int it = 0; it < L3; ++it) {
+              const int e = tid + it * THREADS;
+              rf[it] = feature(xs + (s * KC + e / NT) * xstride, pairs[c0 + e % NT]);
+            }
+          };
+          auto store = [&](int buf) {
+#pragma unroll
+            for (int it = 0; it < L3; ++it) {
+              const int e = tid + it * THREADS;
+              fs[buf * STAGE + (e / NT) * SR3 + e % NT] = rf[it];
+            }
+          };
+          load(0);
+          store(0);
           __syncthreads();
+          for (int s = 0; s < s3; ++s) {
+            if (s + 1 < s3) load(s + 1);
+            if constexpr (BF)
+              mma_stage_bf16<4, PREC>(acc, ws + (size_t)s * KC * kps + k0 + wr * 64, kps,
+                                      fs + (s & 1) * STAGE + wc * 32, SR3, lane, nk_on, nk);
+            else
+              mma_stage<NJ3, MI3>(acc, ws + (size_t)s * KC * kps + k0 + row3, kps,
+                                  fs + (s & 1) * STAGE + col3, SROW, lane);
+            if (s + 1 < s3) store((s + 1) & 1);
+            __syncthreads();
+          }
         }
         if constexpr (BF)
           if (nk_on) put_nk(acc, nk, nk_c % 32 / 8, nk_c % 8, lane);
@@ -735,24 +918,24 @@ fused_stats_kernel(const Params p) {
         // before any is written, so the loads overlap.
         if (!first) {
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+          for (int i = 0; i < MI3; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j)
+            for (int j = 0; j < NJ3; ++j)
 #pragma unroll
               for (int h = 0; h < 4; ++h) {
-                const int k = k0 + wr * 64 + i * 16 + lr + (h >> 1) * 8;
-                const int c = c0 + wc * 32 + j * 8 + lc + (h & 1);
+                const int k = k0 + row3 + i * 16 + lr + (h >> 1) * 8;
+                const int c = c0 + col3 + j * 8 + lc + (h & 1);
                 if (c < fe) acc[i][j][h] += my_partial[(size_t)k * fe + c];
               }
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < MI3; ++i)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
+          for (int j = 0; j < NJ3; ++j)
 #pragma unroll
             for (int h = 0; h < 4; ++h) {
-              const int k = k0 + wr * 64 + i * 16 + lr + (h >> 1) * 8;
-              const int c = c0 + wc * 32 + j * 8 + lc + (h & 1);
+              const int k = k0 + row3 + i * 16 + lr + (h >> 1) * 8;
+              const int c = c0 + col3 + j * 8 + lc + (h & 1);
               if (c < fe) my_partial[(size_t)k * fe + c] = acc[i][j][h];
             }
         PHASE_CLOCK(4)
@@ -847,16 +1030,6 @@ constexpr int NS = 64;            // shard tile width: K_pad of a shard of <= 64
 constexpr int SR = 128;           // events per tile (B_t)
 constexpr int KPS = NS + PAD;     // posterior row stride: 72 = 8 (mod 32)
 constexpr int K5_CTAS = 3, K6_CTAS = 2;
-
-__device__ __forceinline__ float half_max(float v) {
-  for (int m = 8; m > 0; m >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, m));
-  return v;
-}
-
-__device__ __forceinline__ float half_sum(float v) {
-  for (int m = 8; m > 0; m >>= 1) v += __shfl_xor_sync(0xffffffffu, v, m);
-  return v;
-}
 
 template <int MODE, bool DIAG>
 __global__ void __launch_bounds__(THREADS, MODE == MODE_LOCAL_LSE ? K5_CTAS : K6_CTAS)
@@ -1082,12 +1255,21 @@ shard_kernel(const Params p) {
   }
 }
 
-template <int MODE, bool DIAG, int MR, int PREC>
-cudaError_t launch(const Params& p, int grid, int r, size_t smem, cudaStream_t s) {
-  auto kern = fused_stats_kernel<MODE, DIAG, MR, PREC>;
+// Launches fused_stats_kernel, or (ctas != null) only reports how many of
+// its CTAs fit on one SM from its registers and shared memory. The narrow
+// route asks for the largest shared-memory carveout, so that its CTAs per
+// SM fit.
+template <int MODE, bool DIAG, int MR, int PREC, int W = NT>
+cudaError_t launch(const Params& p, int grid, int r, size_t smem, cudaStream_t s,
+                   int* ctas = nullptr) {
+  auto kern = fused_stats_kernel<MODE, DIAG, MR, PREC, W>;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && W < NT)
+    err = cudaFuncSetAttribute(kern, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
+  if (ctas) return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, kern, THREADS, smem);
   kern<<<dim3(grid, r), THREADS, smem, s>>>(p);
   return cudaGetLastError();
 }
@@ -1100,6 +1282,40 @@ cudaError_t launch_mode(const Params& p, int diag, int grid, int r, size_t smem,
                 : launch<MODE, false, 128, PREC>(p, grid, r, smem, s);
   return diag ? launch<MODE, true, 64, PREC>(p, grid, r, smem, s)
               : launch<MODE, false, 64, PREC>(p, grid, r, smem, s);
+}
+
+// K1/K3 on the narrow route, at K_pad = W, on stats_rows(W)-row passes for
+// every bt.
+template <int W>
+cudaError_t launch_narrow(const Params& p, int diag, int grid, int r, size_t smem,
+                          cudaStream_t s, int* ctas) {
+  constexpr int MR = stats_rows(W);
+  return diag ? launch<MODE_STATS, true, MR, P_HIGHEST, W>(p, grid, r, smem, s, ctas)
+              : launch<MODE_STATS, false, MR, P_HIGHEST, W>(p, grid, r, smem, s, ctas);
+}
+
+cudaError_t launch_width(const Params& p, int diag, int grid, int r, size_t smem,
+                         cudaStream_t s, int* ctas = nullptr) {
+  return p.kp == 16   ? launch_narrow<16>(p, diag, grid, r, smem, s, ctas)
+         : p.kp == 32 ? launch_narrow<32>(p, diag, grid, r, smem, s, ctas)
+                      : launch_narrow<64>(p, diag, grid, r, smem, s, ctas);
+}
+
+// Whether kp selects the narrow route: 16, 32 or 64.
+bool narrow_kp(int kp) { return kp == 16 || kp == 32 || kp == 64; }
+
+// Dynamic shared memory of K1's kernel: the [bt][kp + PAD] posteriors, two
+// A_ext stages ([KC][kp] on the narrow route), two feature stages, the
+// event tile (on the narrow route with its [bt] weights, and at least a
+// phase-1 pass of rows in both) and the pair table.
+size_t stats_smem(int kp, int bt, int d, int diag) {
+  const int t = diag ? d : d * (d + 1) / 2;
+  const int fe_pad = (t + d + 1 + NT - 1) / NT * NT;
+  const bool narrow = narrow_kp(kp);
+  const size_t ast = narrow ? (size_t)KC * kp : STAGE;
+  const size_t rows = narrow && bt < stats_rows(kp) ? stats_rows(kp) : bt;
+  return (rows * (kp + PAD) + 2 * ast + 2 * STAGE + rows * ((d + 1) | 1) +
+          (narrow ? bt : 0)) * sizeof(float) + fe_pad * sizeof(int);
 }
 
 // The reduction of the r lanes' per-CTA partials into ll/nk/m1/m2.
@@ -1126,19 +1342,19 @@ cudaError_t launch_prec(const Params& p, int diag, int grid, int r, size_t smem,
                              : launch_mode<MODE>(p, diag, grid, r, smem, s);
 }
 
+// kp a multiple of NT runs the 128-wide tiles (every mode and precision);
+// kp = 16, 32 or 64 the narrow route (MODE_STATS at 'highest' only).
 int run(int mode, Params p, float* ll, float* nk, float* m1, float* m2,
         int diag, int grid, int r, cudaStream_t s, int prec = P_HIGHEST) {
-  if (prec < P_HIGHEST || prec > P_DEFAULT || p.kp % NT != 0)
+  const bool narrow = narrow_kp(p.kp);
+  if (prec < P_HIGHEST || prec > P_DEFAULT ||
+      (narrow ? mode != MODE_STATS || prec != P_HIGHEST || p.k > p.kp : p.kp % NT != 0))
     return (int)cudaErrorInvalidValue;
-  const int d = p.d;
-  p.xstride = (d + 1) | 1;  // odd row stride: no bank conflicts
-  const int t = diag ? d : d * (d + 1) / 2;
-  const int fe_pad = (t + d + 1 + NT - 1) / NT * NT;
-  const size_t smem =
-      ((size_t)p.bt * (p.kp + PAD) + 4 * STAGE + (size_t)p.bt * p.xstride) * sizeof(float) +
-      fe_pad * sizeof(int);
+  p.xstride = (p.d + 1) | 1;  // odd row stride: no bank conflicts
+  const size_t smem = stats_smem(p.kp, p.bt, p.d, diag);
   cudaError_t err =
-      mode == MODE_LOCAL_LSE    ? launch_prec<MODE_LOCAL_LSE>(p, diag, grid, r, smem, s, prec)
+      narrow                    ? launch_width(p, diag, grid, r, smem, s)
+      : mode == MODE_LOCAL_LSE  ? launch_prec<MODE_LOCAL_LSE>(p, diag, grid, r, smem, s, prec)
       : mode == MODE_STATS_LOGZ ? launch_prec<MODE_STATS_LOGZ>(p, diag, grid, r, smem, s, prec)
                                 : launch_prec<MODE_STATS>(p, diag, grid, r, smem, s, prec);
   if (err != cudaSuccess || mode == MODE_LOCAL_LSE) return (int)err;
@@ -1217,8 +1433,9 @@ Params params(const float* x, const float* wt, const float* lanes,
 // Shapes: x [n, d], wt [n], a_ext [t+d, kp] (t = D(D+1)/2, or d in diag
 // mode), g [kp], partial [grid, kp, t+d+1], ll_part [grid] (float64),
 // ll [1], nk [k], m1 [k, d], m2 [k, f] with f = diag ? d : d*d. kp is a
-// multiple of 128; bt a multiple of 128, or 64 (then the 64-row tiles are
-// used). prec: 0 'highest', 1 'high', 2 'default'.
+// multiple of 128, or at prec 0 16, 32 or 64 (the narrow route, k <= kp);
+// bt a multiple of 128, or 64 (then the 64-row tiles are used). prec: 0
+// 'highest', 1 'high', 2 'default'.
 extern "C" int gmm_fused_stats(const float* x, const float* wt, const float* a_ext,
                                const float* g, float* partial, double* ll_part,
                                float* ll, float* nk, float* m1, float* m2, int n,
@@ -1234,8 +1451,8 @@ extern "C" int gmm_fused_stats(const float* x, const float* wt, const float* a_e
 // K1's shapes with a leading restart axis r on every per-lane array:
 // lanes [r] (0 = frozen lane), a_ext [r, t+d, kp], g [r, kp],
 // partial [r, grid, kp, t+d+1], ll_part [r, grid], ll [r], nk [r, k],
-// m1 [r, k, d], m2 [r, k, f]. x and wt are shared by every lane; prec as
-// for K1.
+// m1 [r, k, d], m2 [r, k, f]. x and wt are shared by every lane; kp and
+// prec as for K1.
 extern "C" int gmm_fused_stats_batched(const float* x, const float* wt,
                                        const float* lanes, const float* a_ext,
                                        const float* g, float* partial,
@@ -1255,7 +1472,8 @@ extern "C" int gmm_fused_stats_batched(const float* x, const float* wt,
 // which its first lane_n[r] rows (int32 [r], on the device, 1 <= n_r <=
 // n_pad) are real. grid must be at least every lane's grid min(ceil(n_r /
 // bt), grid_cap); partial [r, grid, kp, t+d+1], ll_part [r, grid]. grid_cap
-// is K1's grid bound (132), so lane r reduces exactly as K1 on its n_r rows.
+// is K1's grid bound (132), so lane r reduces exactly as K1 on its n_r rows;
+// kp and prec as for K1.
 extern "C" int gmm_fused_stats_fleet(const float* x, const float* wt,
                                      const int* lane_n, const float* lanes,
                                      const float* a_ext, const float* g,
@@ -1325,4 +1543,15 @@ extern "C" int gmm_shard_occupancy(int mode, int d, int diag, int* ctas) {
   return (int)(mode == MODE_LOCAL_LSE
                    ? launch_shard_mode<MODE_LOCAL_LSE>(p, diag, 0, smem, nullptr, ctas)
                    : launch_shard_mode<MODE_STATS_LOGZ>(p, diag, 0, smem, nullptr, ctas));
+}
+
+// How many CTAs of K1's kernel on the narrow route (kp = 16, 32 or 64, at
+// 'highest') fit on one SM at dimension d and event tile bt, from its
+// registers and shared memory (the card's own occupancy calculator), into
+// *ctas; returns the CUDA error.
+extern "C" int gmm_stats_occupancy(int kp, int d, int diag, int bt, int* ctas) {
+  if (!narrow_kp(kp) || bt % 64 != 0) return (int)cudaErrorInvalidValue;
+  const Params p = params(nullptr, nullptr, nullptr, nullptr, nullptr, nullptr,
+                          nullptr, nullptr, nullptr, nullptr, 0, d, 0, kp, bt);
+  return (int)launch_width(p, diag, 0, 1, stats_smem(kp, bt, d, diag), nullptr, ctas);
 }

@@ -233,7 +233,8 @@ def _launch_counters():
 
     return (fs.fused_stats, fs.mstep, fs.fused_stats_batched,
             fs.mstep_batched, fs.local_lse, fs.stats_logz, s1.score,
-            s1.centered_form)
+            s1.centered_form, fs.fused_stats_narrow,
+            fs.fused_stats_batched_narrow)
 
 
 def add_launches(delta: tuple) -> None:

@@ -99,12 +99,13 @@ def restart_batch_auto_cap(config, n_events: int, n_dims: int,
     per_restart = itemsize * (B * (K + D * D + D) * 3 + K * D * D * 4)
     cap = max(1, int(budget // max(per_restart, 1)))
     if resolve_estep_backend(config)[0] == "cuda":
-        from ..ops.kernels.fused_stats import K1_GRID, TILE
+        from ..ops.kernels.fused_stats import K1_GRID, stats_tile
 
         diag = config.diag_only
         F = D if diag else D * D
         T = D if diag else D * (D + 1) // 2
-        k_pad = -(-K // TILE) * TILE
+        k_pad = stats_tile(K, D, diag, config.matmul_precision,
+                           config.pallas_block_b).k_pad
         partial = 4 * K1_GRID * k_pad * (T + D + 1) + 8 * K1_GRID
         stats = itemsize * K * (F + D + 1)
         state = itemsize * K * (2 * D * D + D + 4) + K

@@ -39,7 +39,8 @@ SIGNATURES = {
                        ("gmm_local_lse", [_P] * 5 + [_I] * 8 + [_P]),
                        ("gmm_stats_logz", [_P] * 11 + [_I] * 8 + [_P]),
                        ("gmm_shard_occupancy", [_I] * 3 + [_P]),
-                       ("gmm_fused_stats_fleet", [_P] * 12 + [_I] * 10 + [_P])],
+                       ("gmm_fused_stats_fleet", [_P] * 12 + [_I] * 10 + [_P]),
+                       ("gmm_stats_occupancy", [_I] * 4 + [_P])],
     "mstep.cu": [("gmm_mstep", [_P] * 12 + [_I] * 4 + [_P])],
     "score.cu": [("gmm_score", [_P] * 6 + [_I] * 14 + [_P])],
 }

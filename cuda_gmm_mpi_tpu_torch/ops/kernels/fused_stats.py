@@ -3,9 +3,12 @@ PyTorch versions.
 
 K1 (``fused_stats``, csrc/fused_stats.cu) replaces the TPU kernel
 ``_fused_stats_kernel``: one pass over the events producing loglik, Nk, M1
-and M2. K2 (``mstep``, csrc/mstep.cu) replaces ``_mstep_kernel`` and the
-Cholesky constants after it: the whole M-step, Nk/M1/M2 -> N, means, R,
-Rinv, constant and pi, in one launch. K3 (``fused_stats_batched``) and
+and M2. At 'highest' with K <= 64, K1, K3 and K3's per-lane-events form run
+its narrow route, a 16-, 32- or 64-column tile (``stats_tile``), whose
+outputs are the 128-wide route's bit for bit. K2 (``mstep``,
+csrc/mstep.cu) replaces ``_mstep_kernel`` and the Cholesky constants after
+it: the whole M-step, Nk/M1/M2 -> N, means, R, Rinv, constant and pi, in
+one launch. K3 (``fused_stats_batched``) and
 K4 (``mstep_batched``) replace ``_fused_stats_batched_kernel`` and
 ``_mstep_batched_kernel``: the same two functions for R restarts at once,
 with a leading restart axis on every per-restart operand. K3 shares K1's
@@ -42,7 +45,10 @@ on a plain integer attribute (``fused_stats.launches``, ``mstep.launches``,
 ``fused_stats_batched.launches``, ``mstep_batched.launches``,
 ``local_lse.launches``, ``stats_logz.launches``, and
 ``fused_stats_fleet.launches`` for K3's per-lane-events form) so a run can
-show that it went through the kernels; K5 and K6 also count per precision
+show that it went through the kernels; the narrow route's launches of K1,
+K3 and the per-lane form are also counted on ``fused_stats_narrow``,
+``fused_stats_batched_narrow`` and ``fused_stats_fleet_narrow``
+(``counts.LaunchCount``); K5 and K6 also count per precision
 (``local_lse.precision_launches``, ``stats_logz.precision_launches``,
 ``collections.Counter`` keyed by the precision's name).
 
@@ -67,7 +73,7 @@ from ...state import lane
 from ..constants import constants
 from ..estep import expand_features, kdot
 from ..mstep import SuffStats
-from .counts import note_launch
+from .counts import LaunchCount, note_launch
 
 NEG_LARGE = -1e30  # stand-in for -inf: exp() underflows to 0, avoids inf-inf
 
@@ -80,6 +86,14 @@ K1_GRID = 132
 K1_SMEM_BYTES = 232448
 K1_POSTERIOR_BYTES = 131072
 TILE = 128  # K1's macro-tile width: K is padded to a multiple of it
+# K1/K3 at 'highest' with K <= 64: K_pad is the smallest of these widths
+# >= K (the narrow route), and the CTAs per SM its instances are compiled
+# for (W16_CTAS, W32_CTAS, W64_CTAS in fused_stats.cu).
+STATS_WIDTHS = (16, 32, 64)
+STATS_CTAS = {16: 3, 32: 2, 64: 1}
+# Rows of its phase-1 passes (``stats_rows`` in fused_stats.cu): a smaller
+# event tile still takes one whole pass of rows in shared memory.
+STATS_ROWS = {16: 256, 32: 128, 64: 128}
 # K1 pads the posterior rows and its stage buffers' rows by 8 floats, so
 # that phase 3's tensor-core fragment loads are free of bank conflicts.
 ROW_PAD = 8
@@ -190,9 +204,17 @@ def _fe_pad(d: int, diag: bool) -> int:
 
 
 def _k1_smem(bt: int, k_pad: int, d: int, diag: bool) -> int:
-    """Dynamic shared memory of K1's kernel (``run`` in fused_stats.cu)."""
-    return 4 * (bt * (k_pad + ROW_PAD) + 4 * STAGE_DEPTH * (TILE + ROW_PAD)
-                + bt * ((d + 1) | 1) + _fe_pad(d, diag))
+    """Dynamic shared memory of K1's kernel (``stats_smem`` in
+    fused_stats.cu): the posteriors, two A_ext stages (STAGE_DEPTH x K_pad
+    on the narrow route), two feature stages, the event tile (on the narrow
+    route with its weights, and at least a phase-1 pass of rows in both)
+    and the pair table."""
+    narrow = k_pad < TILE
+    a_stage = k_pad if narrow else TILE + ROW_PAD
+    rows = max(bt, STATS_ROWS[k_pad]) if narrow else bt
+    return 4 * (rows * (k_pad + ROW_PAD) + 2 * STAGE_DEPTH * a_stage
+                + 2 * STAGE_DEPTH * (TILE + ROW_PAD) + rows * ((d + 1) | 1)
+                + (bt if narrow else 0) + _fe_pad(d, diag))
 
 
 def k1_tile(k_pad: int, d: int, block_b: int, diag: bool) -> int:
@@ -208,10 +230,11 @@ def k1_tile(k_pad: int, d: int, block_b: int, diag: bool) -> int:
     return bt
 
 
-class ShardTile(NamedTuple):
-    """How K5 or K6 runs one cluster shard: its K_pad columns, events per
-    tile, persistent grid (its most CTAs; fewer when N has fewer tiles),
-    CTAs per SM and dynamic shared memory per CTA in bytes."""
+class KernelTile(NamedTuple):
+    """How a statistics kernel runs (K1, K3 and its per-lane form; K5 or
+    K6 on one cluster shard): its K_pad columns, events per tile,
+    persistent grid (its most CTAs; fewer when N has fewer tiles), CTAs per
+    SM and dynamic shared memory per CTA in bytes."""
     k_pad: int
     bt: int
     grid: int
@@ -219,13 +242,34 @@ class ShardTile(NamedTuple):
     smem: int
 
 
-def wide_shard_tile(k: int, d: int, diag: bool, block_b: int = 512
-                    ) -> ShardTile:
-    """K5/K6 on K1's kernel: K padded to a multiple of TILE, K1's tile and
-    grid, one CTA per SM (the route of a shard wider than SHARD_TILE)."""
+def wide_tile(k: int, d: int, diag: bool, block_b: int = 512) -> KernelTile:
+    """K1's kernel at K padded to a multiple of TILE: K1's tile and grid,
+    one CTA per SM (K1/K3 off the narrow route; K5/K6 on a shard wider than
+    SHARD_TILE or at 'high'/'default')."""
     k_pad = -(-k // TILE) * TILE
     bt = k1_tile(k_pad, d, block_b, diag)
-    return ShardTile(k_pad, bt, K1_GRID, 1, _k1_smem(bt, k_pad, d, diag))
+    return KernelTile(k_pad, bt, K1_GRID, 1, _k1_smem(bt, k_pad, d, diag))
+
+
+def stats_tile(k: int, d: int, diag: bool, precision: str = "highest",
+               block_b: int = 512) -> KernelTile:
+    """The tile of K1, K3 and K3's per-lane form at ``k`` clusters. At
+    'highest' with k <= 64, the narrow route: K_pad the smallest of
+    STATS_WIDTHS >= k, and K1's event tile and grid at K_pad = TILE (so
+    the outputs are that route's bit for bit), STATS_CTAS CTAs per SM where
+    their shared memory fits (fewer where it does not). Else, and where
+    not even one CTA fits (a pass of STATS_ROWS rows over a smaller event
+    tile at a large D), :func:`wide_tile`. From the shapes and the
+    precision alone."""
+    if k > STATS_WIDTHS[-1] or precision != "highest":
+        return wide_tile(k, d, diag, block_b)
+    k_pad = next(w for w in STATS_WIDTHS if w >= k)
+    bt = k1_tile(TILE, d, block_b, diag)
+    smem = _k1_smem(bt, k_pad, d, diag)
+    if smem > K1_SMEM_BYTES:
+        return wide_tile(k, d, diag, block_b)
+    ctas = min(STATS_CTAS[k_pad], SM_SMEM_BYTES // (smem + CTA_RESERVED_SMEM))
+    return KernelTile(k_pad, bt, K1_GRID, ctas, smem)
 
 
 def on_shard_kernel(k: int, precision: str) -> bool:
@@ -235,16 +279,16 @@ def on_shard_kernel(k: int, precision: str) -> bool:
 
 
 def shard_tile(k: int, d: int, diag: bool, *, stats: bool,
-               block_b: int = 512, precision: str = "highest") -> ShardTile:
+               block_b: int = 512, precision: str = "highest") -> KernelTile:
     """The tile of K5 (``stats=False``) or K6 (``stats=True``) on a shard of
     ``k`` clusters at ``precision``. On the shard kernel
     (:func:`on_shard_kernel`): K_pad = 64, SHARD_ROWS-event tiles and
     SHARD_CTAS CTAs per SM where their shared memory fits (fewer where it
     does not; ValueError where not even one does). Else
-    :func:`wide_shard_tile`. Depends on the shapes and the precision alone,
+    :func:`wide_tile`. Depends on the shapes and the precision alone,
     so the grid and every bit of the result do too."""
     if not on_shard_kernel(k, precision):
-        return wide_shard_tile(k, d, diag, block_b)
+        return wide_tile(k, d, diag, block_b)
     smem = 4 * ((SHARD_ROWS * (SHARD_TILE + ROW_PAD) if stats else 0)
                 + 2 * STAGE_DEPTH * SHARD_TILE
                 + 2 * STAGE_DEPTH * (TILE + ROW_PAD)
@@ -254,7 +298,7 @@ def shard_tile(k: int, d: int, diag: bool, *, stats: bool,
     if d > 255 or smem > K1_SMEM_BYTES or ctas < 1:
         raise ValueError(f"{'K6' if stats else 'K5'} does not fit D={d} "
                          f"({smem} bytes of shared memory)")
-    return ShardTile(SHARD_TILE, SHARD_ROWS, K1_GRID * ctas, ctas, smem)
+    return KernelTile(SHARD_TILE, SHARD_ROWS, K1_GRID * ctas, ctas, smem)
 
 
 @functools.lru_cache(maxsize=None)
@@ -278,9 +322,9 @@ def _packed_a(A: torch.Tensor, d: int) -> torch.Tensor:
 def _ext_operands(A, h, g, d: int, diag: bool, width: int = TILE):
     """The kernels' parameter operands, per lane of any leading axes:
     A_ext = [A (packed); -2h] [..., T+D, K_pad] and g [..., K_pad], K
-    padded to a multiple of ``width`` (K1's TILE, or a shard's SHARD_TILE)
-    with columns whose A_ext is 0 and g NEG_LARGE (inert, exactly like an
-    inactive cluster)."""
+    padded to a multiple of ``width`` (a tile's K_pad: TILE, a narrow W, or
+    a shard's SHARD_TILE) with columns whose A_ext is 0 and g NEG_LARGE
+    (inert, exactly like an inactive cluster)."""
     lead, k = A.shape[:-2], A.shape[-1]
     k_pad = -(-k // width) * width
     a_sym = A if diag else _packed_a(A, d)
@@ -304,33 +348,54 @@ def fused_stats(x, wt, A, h, g, *, diag: bool, block_b: int = 512,
                                  precision=precision)
     _check_cuda(x, wt, A, h, g)
     _check_k1_shapes("K1", x, wt, A, h, g, diag)
-    n, d = x.shape
-    f, k = A.shape
+    d, k = x.shape[1], A.shape[1]
+    tile = stats_tile(k, d, diag, precision, block_b)
+    a_ext, g_pad, _ = _ext_operands(A, h, g, d, diag, tile.k_pad)
+    out = _launch_k1(x, wt, a_ext, g_pad, k, diag, tile, precision)
+    note_launch(fused_stats)
+    if tile.k_pad < TILE:
+        note_launch(fused_stats_narrow)
+    return out
+
+
+def _stats_buffers(lead: tuple, grid: int, k: int, d: int, k_pad: int,
+                   t: int, diag: bool, dev):
+    """The per-CTA partials [*lead, grid, K_pad, T+D+1] and loglik parts
+    [*lead, grid] (float64), and the outputs ll [*lead, 1, 1], nk
+    [*lead, 1, K], m1 [*lead, K, D], m2 [*lead, K, F] of K1's kernel."""
+    new = functools.partial(torch.empty, dtype=torch.float32, device=dev)
+    f = d if diag else d * d
+    return (new(lead + (grid, k_pad, t + d + 1)),
+            torch.empty(lead + (grid,), dtype=torch.float64, device=dev),
+            new(lead + (1, 1)), new(lead + (1, k)), new(lead + (k, d)),
+            new(lead + (k, f)))
+
+
+def _launch_k1(x, wt, a_ext, g_pad, k: int, diag: bool, tile: KernelTile,
+               precision: str):
+    """K1's kernel on operands padded to ``tile.k_pad`` (the wrapper's
+    tile, or, to compare routes, another K_pad's); counts no launch."""
     from ._build import library
 
-    a_ext, g_pad, t = _ext_operands(A, h, g, d, diag)
-    k_pad = g_pad.shape[-1]
-    bt = k1_tile(k_pad, d, block_b, diag)
-    grid = min(-(-n // bt), K1_GRID)
-    partial = torch.empty((grid, k_pad, t + d + 1), dtype=torch.float32,
-                          device=x.device)
-    ll_part = torch.empty(grid, dtype=torch.float64, device=x.device)
-    ll = torch.empty((1, 1), dtype=torch.float32, device=x.device)
-    nk = torch.empty((1, k), dtype=torch.float32, device=x.device)
-    m1 = torch.empty((k, d), dtype=torch.float32, device=x.device)
-    m2 = torch.empty((k, f), dtype=torch.float32, device=x.device)
-    fn = library("fused_stats.cu").gmm_fused_stats
-    err = fn(x.data_ptr(), wt.data_ptr(), a_ext.data_ptr(), g_pad.data_ptr(),
-             partial.data_ptr(), ll_part.data_ptr(), ll.data_ptr(),
-             nk.data_ptr(), m1.data_ptr(), m2.data_ptr(), n, d, k, k_pad,
-             int(diag), bt, grid, PRECISIONS[precision],
-             torch.cuda.current_stream(x.device).cuda_stream)
+    n, d = x.shape
+    grid = min(-(-n // tile.bt), tile.grid)
+    bufs = _stats_buffers((), grid, k, d, tile.k_pad, a_ext.shape[-2] - d,
+                          diag, x.device)
+    err = library("fused_stats.cu").gmm_fused_stats(
+        x.data_ptr(), wt.data_ptr(), a_ext.data_ptr(), g_pad.data_ptr(),
+        *(b.data_ptr() for b in bufs), n, d, k, tile.k_pad, int(diag),
+        tile.bt, grid, PRECISIONS[precision],
+        torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "K1 (fused_stats)")
-    note_launch(fused_stats)
-    return ll, nk, m1, m2
+    return bufs[2:]
 
 
 fused_stats.launches = 0
+# The narrow route's launches (K_pad 16, 32 or 64) of each of the three
+# wrappers, counted beside the wrapper's own.
+fused_stats_narrow = LaunchCount()
+fused_stats_batched_narrow = LaunchCount()
+fused_stats_fleet_narrow = LaunchCount()
 
 
 def fused_stats_cuda(state, data_chunks, wts_chunks, *, diag_only=False,
@@ -386,31 +451,35 @@ def fused_stats_batched(x, wt, lanes, A, h, g, *, diag: bool,
             f"K3 shapes: x {tuple(x.shape)}, wt {tuple(wt.shape)}, lanes "
             f"{tuple(lanes.shape)}, A {tuple(A.shape)}, h {tuple(h.shape)}, "
             f"g {tuple(g.shape)}")
-    from ._build import library
-
-    a_ext, g_pad, t = _ext_operands(A, h, g, d, diag)
-    k_pad = g_pad.shape[-1]
     # K1's tile and grid: from N, K and D only, never from R, so each lane
     # reduces in K1's order.
-    bt = k1_tile(k_pad, d, block_b, diag)
-    grid = min(-(-n // bt), K1_GRID)
-    dev = x.device
-    partial = torch.empty((r, grid, k_pad, t + d + 1), dtype=torch.float32,
-                          device=dev)
-    ll_part = torch.empty((r, grid), dtype=torch.float64, device=dev)
-    ll = torch.empty((r, 1, 1), dtype=torch.float32, device=dev)
-    nk = torch.empty((r, 1, k), dtype=torch.float32, device=dev)
-    m1 = torch.empty((r, k, d), dtype=torch.float32, device=dev)
-    m2 = torch.empty((r, k, f), dtype=torch.float32, device=dev)
-    fn = library("fused_stats.cu").gmm_fused_stats_batched
-    err = fn(x.data_ptr(), wt.data_ptr(), lanes.data_ptr(), a_ext.data_ptr(),
-             g_pad.data_ptr(), partial.data_ptr(), ll_part.data_ptr(),
-             ll.data_ptr(), nk.data_ptr(), m1.data_ptr(), m2.data_ptr(), n, d,
-             k, k_pad, int(diag), bt, grid, r, PRECISIONS[precision],
-             torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(err, "K3 (fused_stats_batched)")
+    tile = stats_tile(k, d, diag, precision, block_b)
+    a_ext, g_pad, _ = _ext_operands(A, h, g, d, diag, tile.k_pad)
+    out = _launch_k3(x, wt, lanes, a_ext, g_pad, k, diag, tile, precision)
     note_launch(fused_stats_batched)
-    return ll, nk, m1, m2
+    if tile.k_pad < TILE:
+        note_launch(fused_stats_batched_narrow)
+    return out
+
+
+def _launch_k3(x, wt, lanes, a_ext, g_pad, k: int, diag: bool,
+               tile: KernelTile, precision: str):
+    """K3's kernel on operands padded to ``tile.k_pad``, as
+    :func:`_launch_k1`."""
+    from ._build import library
+
+    n, d = x.shape
+    r = a_ext.shape[0]
+    grid = min(-(-n // tile.bt), tile.grid)
+    bufs = _stats_buffers((r,), grid, k, d, tile.k_pad, a_ext.shape[-2] - d,
+                          diag, x.device)
+    err = library("fused_stats.cu").gmm_fused_stats_batched(
+        x.data_ptr(), wt.data_ptr(), lanes.data_ptr(), a_ext.data_ptr(),
+        g_pad.data_ptr(), *(b.data_ptr() for b in bufs), n, d, k, tile.k_pad,
+        int(diag), tile.bt, grid, r, PRECISIONS[precision],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    _raise_on(err, "K3 (fused_stats_batched)")
+    return bufs[2:]
 
 
 fused_stats_batched.launches = 0
@@ -487,31 +556,34 @@ def fused_stats_fleet(x, wt, n, lanes, A, h, g, *, diag: bool,
             f"{tuple(wt.shape)}, n {tuple(n.shape)}, lanes "
             f"{tuple(lanes.shape)}, A {tuple(A.shape)}, h {tuple(h.shape)}, "
             f"g {tuple(g.shape)}")
+    tile = stats_tile(k, d, diag, precision, block_b)
+    a_ext, g_pad, _ = _ext_operands(A, h, g, d, diag, tile.k_pad)
+    most = n_pad if max_events is None else min(int(max_events), n_pad)
+    out = _launch_fleet(x, wt, n, lanes, a_ext, g_pad, k, diag, tile,
+                        precision, most)
+    note_launch(fused_stats_fleet)
+    if tile.k_pad < TILE:
+        note_launch(fused_stats_fleet_narrow)
+    return out
+
+
+def _launch_fleet(x, wt, n, lanes, a_ext, g_pad, k: int, diag: bool,
+                  tile: KernelTile, precision: str, most: int):
+    """K3's per-lane-events form on operands padded to ``tile.k_pad``, as
+    :func:`_launch_k1`; ``most`` (the largest n[r]) bounds the grid."""
     from ._build import library
 
-    a_ext, g_pad, t = _ext_operands(A, h, g, d, diag)
-    k_pad = g_pad.shape[-1]
-    bt = k1_tile(k_pad, d, block_b, diag)
-    most = n_pad if max_events is None else min(int(max_events), n_pad)
-    grid = min(-(-most // bt), K1_GRID)
-    dev = x.device
-    partial = torch.empty((r, grid, k_pad, t + d + 1), dtype=torch.float32,
-                          device=dev)
-    ll_part = torch.empty((r, grid), dtype=torch.float64, device=dev)
-    ll = torch.empty((r, 1, 1), dtype=torch.float32, device=dev)
-    nk = torch.empty((r, 1, k), dtype=torch.float32, device=dev)
-    m1 = torch.empty((r, k, d), dtype=torch.float32, device=dev)
-    m2 = torch.empty((r, k, f), dtype=torch.float32, device=dev)
-    fn = library("fused_stats.cu").gmm_fused_stats_fleet
-    err = fn(x.data_ptr(), wt.data_ptr(), n.data_ptr(), lanes.data_ptr(),
-             a_ext.data_ptr(), g_pad.data_ptr(), partial.data_ptr(),
-             ll_part.data_ptr(), ll.data_ptr(), nk.data_ptr(), m1.data_ptr(),
-             m2.data_ptr(), n_pad, d, k, k_pad, int(diag), bt, grid, K1_GRID,
-             r, PRECISIONS[precision],
-             torch.cuda.current_stream(dev).cuda_stream)
+    r, n_pad, d = x.shape
+    grid = min(-(-most // tile.bt), tile.grid)
+    bufs = _stats_buffers((r,), grid, k, d, tile.k_pad, a_ext.shape[-2] - d,
+                          diag, x.device)
+    err = library("fused_stats.cu").gmm_fused_stats_fleet(
+        x.data_ptr(), wt.data_ptr(), n.data_ptr(), lanes.data_ptr(),
+        a_ext.data_ptr(), g_pad.data_ptr(), *(b.data_ptr() for b in bufs),
+        n_pad, d, k, tile.k_pad, int(diag), tile.bt, grid, K1_GRID, r,
+        PRECISIONS[precision], torch.cuda.current_stream(x.device).cuda_stream)
     _raise_on(err, "K3 (fused_stats_fleet)")
-    note_launch(fused_stats_fleet)
-    return ll, nk, m1, m2
+    return bufs[2:]
 
 
 fused_stats_fleet.launches = 0

@@ -17,7 +17,11 @@ twice its error against a float64 compute_constants of the same updated R
 (its Cholesky is another float32 factorization), and pi within 4 ulps
 (another summation order); one M-step hook call is one kernel on the card.
 Each live lane of K3 must equal K1 on its operands and each lane of K4 K2
-(torch.equal): they run the same kernels. K5's per-event max is held to
+(torch.equal): they run the same kernels. At 'highest' with K <= 64, K1, K3
+and K3's per-lane form run the narrow route (K_pad 16, 32 or 64): their
+outputs must be torch.equal to the same library's C entry at K_pad 128 on
+the operands padded to 128, and the card's occupancy calculator must fit
+the CTAs per SM that their tile reports. K5's per-event max is held to
 its plain version normwise at 1e-6 (it is one of the logp values). Its
 shifted sum adds exponentials of float32 logp differences, so two float32
 evaluations differ by ~|logp| x 1e-7 relative (2.5e-6 normwise measured on
@@ -1910,3 +1914,164 @@ def test_fleet_vmap_runs_k3_per_lane_events_and_k4(dev):
         assert [m[1] for m in r.merges] == [m[1] for m in solo.merges]
         np.testing.assert_allclose(r.final_loglik, solo.final_loglik,
                                    rtol=1e-5)
+
+
+# The narrow route (K1, K3 and K3's per-lane form at 'highest', K <= 64):
+# K_pad = 16, 32 or 64, every output torch.equal to the 128-wide route's on
+# the same operands padded to 128.
+NARROW_KS = [1, 2, 8, 15, 16, 17, 31, 32, 33, 63, 64]
+
+
+def _narrow_case(dev, k, d, diag, lanes: int, seed: int):
+    """Per-lane parameters (A, h, g stacked, and the list) of ``lanes``
+    states with different inactive clusters."""
+    rng = np.random.default_rng(seed)
+    inact = [(), (k - 1,), (0,), ()] if k > 1 else [()] * 4
+    params = [fs._prep_params(state_from_numpy(
+        _state(rng, k, d, diag, inactive=inact[r]), device=dev), d, diag)
+        for r in range(lanes)]
+    return rng, params, [torch.stack(p) for p in zip(*params)]
+
+
+def _wide(A, h, g, k, d, diag):
+    """The 128-wide route's operands and tile for the same parameters."""
+    a_ext, g_pad, _ = fs._ext_operands(A, h, g, d, diag, fs.TILE)
+    return a_ext, g_pad, fs.wide_tile(k, d, diag)
+
+
+def _in_plain_class(out, ref, label):
+    for a, c, name in zip(out, ref, TOL):
+        rtol, atol = TOL[name]
+        err = float((a - c).abs().max())
+        assert err <= atol + rtol * float(c.abs().max()), (label, name, err)
+
+
+@pytest.mark.parametrize("k,block_b", [(k, 512) for k in NARROW_KS]
+                         + [(1, 64), (16, 64), (17, 64), (64, 64)])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_k1_narrow_route_equals_the_128_wide_route(dev, k, block_b, diag):
+    """K1 at K_pad W (ragged n, non-unit weights, an inactive cluster) is
+    torch.equal to the same library's C entry at K_pad 128 on operands
+    padded to 128, and within its plain version's class; at block_b 64
+    too (64-event tiles, which the narrow route runs as 128-row chunks)."""
+    d, n = 24, 40_001  # 157 tiles of 256 events: CTAs walk past the grid
+    rng, params, _ = _narrow_case(dev, k, d, diag, 1, 500 + k)
+    x = torch.as_tensor(rng.normal(scale=2.0, size=(n, d)),
+                        dtype=torch.float32, device=dev)
+    wt = torch.as_tensor(rng.uniform(0.0, 2.0, size=n), dtype=torch.float32,
+                         device=dev)
+    tile = fs.stats_tile(k, d, diag, block_b=block_b)
+    assert tile.k_pad == next(w for w in fs.STATS_WIDTHS if w >= k)
+    before = (fs.fused_stats.launches, fs.fused_stats_narrow.launches)
+    out = fs.fused_stats(x, wt, *params[0], diag=diag, block_b=block_b)
+    a_ext, g_pad, _ = _wide(*params[0], k, d, diag)
+    wide = fs.wide_tile(k, d, diag, block_b)
+    assert wide.bt == tile.bt
+    ref = fs._launch_k1(x, wt, a_ext, g_pad, k, diag, wide, "highest")
+    plain = fs.fused_stats_plain(x, wt, *params[0], diag=diag)
+    torch.cuda.synchronize()
+    assert (fs.fused_stats.launches, fs.fused_stats_narrow.launches) == (
+        before[0] + 1, before[1] + 1)
+    for a, b, name in zip(out, ref, TOL):
+        assert torch.equal(a, b), (k, name)
+    _in_plain_class(out, plain, f"K1 K={k}")
+
+
+@pytest.mark.parametrize("k", NARROW_KS)
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_k3_narrow_route_equals_the_128_wide_route(dev, k, diag):
+    """K3 on 4 lanes (one frozen) at K_pad W: torch.equal to the 128-wide
+    route, the frozen lane zeros, the live lanes in the plain class."""
+    d, n = 24, 4099
+    rng, _, (A, h, g) = _narrow_case(dev, k, d, diag, 4, 600 + k)
+    x = torch.as_tensor(rng.normal(scale=2.0, size=(n, d)),
+                        dtype=torch.float32, device=dev)
+    wt = torch.as_tensor(rng.uniform(0.0, 2.0, size=n), dtype=torch.float32,
+                         device=dev)
+    lanes = torch.tensor([1.0, 1.0, 0.0, 1.0], device=dev)
+    before = fs.fused_stats_batched_narrow.launches
+    out = fs.fused_stats_batched(x, wt, lanes, A, h, g, diag=diag)
+    a_ext, g_pad, wide = _wide(A, h, g, k, d, diag)
+    ref = fs._launch_k3(x, wt, lanes, a_ext, g_pad, k, diag, wide, "highest")
+    plain = fs.fused_stats_batched_plain(x, wt, lanes, A, h, g, diag=diag)
+    torch.cuda.synchronize()
+    assert fs.fused_stats_batched_narrow.launches == before + 1
+    for a, b, name in zip(out, ref, TOL):
+        assert torch.equal(a, b), (k, name)
+        assert not a[2].any(), name
+    _in_plain_class(out, plain, f"K3 K={k}")
+
+
+@pytest.mark.parametrize("k", NARROW_KS)
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_fleet_narrow_route_equals_the_128_wide_route(dev, k, diag):
+    """K3's per-lane form at K_pad W, lanes of different n (one past K1's
+    grid, one of a single event) and one frozen: torch.equal to the
+    128-wide route, and each live lane in the plain class."""
+    d, n_list = 24, (40_001, 4099, 1, 33_000)
+    rng, _, (A, h, g) = _narrow_case(dev, k, d, diag, 4, 700 + k)
+    R, n_pad = len(n_list), max(n_list) + 37
+    x = torch.as_tensor(rng.normal(scale=2.0, size=(R, n_pad, d)),
+                        dtype=torch.float32, device=dev)
+    wt = torch.as_tensor(rng.uniform(0.0, 2.0, size=(R, n_pad)),
+                         dtype=torch.float32, device=dev)
+    n = torch.as_tensor(n_list, dtype=torch.int32, device=dev)
+    lanes = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
+    before = fs.fused_stats_fleet_narrow.launches
+    out = fs.fused_stats_fleet(x, wt, n, lanes, A, h, g, diag=diag,
+                               max_events=max(n_list))
+    a_ext, g_pad, wide = _wide(A, h, g, k, d, diag)
+    ref = fs._launch_fleet(x, wt, n, lanes, a_ext, g_pad, k, diag, wide,
+                           "highest", max(n_list))
+    plain = fs.fused_stats_fleet_plain(x, wt, n, lanes, A, h, g, diag=diag)
+    torch.cuda.synchronize()
+    assert fs.fused_stats_fleet_narrow.launches == before + 1
+    for a, b, name in zip(out, ref, TOL):
+        assert torch.equal(a, b), (k, name)
+        assert not a[3].any(), name
+    _in_plain_class(out, plain, f"fleet K={k}")
+
+
+@pytest.mark.parametrize("d", [6, 24, 32])
+@pytest.mark.parametrize("diag", [False, True], ids=["full", "diag"])
+def test_narrow_instances_fit_the_ctas_per_sm_of_their_tile(dev, d, diag):
+    """The card's occupancy calculator, from the narrow instances'
+    registers and shared memory, fits at least the CTAs per SM that
+    stats_tile reports; at D = 24 those are the ones they are compiled
+    for."""
+    import ctypes
+
+    from cuda_gmm_mpi_tpu_torch.ops.kernels._build import library
+
+    lib = library("fused_stats.cu")
+    for w in fs.STATS_WIDTHS:
+        for block_b in (512, 64):
+            tile = fs.stats_tile(w, d, diag, block_b=block_b)
+            ctas = ctypes.c_int(0)
+            assert lib.gmm_stats_occupancy(w, d, int(diag), tile.bt,
+                                           ctypes.addressof(ctas)) == 0
+            assert ctas.value >= tile.ctas_per_sm >= 1, (w, ctas.value, tile)
+            if d == 24 and block_b == 512:
+                assert tile.ctas_per_sm == fs.STATS_CTAS[w]
+
+
+@pytest.mark.parametrize("d,diag,block_b", [(150, False, 64), (200, True, 128)])
+def test_narrow_pass_too_large_for_shared_memory_takes_the_128_wide_route(
+        dev, d, diag, block_b):
+    """Where a narrow pass of rows would not fit one CTA's shared memory
+    (a small event tile at a large D), K1 at K = 16 runs the 128-wide
+    route, as it did before the narrow route: it launches, counts no
+    narrow launch and stays in its plain version's class."""
+    k, n = 16, 1001
+    assert fs.stats_tile(k, d, diag, block_b=block_b).k_pad == fs.TILE
+    rng, params, _ = _narrow_case(dev, k, d, diag, 1, 800 + d)
+    x = torch.as_tensor(rng.normal(scale=2.0, size=(n, d)),
+                        dtype=torch.float32, device=dev)
+    wt = torch.as_tensor(rng.uniform(0.0, 2.0, size=n), dtype=torch.float32,
+                         device=dev)
+    before = fs.fused_stats_narrow.launches
+    out = fs.fused_stats(x, wt, *params[0], diag=diag, block_b=block_b)
+    plain = fs.fused_stats_plain(x, wt, *params[0], diag=diag)
+    torch.cuda.synchronize()
+    assert fs.fused_stats_narrow.launches == before
+    _in_plain_class(out, plain, f"K1 D={d}")

@@ -45,7 +45,7 @@ def test_k_pad_is_64_up_to_64_clusters_else_a_multiple_of_128(k, k_pad, stats):
     if k <= fs.SHARD_TILE:
         assert tile.bt == fs.SHARD_ROWS
     else:  # K1's kernel in the K5/K6 mode, on K1's tile and grid
-        assert tile == fs.wide_shard_tile(k, 24, True)
+        assert tile == fs.wide_tile(k, 24, True)
         assert tile.bt == fs.k1_tile(k_pad, 24, 512, True)
         assert (tile.grid, tile.ctas_per_sm) == (fs.K1_GRID, 1)
 
@@ -75,8 +75,8 @@ def test_shared_memory_at_the_mesh_cell():
     posteriors = 4 * 128 * 72
     k5 = fs.shard_tile(50, 24, False, stats=False)
     k6 = fs.shard_tile(50, 24, False, stats=True)
-    assert k5 == fs.ShardTile(64, 128, 396, 3, stage + events + pairs)
-    assert k6 == fs.ShardTile(64, 128, 264, 2,
+    assert k5 == fs.KernelTile(64, 128, 396, 3, stage + events + pairs)
+    assert k6 == fs.KernelTile(64, 128, 264, 2,
                               stage + events + pairs + posteriors)
 
 

@@ -156,7 +156,7 @@ def test_route_by_precision(rng, precision, k, stats):
     if shard:
         assert tile.k_pad == fs.SHARD_TILE and tile.bt == fs.SHARD_ROWS
     else:
-        assert tile == fs.wide_shard_tile(k, d, diag)
+        assert tile == fs.wide_tile(k, d, diag)
         assert tile.k_pad % fs.TILE == 0
     state = state_from_numpy(make_state_np(rng, k, d, np.float32, diag=diag))
     A, h, g = fs._prep_params(state, d, diag)
