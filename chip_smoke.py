@@ -233,7 +233,9 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 15. the mesh made whole: 2 ranks of a (2, 1) mesh sharing the card over
    gloo (a ``file://`` store in the build directory), the main path's
-   events at K = 100 -> 98 with 10 iterations per K. (a) ``--n-init 4``
+   events at K = 100 -> 98 with 10 iterations per K in (a) and (e); (b)-(d)
+   check a mechanism, not a rate, at K = 100 -> 99 with 5 iterations per
+   K, and (g) with 5. (a) ``--n-init 4``
    on the mesh against the one-card batched restart fit on the same events
    and seeds: the same chosen init, K and merge pairs, final loglik within
    rtol 1e-5; K3 and K4 launches per rank counted from 0 (K1/K2 never),
@@ -253,8 +255,24 @@ Phases (any failure exits non-zero, and no result line is printed):
    and ``.results`` byte-identical, each process's host memory above its
    CUDA baseline. (e) diag restarts (2 inits) on a (1, 2) mesh: the lanes
    of the cluster-sharded loop, K5 and K6 per lane (K1-K4 never), against
-   the one-card batched fit (init, K, merge pairs, loglik rtol 1e-5). One
-   JSON line per part, each with the card's name and power limit.
+   the one-card batched fit (init, K, merge pairs, loglik rtol 1e-5). (g)
+   The fused sweep (``ShardedGMMModel.make_fused_sweep``) on the (2, 1)
+   mesh (K1/K2 per rank) and on a diag (1, 2) mesh (K5/K6 per rank, the
+   order reduction over the gathered K-state; K 100 -> 92, phase 9's
+   target: the diag fit empties clusters at K = 100 and would stop at 98
+   after one K), each beside the host sweep on that mesh at
+   ``sweep_k_buckets='off'``, in turns (fused, host, host, fused): the
+   same K, Ks and merge pairs, loglik within rtol 1e-4; each rank's
+   launches counted from 0 (K1 = iterations + Ks and K2 = iterations on
+   (2, 1), K5 = K6 = iterations + Ks on (1, 2), no other), every sweep's
+   wall. (h) Phase 19
+   (f)'s 4 tenants on a (2, 1) mesh of a world of its own, 'scan' in
+   groups of 2 (the first pair stopping at K = 6), under elastic recovery
+   with ``rank_lost`` of rank 1 at step 4 of the second group: rank 1
+   exits 75, rank 0 seals generation 1 and finishes; the first group is
+   torch.equal to its sharded solo fits, the second has a one-process
+   fleet's K and merge pairs, loglik within rtol 1e-5. One JSON line per
+   part, each with the card's name and power limit.
 
 16. out-of-core EM (models/streaming.py, io/pipeline.py) at 10,000,000 x
    24 float32 events of phase 4's generator (960 MB, written to a BIN file
@@ -276,10 +294,12 @@ Phases (any failure exits non-zero, and no result line is printed):
    final loglik's distance from (a)'s full EM, printed; the bar of
    tests/test_ingest.py (within 10 x convergence_epsilon of full EM) in
    that test's regime at 1M events (4 blobs, K = 4, 12 full iterations
-   against 340 steps over a quarter of the events). (d) On phase 4's 1M
-   events, pipelined: a ``preempt`` at pass 3, block 7 of K = 100 stops
-   the fit (exit 75 in the CLI) with the partial accumulator in the
-   sub-step, and the resumed fit == the uninterrupted one. (e) 2 ranks of
+   against 340 steps over a quarter of the events). (d) and (e) check a
+   mechanism, not a rate, at K = 100 -> 99 with 5 iterations per K. (d) On
+   phase 4's 1M events, pipelined: a ``preempt`` at pass 3, block 7 of
+   K = 100 stops the fit (exit 75 in the CLI) with the partial
+   accumulator in the sub-step, and the resumed fit == the uninterrupted
+   one. (e) 2 ranks of
    a (2, 1) data mesh on the one card (gloo), each streaming its half of
    the 1M BIN pipelined: each rank's K1 launches (8 blocks per pass) and
    K2 launches, the one-process streaming fit's K and merge pairs with the
@@ -504,11 +524,22 @@ class PhaseError(RuntimeError):
 
 
 _T0 = time.perf_counter()
+_PHASE: dict = {}  # the running phase's title and start
 
 
 def phase_start(title: str) -> None:
-    """A phase's title line, with the seconds since the script started."""
-    print(f"{title} [{time.perf_counter() - _T0:.0f} s in]")
+    """A phase's title line, with the seconds since the script started,
+    after the seconds the phase before it took."""
+    phase_end()
+    _PHASE.update(title=title, t=time.perf_counter())
+    print(f"{title} [{_PHASE['t'] - _T0:.0f} s in]")
+
+
+def phase_end() -> None:
+    """The running phase's seconds, once."""
+    if _PHASE:
+        name = _PHASE.pop("title").split(":")[0]
+        print(f"  {name} took {time.perf_counter() - _PHASE.pop('t'):.1f} s")
 
 
 def check(cond: bool, what: str) -> None:
@@ -3441,14 +3472,25 @@ def phase_observability(data, main_result, workdir: Path) -> dict:
 # --- phase 15: the mesh made whole (restarts, resume, liveness, per-rank I/O)
 
 P15_MESH, P15_ITERS, P15_TARGET = (2, 1), 10, K0 - 2  # K 100 -> 98
+# (b)-(d) and (g) check a mechanism (a stop and its resume, a lost peer,
+# the CLI's bytes, the fused sweep's choices), not a rate: 5 iterations
+# per K, and one merge in (b)-(d) (K 100 -> 99); (g) keeps K 100 -> 98.
+P15_CHECK_ITERS, P15_CHECK_TARGET = 5, K0 - 1
+# (g)'s diag case stops at phase 9's K 92: the diag fit empties clusters at
+# K = 100, and a stop at 98 would end the sweep after its first K.
+P15_DIAG_TARGET = DIAG_TARGET
 P15_LANES, P15_PEER_TIMEOUT_S = 4, 5.0
 P15_TIMEOUT_S = 420
+# (h): phase 19 (f)'s 4 tenants in 2 groups of 2, the first pair stopping at
+# K = 6 (3 sweep steps), so that rank 1's loss at step 4 lands in the
+# second group.
+P15_FLEET_TARGET, P15_FLEET_LOST = 6, {"rank_lost": {"iter": 4, "rank": 1}}
 
 
-def _p15_cfg(**kw):
+def _p15_cfg(iters=P15_ITERS, **kw):
     from cuda_gmm_mpi_tpu_torch import GMMConfig
 
-    return GMMConfig(min_iters=P15_ITERS, max_iters=P15_ITERS, **kw)
+    return GMMConfig(min_iters=iters, max_iters=iters, **kw)
 
 
 def _p15_summary(r) -> dict:
@@ -3483,7 +3525,8 @@ def _p15_rank(rank, world, workdir):
                 supervisor.RunSupervisor(install_signals=False)) as sup:
             t0 = time.perf_counter()
             try:
-                r = fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(**cfg))
+                r = fit_gmm(data, K0, P15_CHECK_TARGET, config=_p15_cfg(
+                    P15_CHECK_ITERS, **cfg))
                 return _p15_summary(r), 0, {"s": time.perf_counter() - t0}
             except (supervisor.PreemptedError,
                     supervisor.PeerLostError) as e:
@@ -3526,6 +3569,28 @@ def _p15_rank(rank, world, workdir):
                            launches={k: c.launches
                                      for k, c in counters.items()},
                            timings=r.timings, backend=r.model.estep_backend)
+        # (g) the fused sweep on (2, 1) (K1/K2 per rank) and on a diag
+        # (1, 2) mesh (K5/K6 per rank, the gathered order reduction), each
+        # beside the host sweep on that mesh at its fixed width, in turns.
+        report["g"] = {}
+        for mesh, diag, target in (((2, 1), False, P15_TARGET),
+                                   ((1, 2), True, P15_DIAG_TARGET)):
+            arms = {"fused": [], "host": []}
+            for arm in ("fused", "host", "host", "fused"):
+                kw = (dict(fused_sweep=True) if arm == "fused"
+                      else dict(sweep_k_buckets="off"))
+                for c in counters.values():
+                    c.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = fit_gmm(data, K0, target, config=_p15_cfg(
+                    P15_CHECK_ITERS, mesh_shape=mesh, diag_only=diag, **kw))
+                torch.cuda.synchronize()
+                arms[arm].append(dict(
+                    _p15_summary(r), wall_s=time.perf_counter() - t0,
+                    launches={k: c.launches for k, c in counters.items()},
+                    backend=r.model.estep_backend))
+            report["g"][f"{mesh[0]}x{mesh[1]}"] = arms
         # (b) preempt in K = 99 on both ranks (a stop in K = 100 first,
         # resumed into K = 99), then resume: == the uninterrupted mesh fit.
         report["b"] = {"ref": supervised(None, mesh_shape=P15_MESH)[0]}
@@ -3626,9 +3691,9 @@ def _p15_cli(workdir: Path, infile: str, out: str, world: int) -> list:
     # float64: a float32 mesh sums the data axis's statistics in another
     # order than one process, and a last-bit difference can flip a printed
     # digit; the bytes are the same only where the sums are exact enough.
-    args = [str(K0), infile, str(workdir / out), str(P15_TARGET),
-            f"--min-iters={P15_ITERS}", f"--max-iters={P15_ITERS}",
-            "--dtype=float64"]
+    args = [str(K0), infile, str(workdir / out), str(P15_CHECK_TARGET),
+            f"--min-iters={P15_CHECK_ITERS}",
+            f"--max-iters={P15_CHECK_ITERS}", "--dtype=float64"]
     if world > 1:
         args += [f"--mesh={P15_MESH[0]},{P15_MESH[1]}",
                  f"--part-dir={workdir / 'parts'}",
@@ -3673,31 +3738,13 @@ def _same_bytes(a: Path, b: Path, block: int = 1 << 24) -> bool:
                 return True
 
 
-def phase_mesh_whole(data, workdir: Path, card: str) -> dict:
-    """Phase 15: restarts on a mesh, preempt and resume, peer loss and
-    per-rank I/O, on 2 ranks sharing the one card over gloo."""
-    import torch
+def _p15_world(fn, world: int, workdir: Path, *args) -> None:
+    """``fn(rank, world, workdir, *args)`` on ``world`` spawned ranks,
+    joined within ``P15_TIMEOUT_S``; a rank that fails, dies or outlives
+    it fails the phase."""
     import torch.multiprocessing as mp
 
-    from cuda_gmm_mpi_tpu_torch import fit_gmm, supervisor
-    from cuda_gmm_mpi_tpu_torch.io import write_bin
-    from cuda_gmm_mpi_tpu_torch.ops.kernels import fused_stats as fs
-
-    world = P15_MESH[0] * P15_MESH[1]
-    np.save(workdir / "events.npy", data)
-    infile = str(workdir / "events.bin")
-    write_bin(infile, data)
-    t_phase = time.perf_counter()
-    # The one-card references: the batched restart fit of (a), then the
-    # ranks of (a)-(c); (d)'s CLI runs last (2 ranks beside 1 process).
-    t0 = time.perf_counter()
-    ref_a = fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(
-        n_init=P15_LANES, restart_batch_size=P15_LANES))
-    torch.cuda.synchronize()
-    ref_a_s = time.perf_counter() - t0
-    ref_e = fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(
-        n_init=2, restart_batch_size=2, diag_only=True))
-    ctx = mp.start_processes(_p15_rank_main, args=(world, str(workdir)),
+    ctx = mp.start_processes(fn, args=(world, str(workdir), *args),
                              nprocs=world, join=False, start_method="spawn")
     t0 = time.perf_counter()
     try:
@@ -3718,6 +3765,94 @@ def phase_mesh_whole(data, workdir: Path, card: str) -> dict:
                 proc.kill()
                 proc.join()
         stop_resource_tracker()
+
+
+def p15_fleet_tenants(seed: int) -> list:
+    """(h)'s tenants: phase 19 (f)'s four, the first pair's target K 6."""
+    tenants = p19_tenants(seed, only=range(32, 32 + P19_MESH))
+    return [dataclasses.replace(t, target_num_clusters=P15_FLEET_TARGET)
+            if i < 2 else t for i, t in enumerate(tenants)]
+
+
+def _p15_fleet_rank(rank, world, workdir, seed):
+    """(h): one rank of a (2, 1) mesh on the card: the first pair's sharded
+    solo fits, then the fleet ('scan', groups of 2) under elastic recovery
+    with rank 1 lost at step 4 of the second group. Writes
+    fleet_rank<r>.json: rank 0's outcome and results, rank 1's exit."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import fit_gmm, supervisor
+    from cuda_gmm_mpi_tpu_torch.parallel import distributed, elastic
+    from cuda_gmm_mpi_tpu_torch.tenancy import fit_fleet
+    from cuda_gmm_mpi_tpu_torch.testing import faults
+
+    workdir = Path(workdir)
+    distributed.initialize("cuda", coordinator=f"file://{workdir}/store_h",
+                           num_processes=world, process_id=rank,
+                           timeout_s=P15_TIMEOUT_S)
+    try:
+        tenants = p15_fleet_tenants(seed)
+        cfg = p19_config(mesh_shape=(2, 1), chunk_size=P19_MESH_CHUNK,
+                         fleet_group_size=2)
+        solo = [fit_gmm(t.data, t.num_clusters, t.target_num_clusters,
+                        config=cfg) for t in tenants[:2]]
+        _zero_fleet_counts()
+        rec = dict(rank=rank)
+        with faults.use(P15_FLEET_LOST), supervisor.use(
+                supervisor.RunSupervisor(install_signals=False)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            try:
+                fleet = fit_fleet(tenants, dataclasses.replace(
+                    cfg, checkpoint_dir=str(workdir / "ck_h"), elastic=True,
+                    elastic_backoff_s=0.0))
+            except supervisor.PeerLostError as e:
+                rec.update(rc=supervisor.EX_TEMPFAIL, error=str(e))
+            else:
+                torch.cuda.synchronize()
+                res = [fleet[t.name].result for t in tenants]
+                rec.update(
+                    rc=0, wall_s=time.perf_counter() - t0,
+                    groups=[fleet[t.name].group for t in tenants],
+                    first_same=[_same_result(r, s)
+                                for r, s in zip(res, solo)],
+                    second=[dict(k=r.ideal_num_clusters,
+                                 merges=[list(m[1]) for m in r.merges],
+                                 final_loglik=r.final_loglik)
+                            for r in res[2:]],
+                    world=list(elastic.world()),
+                    generation=elastic.generation(),
+                    launches=_fleet_counts())
+        (workdir / f"fleet_rank{rank}.json").write_text(json.dumps(rec))
+    finally:
+        distributed.shutdown()
+
+
+def phase_mesh_whole(data, workdir: Path, card: str, seed: int) -> dict:
+    """Phase 15: restarts on a mesh, preempt and resume, peer loss and
+    per-rank I/O, the fused sweep on a mesh and a fleet's elastic shrink,
+    on 2 ranks sharing the one card over gloo."""
+    import torch
+
+    from cuda_gmm_mpi_tpu_torch import fit_gmm, supervisor
+    from cuda_gmm_mpi_tpu_torch.io import write_bin
+    from cuda_gmm_mpi_tpu_torch.tenancy import fit_fleet
+
+    world = P15_MESH[0] * P15_MESH[1]
+    np.save(workdir / "events.npy", data)
+    infile = str(workdir / "events.bin")
+    write_bin(infile, data)
+    t_phase = time.perf_counter()
+    # The one-card references: the batched restart fit of (a), then the
+    # ranks of (a)-(c); (d)'s CLI runs last (2 ranks beside 1 process).
+    t0 = time.perf_counter()
+    ref_a = fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(
+        n_init=P15_LANES, restart_batch_size=P15_LANES))
+    torch.cuda.synchronize()
+    ref_a_s = time.perf_counter() - t0
+    ref_e = fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(
+        n_init=2, restart_batch_size=2, diag_only=True))
+    _p15_world(_p15_rank_main, world, workdir)
     ranks = [json.loads((workdir / f"rank{r}.json").read_text())
              for r in range(world)]
     out = {}
@@ -3776,6 +3911,85 @@ def phase_mesh_whole(data, workdir: Path, card: str) -> dict:
     out["e"] = rec_e
     print(json.dumps({"phase15": "e", **rec_e}))
 
+    # (g)
+    rec_g = {"card": card}
+    for key, kernels in (("2x1", ("K1", "K2")), ("1x2", ("K5", "K6"))):
+        rows = []
+        for rk in ranks:
+            g = rk["g"][key]
+            for f in g["fused"]:
+                lc = f["launches"]
+                iters = sum(row[3] for row in f["sweep"])
+                e_steps = iters + len(f["sweep"])
+                want = ({"K1": e_steps, "K2": iters} if key == "2x1"
+                        else {"K5": e_steps, "K6": e_steps})
+                check(f["backend"] == "cuda" and len(f["sweep"]) > 1
+                      and all(lc[k] == v > 0 for k, v in want.items())
+                      and all(v == 0 for k, v in lc.items() if k not in want),
+                      f"(g) {key} rank {rk['rank']}: fused sweep launches "
+                      f"{lc} over {len(f['sweep'])} Ks, expected {want} and "
+                      f"no other")
+            h, f = g["host"][-1], g["fused"][-1]
+            for x in g["fused"] + g["host"]:
+                check(x["k"] == h["k"] and x["merges"] == h["merges"]
+                      and [r[0] for r in x["sweep"]]
+                      == [r[0] for r in h["sweep"]],
+                      f"(g) {key} rank {rk['rank']}: K {x['k']}, pairs "
+                      f"{x['merges']} against the host sweep's {h['k']}, "
+                      f"{h['merges']}")
+            rel = abs(f["final_loglik"] - h["final_loglik"]) / abs(
+                h["final_loglik"])
+            check(rel <= 1e-4, f"(g) {key} rank {rk['rank']}: loglik rtol "
+                  f"{rel:.2e} > 1e-4")
+            rows.append(dict(
+                rank=rk["rank"], launches=f["launches"],
+                host_launches=h["launches"], loglik_rtol=rel,
+                fused_wall_s=[x["wall_s"] for x in g["fused"]],
+                host_wall_s=[x["wall_s"] for x in g["host"]],
+                k=f["k"], ks=[r[0] for r in f["sweep"]], merges=f["merges"]))
+        rec_g[key] = rows
+        print(f"  (g) {key} ({'/'.join(kernels)}): fused sweep walls "
+              f"{[[round(w, 3) for w in r['fused_wall_s']] for r in rows]} "
+              f"s, host sweep (off) "
+              f"{[[round(w, 3) for w in r['host_wall_s']] for r in rows]} s "
+              f"(turns: fused, host, host, fused); launches "
+              f"{[r['launches'] for r in rows]}; Ks {rows[0]['ks']}, K "
+              f"{rows[0]['k']}, pairs {rows[0]['merges']}")
+    out["g"] = rec_g
+    print(json.dumps({"phase15": "g", **rec_g}))
+
+    # (h) on a world of its own (its shrink leaves it), before (d)'s CLI
+    _p15_world(_p15_fleet_rank, world, workdir, seed)
+    fr = [json.loads((workdir / f"fleet_rank{r}.json").read_text())
+          for r in range(world)]
+    check([x["rc"] for x in fr] == [0, 75],
+          f"(h) exits {[x['rc'] for x in fr]}: {fr[0].get('error')}")
+    h0 = fr[0]
+    check(h0["groups"] == [0, 0, 1, 1] and h0["world"] == [0, 1]
+          and h0["generation"] == 1,
+          f"(h) groups {h0['groups']}, world {h0['world']}, generation "
+          f"{h0['generation']}")
+    check(all(h0["first_same"]), f"(h) the first group differs from its "
+          f"sharded solo fits: {h0['first_same']}")
+    tenants = p15_fleet_tenants(seed)
+    clean = fit_fleet(tenants[2:], p19_config(chunk_size=P19_MESH_CHUNK,
+                                              fleet_group_size=2))
+    rels = []
+    for t, x in zip(tenants[2:], h0["second"]):
+        r = clean[t.name].result
+        pairs = [list(m[1]) for m in r.merges]
+        check(x["k"] == r.ideal_num_clusters and x["merges"] == pairs,
+              f"(h) {t.name}: K {x['k']}, pairs {x['merges']} against the "
+              f"one-process fleet's {r.ideal_num_clusters}, {pairs}")
+        rels.append(abs(x["final_loglik"] - r.final_loglik)
+                    / abs(r.final_loglik))
+        check(rels[-1] <= 1e-5, f"(h) {t.name}: loglik rtol {rels[-1]:.2e}")
+    rec_h = {"card": card, "exits": [x["rc"] for x in fr],
+             "fleet_wall_s": h0["wall_s"], "launches": h0["launches"],
+             "second_group_loglik_rtol": rels}
+    out["h"] = rec_h
+    print(json.dumps({"phase15": "h", **rec_h}))
+
     # (b)
     b = [rk["b"] for rk in ranks]
     for rk, x in zip(ranks, b):
@@ -3784,7 +3998,7 @@ def phase_mesh_whole(data, workdir: Path, card: str) -> dict:
               f"(b) rank {rk['rank']}: stops (exit, step, iteration) {st}")
         # The merge of K = 100 was made before the stop in K = 99: the
         # resumed fit's own merges are the rest.
-        ref = dict(x["ref"], merges=x["ref"]["merges"][1:])
+        ref = dict(x["ref"], merges=x["ref"]["merges"][1:])  # none left
         check(x["resumed_rc"] == 0 and x["resumed"] == ref,
               f"(b) rank {rk['rank']}: the resumed fit differs from the "
               f"uninterrupted mesh fit")
@@ -3811,9 +4025,9 @@ def phase_mesh_whole(data, workdir: Path, card: str) -> dict:
           f"(c) elastic: rank 0 exit {el[0]['rc']} world {el[0]['world']}, "
           f"rank 1 exit {el[1]['rc']}")
     with supervisor.use(supervisor.RunSupervisor(install_signals=False)):
-        one = _p15_summary(fit_gmm(data, K0, P15_TARGET, config=_p15_cfg(
-            checkpoint_dir=str(workdir / "ck_c1"), elastic=True,
-            preempt_poll_iters=1, sweep_k_buckets="off")))
+        one = _p15_summary(fit_gmm(data, K0, P15_CHECK_TARGET, config=_p15_cfg(
+            P15_CHECK_ITERS, checkpoint_dir=str(workdir / "ck_c1"),
+            elastic=True, preempt_poll_iters=1, sweep_k_buckets="off")))
     check(el[0]["result"] == one,
           "(c) the survivor's fit differs from one process resumed from the "
           "same emergency sub-step")
@@ -3869,6 +4083,9 @@ def phase_mesh_whole(data, workdir: Path, card: str) -> dict:
 # ------------------------------------------------------------ phase 16
 
 P16_EVENTS, P16_ITERS, P16_TARGET = 10_000_000, 10, K0 - 2  # K 100 -> 98
+# (d) and (e) check a mechanism (a stop inside a pass and its resume, a
+# data mesh's choices), not a rate: K 100 -> 99 at 5 iterations per K.
+P16_CHECK_ITERS, P16_CHECK_TARGET = 5, K0 - 1
 P16_CHUNK, P16_BIG_CHUNK = 65536, 1 << 20
 P16_MB_SIZE, P16_MB_STEPS = 1 << 20, 40
 # The stepwise-EM bar of tests/test_ingest.py:251-266 in that test's regime,
@@ -4129,9 +4346,9 @@ def _p16_rank(rank, world, workdir):
         fs.fused_stats.launches = fs.mstep.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        r = fit_gmm(FileSource(str(workdir / "events1m.bin")), K0, P16_TARGET,
-                    config=GMMConfig(
-                        min_iters=P16_ITERS, max_iters=P16_ITERS,
+        r = fit_gmm(FileSource(str(workdir / "events1m.bin")), K0,
+                    P16_CHECK_TARGET, config=GMMConfig(
+                        min_iters=P16_CHECK_ITERS, max_iters=P16_CHECK_ITERS,
                         chunk_size=P16_CHUNK, stream_events=True,
                         ingest="pipelined", mesh_shape=(2, 1)))
         torch.cuda.synchronize()
@@ -4272,14 +4489,14 @@ def phase_out_of_core(data, workdir: Path, card: str, seed: int) -> dict:
     print(json.dumps({"phase16": "c", **rec_c}))
 
     # (d) stop at pass 3, block 7 of K = 100 and resume, pipelined, 1M
-    cfg = dict(min_iters=P16_ITERS, max_iters=P16_ITERS,
+    cfg = dict(min_iters=P16_CHECK_ITERS, max_iters=P16_CHECK_ITERS,
                chunk_size=P16_CHUNK, stream_events=True, ingest="pipelined")
 
     def supervised(ck, spec=None):
         with faults.use(spec or {}), supervisor.use(
                 supervisor.RunSupervisor(install_signals=False)):
             try:
-                return fit_gmm(FileSource(small), K0, P16_TARGET,
+                return fit_gmm(FileSource(small), K0, P16_CHECK_TARGET,
                                config=GMMConfig(checkpoint_dir=ck, **cfg)), 0
             except supervisor.PreemptedError as e:
                 return e, supervisor.EX_TEMPFAIL
@@ -4302,7 +4519,8 @@ def phase_out_of_core(data, workdir: Path, card: str, seed: int) -> dict:
     print(json.dumps({"phase16": "d", **rec_d}))
 
     # (e) a (2, 1) data mesh on the one card, pipelined, against one process
-    one = fit_gmm(FileSource(small), K0, P16_TARGET, config=GMMConfig(**cfg))
+    one = fit_gmm(FileSource(small), K0, P16_CHECK_TARGET,
+                  config=GMMConfig(**cfg))
     ranks = _p16_mesh(workdir)
     one_pairs = [list(m[1]) for m in one.merges]
     rec_e = dict(card=card, ranks=[])
@@ -5503,21 +5721,24 @@ P19_MESH_CHUNK = 1024  # (f): the solo layout's pad chunks interleave
 P19_TIMEOUT_S = 300
 
 
-def p19_tenants(seed: int) -> list:
+def p19_tenants(seed: int, only=None) -> list:
     """The fleet's tenants: per tenant its event count, true cluster count
-    (8-12, or 4-6 in the second group) and blobs, all from ``seed``."""
+    (8-12, or 4-6 in the second group) and blobs, all from ``seed``
+    (``only``: the tenants of these indices)."""
     from cuda_gmm_mpi_tpu_torch.tenancy import TenantSpec
 
     rng = np.random.default_rng(seed + 19)
     out = []
+    i = 0
     for count, lo, hi, k in P19_GROUPS:
         for _ in range(count):
-            i = len(out)
             n = int(rng.integers(lo, hi + 1))
             true_k = int(rng.integers(k // 2, k - k // 4 + 1))
-            out.append(TenantSpec(
-                f"p{i:02d}", make_blobs(seed + 1000 + i, n, DIMS, true_k), k,
-                target_num_clusters=P19_TARGETS.get(i, 0)))
+            if only is None or i in only:
+                out.append(TenantSpec(
+                    f"p{i:02d}", make_blobs(seed + 1000 + i, n, DIMS, true_k),
+                    k, target_num_clusters=P19_TARGETS.get(i, 0)))
+            i += 1
     return out
 
 
@@ -6237,7 +6458,7 @@ def main() -> int:
     shutil.rmtree(wholedir, ignore_errors=True)
     wholedir.mkdir(parents=True)
     try:
-        whole = phase_mesh_whole(data, wholedir, card)
+        whole = phase_mesh_whole(data, wholedir, card, args.seed)
     finally:
         shutil.rmtree(wholedir, ignore_errors=True)
 
@@ -6392,6 +6613,14 @@ def main() -> int:
             rank=x["rank"], launches=x["launches"][key],
             ms_per_lane_estep=x["ms_per_lane_estep"])
             for x in whole["e"]["ranks"]]
+    # Phase 15 (g): the fused sweep on a mesh, each rank's launches counted
+    # from 0 around it, its wall beside the host sweep's at 'off'.
+    for i, key, mesh_key in ((0, "K1", "2x1"), (1, "K2", "2x1"),
+                             (4, "K5", "1x2"), (5, "K6", "1x2")):
+        kernels[i]["mesh_fused_sweep"] = [dict(
+            rank=x["rank"], mesh=mesh_key, launches=x["launches"][key],
+            fused_wall_s=x["fused_wall_s"], host_wall_s=x["host_wall_s"])
+            for x in whole["g"][mesh_key]]
     # The streaming path (phase 16): each arm's K1/K2 launches counted
     # from 0 around its fit, K1's device time per 65,536-event block.
     stream_arms = {a: dict(launches=r["launches"],
@@ -6482,6 +6711,7 @@ def main() -> int:
     kernels[0]["estimator"] = estimator
     kernels[0]["containment"] = containment
     kernels[0]["capture"] = capture
+    phase_end()
     print("kernels: " + "; ".join(
         f"{k['name']} launches={k['launches']} pass" for k in kernels)
         + f"; total {time.perf_counter() - t_start:.1f} s")

@@ -32,6 +32,13 @@ would shrink it as K drops. Its only saving over the host-driven sweep at
 position (the JAX package's ordered ``io_callback``): the checkpoint and
 per-K timing hook, and the only point where a cooperative stop can land.
 With ``emit_light`` the payload holds only ``step`` and ``done``.
+
+On a mesh (parallel/sharded_em.py) every rank runs the same sweep on its
+shard, its EM program eagerly. Where the cluster axis is sharded,
+``reduce_order_fn`` gathers the K-state of the rank's mesh row, runs the
+order reduction on the whole of it (the same on every rank) and keeps the
+rank's rows, and ``emit_gather_fn`` gathers the emitted states, so a
+checkpoint holds the whole model and resumes on any layout.
 """
 
 from __future__ import annotations
@@ -55,8 +62,10 @@ from .em_program import (
 class SweepCarry:
     """The sweep's state on the device: the current state and its K, the
     best state with its loglik (the data's dtype) and score (float64), the
-    per-K log [start_k, 5] (float64), the step, whether the sweep is done,
-    the health totals (int64) and the last K's counters."""
+    per-K log [start_k, 5] (float64), the merges [start_k, 4] (float64
+    rows ``(k_active, c1, c2, distance)``, NaN where a K merged nothing),
+    the step, whether the sweep is done, the health totals (int64) and the
+    last K's counters."""
 
     state: GMMState
     k: torch.Tensor
@@ -64,6 +73,7 @@ class SweepCarry:
     best_ll: torch.Tensor
     best_riss: torch.Tensor
     log: torch.Tensor
+    merges: torch.Tensor
     step: torch.Tensor
     done: torch.Tensor
     health: torch.Tensor
@@ -73,10 +83,13 @@ class SweepCarry:
 def k_step(c: SweepCarry, em, *, start_k: int, stop_number: int,
            target_k: int, num_events: int, num_dimensions: int,
            criterion: str, covariance_type: Optional[str],
-           diag_only: bool) -> SweepCarry:
+           diag_only: bool,
+           reduce_order_fn: Optional[Callable] = None) -> SweepCarry:
     """The sweep's work after one K's EM (``em``, its
     :class:`~models.em_program.EMCarry`): the body of the JAX package's
-    ``fused_sweep`` after its ``em`` call."""
+    ``fused_sweep`` after its ``em`` call. ``reduce_order_fn(state) ->
+    (state, k_active, min_d, pair)`` replaces the order reduction
+    (``eliminate_and_reduce_device``)."""
     k = c.k
     s, ll, iters = em.state, em.ll, em.iters
     dt = ll.dtype
@@ -98,19 +111,30 @@ def k_step(c: SweepCarry, em, *, start_k: int, stop_number: int,
     rows = torch.arange(start_k, device=ll.device)
     log = torch.where((rows == c.step)[:, None], row[None, :], c.log)
     stop_now = k <= stop_number
-    next_state, k_active, min_d, _ = eliminate_and_reduce_device(
-        s, diag_only=diag_only)
+    if reduce_order_fn is None:
+        next_state, k_active, min_d, pair = eliminate_and_reduce_device(
+            s, diag_only=diag_only)
+    else:
+        next_state, k_active, min_d, pair = reduce_order_fn(s)
     can_merge = (k_active >= 2) & torch.isfinite(min_d)
+    # The host sweep's merge record: a K that scored, short of the target,
+    # with a valid pair.
+    merged = ~stop_now & can_merge & ~fatal_k
+    merge_row = torch.cat([k_active.reshape(1).to(f64), pair.to(f64),
+                           min_d.reshape(1).to(f64)])
+    merges = torch.where(((rows == c.step) & merged)[:, None],
+                         merge_row[None, :], c.merges)
     # A count that elimination drops below the target runs no EM there
     # (the host loop's `while k >= stop_number`); a fatal word ends it too.
-    cont = ~stop_now & can_merge & (k_active - 1 >= stop_number) & ~fatal_k
+    cont = merged & (k_active - 1 >= stop_number)
     return SweepCarry(
         state=select(cont, next_state, s),
         k=torch.where(cont, k_active - 1, k),
         best_state=select(save, s, c.best_state),
         best_ll=torch.where(save, ll.to(dt), c.best_ll),
         best_riss=torch.where(save, riss, c.best_riss),
-        log=log, step=c.step + 1, done=~cont, health=c.health + h_k,
+        log=log, merges=merges, step=c.step + 1, done=~cont,
+        health=c.health + h_k,
         h_last=h_k)
 
 
@@ -119,9 +143,13 @@ class FusedSweep:
     on one CUDA device (``capture``) or run eagerly."""
 
     def __init__(self, em: EMProgram, state_like: GMMState, *, capture: bool,
-                 pool=None, **static) -> None:
+                 pool=None, reduce_order_fn: Optional[Callable] = None,
+                 emit_gather_fn: Optional[Callable] = None,
+                 **static) -> None:
         self.em = em
         self.static = static
+        self.reduce_order_fn = reduce_order_fn
+        self.emit_gather_fn = emit_gather_fn or (lambda s: s)
         self.captured = capture
         self.carry = self._carry0(state_like, None)
         if capture:
@@ -151,6 +179,8 @@ class FusedSweep:
             best_riss=torch.tensor(torch.inf, dtype=torch.float64,
                                    device=dev),
             log=torch.zeros((start_k, 5), dtype=torch.float64, device=dev),
+            merges=torch.full((start_k, 4), torch.nan, dtype=torch.float64,
+                              device=dev),
             step=i64(0), done=torch.tensor(False, device=dev),
             health=torch.zeros(health.NUM_FLAGS, dtype=torch.int64,
                                device=dev),
@@ -165,11 +195,15 @@ class FusedSweep:
                                        dtype=torch.float64, device=dev)
             c.log = torch.as_tensor(resume["log"]).to(dtype=torch.float64,
                                                       device=dev)
+            if resume.get("merges") is not None:
+                c.merges = torch.as_tensor(resume["merges"]).to(
+                    dtype=torch.float64, device=dev)
             c.step = i64(int(resume["step"]))
         return c
 
     def _k_step(self) -> SweepCarry:
-        return k_step(self.carry, self.em.carry, **self.static)
+        return k_step(self.carry, self.em.carry,
+                      reduce_order_fn=self.reduce_order_fn, **self.static)
 
     def _k_step_into_static(self) -> None:
         new = self._k_step()
@@ -182,8 +216,8 @@ class FusedSweep:
             regression_scale: float = 10.0,
             emit_cb: Optional[Callable] = None, emit_light: bool = False):
         """The sweep from ``state`` (or ``resume``'s position): returns
-        ``(best_state, best_ll, best_riss, log, steps, health)`` on the
-        device."""
+        ``(best_state, best_ll, best_riss, log, steps, health, merges)`` on
+        the device."""
         start_k = self.static["start_k"]
         em = self.em
         em.ctrl.set(epsilon, min_iters, max_iters, nan_iter,
@@ -211,23 +245,27 @@ class FusedSweep:
             step += 1
         out = (self.carry.best_state, self.carry.best_ll,
                self.carry.best_riss, self.carry.log, self.carry.step,
-               self.carry.health)
+               self.carry.health, self.carry.merges)
         # The static buffers belong to the program, which the next run
         # overwrites: a caller gets copies.
         return tuple(map(clone_tree, out)) if self.captured else out
 
     def _payload(self, step: int, light: bool) -> dict:
         """The host's view of a completed K (the JAX package's emission
-        payload; ``light``: the step scalars only)."""
+        payload; ``light``: the step scalars only). The states are whole
+        (``emit_gather_fn``)."""
         c = self.carry
         if light:
             return dict(step=step, done=bool(c.done))
         row = c.log[step].tolist()
+        gather = self.emit_gather_fn
         return dict(
             step=step, k=int(row[0]), ll=row[1], iters=int(row[3]),
-            state=c.state.to("cpu"), best_state=c.best_state.to("cpu"),
+            state=gather(c.state).to("cpu"),
+            best_state=gather(c.best_state).to("cpu"),
             best_ll=float(c.best_ll), best_riss=float(c.best_riss),
-            log=c.log.cpu().numpy(), next_k=int(c.k), done=bool(c.done),
+            log=c.log.cpu().numpy(), merges=c.merges.cpu().numpy(),
+            next_k=int(c.k), done=bool(c.done),
             health=c.h_last.cpu().numpy())
 
 
@@ -235,22 +273,27 @@ def fused_sweep(state, data_chunks, wts_chunks, epsilon, min_iters,
                 max_iters, resume=None, *, model, start_k: int,
                 stop_number: int, target_k: int, num_events: int,
                 num_dimensions: int, emit_cb: Optional[Callable] = None,
-                emit_light: bool = False):
+                emit_light: bool = False,
+                reduce_order_fn: Optional[Callable] = None,
+                emit_gather_fn: Optional[Callable] = None):
     """Run the whole K-sweep on the device (``model``'s statistics,
     M-step and numerics; its EM program at the state's width).
 
-    Returns ``(best_state, best_ll, best_riss, log, steps, health)``:
+    Returns ``(best_state, best_ll, best_riss, log, steps, health,
+    merges)``:
     ``log`` is a [start_k, 5] float64 tensor of per-K rows ``(k, loglik,
     score, em_iters, health_word)`` (rows beyond ``steps`` are zero; the
     JAX package keeps it in the data's dtype, which rounds a float32 run's
     scores: here they are the host sweep's, and a checkpoint's
     ``fused_log`` loads in either package) and
-    ``health`` the sweep's summed int64 counter vector. A fatal per-K
+    ``health`` the sweep's summed int64 counter vector, ``merges`` the
+    [start_k, 4] merge rows (:class:`SweepCarry`). A fatal per-K
     health word stops the sweep; a non-finite score never takes the best
     slot (``NONFINITE_SCORE`` counts it). ``resume`` restores a position
     an earlier run emitted: ``best_state``, ``k``, ``step``, ``best_ll``,
-    ``best_riss``, ``log``. ``emit_cb``/``emit_light``: the module
-    docstring.
+    ``best_riss``, ``log`` and optionally ``merges``.
+    ``emit_cb``/``emit_light``, ``reduce_order_fn``/``emit_gather_fn``
+    (a cluster-sharded mesh's): the module docstring.
     """
     cfg = model.config
     static = dict(start_k=int(start_k), stop_number=int(stop_number),
@@ -268,7 +311,9 @@ def fused_sweep(state, data_chunks, wts_chunks, epsilon, min_iters,
     if sweep is None:
         sweep = cache[key] = FusedSweep(
             em, state, capture=model.captures,
-            pool=model.graph_pool() if model.captures else None, **static)
+            pool=model.graph_pool() if model.captures else None,
+            reduce_order_fn=reduce_order_fn, emit_gather_fn=emit_gather_fn,
+            **static)
     # One armed ``nan_loglik`` plan per fused program, firing in every K's
     # EM (the JAX package traces its EM body once into the sweep).
     inj = model.armed_fault(state, data_chunks, sweep="fused")

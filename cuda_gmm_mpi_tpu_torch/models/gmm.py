@@ -194,6 +194,9 @@ class GMMModel:
     bucket_multiple = 1
     # The (data, cluster) mesh of parallel.ShardedGMMModel; None: one device.
     mesh = None
+    # A mesh rank's reduction of the statistics over the data axis; None:
+    # one device.
+    _reduce = None
     # The fused sweep's per-K emission (checkpoints, per-K seconds) runs on
     # this model (models/fused_sweep.py).
     supports_fused_emit = True
@@ -361,7 +364,8 @@ class GMMModel:
         if self._eager_em:
             run = _em_loop(
                 state, data_chunks, wts_chunks, epsilon, lo, hi,
-                stats_fn=self._stats_fn(n_events), mstep_fn=self.mstep_fn,
+                stats_fn=self._stats_fn(n_events, data_chunks),
+                mstep_fn=self.mstep_fn,
                 precompute_features=cfg.precompute_features,
                 covariance_type=cfg.covariance_type,
                 dynamic_range=cfg.covariance_dynamic_range,
@@ -378,10 +382,13 @@ class GMMModel:
                            resume=resume)
         return run
 
-    def _stats_fn(self, n_events: Optional[int]):
-        """The statistics hook, told the real events on the kernel path."""
+    def _stats_fn(self, n_events: Optional[int], data_chunks):
+        """The statistics hook, told the real events in front of this
+        model's block of ``data_chunks`` on the kernel path."""
         if n_events is not None and self.estep_backend == "cuda":
-            return functools.partial(self.stats_fn, n_events=n_events)
+            return functools.partial(
+                self.stats_fn,
+                n_events=self.local_events(n_events, data_chunks))
         return self.stats_fn
 
     def programs(self, data_chunks, wts_chunks, n_events) -> dict:
@@ -443,7 +450,9 @@ class GMMModel:
         state's padded width on these events, built on first use: one
         CUDA-graph capture per width on the card (the JAX package's one
         executable per width), the same loop run eagerly elsewhere.
-        ``length`` is its trajectory's slots (at least max_iters + 1)."""
+        ``length`` is its trajectory's slots (at least max_iters + 1). On
+        a mesh rank (``parallel.ShardedGMMModel``) the program reduces the
+        statistics over the data axis and runs eagerly."""
         from .em_program import EMProgram
 
         cache = self.programs(data_chunks, wts_chunks, n_events)
@@ -454,7 +463,10 @@ class GMMModel:
             estep, mstep, count = em_hooks(
                 data_chunks, wts_chunks,
                 precompute_features=cfg.precompute_features,
-                stats_fn=self._stats_fn(n_events), mstep_fn=self.mstep_fn,
+                stats_fn=self._stats_fn(n_events, data_chunks),
+                mstep_fn=self.mstep_fn, reduce_stats=self._reduce,
+                cluster_group=(None if self.mesh is None
+                               else self.mesh.cluster_group),
                 covariance_type=cfg.covariance_type,
                 dynamic_range=cfg.covariance_dynamic_range, **self.numerics)
             prog = cache[key] = EMProgram(
@@ -481,7 +493,8 @@ class GMMModel:
         to ``emit_cb`` on the host between the sweep's replays: the whole
         payload, or with ``emit_light`` only the step scalars. The program
         is cached per width and ``static`` on the model's events (the JAX
-        package's ``cached_fused_sweep``)."""
+        package's ``cached_fused_sweep``). On a mesh rank the same sweep
+        runs on the rank's shard (``_fused_hooks``)."""
         from .fused_sweep import fused_sweep
 
         def fused(state, data_chunks, wts_chunks, epsilon, min_iters,
@@ -490,9 +503,15 @@ class GMMModel:
                 state, data_chunks, wts_chunks, epsilon, min_iters,
                 max_iters, resume, model=self,
                 emit_cb=emit_cb if with_emit else None,
-                emit_light=emit_light, **static)
+                emit_light=emit_light, **self._fused_hooks(), **static)
 
         return fused
+
+    def _fused_hooks(self) -> dict:
+        """The fused sweep's order-reduction and emission hooks: none on
+        one device (a cluster-sharded mesh rank's on
+        ``parallel.ShardedGMMModel``)."""
+        return {}
 
     def run_em_batched(self, states, data_chunks, wts_chunks, epsilon: float,
                        min_iters=None, max_iters=None,

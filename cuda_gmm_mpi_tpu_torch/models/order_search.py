@@ -1270,7 +1270,9 @@ def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
     rebuilt from the device log; the stream carries ``em_done`` per K and
     no ``em_iter`` records (the EM iterations never reach the host). The
     ``timer`` gets each K's whole span as e_step, as in the JAX
-    package."""
+    package. On a mesh every rank runs this alike: the stop is agreed over
+    the world at each emission (``poll_world``), rank 0 writes the
+    checkpoints, and the best state is gathered before it is compacted."""
     rec = telemetry.current()
     resume = None
     if ckpt is not None and config.resume != "never":
@@ -1291,12 +1293,14 @@ def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
                     fused_log = np.concatenate(
                         [fused_log, np.zeros((fused_log.shape[0], 1),
                                              fused_log.dtype)], axis=1)
-                resume = dict(best_state=restored["best_state"],
+                resume = dict(best_state=_place_state(
+                                  restored["best_state"], model),
                               k=int(restored["k"]),
                               step=int(restored["step"]) + 1,
                               best_ll=float(restored["best_ll"]),
                               best_riss=float(restored["best_riss"]),
-                              log=fused_log)
+                              log=fused_log,
+                              merges=restored.get("fused_merges"))
                 log.info("resumed fused sweep from checkpoint: next K=%d "
                          "(step %d)", resume["k"], resume["step"])
                 if rec.active:
@@ -1321,14 +1325,17 @@ def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
             "best_ll": float(payload["best_ll"]),
             "best_riss": float(payload["best_riss"]),
             "fused_log": np.asarray(payload["log"]),
+            "fused_merges": np.asarray(payload["merges"]),
             "num_clusters": int(num_clusters),
             "criterion_code": _CRITERION_CODE[config.criterion],
             "cov_code": _COV_CODE[config.covariance_type],
             "data_shift": np.asarray(shift, np.float64),
         })
-        if sup.active and sup.stop_requested:
-            # The fused sweep's only intervention point: this K is durable.
-            sup._emit_preempt(where="fused_emit")
+        # The fused sweep's only intervention point: this K is durable. On
+        # a mesh the ranks agree on the stop here, so all of them stop
+        # after this same K.
+        if sup.active and sup.poll_world(where="fused_emit",
+                                         k=int(payload["next_k"])):
             raise supervisor.PreemptedError(
                 "fused sweep stopped at per-K emission",
                 reason=sup.stop_reason or "unknown", step=step,
@@ -1346,7 +1353,9 @@ def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
         sup.raise_stop(step=max(emit_times) if emit_times else None,
                        checkpointed=bool(ckpt is not None and emit_times))
         raise
-    best_state, best_ll, best_riss, log_t, steps, counts = out
+    best_state, best_ll, best_riss, log_t, steps, counts, merge_t = out
+    if _sharded(model):  # the mesh row's clusters, on every rank
+        best_state = model.gather_state(best_state)
     best_state = best_state.to("cpu")
     rows = log_t.cpu().numpy()
     steps = int(steps)
@@ -1387,6 +1396,8 @@ def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
     sweep_log = [(int(r[0]), float(r[1]), float(r[2]), int(r[3]),
                   step_secs.get(i, per_k))
                  for i, r in enumerate(rows[:steps])]
+    merges = [(int(m[0]), (int(m[1]), int(m[2])), float(m[3]))
+              for m in merge_t.cpu().numpy()[:steps] if not np.isnan(m[0])]
     if verbose:
         for k_, ll_, riss_, it_, _ in sweep_log:
             print(f"K={k_}: loglik={ll_:.6e} {config.criterion}={riss_:.6e} "
@@ -1429,8 +1440,8 @@ def _run_fused_sweep(fused, config, state, chunks, wts, epsilon,
         state=compact_state, ideal_num_clusters=n_active,
         min_rissanen=best_riss, final_loglik=best_ll, epsilon=epsilon,
         num_events=n_events, num_dimensions=n_dims,
-        data_shift=np.asarray(shift), sweep_log=sweep_log, model=model,
-        health=health_section, profile=profile,
+        data_shift=np.asarray(shift), sweep_log=sweep_log, merges=merges,
+        model=model, health=health_section, profile=profile,
         profile_report=profile_report, envelope=envelope,
         host_range=_host_bounds(n_events, config.chunk_size, model)[:2])
 

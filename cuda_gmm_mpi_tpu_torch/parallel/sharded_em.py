@@ -2,7 +2,7 @@
 
 The port of the JAX package's ``parallel/sharded_em.py``. JAX runs the mesh
 as one SPMD program over devices; here each rank is a process running the
-same device-controlled EM loop (``em_program_run``, eagerly: the
+same device-controlled EM loop (``GMMModel.em_program``, eagerly: the
 collectives go through the host) on its own shard:
 
   - events sharded over the ``data`` axis: each rank computes the fused
@@ -23,7 +23,11 @@ collectives go through the host) on its own shard:
 The order search (models/order_search.py) gathers the clusters of a mesh
 row before each merge scan (:meth:`ShardedGMMModel.gather_state`), runs the
 same scan on every rank and keeps its own rows again
-(:meth:`ShardedGMMModel.rebucket_state`).
+(:meth:`ShardedGMMModel.rebucket_state`). The fused sweep
+(models/fused_sweep.py, ``make_fused_sweep``) does the same on the device
+between Ks: the gather, the order reduction and the slice are its per-K
+step's (:meth:`ShardedGMMModel._reduce_order`), every rank reads the same
+``done``, and its per-K emission carries the gathered state.
 """
 
 from __future__ import annotations
@@ -38,10 +42,11 @@ import torch.distributed as dist
 
 from ..config import GMMConfig
 from ..models.gmm import (
-    GMMModel, _memberships, em_program_run, em_while_loop_batched,
-    lane_loop_mstep, lane_loop_stats, resolve_iters_batched, setup_device,
+    GMMModel, _memberships, em_while_loop_batched, lane_loop_mstep,
+    lane_loop_stats, resolve_iters_batched, setup_device,
 )
 from ..ops.estep import posteriors
+from ..ops.merge import eliminate_and_reduce_device
 from ..ops.mstep import SuffStats, accumulate_stats, apply_mstep
 from ..state import compact_to, lane, stack_states
 from . import distributed
@@ -94,7 +99,16 @@ class ShardedGMMModel:
     torch ops) when the cluster axis is sharded; 'torch' the torch-ops
     path. ``collective_backend`` is the world's ('nccl', 'gloo', or 'none'
     for a single process).
+
+    The per-K EM, its program cache and the fused sweep are
+    :class:`GMMModel`'s, on the rank's shard: the kernels get the rank's
+    real events (:meth:`local_events`), the statistics are reduced over
+    the data axis, and the programs run eagerly (a collective is not
+    captured in a CUDA graph).
     """
+
+    supports_fused_emit = True
+    captures = False
 
     def __init__(self, config: GMMConfig = GMMConfig(), mesh=None,
                  stats_fn=None):
@@ -136,9 +150,24 @@ class ShardedGMMModel:
         self.last_health = None
         self.last_lls = None
         self._armed_faults = {}
+        # GMMModel's program cache (models/gmm.py), never captured here.
+        self._eager_em = False
+        self._programs, self._programs_data = {}, None
+        self._graph_pool = self._fleet_programs = None
+        self.capture_log: list = []
 
     armed_fault = GMMModel.armed_fault
     armed_fleet_fault = GMMModel.armed_fleet_fault
+    numerics = GMMModel.numerics
+    run_em = GMMModel.run_em
+    run_em_resumable = GMMModel.run_em_resumable
+    _run_em = GMMModel._run_em
+    _stats_fn = GMMModel._stats_fn
+    programs = GMMModel.programs
+    release_programs = GMMModel.release_programs
+    fleet_programs = GMMModel.fleet_programs
+    em_program = GMMModel.em_program
+    make_fused_sweep = GMMModel.make_fused_sweep
 
     @property
     def data_size(self) -> int:
@@ -174,68 +203,6 @@ class ShardedGMMModel:
         rows = data_chunks.shape[0] * data_chunks.shape[1]
         lo = self.mesh.data_index * rows
         return min(max(n_events - lo, 1), rows)
-
-    def run_em(self, state, data_chunks, wts_chunks, epsilon: float,
-               min_iters: Optional[int] = None,
-               max_iters: Optional[int] = None,
-               n_events: Optional[int] = None, *, sweep: bool = False):
-        """EM on this rank's shard; returns (state, loglik, iters) with the
-        loglik of all events. ``n_events`` is the real events of the whole
-        grid; the kernels get this rank's share of them. The health
-        counters (``last_health``) are the whole mesh's: the statistics'
-        lanes come summed over the data axis, the state's over the cluster
-        group."""
-        state, ll, iters, _, _, _ = self.run_em_resumable(
-            state, data_chunks, wts_chunks, epsilon, min_iters, max_iters,
-            n_events=n_events, sweep=sweep)
-        return state, ll, iters
-
-    def run_em_resumable(self, state, data_chunks, wts_chunks, epsilon,
-                         min_iters: Optional[int] = None,
-                         max_iters: Optional[int] = None,
-                         n_events: Optional[int] = None, *,
-                         sweep: bool = False, poll_iters: int = 25,
-                         should_stop=None, resume: Optional[dict] = None):
-        """:meth:`GMMModel.run_em_resumable` on this rank's shard."""
-        cfg = self.config
-        inj = self.armed_fault(state, data_chunks, sweep=sweep)
-        lo = cfg.min_iters if min_iters is None else min_iters
-        hi = cfg.max_iters if max_iters is None else max_iters
-        run = self._run_em(state, data_chunks, wts_chunks, epsilon, lo, hi,
-                           n_events, None if inj is None else int(inj["iter"]),
-                           should_stop=should_stop, poll_iters=poll_iters,
-                           resume=resume)
-        self.last_health, self.last_lls = run.health, run.lls
-        return (run.state, run.loglik, run.iters, run.lls, run.stopped,
-                run.extra)
-
-    def _run_em(self, state, data_chunks, wts_chunks, epsilon, lo: int,
-                hi: int, n_events: Optional[int], nan_iter: Optional[int], *,
-                should_stop=None, poll_iters: int = 25,
-                resume: Optional[dict] = None):
-        """One EM run on this rank's shard at bounds (lo, hi) with
-        ``nan_iter`` as the armed fault (:meth:`GMMModel._run_em`); the
-        kernels get this rank's share of the ``n_events`` real events."""
-        cfg = self.config
-        stats_fn = self.stats_fn
-        if n_events is not None and self.estep_backend == "cuda":
-            stats_fn = functools.partial(
-                stats_fn, n_events=self.local_events(n_events, data_chunks))
-        # The device-controlled loop, run eagerly: its collectives (the
-        # statistics' all_reduce, the counts over the cluster group) go
-        # through the host every iteration, as each rank steps in lockstep.
-        return em_program_run(
-            state, data_chunks, wts_chunks, epsilon, lo, hi,
-            nan_iter=nan_iter,
-            regression_scale=cfg.health_regression_scale,
-            should_stop=should_stop, poll_iters=poll_iters, resume=resume,
-            diag_only=cfg.diag_only, quad_mode=cfg.quad_mode,
-            matmul_precision=cfg.matmul_precision,
-            precompute_features=cfg.precompute_features, stats_fn=stats_fn,
-            mstep_fn=self.mstep_fn, reduce_stats=self._reduce,
-            cluster_group=self.mesh.cluster_group,
-            covariance_type=cfg.covariance_type,
-            dynamic_range=cfg.covariance_dynamic_range)
 
     # -- restart batches on the mesh (the JAX package's sharded_em.py:
     # 453-528): the lane axis is replicated over the mesh and the clusters
@@ -389,25 +356,50 @@ class ShardedGMMModel:
 
     def gather_state(self, state):
         """The full state of this rank's mesh row, with the cluster padding
-        dropped: one all_reduce SUM over the cluster group of a zero buffer
-        in which each rank fills its own rows (exact: x + 0 = x)."""
-        group = self.mesh.cluster_group
-        if group is not None:
-            fields = [f.name for f in dataclasses.fields(state)]
-            dt = state.R.dtype
-            leaves = [getattr(state, f).to(dt) for f in fields]
-            k = state.num_clusters_padded
-            C, j = self.cluster_size, self.mesh.cluster_index
-            buf = torch.zeros((C, sum(t.numel() for t in leaves)), dtype=dt,
-                              device=state.R.device)
-            buf[j] = torch.cat([t.reshape(-1) for t in leaves])
-            dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
-            parts = torch.split(buf, [t.numel() for t in leaves], dim=1)
-            full = {f: p.reshape((C * k,) + t.shape[1:])
-                    for f, p, t in zip(fields, parts, leaves)}
-            full["active"] = full["active"] > 0.5
-            state = type(state)(**full)
+        dropped."""
+        state = self._gather_rows(state)
         return state.take(torch.arange(self._k_cols, device=state.N.device))
+
+    def _gather_rows(self, state):
+        """Every rank's rows of this rank's mesh row, padding included: one
+        all_reduce SUM over the cluster group of a zero buffer in which
+        each rank fills its own rows (exact: x + 0 = x)."""
+        group = self.mesh.cluster_group
+        if group is None:
+            return state
+        fields = [f.name for f in dataclasses.fields(state)]
+        dt = state.R.dtype
+        leaves = [getattr(state, f).to(dt) for f in fields]
+        k = state.num_clusters_padded
+        C, j = self.cluster_size, self.mesh.cluster_index
+        buf = torch.zeros((C, sum(t.numel() for t in leaves)), dtype=dt,
+                          device=state.R.device)
+        buf[j] = torch.cat([t.reshape(-1) for t in leaves])
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=group)
+        parts = torch.split(buf, [t.numel() for t in leaves], dim=1)
+        full = {f: p.reshape((C * k,) + t.shape[1:])
+                for f, p, t in zip(fields, parts, leaves)}
+        full["active"] = full["active"] > 0.5
+        return type(state)(**full)
+
+    def _fused_hooks(self) -> dict:
+        """The fused sweep's hooks on a cluster-sharded mesh (the JAX
+        package's ``reduce_order_fn``/``emit_gather_fn``): the order
+        reduction over the gathered K-state, and whole emitted states. A
+        data-only mesh needs neither: every rank holds the whole state."""
+        if self.mesh.cluster_group is None:
+            return {}
+        return dict(reduce_order_fn=self._reduce_order,
+                    emit_gather_fn=self.gather_state)
+
+    def _reduce_order(self, state):
+        """The order reduction of one rank's rows: gather the mesh row's
+        K-state, run ``eliminate_and_reduce_device`` on the whole of it
+        (the same bits on every rank, so ``k_active``, the pair and
+        ``done`` agree) and keep this rank's rows of the result."""
+        new, k_active, min_d, pair = eliminate_and_reduce_device(
+            self._gather_rows(state), diag_only=self.config.diag_only)
+        return cluster_slice(self.mesh, new), k_active, min_d, pair
 
     def rebucket_state(self, full_state, num_clusters: int):
         """This rank's rows of a gathered state, narrowed to

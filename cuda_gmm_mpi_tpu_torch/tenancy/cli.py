@@ -20,8 +20,12 @@ Manifest format -- JSON array or JSONL, one object per tenant::
      "target_num_clusters": 0, "seed": 7}
 
 Runs on the card unless ``--device cpu``. On a mesh (``--mesh`` under
-torchrun, one process per rank) every rank fits every tenant and rank 0
-writes the outputs. Exit codes follow the fit CLI's contract: 0 fitted
+torchrun, or with ``--coordinator``/``--num-processes``/``--process-id``
+on each rank: one process per rank) every rank fits every tenant and rank
+0 writes the outputs; ``--elastic`` (with ``--checkpoint-dir``) shrinks
+the world over the survivors of a lost rank and refits the group in
+flight from its checkpoint instead of exiting 75. Exit codes follow the
+fit CLI's contract: 0 fitted
 (even with some tenants dropped -- per-tenant status is in fleet.json), 70
 when EVERY tenant was dropped or an unrecovered numerical fault aborted
 the run, 74 unreadable input or checkpoint, 75 preempted (resume with the
@@ -110,6 +114,22 @@ def build_fleet_parser() -> argparse.ArgumentParser:
                    help="write a torch.profiler Chrome trace of the fleet "
                    "fit into DIR")
     p.add_argument("--verbose", "-v", action="store_true")
+    d = p.add_argument_group(
+        "distributed (the fit CLI's: run the SAME command on every rank, "
+        "or launch with torchrun)")
+    d.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                   help="rank 0's address (tcp://, or a file:// store); "
+                   "with --num-processes and --process-id")
+    d.add_argument("--num-processes", type=int, default=None,
+                   help="world size")
+    d.add_argument("--process-id", type=int, default=None,
+                   help="this process's rank (0-based)")
+    d.add_argument("--elastic", action="store_true",
+                   help="on a lost peer the survivors seal a shrunken "
+                   "membership on the checkpoint filesystem, rebuild the "
+                   "process group over themselves and refit the group in "
+                   "flight from its checkpoint, instead of exiting 75. "
+                   "Requires --checkpoint-dir")
     return p
 
 
@@ -172,6 +192,7 @@ def fleet_main(argv=None) -> int:
             metrics_port=args.metrics_port,
             fleet_mode=args.fleet_mode,
             fleet_group_size=args.fleet_group_size,
+            elastic=args.elastic,
             enable_print=args.verbose,
         )
     except ValueError as e:
@@ -200,7 +221,9 @@ def fleet_main(argv=None) -> int:
             return 1
 
     try:
-        distributed.initialize(args.device)
+        distributed.initialize(
+            args.device, coordinator=args.coordinator,
+            num_processes=args.num_processes, process_id=args.process_id)
     except ValueError as e:
         print(str(e), file=sys.stderr)
         return 1

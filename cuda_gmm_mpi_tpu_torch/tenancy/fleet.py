@@ -36,8 +36,12 @@ Telemetry: ``fleet_start`` / per-tenant ``tenant_done`` / a closing
 The port's mesh is one process per rank: every rank runs ``fit_fleet`` on
 every tenant's whole data (as the port's mesh ``fit_gmm`` does) and holds
 its data shard of each lane (``ShardedGMMModel.prepare_fleet``). A lost
-peer ends the fit (exit 75 in the CLI; the group checkpoints resume it):
-the fleet has no elastic shrink.
+peer ends the fit (exit 75 in the CLI; the group checkpoints resume it),
+unless ``elastic`` is set: then, under one ``ElasticRecovery`` budget for
+the whole fleet, the world shrinks over the survivors, the model and its
+mesh are built anew over them, and the group in flight refits from its own
+``group<i>`` checkpoint, packed again for the new data axis. Groups that
+finished are not refitted.
 """
 
 from __future__ import annotations
@@ -189,15 +193,7 @@ def _fit_fleet(tenants, config, model, verbose) -> FleetResult:
     verbose = config.enable_print if verbose is None else verbose
     t_start = time.perf_counter()
 
-    if model is None:
-        if config.mesh_shape is not None:
-            from ..parallel import ShardedGMMModel
-
-            model = ShardedGMMModel(config)
-        else:
-            from ..models.gmm import GMMModel
-
-            model = GMMModel(config)
+    model = model or _fleet_model(config)
     if not getattr(model, "supports_fleet", False):
         raise ValueError(f"{type(model).__name__} has no fleet EM loop")
 
@@ -226,9 +222,11 @@ def _fit_fleet(tenants, config, model, verbose) -> FleetResult:
 
     out: List[Optional[TenantResult]] = [None] * len(tenants)
     group_meta: List[dict] = []
+    # One elastic-recovery budget spans the whole fleet fit: a peer loss
+    # during any group shrinks the world once and every later group fits
+    # over the survivors too (membership generations only move forward).
+    recovery = None
     for gi, group in enumerate(groups):
-        packed = pack_group(group, tenants, config, data_axis=data_axis,
-                            device=model.device)
         ckpt = None
         if config.checkpoint_dir:
             from ..utils.checkpoint import SweepCheckpointer
@@ -243,11 +241,43 @@ def _fit_fleet(tenants, config, model, verbose) -> FleetResult:
         # un-ended span simply never emits -- see telemetry/spans.py).
         g_span = tl_spans.begin("fleet_group", group=gi,
                                 tenants=len(group.indices))
-        # A 'scan' lane keeps its captured programs for the whole group.
-        hold = getattr(model, "fleet_programs", contextlib.nullcontext)
-        with hold():
-            results = _run_group(model, config, packed, ckpt, rec, log,
-                                 verbose, mode, gi)
+        while True:
+            # The chunk count a multiple of the data axis (an elastic
+            # shrink may leave another axis than the plan's).
+            num_chunks = -(-group.num_chunks // data_axis) * data_axis
+            group = dataclasses.replace(
+                group, num_chunks=num_chunks,
+                n_bucket=num_chunks * int(config.chunk_size))
+            packed = pack_group(group, tenants, config, data_axis=data_axis,
+                                device=model.device)
+            # A 'scan' lane keeps its captured programs for the whole group.
+            hold = getattr(model, "fleet_programs", contextlib.nullcontext)
+            try:
+                with hold():
+                    results = _run_group(model, config, packed, ckpt, rec,
+                                         log, verbose, mode, gi)
+                break
+            except supervisor.PreemptedError:
+                raise
+            except RuntimeError as e:
+                # The JAX package's per-group elastic continue: shrink, then
+                # refit THIS group from its own checkpoint directory.
+                lost = (e if isinstance(e, supervisor.PeerLostError)
+                        else supervisor.current().peer_loss_from(e))
+                if lost is None:
+                    raise
+                if recovery is None:
+                    recovery = supervisor.ElasticRecovery.maybe(config)
+                if recovery is None:
+                    if lost is e:
+                        raise
+                    raise lost from e
+                config = recovery.recover(lost, config)
+                if recovery.rebuilt:
+                    # The process group changed: a model (and mesh) over the
+                    # survivors (the old one's programs went with ``hold``).
+                    model = _fleet_model(config)
+                    data_axis = int(getattr(model, "data_size", 1))
         tl_spans.end(g_span)
         group_meta.append({
             "tenants": len(group.indices),
@@ -298,6 +328,18 @@ def _fit_fleet(tenants, config, model, verbose) -> FleetResult:
                  metrics=rec.metrics.snapshot())
         rec.set_context(path=None)
     return fleet
+
+
+def _fleet_model(config):
+    """The model a fleet fit builds: one rank of ``config.mesh_shape``'s
+    mesh, or one device."""
+    if config.mesh_shape is not None:
+        from ..parallel import ShardedGMMModel
+
+        return ShardedGMMModel(config)
+    from ..models.gmm import GMMModel
+
+    return GMMModel(config)
 
 
 def _json_float(x) -> Optional[float]:

@@ -37,6 +37,12 @@ def native_library(monkeypatch):
     half-done) tries again. The two writers differ in the last digit of a
     tie (tests/test_native_io.py), so byte identity needs the same writer on
     both sides; the tests assert that before they compare bytes."""
+    use_native_library(monkeypatch)
+
+
+def use_native_library(monkeypatch):
+    """``native_library``'s work, for a fixture of any scope (a module
+    fixture passes a ``pytest.MonkeyPatch.context()``)."""
     assert torch_native.ensure_built()
     for mod in (jax_native, torch_native):
         if mod._lib is None:

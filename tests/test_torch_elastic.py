@@ -258,6 +258,34 @@ def test_chaos_matrix_rank_lost_sites_resume_identically(tmp_path, name,
     assert elastic.generation() == 1
 
 
+def test_fused_sweep_peer_loss_shrinks_and_resumes_its_checkpoint(tmp_path):
+    """rank_lost at the fused sweep's per-K emission (its one poll, agreed
+    over the world on a mesh): with elastic the fit shrinks, resumes the
+    newest fused checkpoint and ends equal to the uninterrupted fused
+    sweep; without, it raises PeerLostError."""
+    data = _blobs(5, 4096, spread=8.0)
+    spec = {"rank_lost": {"where": "fused_emit", "rank": 1}}
+    with supervisor.use(_sup()):
+        ref = fit_gmm(data, 5, 2, config=_cfg(str(tmp_path / "ck_ref"),
+                                               fused_sweep=True))
+    with pytest.raises(PeerLostError):
+        with faults.use(spec), supervisor.use(_sup()):
+            fit_gmm(data, 5, 2, config=_cfg(str(tmp_path / "ck0"),
+                                             fused_sweep=True))
+    ck = str(tmp_path / "ck")
+    _seed_two_hosts(ck)
+    with faults.use(spec) as plan:
+        with supervisor.use(_sup()):
+            res = fit_gmm(data, 5, 2, config=_cfg(ck, elastic=True,
+                                                   fused_sweep=True))
+    assert plan.fired["rank_lost"] == 1 and elastic.generation() == 1
+    assert res.ideal_num_clusters == ref.ideal_num_clusters
+    assert res.final_loglik == ref.final_loglik
+    assert res.merges == ref.merges
+    assert [r[:4] for r in res.sweep_log] == [r[:4] for r in ref.sweep_log]
+    np.testing.assert_array_equal(res.means, ref.means)
+
+
 def test_elastic_survivor_set_determinism_across_runs(tmp_path, blobs3):
     results = []
     for trial in range(2):
@@ -348,3 +376,82 @@ def test_cli_rank_lost_exits_75_or_shrinks_with_elastic(bin_file):
         el = (tmp / f"el{ext}").read_bytes()
         assert el == (tmp / f"ref{ext}").read_bytes(), ext
         assert el == (tmp / f"res{ext}").read_bytes(), ext
+
+
+def test_fleet_cli_rank_lost_shrinks_the_group_in_flight_with_elastic(
+        tmp_path):
+    """``gmm fleet`` ('scan', float64) on a (2, 1) mesh of 2 ranks, two
+    groups, ``rank_lost`` of rank 1 at step 4 of the second group (the
+    first has 3 steps). With --elastic rank 1 exits 75 and rank 0 exits 0:
+    the first group's tenants are the clean 2-rank run's byte for byte,
+    the second group, refitted from its own checkpoint over the survivor,
+    has a clean one-process fleet's K and merge pairs, its loglik within
+    rtol 1e-9. Without --elastic both ranks exit 75."""
+    from cuda_gmm_mpi_tpu_torch.io import write_bin
+    from cuda_gmm_mpi_tpu_torch.tenancy import TenantSpec, fit_fleet
+    from cuda_gmm_mpi_tpu_torch.telemetry import read_stream
+
+    tenants = [("a", 3, 0, 900), ("b", 3, 1, 700), ("c", 6, 2, 1000),
+               ("d", 6, 3, 800)]
+    manifest, specs = [], []
+    for name, k, seed, n in tenants:
+        x = _blobs(20 + seed, n, spread=8.0)
+        write_bin(str(tmp_path / f"{name}.bin"), x)
+        manifest.append({"name": name, "infile": str(tmp_path / f"{name}.bin"),
+                         "num_clusters": k})
+        specs.append(TenantSpec(name, x.astype(np.float32), k))
+    (tmp_path / "m.json").write_text(json.dumps(manifest))
+    flags = ["--device", "cpu", "--dtype", "float64", "--min-iters", "4",
+             "--max-iters", "4", "--chunk-size", "128", "--mesh", "2,1"]
+
+    def start(tag, *extra, faults_env=None):
+        env = _env(**({"GMM_FAULTS": json.dumps(faults_env)}
+                      if faults_env else {}))
+        return [subprocess.Popen(
+            [sys.executable, "-m", "cuda_gmm_mpi_tpu_torch.cli", "fleet",
+             str(tmp_path / "m.json"), "--out-dir", str(tmp_path / tag),
+             "--checkpoint-dir", str(tmp_path / f"ck_{tag}"), *flags, *extra,
+             f"--coordinator=file://{tmp_path / ('store_' + tag)}",
+             "--num-processes=2", f"--process-id={r}"], cwd=tmp_path,
+            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True) for r in range(2)]
+
+    lost = {"rank_lost": {"iter": 4, "rank": 1}}
+    runs = {"clean": start("clean"),
+            "el": start("el", "--elastic", "--metrics-file",
+                        str(tmp_path / "el.jsonl"), faults_env=lost),
+            "plain": start("plain", faults_env=lost)}
+    out = {}
+    try:
+        for tag, procs in runs.items():
+            out[tag] = [(p.communicate(timeout=240)[1], p.returncode)
+                        for p in procs]
+    finally:
+        for procs in runs.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    assert [rc for _, rc in out["clean"]] == [0, 0], out["clean"][0][0][-2000:]
+    assert [rc for _, rc in out["plain"]] == [75, 75]
+    assert [rc for _, rc in out["el"]] == [0, 75], out["el"][0][0][-2000:]
+    assert "generation 1 sealed with 1/2 host(s) [0]" in out["el"][0][0]
+    rows = {r["name"]: r for r in json.loads(
+        (tmp_path / "el" / "fleet.json").read_text())["tenants"]}
+    assert [rows[n]["group"] for n in "abcd"] == [0, 0, 1, 1]
+    for name in "ab":
+        assert ((tmp_path / "el" / f"{name}.summary").read_bytes()
+                == (tmp_path / "clean" / f"{name}.summary").read_bytes())
+    one = fit_fleet(specs, GMMConfig(device="cpu", dtype="float64",
+                                     min_iters=4, max_iters=4,
+                                     chunk_size=128))
+    pairs = {}
+    for r in read_stream(str(tmp_path / "el.jsonl")):
+        if r["event"] == "merge":
+            pairs.setdefault(r["tenant"], []).append(tuple(r["pair"]))
+    for name in "cd":
+        ref = one[name].result
+        assert rows[name]["k"] == ref.ideal_num_clusters
+        assert pairs[name] == [tuple(m[1]) for m in ref.merges]
+        np.testing.assert_allclose(rows[name]["loglik"], ref.final_loglik,
+                                   rtol=1e-9)

@@ -435,8 +435,10 @@ def test_em_while_loop_runs_the_device_loop(monkeypatch):
 
 
 def test_mesh_fit_takes_the_host_sweep(blobs, caplog):
-    """A mesh model has no fused sweep in this package yet: the fit logs
-    the JAX package's blocker line and runs the host-driven sweep."""
+    """A mesh model runs the fused sweep too (``ShardedGMMModel.
+    make_fused_sweep``): no blocker line, and on a (1, 1) mesh the same
+    Ks, scores, merges and state, bit for bit, as the host-driven sweep at
+    its fixed width ('off'), which the fused sweep's merge rows match."""
     import logging
 
     logger = logging.getLogger("cuda_gmm_mpi_tpu_torch")
@@ -446,7 +448,9 @@ def test_mesh_fit_takes_the_host_sweep(blobs, caplog):
                                              mesh_shape=(1, 1)))
     finally:
         logger.removeHandler(caplog.handler)
-    assert ("fused_sweep disabled (model without fused-sweep support "
-            "requested); using the host-driven sweep") in caplog.text
-    host = fit_gmm(blobs, 8, 3, config=tcfg(mesh_shape=(1, 1)))
+    assert "fused_sweep disabled" not in caplog.text
+    host = fit_gmm(blobs, 8, 3, config=tcfg(mesh_shape=(1, 1),
+                                            sweep_k_buckets="off"))
     assert log_rows(r) == log_rows(host) and r.merges == host.merges
+    assert len(r.merges) == 5 and r.min_rissanen == host.min_rissanen
+    assert_states_equal(r.state, host.state)

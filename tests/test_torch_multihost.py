@@ -38,10 +38,12 @@ from cuda_gmm_mpi_tpu.cli import main as jax_main
 from cuda_gmm_mpi_tpu.config import GMMConfig as JConfig
 from cuda_gmm_mpi_tpu.models import fit_gmm as j_fit_gmm
 from cuda_gmm_mpi_tpu.parallel import distributed as j_dist
+from cuda_gmm_mpi_tpu.io import native as j_native
 from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm
-from cuda_gmm_mpi_tpu_torch.io import write_bin
+from cuda_gmm_mpi_tpu_torch.io import native, write_bin
 from cuda_gmm_mpi_tpu_torch.parallel import distributed
 
+from .test_torch_cli import native_library, use_native_library  # noqa: F401
 from .torch_mesh_worker import run_cases, spawn_world
 
 REPO = Path(__file__).resolve().parents[1]
@@ -239,13 +241,21 @@ def bin_file(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def jax_cli_files(bin_file):
-    """The JAX CLI's .summary and .results on the BIN file, one process."""
+    """The JAX CLI's .summary and .results on the BIN file, one process,
+    written through the native library: built under the port's lock first,
+    and a JAX loader that latched 'unavailable' in this worker (it met a
+    library another worker was still building) tries again, as
+    ``native_library`` does. A worker whose JAX CLI fell back to the Python
+    writer would differ from the ranks' native writer on last-digit ties."""
     import contextlib
     import io
 
     tmp, infile = bin_file
-    with contextlib.redirect_stdout(io.StringIO()):
+    with pytest.MonkeyPatch.context() as mp, \
+            contextlib.redirect_stdout(io.StringIO()):
+        use_native_library(mp)
         assert jax_main(["6", infile, str(tmp / "j"), "2", *CLI_ARGS]) == 0
+        assert j_native.available()
     return {ext: (tmp / f"j{ext}").read_bytes()
             for ext in (".summary", ".results")}
 
@@ -256,10 +266,13 @@ CLI_ARGS = ["--device=cpu", "--dtype=float64", "--min-iters=5",
 
 @pytest.mark.parametrize("mesh", ["2,1", "1,2"])
 def test_cli_part_dir_results_byte_identical_to_jax_cli(bin_file, mesh,
-                                                        jax_cli_files):
+                                                        jax_cli_files,
+                                                        native_library):  # noqa: F811
     """Each rank reads its rows, writes the memberships of its own rows as
     a part in --part-dir, and rank 0 assembles them: the .summary and
-    .results bytes of the JAX CLI in one process."""
+    .results bytes of the JAX CLI in one process (both through the native
+    writer)."""
+    assert j_native.available() and native.available()
     tmp, infile = bin_file
     out = tmp / f"t{mesh[0]}"
     ranks = run_ranks(2, ["6", infile, str(out), "2", *CLI_ARGS,

@@ -24,7 +24,15 @@ Ported from tests/test_parallel.py and tests/test_pallas.py:
   within 1e-12 of the JAX package's sharded fleet on (2, 2) (the fleets on
   both meshes compute the same function; the (2, 2) one interleaves the
   pad chunks per data shard, tests/test_tenancy.py's sharded case). A
-  (2, 1) mesh needs a world of 2 ranks; this world has 4.
+  (2, 1) mesh needs a world of 2 ranks; this world has 4;
+- the fused sweep on (4, 1), (2, 2) and (1, 4) (K 6 -> 2, float64)
+  against the JAX package's fused sweep on the same mesh and the port's
+  one-process fused sweep (tests/test_fused_sweep.py's bars: the same K and
+  Ks, min_rissanen rtol 1e-9, means rtol 1e-7 atol 1e-9), with no
+  "fused_sweep disabled" line on any rank; on (2, 2) its per-K checkpoints
+  (the whole state gathered) and their resume, its profile, and a stop
+  asked of one rank that stops all four after the same K. Each fused case
+  has a time limit of its own (``run_cases``): a hang fails its tests.
 """
 
 import json
@@ -79,7 +87,8 @@ def _inputs():
              ("beta", _blob(600, 4, 2), 4, 0, 3)]
     k32 = make_blobs(rng, n=1024, d=3, k=5, dtype=np.float32)[0]
     pad32 = make_blobs(rng, n=512, d=3, k=3, dtype=np.float32)[0]
-    return dict(
+    fused = make_blobs(rng, n=768, d=3, k=3)[0]
+    return dict(fused=fused,
         # 700 events in 8 chunks of 128 over 4 data shards: the last shard
         # holds no real event.
         em=(em, 4, 5, 128), pad=(pad, 3, 4, 128), uneven=(uneven, 2, 3, 128),
@@ -96,6 +105,8 @@ def _blob(n, k, seed, d=3):
 
 FLEET_CFG = dict(min_iters=4, max_iters=4, chunk_size=128, dtype="float64",
                  sweep_k_buckets="off")
+FUSED_CFG = dict(min_iters=4, max_iters=4, chunk_size=128, dtype="float64")
+FUSED_K0, FUSED_TARGET, FUSED_LIMIT_S = 6, 2, 120
 
 
 INPUTS = _inputs()
@@ -132,12 +143,46 @@ CASES = {
 }
 
 
+def _fused_case(mesh, **kw):
+    return ("fused_fit_case", dict(data=INPUTS["fused"], k0=FUSED_K0,
+                                   target=FUSED_TARGET, mesh_shape=mesh,
+                                   **FUSED_CFG, **kw), FUSED_LIMIT_S)
+
+
+# The fused sweep's cases, in this order: a checkpoint directory (relative
+# here) lies under the world's directory, and each resume follows its run.
+CASES.update({
+    **{("fused", m): _fused_case(m) for m in MESHES},
+    ("fused", "ck"): _fused_case((2, 2), checkpoint_dir="fused_ck"),
+    ("fused", "resume"): _fused_case((2, 2), checkpoint_dir="fused_ck"),
+    ("fused", "profile"): _fused_case((2, 2), profile=True),
+    ("fused", "stop"): _fused_case((2, 2), checkpoint_dir="fused_stop",
+                                   stop_rank=3),
+    ("fused", "stop_resume"): _fused_case((2, 2),
+                                          checkpoint_dir="fused_stop"),
+})
+
+
+def _in_dir(case, tmp):
+    """``case`` with a relative ``checkpoint_dir`` placed under ``tmp``."""
+    kw = case[1]
+    if "checkpoint_dir" not in kw:
+        return case
+    return (case[0], dict(kw, checkpoint_dir=str(tmp / kw["checkpoint_dir"])),
+            *case[2:])
+
+
 @pytest.fixture(scope="module")
-def world(tmp_path_factory):
+def world_dir(tmp_path_factory):
+    return tmp_path_factory.mktemp("world")
+
+
+@pytest.fixture(scope="module")
+def world(world_dir):
     """{case key: [rank 0 result, ..., rank 3 result]} from one world."""
     keys = list(CASES)
-    ranks = spawn_world(run_cases, WORLD, tmp_path_factory.mktemp("world"),
-                        [CASES[k] for k in keys])
+    ranks = spawn_world(run_cases, WORLD, world_dir,
+                        [_in_dir(CASES[k], world_dir) for k in keys])
     return {k: [r[i] for r in ranks] for i, k in enumerate(keys)}
 
 
@@ -407,3 +452,96 @@ def test_torchrun_cli_on_a_mesh_matches_jax_cli(tmp_path, capsys):
         assert a.shape == b.shape, ext
         np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6, err_msg=ext)
     assert (tmp_path / "t.summary").read_text().count("Cluster #") == 4
+
+
+# ------------------------------------------------------ the fused sweep
+
+
+def _fused(world, key):
+    """The ranks' results of a fused case, which must have ended in time."""
+    results = world[("fused", key)]
+    for r in results:
+        assert "timed_out" not in r, f"case {key} outlived {FUSED_LIMIT_S} s"
+    return results
+
+
+def _hold_fused(r, ref, pairs=None):
+    """tests/test_fused_sweep.py's mesh bars between a rank's fused fit
+    and a reference fit (and the reference's merge pairs, when it has
+    them)."""
+    assert r["k"] == ref.ideal_num_clusters
+    assert [row[0] for row in r["sweep"]] == [row[0] for row in ref.sweep_log]
+    np.testing.assert_allclose(r["min_rissanen"], ref.min_rissanen,
+                               rtol=1e-9)
+    np.testing.assert_allclose(r["means"], ref.means, rtol=1e-7, atol=1e-9)
+    if pairs is not None:
+        assert r["merges"] == pairs
+
+
+@pytest.fixture(scope="module")
+def fused_one_process():
+    from cuda_gmm_mpi_tpu_torch import fit_gmm
+
+    return fit_gmm(INPUTS["fused"], FUSED_K0, FUSED_TARGET, config=GMMConfig(
+        device="cpu", fused_sweep=True, **FUSED_CFG))
+
+
+@pytest.mark.parametrize("mesh", MESHES, ids=lambda m: f"{m[0]}x{m[1]}")
+def test_fused_sweep_on_a_mesh_matches_jax_and_one_process(
+        world, mesh, fused_one_process):
+    """The fused sweep on every mesh layout: K1/K2 per rank on a data-only
+    mesh, K5/K6 (their plain versions here) and the gathered order
+    reduction on a cluster-sharded one."""
+    ref = j_fit_gmm(INPUTS["fused"], FUSED_K0, FUSED_TARGET, config=JConfig(
+        fused_sweep=True, mesh_shape=mesh, **FUSED_CFG))
+    pairs = [m[1] for m in fused_one_process.merges]
+    assert len(pairs) == FUSED_K0 - FUSED_TARGET
+    for r in _fused(world, mesh):
+        assert not [w for w in r["warnings"] if "fused_sweep disabled" in w]
+        _hold_fused(r, ref)
+        _hold_fused(r, fused_one_process, pairs)
+
+
+def test_fused_sweep_on_a_mesh_checkpoints_the_whole_state_and_resumes(
+        world, world_dir):
+    """Each completed K is a fused checkpoint that holds the whole model
+    (the cluster shards gathered), and a second fit on the same directory
+    resumes from it to the uninterrupted answer (tests/test_fused_sweep.py
+    :78-110)."""
+    from cuda_gmm_mpi_tpu_torch.utils.checkpoint import SweepCheckpointer
+
+    first, resumed = _fused(world, "ck"), _fused(world, "resume")
+    restored = SweepCheckpointer(str(world_dir / "fused_ck"),
+                                 allow_world_change=True).restore()
+    assert restored is not None and "fused_log" in restored
+    assert restored["state"].means.shape[1] == 3
+    assert restored["state"].means.shape[0] >= FUSED_K0
+    for a, b in zip(first, resumed):
+        assert a["restored"] == [None]
+        assert b["restored"] and b["restored"][0] is not None
+        assert b["k"] == a["k"] and b["sweep"][-1][0] == a["sweep"][-1][0]
+        np.testing.assert_allclose(b["min_rissanen"], a["min_rissanen"],
+                                   rtol=1e-9)
+
+
+def test_fused_sweep_on_a_mesh_profiles_per_k(world):
+    for r in _fused(world, "profile"):
+        assert r["e_step"] > 0.0 and r["fused_report"]
+
+
+def test_stop_asked_of_one_rank_stops_every_rank_after_the_same_k(world):
+    """Rank 3 alone asks for a stop (a deadline already past): the stop is
+    agreed over the world at the first per-K emission, so all four ranks
+    stop after that K, each with its checkpoint written, and the resumed
+    fit (from that checkpoint, step 0) equals the uninterrupted one."""
+    stops = _fused(world, "stop")
+    assert [(s["stopped"], s["step"], s["checkpointed"]) for s in stops] == [
+        ("PreemptedError", 0, True)] * WORLD
+    assert {s["reason"] for s in stops} == {"deadline"}
+    for r, ref in zip(_fused(world, "stop_resume"), _fused(world, "ck")):
+        assert r["restored"] == [0]
+        assert r["k"] == ref["k"] and r["merges"] == ref["merges"]
+        assert [row[0] for row in r["sweep"]] == [row[0]
+                                                  for row in ref["sweep"]]
+        np.testing.assert_allclose(r["min_rissanen"], ref["min_rissanen"],
+                                   rtol=1e-9)

@@ -11,7 +11,10 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import logging
+import os
 import pickle
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -32,17 +35,24 @@ def spawn_world(fn, world: int, tmp_dir, *args, device: str = "cpu"):
             for r in range(world)]
 
 
+# This rank's result file (set by _rank_main): where a timed-out case
+# leaves the rank's results so far.
+_RESULT_PATH = None
+
+
 def _rank_main(rank, world, tmp_dir, device, fn, args):
+    global _RESULT_PATH
     from cuda_gmm_mpi_tpu_torch.parallel import distributed
 
     torch.set_num_threads(1)
+    _RESULT_PATH = Path(tmp_dir, f"rank{rank}.pkl")
     distributed.initialize(device, coordinator=f"file://{tmp_dir}/store",
                            num_processes=world, process_id=rank)
     try:
         out = fn(*args)
     finally:
         distributed.shutdown()
-    Path(tmp_dir, f"rank{rank}.pkl").write_bytes(pickle.dumps(out))
+    _RESULT_PATH.write_bytes(pickle.dumps(out))
 
 
 def _numpy_state(state):
@@ -105,6 +115,58 @@ def _summary(r):
                 means=r.means, sweep=[row[:4] for row in r.sweep_log],
                 envelope=r.envelope, init_index=r.init_index,
                 host_range=r.host_range)
+
+
+class _Warnings(logging.Handler):
+    """The port's warning lines, kept."""
+
+    def __init__(self):
+        super().__init__(logging.WARNING)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+def fused_fit_case(data, k0, target, stop_rank=None, **cfg):
+    """``fit_gmm(fused_sweep=True)`` on every rank under a run supervisor;
+    with ``stop_rank`` that rank's supervisor has a deadline already past,
+    so it asks for a stop at the first per-K emission. Returns the fit's
+    summary (or the stop's exception type, step and reason), its profile's
+    e_step seconds and whether its report names the fused sweep, and the
+    port's warning lines."""
+    from cuda_gmm_mpi_tpu_torch import GMMConfig, fit_gmm, supervisor
+    from cuda_gmm_mpi_tpu_torch.parallel import distributed
+    from cuda_gmm_mpi_tpu_torch.utils.checkpoint import SweepCheckpointer
+
+    handler = _Warnings()
+    logger = logging.getLogger("cuda_gmm_mpi_tpu_torch")
+    logger.addHandler(handler)
+    restored = []  # the step of each checkpoint the fit restored, or None
+    restore = SweepCheckpointer.restore
+
+    def noted(self, *a, **kw):
+        tree = restore(self, *a, **kw)
+        restored.append(None if tree is None else int(tree["step"]))
+        return tree
+
+    SweepCheckpointer.restore = noted
+    deadline = 0.0 if distributed.rank() == stop_rank else None
+    try:
+        with supervisor.use(supervisor.RunSupervisor(
+                max_runtime_s=deadline, install_signals=False)):
+            r = fit_gmm(data, k0, target,
+                        config=GMMConfig(device="cpu", fused_sweep=True,
+                                         **cfg))
+    except supervisor.PreemptedError as e:
+        return dict(stopped=type(e).__name__, step=e.step, reason=e.reason,
+                    checkpointed=e.checkpointed, warnings=handler.lines)
+    finally:
+        logger.removeHandler(handler)
+        SweepCheckpointer.restore = restore
+    return dict(_summary(r), warnings=handler.lines, restored=restored,
+                e_step=(r.profile or {}).get("e_step"),
+                fused_report="fused sweep" in (r.profile_report or ""))
 
 
 def supervised_fit_case(data, k0, target, faults_spec=None, only_rank=None,
@@ -207,8 +269,32 @@ def collectives_case():
 
 
 def run_cases(cases):
-    """Several cases in one world, in order: [(function name, kwargs)]."""
-    return [globals()[name](**kw) for name, kw in cases]
+    """Several cases in one world, in order: [(function name, kwargs)], or
+    [(function name, kwargs, seconds)] for a case with a time limit of its
+    own. A case that outlives its limit (a rank stuck in a collective)
+    ends the rank: its results so far are written, every case left reads
+    ``{"timed_out": name}``, and the process exits, so a hang fails those
+    cases' tests instead of holding the suite until its own limit."""
+    out = []
+    for case in cases:
+        name, kw = case[:2]
+        timer = None
+        if len(case) > 2:
+            left = [{"timed_out": c[0]} for c in cases[len(out):]]
+            timer = threading.Timer(case[2], _give_up, (out, left))
+            timer.daemon = True
+            timer.start()
+        try:
+            out.append(globals()[name](**kw))
+        finally:
+            if timer is not None:
+                timer.cancel()
+    return out
+
+
+def _give_up(done, left):
+    _RESULT_PATH.write_bytes(pickle.dumps(list(done) + left))
+    os._exit(0)
 
 
 def k3_k4_shard_case(data, states_np, chunk, diag, lane_mask):
